@@ -1,0 +1,599 @@
+"""The cluster engine ``ChainSim`` - the port of ``repro/core/chain.py``'s
+main path.
+
+A cluster of C chains of n nodes advances one tick at a time.  The
+reference vmaps a per-chain tick over C and a per-node step over n; here
+both batch axes are written out: state is ``[C, n, ...]``, the per-chain
+stages take a leading ``[C]`` axis, and the node step runs once over the
+flattened ``[C * n]`` nodes, so its store reads and dirty appends are one
+kernel launch each per tick.
+
+The tick's stages, in the reference's order: entry stamping and dead-
+node masking, stale-route admission, lease expiry and the head lock
+stage, the node step, the routing fabric (``segmented_route``, with
+``dense_route`` kept as its oracle) with exact packet/hop accounting,
+and the reply log.  The role table and the partition map are read, never
+written, by the tick.
+
+This slice supports ``telemetry=False, wave_depth=0`` only: the setting
+the reference documents as bit-identical on the data path.
+
+State is updated in place where the reference donated it: callers follow
+``state = sim.tick(state, inj)`` and never reuse the state they passed.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import craq, netchain
+from repro_torch.core import store as store_lib
+from repro_torch.core import txn as txn_lib
+from repro_torch.core.metrics import Metrics, ReplyLog
+from repro_torch.core.store import Store
+from repro_torch.core.txn import LockTable
+from repro_torch.core.types import (
+    CLIENT_BASE,
+    I32,
+    MULTICAST,
+    NOWHERE,
+    OP_ACK,
+    OP_NOP,
+    OP_PREPARE_ACK,
+    OP_PREPARE_NACK,
+    OP_READ,
+    OP_READ_REPLY,
+    OP_STALE_NACK,
+    OP_TXN_REPLY,
+    OP_WRITE,
+    OP_WRITE_NACK,
+    TO_CLIENT,
+    ChainConfig,
+    ClusterConfig,
+    Msg,
+    PartitionMap,
+    Roles,
+    as_cluster,
+    resolve_device,
+    tree_map,
+)
+
+NODE_STEPS: dict[str, Callable] = {
+    "netcraq": craq.node_step,
+    "netchain": netchain.node_step,
+}
+
+
+class SimState(NamedTuple):
+    """The engine's state; the reference's zero-size ``wave`` and
+    ``telemetry`` leaves of the supported setting have no counterpart."""
+
+    stores: Store        # [C, n, ...]
+    inbox: Msg           # [C, n, c_route]
+    locks: LockTable     # [C, K]
+    metrics: Metrics     # [C]
+    replies: ReplyLog    # [C, R]
+    roles: Roles         # [C, n] (written only by the control plane)
+    pmap: PartitionMap   # bucket->chain map (written only by the CP)
+    t: torch.Tensor      # [] int32 tick counter
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(I32)
+
+
+def stale_route_admission(msg: Msg, slot_epoch: torch.Tensor,
+                          slot_bucket: torch.Tensor, src_pos):
+    """Partition-epoch admission per chain: ``msg`` [C, M] entry-stamped,
+    ``slot_epoch``/``slot_bucket`` [C, K], ``src_pos`` the entry node per
+    slot ([M] or [C, M]).  A client op whose map stamp predates the last
+    move of its slot, or that targets a free or out-of-range slot, is
+    consumed and NACK-redirected.  Returns ``(kept, nacks, n_stale [C])``.
+    """
+    K = slot_epoch.shape[1]
+    sk = msg.key.long().clamp(0, K - 1)
+    slot_current = (
+        (msg.key >= 0) & (msg.key < K)
+        & (msg.ver >= slot_epoch.gather(1, sk))
+        & (slot_bucket.gather(1, sk) >= 0)
+    )
+    is_stale = (msg.op != OP_NOP) & (msg.src >= CLIENT_BASE) & ~slot_current
+    src = torch.as_tensor(src_pos, dtype=I32, device=msg.op.device)
+    nack = msg._replace(
+        op=torch.where(is_stale, OP_STALE_NACK, OP_NOP),
+        value=torch.zeros_like(msg.value),
+        seq=torch.full_like(msg.seq, -1),
+        src=torch.broadcast_to(src, msg.src.shape),
+        dst=torch.where(is_stale, TO_CLIENT, NOWHERE),
+    ).mask(is_stale)
+    return msg.mask(~is_stale), nack, _i32(is_stale.sum(dim=1))
+
+
+def full_roles_table(n_nodes: int, n_chains: int, device="cuda") -> Roles:
+    """[C, n] role table with every physical slot live."""
+    one = Roles.from_membership(n_nodes, range(n_nodes), device=device)
+    return tree_map(lambda x: x[None].repeat((n_chains,) + (1,) * x.dim()),
+                    one)
+
+
+# ---------------------------------------------------------------------------
+# Routing fabric
+# ---------------------------------------------------------------------------
+# Both fabrics deliver a flat per-chain [C, M] outbox: a live unicast
+# message lands in its destination's inbox, a MULTICAST message in every
+# live node's inbox except its sender's (copies carry their per-recipient
+# hop cost in ``extra``), each inbox keeps flat-outbox order truncated to
+# ``c_route`` slots, and per-node overflow is counted.  They return
+# ``(routed [C, n, c_route], dropped [C, n], mcast_copies [C],
+# mcast_hop_sum [C])`` with identical contents.  Sort keys and positions
+# are int64 here, so no composite key can overflow.
+
+def fabric_masks(flat: Msg, alive: torch.Tensor):
+    """Classify a flat [C, M] outbox against ``alive`` [C, n]:
+    (is_unicast, is_mcast, is_exit, dead_letters)."""
+    n = alive.shape[1]
+    live = flat.op != OP_NOP
+    in_range = (flat.dst >= 0) & (flat.dst < n)
+    dst_alive = alive.gather(1, flat.dst.long().clamp(0, n - 1))
+    is_mcast = live & (flat.dst == MULTICAST)
+    is_exit = live & (flat.dst == TO_CLIENT)
+    is_unicast = live & in_range & dst_alive
+    dead_letters = (live & in_range & ~dst_alive) | (
+        live & ~in_range & ~is_mcast & ~is_exit
+    )
+    return is_unicast, is_mcast, is_exit, dead_letters
+
+
+def _gather_msg(flat: Msg, idx: torch.Tensor) -> Msg:
+    """Per-chain gather of every lane of a [C, M] Msg at ``idx`` [C, X]."""
+    def g(x):
+        if x.dim() == 2:
+            return x.gather(1, idx)
+        return x.gather(1, idx[..., None].expand(-1, -1, x.shape[2]))
+    return tree_map(g, flat)
+
+
+def dense_route(flat: Msg, alive: torch.Tensor, chain_pos: torch.Tensor,
+                c_route: int):
+    """The reference fabric: the full [C, n, M] delivery matrix, then a
+    stable per-node compaction.  Kept as the oracle of
+    ``segmented_route``."""
+    C, M = flat.op.shape
+    n = alive.shape[1]
+    dev = flat.op.device
+    is_unicast, is_mcast, _, _ = fabric_masks(flat, alive)
+    node_ids = torch.arange(n, dtype=I32, device=dev)[None, :, None]
+    deliver = (
+        (is_unicast[:, None, :] & (flat.dst[:, None, :] == node_ids))
+        | (is_mcast[:, None, :] & (flat.src[:, None, :] != node_ids))
+    ) & alive[:, :, None]
+    src_pos = chain_pos.gather(1, flat.src.long().clamp(0, n - 1))
+    mcast_hops = (chain_pos[:, :, None] - src_pos[:, None, :]).abs()
+    mcast_deliver = deliver & is_mcast[:, None, :]
+    mcast_copies = _i32(mcast_deliver.sum(dim=(1, 2)))
+    mcast_hop_sum = _i32(torch.where(mcast_deliver, mcast_hops, 0)
+                         .sum(dim=(1, 2)))
+
+    hop_add = torch.where(is_mcast[:, None, :], mcast_hops, 0)
+    per_node = tree_map(
+        lambda x: x[:, None].expand((C, n) + x.shape[1:]), flat)
+    per_node = per_node._replace(
+        extra=per_node.extra + hop_add).mask(deliver)
+    order = torch.sort((~deliver).to(torch.uint8), dim=2,
+                       stable=True).indices[:, :, :c_route]
+
+    def take(x):
+        if x.dim() == 3:
+            return x.gather(2, order)
+        return x.gather(2, order[..., None].expand(-1, -1, -1, x.shape[3]))
+
+    routed = tree_map(take, per_node)
+    dropped = _i32((deliver.sum(dim=2) - c_route).clamp(min=0))
+    return routed, dropped, mcast_copies, mcast_hop_sum
+
+
+def segmented_route(flat: Msg, alive: torch.Tensor, chain_pos: torch.Tensor,
+                    c_route: int, mcast_lane: int | None = None):
+    """The production fabric: one sort of the flat [C, M] outbox keyed by
+    ``(destination segment, original index)`` puts each destination's
+    deliveries contiguous and in flat order; unicast slots also count
+    the multicast messages delivered ahead of them (searches against the
+    multicast segment), and multicast copies come from a bounded
+    ``mcast_lane`` slice of that segment (``c_route + M // n`` is exact
+    when every message's ``src`` is its emitting node).  Every inbox slot
+    then binary-searches its source.  Drop counts come from segment
+    lengths, independent of the lane.
+    """
+    C, M = flat.op.shape
+    n = alive.shape[1]
+    L = M if mcast_lane is None else min(M, mcast_lane)
+    dev = flat.op.device
+    i64 = torch.int64
+    is_unicast, is_mcast, _, _ = fabric_masks(flat, alive)
+    idx = torch.arange(M, dtype=i64, device=dev)
+    src = flat.src.long()
+    ss = lambda seq, v: torch.searchsorted(seq, v.contiguous())
+
+    # ---- the one sort: segment = dst | mcast(n) | sink(n+1) -------------
+    seg = torch.where(is_unicast, flat.dst.long(),
+                      torch.where(is_mcast, n, n + 1))
+    skey = torch.sort(seg * M + idx, dim=1).values   # unique keys
+    order = skey % M
+    bounds = lambda m: (torch.arange(m, dtype=i64, device=dev) * M).expand(
+        C, m)
+    seg_start = ss(skey, bounds(n + 2))                # [C, n + 2]
+    m_mc = seg_start[:, n + 1] - seg_start[:, n]       # [C]
+
+    # ---- per-source multicast index (for the src != node exclusion) -----
+    src_ok = (src >= 0) & (src < n)
+    src_key = torch.sort(
+        torch.where(is_mcast & src_ok, src * M + idx, n * M), dim=1).values
+    src_start = ss(src_key, bounds(n + 1))             # [C, n + 1]
+
+    mc_cum = torch.cumsum(is_mcast.long(), dim=1)
+
+    def mc_before(f):
+        return mc_cum.gather(1, f) - is_mcast.long().gather(1, f)
+
+    def mc_src_before(i, f):
+        return ss(src_key, i * M + f) - src_start.gather(1, i)
+
+    def uni_before(i, f):
+        return ss(skey, i * M + f) - seg_start.gather(1, i)
+
+    # ---- unicast placement: slot of sorted entry j in its row ------------
+    j = idx.expand(C, M)
+    sdst = skey // M
+    sidx = skey % M
+    is_uni_j = sdst < n
+    dc = sdst.clamp(0, n - 1)
+    pos_u = (j - seg_start.gather(1, dc)) + mc_before(sidx) \
+        - mc_src_before(dc, sidx)
+    S = M + 1
+    place_u = torch.where(is_uni_j, dc * S + pos_u.clamp(max=M), n * S)
+
+    # ---- multicast placement: bounded lane, one copy per (node, entry) ---
+    lane = torch.arange(L, dtype=i64, device=dev)
+    p = (seg_start[:, n:n + 1] + lane).clamp(0, max(M - 1, 0))   # [C, L]
+    lane_live = lane < m_mc[:, None]
+    lane_idx = skey.gather(1, p) % M
+    lane_src = src.gather(1, order.gather(1, p))
+    rows = torch.arange(n, dtype=i64, device=dev)[None, :, None]  # [1, n, 1]
+    deliver_m = (lane_live[:, None, :] & alive[:, :, None]
+                 & (lane_src[:, None, :] != rows))                # [C, n, L]
+    rows_f = rows.expand(C, n, L).reshape(C, n * L)
+    idx_f = lane_idx[:, None, :].expand(C, n, L).reshape(C, n * L)
+    pos_m = (uni_before(rows_f, idx_f) - mc_src_before(rows_f, idx_f)
+             ).reshape(C, n, L) + lane
+    # a suffix-min sweep fills skipped lane entries with the slot of their
+    # next delivered successor (a searchable monotone array), remembering
+    # which lane entry owns the slot
+    big = M
+    rev = lambda x: torch.flip(x, dims=(-1,))
+    mono_m = rev(torch.cummin(rev(torch.where(
+        deliver_m, pos_m.clamp(max=M), big)), dim=-1).values)
+    next_del = rev(torch.cummin(rev(torch.where(
+        deliver_m, lane, L)), dim=-1).values)
+    place_m = (rows * S + mono_m).reshape(C, n * L)
+
+    # ---- materialize: every inbox slot binary-searches its source --------
+    slot_key = (torch.arange(n, dtype=i64, device=dev)[:, None] * S
+                + torch.arange(c_route, dtype=i64, device=dev)[None, :]
+                ).reshape(1, -1).expand(C, n * c_route)
+    ju = ss(place_u, slot_key).clamp(0, M - 1)
+    jm = ss(place_m, slot_key).clamp(0, n * L - 1)
+    hit_u = place_u.gather(1, ju) == slot_key
+    hit_m = place_m.gather(1, jm) == slot_key
+    lane_of = next_del.reshape(C, n * L).gather(1, jm).clamp(0, L - 1)
+    src_sorted_pos = torch.where(hit_u, ju, p.gather(1, lane_of))
+    fidx = order.gather(1, src_sorted_pos)
+    filled = hit_u | hit_m
+    routed = _gather_msg(flat, fidx).mask(filled)
+    routed = tree_map(
+        lambda x: x.reshape((C, n, c_route) + x.shape[2:]), routed)
+    # multicast copies accumulate their per-recipient hop cost
+    copy_src_pos = chain_pos.gather(
+        1, routed.src.long().clamp(0, n - 1).reshape(C, -1)
+    ).reshape(C, n, c_route)
+    copy_hop = (chain_pos[:, :, None] - copy_src_pos).abs()
+    routed = routed._replace(extra=_i32(
+        routed.extra + torch.where(routed.dst == MULTICAST, copy_hop, 0)))
+
+    # ---- exact counters from segment lengths (lane-independent) ----------
+    uni_cnt = seg_start[:, 1:n + 1] - seg_start[:, :n]            # [C, n]
+    src_cnt = src_start[:, 1:n + 1] - src_start[:, :n]            # [C, n]
+    deliver_cnt = uni_cnt + torch.where(alive, m_mc[:, None] - src_cnt, 0)
+    dropped = _i32((deliver_cnt - c_route).clamp(min=0))
+
+    n_alive = alive.long().sum(dim=1)
+    src_alive = src_ok & alive.gather(1, src.clamp(0, n - 1))
+    mcast_copies = _i32(torch.where(
+        is_mcast, n_alive[:, None] - src_alive.long(), 0).sum(dim=1))
+    # hop total per multicast message: sum over live recipients of
+    # |chain_pos[i] - chain_pos[src]|
+    hop_to_all = torch.where(
+        alive[:, None, :],
+        (chain_pos[:, None, :] - chain_pos[:, :, None]).abs(), 0,
+    ).sum(dim=2)                                                  # [C, n]
+    mcast_hop_sum = _i32(torch.where(
+        is_mcast, hop_to_all.gather(1, src.clamp(0, n - 1)), 0).sum(dim=1))
+    return routed, dropped, mcast_copies, mcast_hop_sum
+
+
+def pack_lanes(msgs: list[Msg]) -> Msg:
+    """Concatenate [C, n, w_k] message lanes along the lane axis (the
+    fabric's flat-index FIFO order follows this layout)."""
+    return Msg.concat(msgs, dim=2)
+
+
+class ChainSim:
+    """Cluster simulator with exact traffic accounting.
+
+    Accepts a ``ClusterConfig`` (C chains) or a bare ``ChainConfig``
+    (one chain).  State is ``[C, n, ...]``; injections are ``[C, n,
+    c_in]`` per tick and schedules ``[T, C, n, c_in]`` (legacy ``[n, q]``
+    and ``[T, n, q]`` forms are lifted when C == 1).
+    """
+
+    def __init__(
+        self,
+        cfg: ChainConfig | ClusterConfig,
+        inject_capacity: int = 64,
+        route_capacity: int = 256,
+        reply_capacity: int = 4096,
+        fabric: str = "segmented",
+        wave_depth: int = 0,
+        telemetry: bool = False,
+        device="cuda",
+    ):
+        assert fabric in ("segmented", "dense"), fabric
+        if wave_depth:
+            raise NotImplementedError(
+                "the in-network wave coordinator is not ported yet "
+                "(wave_depth must be 0)")
+        if telemetry:
+            raise NotImplementedError(
+                "the telemetry plane is not ported yet (telemetry=False)")
+        self.cluster = as_cluster(cfg)
+        self.cfg = self.cluster.chain
+        self.C = self.cluster.n_chains
+        self.n = self.cfg.n_nodes
+        self.c_in = inject_capacity
+        self.c_route = route_capacity
+        self.reply_capacity = reply_capacity
+        self.fabric = fabric
+        self.device = resolve_device(device)
+        self.node_step = NODE_STEPS[self.cfg.protocol]
+
+    # -- state ------------------------------------------------------------
+    def init_state(self) -> SimState:
+        C, n, dev = self.C, self.n, self.device
+        return SimState(
+            stores=store_lib.init_store(self.cfg, (C, n), device=dev),
+            inbox=Msg.empty((C, n, self.c_route), self.cfg.value_words,
+                            device=dev),
+            locks=txn_lib.init_locks(self.cfg, C, device=dev),
+            metrics=Metrics.zeros(C, self.cluster.num_buckets, device=dev),
+            replies=ReplyLog.empty(self.reply_capacity, C, device=dev),
+            roles=full_roles_table(n, C, device=dev),
+            pmap=self.cluster.default_partition(device=dev),
+            t=torch.zeros((), dtype=I32, device=dev),
+        )
+
+    def empty_injection(self) -> Msg:
+        """All-NOP [C, n, c_in] injection (the canonical drain tick)."""
+        return Msg.empty((self.C, self.n, self.c_in), self.cfg.value_words,
+                         device=self.device)
+
+    # -- one tick of every chain at once ----------------------------------
+    def _chain_tick(self, stores: Store, inbox: Msg, locks: LockTable,
+                    metrics: Metrics, replies: ReplyLog, injected: Msg,
+                    roles: Roles, pmap: PartitionMap, t: torch.Tensor):
+        """The reference's per-chain tick with the chain axis written
+        out: stores [C, n, ...], inbox [C, n, c_route], injected
+        [C, n, c_in], roles [C, n].  Returns (stores', inbox', locks',
+        metrics', replies')."""
+        C, n, cfg = self.C, self.n, self.cfg
+        dev = inbox.op.device
+        dense = self.fabric == "dense"
+        alive = roles.alive                                  # [C, n]
+        chain_pos = roles.chain_pos                          # [C, n]
+        node_ids = torch.arange(n, dtype=I32, device=dev)
+
+        # Stamp entry position on client queries; black-hole the lanes of
+        # dead nodes (counted as drops before any packet accounting).
+        injected = craq.stamp_entry(injected, node_ids[None, :, None])
+        dead_in = _i32(
+            ((injected.op != OP_NOP) & ~alive[..., None]).sum(dim=(1, 2))
+            + ((inbox.op != OP_NOP) & ~alive[..., None]).sum(dim=(1, 2)))
+        alive_lane = lambda m: alive[..., None].expand_as(m.op)
+        injected = injected.mask(alive_lane(injected))
+        inbox = inbox.mask(alive_lane(inbox))
+        inj_live = injected.op != OP_NOP
+        injected = injected._replace(extra=_i32(injected.extra + inj_live))
+        n_injected = _i32(inj_live.sum(dim=(1, 2)))
+        full_inbox = pack_lanes([injected, inbox])
+        live_in = full_inbox.op != OP_NOP
+
+        # Stale-route admission, before the lock stage or the store.
+        cap_total = full_inbox.op.shape[2]
+        flat_in = tree_map(
+            lambda x: x.reshape((C, n * cap_total) + x.shape[3:]), full_inbox)
+        node_of_in = node_ids.repeat_interleave(cap_total)
+        kept, stale_out, n_stale = stale_route_admission(
+            flat_in, pmap.slot_epoch, pmap.slot_bucket, node_of_in)
+        lift_in = lambda m: tree_map(
+            lambda x: x.reshape((C, n, cap_total) + x.shape[2:]), m)
+        full_inbox = lift_in(kept)
+        stale_out = lift_in(stale_out)
+
+        # Lease expiry BEFORE the lock stage, then the head's lock stage.
+        locks, n_expired = txn_lib.lease_expiry_stage(locks, t)
+        new_locks, full_inbox, txn_out, txn_counts = txn_lib.head_txn_stage(
+            locks, roles, stores, full_inbox, t=t, dense_rank=dense)
+
+        # The match-action pass on every node of every chain at once.
+        pending_before = stores.pending.sum(dim=(1, 2))
+        flat_nodes = lambda x: x.reshape((C * n,) + x.shape[2:])
+        node_store, outbox = self.node_step(
+            cfg, tree_map(flat_nodes, stores), tree_map(flat_nodes, roles),
+            tree_map(flat_nodes, full_inbox), dense_rank=dense)
+        new_stores = tree_map(
+            lambda x: x.reshape((C, n) + x.shape[1:]), node_store)
+        outbox = tree_map(
+            lambda x: x.reshape((C, n) + x.shape[1:]), outbox)
+        outbox = pack_lanes([outbox, txn_out, stale_out])
+        # A dead node emits nothing.
+        outbox = outbox.mask(alive_lane(outbox))
+
+        # ---------------- routing fabric ----------------
+        flat = tree_map(lambda x: x.reshape((C, -1) + x.shape[3:]), outbox)
+        is_unicast, is_mcast, is_exit, dead_letters = fabric_masks(
+            flat, alive)
+        pos_of = lambda i: chain_pos.gather(1, i.long().clamp(0, n - 1))
+        uni_hops = (pos_of(flat.dst) - pos_of(flat.src)).abs()
+        flat = flat._replace(extra=_i32(
+            flat.extra + torch.where(is_unicast, uni_hops, 0) + is_exit))
+        M = flat.op.shape[1]
+        if dense:
+            routed, dropped, mcast_copies, mcast_hop_sum = dense_route(
+                flat, alive, chain_pos, self.c_route)
+        else:
+            routed, dropped, mcast_copies, mcast_hop_sum = segmented_route(
+                flat, alive, chain_pos, self.c_route,
+                mcast_lane=self.c_route + M // n)
+
+        n_exit = is_exit.sum(dim=1)
+        packets = _i32(
+            torch.where(is_unicast, uni_hops, 0).sum(dim=1)
+            + mcast_hop_sum + n_exit + n_injected)
+        msgs = _i32(is_unicast.sum(dim=1) + mcast_copies + n_exit
+                    + n_injected)
+        msg_bytes = cfg.header_bytes + cfg.payload_bytes
+
+        # ---------------- exits -> reply log ----------------
+        exits = flat.mask(is_exit)
+        is_nack = exits.op == OP_WRITE_NACK
+        is_ctrl = (
+            (exits.op == OP_PREPARE_ACK)
+            | (exits.op == OP_PREPARE_NACK)
+            | (exits.op == OP_STALE_NACK)
+            | ((exits.op == OP_TXN_REPLY) & (exits.seq < 0))
+        )
+        new_replies = replies.append(exits, t + 1, dense=dense)
+
+        # Per-bucket conflict heat: every PREPARE the lock stage denied,
+        # counted on the bucket owning the contended slot (padding column
+        # for denied keys on free slots).
+        G = metrics.conflict_heat.shape[1]
+        K = pmap.slot_bucket.shape[1]
+        tko = txn_out.op.reshape(C, -1)
+        tkk = txn_out.key.reshape(C, -1)
+        bi = pmap.slot_bucket.gather(1, tkk.long().clamp(0, K - 1))
+        is_cnack = (tko == OP_PREPARE_NACK) & (bi >= 0)
+        heat = torch.cat([metrics.conflict_heat,
+                          metrics.conflict_heat.new_zeros((C, 1))], dim=1)
+        heat.scatter_add_(1, torch.where(is_cnack, bi, G).long(),
+                          torch.ones_like(tko))
+        new_heat = heat[:, :G]
+
+        s = lambda x: x.sum(dim=1)
+        new_metrics = Metrics(
+            packets=metrics.packets + packets,
+            msgs=metrics.msgs + msgs,
+            bytes=metrics.bytes + packets * msg_bytes,
+            kv_procs=metrics.kv_procs + _i32(live_in.sum(dim=(1, 2))),
+            reads_in=metrics.reads_in
+            + _i32((injected.op == OP_READ).sum(dim=(1, 2))),
+            writes_in=metrics.writes_in
+            + _i32((injected.op == OP_WRITE).sum(dim=(1, 2))),
+            acks=metrics.acks + _i32(s(flat.op == OP_ACK)),
+            replies=metrics.replies
+            + _i32(s(exits.live() & ~is_nack & ~is_ctrl)),
+            dirty_appends=metrics.dirty_appends + _i32(
+                (new_stores.pending.sum(dim=(1, 2)) - pending_before)
+                .clamp(min=0)),
+            fwd_reads=metrics.fwd_reads
+            + _i32(s(is_unicast & (flat.op == OP_READ))),
+            drops=metrics.drops + _i32(s(dropped) + dead_in
+                                       + s(dead_letters)),
+            relay_procs=metrics.relay_procs + _i32(
+                (live_in & (full_inbox.op == OP_READ_REPLY)).sum(dim=(1, 2))),
+            write_nacks=metrics.write_nacks + _i32(s(is_nack)),
+            txn_commits=metrics.txn_commits + txn_counts[0],
+            txn_aborts=metrics.txn_aborts + txn_counts[1],
+            lock_conflicts=metrics.lock_conflicts + txn_counts[2],
+            stale_routes=metrics.stale_routes + n_stale,
+            migration_moves=metrics.migration_moves,
+            wave_commits=metrics.wave_commits,
+            wave_aborts=metrics.wave_aborts,
+            wave_occupancy=metrics.wave_occupancy,
+            offered=metrics.offered,
+            admission_drops=metrics.admission_drops,
+            lease_expiries=metrics.lease_expiries + n_expired,
+            conflict_heat=new_heat,
+        )
+        return new_stores, routed, new_locks, new_metrics, new_replies
+
+    def _lift(self, injected: Msg) -> Msg:
+        """Accept legacy single-chain [n, q] injections when C == 1."""
+        if injected.op.dim() == 2:
+            assert self.C == 1, (
+                f"injection lacks the chain axis but cluster has C={self.C}")
+            return tree_map(lambda x: x[None], injected)
+        return injected
+
+    def tick(self, state: SimState, injected: Msg) -> SimState:
+        """Advance every chain one tick.  ``injected``: [C, n, c_in] client
+        queries addressed to their entry node.  The input state may be
+        updated in place: rebind ``state = sim.tick(state, inj)``."""
+        injected = tree_map(lambda x: x.to(self.device), self._lift(injected))
+        stores, inbox, locks, metrics, replies = self._chain_tick(
+            state.stores, state.inbox, state.locks, state.metrics,
+            state.replies, injected, state.roles, state.pmap, state.t)
+        return SimState(
+            stores=stores,
+            inbox=inbox,
+            locks=locks,
+            metrics=metrics,
+            replies=replies,
+            roles=state.roles,
+            pmap=state.pmap,
+            t=state.t + 1,
+        )
+
+    # -- run a schedule -----------------------------------------------------
+    def drain(self, state: SimState, ticks: int) -> SimState:
+        """Tick ``ticks`` empty injections."""
+        empty = self.empty_injection()
+        for _ in range(ticks):
+            state = self.tick(state, empty)
+        return state
+
+    def run(self, state: SimState, schedule: Msg, extra_ticks: int = 16,
+            assert_drained: bool = False) -> SimState:
+        """schedule: [T, C, n, c_in] (or legacy [T, n, c_in]) injection
+        per tick; then drain ``extra_ticks``.  ``assert_drained=True``
+        raises if any op is still in flight afterwards."""
+        if schedule.op.dim() == 3:
+            assert self.C == 1, (
+                f"schedule lacks the chain axis but cluster has C={self.C}")
+            schedule = tree_map(lambda x: x[:, None], schedule)
+        schedule = tree_map(lambda x: x.to(self.device), schedule)
+        for i in range(schedule.op.shape[0]):
+            state = self.tick(state, tree_map(lambda x: x[i], schedule))
+        if extra_ticks:
+            state = self.drain(state, extra_ticks)
+        if assert_drained:
+            left = self.inflight(state)
+            assert left == 0, (
+                f"{left} ops still in flight after extra_ticks="
+                f"{extra_ticks} drain - size the drain window up or the "
+                "run's throughput/latency accounting is short")
+        return state
+
+    def inflight(self, state: SimState) -> int:
+        """Host-side count of ops still inside the engine (live inbox
+        slots)."""
+        return int((state.inbox.op != OP_NOP).sum())

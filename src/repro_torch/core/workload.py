@@ -1,0 +1,236 @@
+"""Workload generation - the port of ``repro/core/workload.py``.
+
+``make_schedule`` builds ``[T, C, n, q]`` injection lanes of client
+queries for keys owned by each lane's chain (writes at the head, reads
+spread over the nodes); ``route_stream`` packs a flat global-key stream
+into the same lanes through the partition map.
+
+Randomness comes from a ``torch.Generator`` seeded with
+``WorkloadConfig.seed``, drawn on the CPU and then moved to the target
+device, so one seed gives the same schedule on every device.  The draws
+differ from ``jax.random``'s; tests that compare the two engines feed
+both the JAX-built schedule (see ``repro_torch.convert``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.types import (
+    CLIENT_BASE,
+    I32,
+    NOWHERE,
+    OP_NOP,
+    OP_READ,
+    OP_WRITE,
+    ChainConfig,
+    ClusterConfig,
+    Msg,
+    as_cluster,
+    is_txn_op,
+    resolve_device,
+    tree_map,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkloadConfig:
+    ticks: int = 32
+    queries_per_tick: int = 32      # per entry node (per chain)
+    write_fraction: float = 0.0
+    entry_node: int | None = None   # None = spread uniformly over nodes
+    key_skew: str = "uniform"       # "uniform" | "zipf"
+    zipf_a: float = 1.2
+    seed: int = 0
+
+
+def _sample_keys(gen: torch.Generator, shape, num_keys: int,
+                 cfg: WorkloadConfig) -> torch.Tensor:
+    if cfg.key_skew == "uniform":
+        return torch.randint(0, num_keys, shape, generator=gen, dtype=I32)
+    # Zipf via inverse CDF on a table over the key space.
+    ranks = torch.arange(1, num_keys + 1, dtype=torch.float32)
+    probs = ranks ** (-cfg.zipf_a)
+    cdf = torch.cumsum(probs / probs.sum(), dim=0)
+    u = torch.rand(shape, generator=gen)
+    return torch.searchsorted(cdf, u).clamp(0, num_keys - 1).to(I32)
+
+
+def make_schedule(cfg: ChainConfig | ClusterConfig, wl: WorkloadConfig,
+                  device="cuda") -> Msg:
+    """Build an injection schedule of client queries.
+
+    ``ClusterConfig`` -> ``[T, C, n, q]`` (lane (c, node, slot) carries a
+    key owned by chain c); ``ChainConfig`` -> legacy ``[T, n, q]``.
+    """
+    dev = resolve_device(device)
+    squeeze = not isinstance(cfg, ClusterConfig)
+    cluster = as_cluster(cfg)
+    chain_cfg = cluster.chain
+    T, C, n, q = wl.ticks, cluster.n_chains, chain_cfg.n_nodes, \
+        wl.queries_per_tick
+    gen = torch.Generator(device="cpu").manual_seed(wl.seed)
+
+    shape = (T, C, n, q)
+    keys = _sample_keys(gen, shape, cluster.keys_in_use, wl)
+    is_write = torch.rand(shape, generator=gen) < wl.write_fraction
+    vals = torch.randint(1, 1 << 20, shape, generator=gen, dtype=I32)
+
+    node_idx = torch.arange(n, dtype=I32)[None, None, :, None]
+    if wl.entry_node is None:
+        active_reads = ~is_write
+    else:
+        active_reads = (~is_write) & (node_idx == wl.entry_node)
+    active_writes = is_write & (node_idx == 0)   # writes enter at the head
+    active = active_reads | active_writes
+
+    op = torch.where(active, torch.where(is_write, OP_WRITE, OP_READ),
+                     OP_NOP).to(I32)
+    value = torch.zeros(shape + (chain_cfg.value_words,), dtype=I32)
+    value[..., 0] = torch.where(is_write & active, vals, 0)
+
+    # Query ids unique across the whole cluster.
+    tick_idx = torch.arange(T, dtype=I32)[:, None, None, None]
+    chain_idx = torch.arange(C, dtype=I32)[None, :, None, None]
+    qid = (
+        (tick_idx * C + chain_idx) * (n * q)
+        + node_idx * q
+        + torch.arange(q, dtype=I32)[None, None, None, :]
+    )
+    z = torch.zeros(shape, dtype=I32)
+    client = torch.where(active, CLIENT_BASE + qid % 1024, 0).to(I32)
+    sched = Msg(
+        op=op,
+        key=torch.where(active, keys, 0).to(I32),
+        value=value,
+        seq=z - 1,
+        src=client,
+        dst=torch.where(active, node_idx.expand(shape), NOWHERE).to(I32),
+        client=client.clone(),
+        entry=z,
+        qid=torch.where(active, qid, -1).to(I32),
+        t_inject=tick_idx.expand(shape).clone(),
+        extra=z.clone(),
+        ver=z.clone(),
+    )
+    if squeeze:
+        sched = tree_map(lambda x: x[:, 0], sched)
+    return tree_map(lambda x: x.contiguous().to(dev), sched)
+
+
+class RoutedStream(NamedTuple):
+    """``route_stream``'s result: packed lanes plus exact loss counts."""
+
+    lanes: Msg                 # [T, C, n, queries_per_node]
+    dropped: torch.Tensor      # [] int32 queries not packed
+    out_of_range: torch.Tensor  # [] int32 subset of dropped outside the
+                                #    key space
+    stale: torch.Tensor        # [] int32 queries the live map will NACK
+
+
+def localize_stream(cluster: ClusterConfig, stream: Msg, pmap=None):
+    """Rewrite a global-key client stream to chain-local routed form.
+    Returns ``(localized, owner, live, out_of_range)`` as the reference:
+    ``owner`` is ``n_chains`` for parked NOPs and out-of-range keys."""
+    offered = stream.op != OP_NOP
+    in_range = (stream.key >= 0) & (stream.key < cluster.num_global_keys)
+    live = offered & in_range
+    gkey = torch.where(live, stream.key, 0)
+    owner = torch.where(live, cluster.key_to_chain(gkey, pmap),
+                        cluster.n_chains).to(I32)
+    local = cluster.key_to_slot(gkey, pmap)
+    epoch = torch.as_tensor(0 if pmap is None else pmap.epoch, dtype=I32,
+                            device=stream.op.device)
+    localized = stream._replace(
+        key=torch.where(live, local, 0).to(I32),
+        ver=torch.where(live, epoch, stream.ver).to(I32),
+    )
+    return localized, owner, live, offered & ~in_range
+
+
+def pack_tick(cluster: ClusterConfig, queries_per_node: int, msgs: Msg,
+              owner_row: torch.Tensor):
+    """Pack one tick's flat ``[Q]`` localized queries into ``[C, n, q]``
+    lanes: writes and transaction ops fill the head's slots from the top,
+    reads round-robin over the chain's nodes from the bottom.  Returns
+    ``(lanes, admitted [Q], dropped)``."""
+    C, n, q = cluster.n_chains, cluster.n_nodes, queries_per_node
+    dev = msgs.op.device
+    order = torch.sort(owner_row, stable=True).indices
+    m: Msg = tree_map(lambda x: x[order], msgs)
+    own = owner_row[order].long()
+    is_w = (m.op == OP_WRITE) | is_txn_op(m.op)
+    is_r = m.op == OP_READ
+    cw = torch.cumsum(is_w.long(), dim=0)
+    cr = torch.cumsum(is_r.long(), dim=0)
+    starts = torch.searchsorted(
+        own, torch.arange(C + 1, dtype=torch.int64, device=dev))
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    pre_w = torch.cat([zero, cw])[starts]
+    pre_r = torch.cat([zero, cr])[starts]
+    oc = own.clamp(0, C - 1)
+    w_rank = cw - 1 - pre_w[oc]
+    r_rank = cr - 1 - pre_r[oc]
+    n_w = pre_w[oc + 1] - pre_w[oc]
+    node = torch.where(is_w, 0, r_rank % n)
+    slot = torch.where(is_w, q - 1 - w_rank, r_rank // n)
+    node0_cap = (q - n_w).clamp(min=0)
+    ok_w = is_w & (own < C) & (w_rank < q)
+    ok_r = is_r & (own < C) & (slot < torch.where(node == 0, node0_cap, q))
+    ok = ok_w | ok_r
+    flat_idx = torch.where(ok, own * (n * q) + node * q + slot, C * n * q)
+
+    lanes = Msg.empty(C * n * q + 1, cluster.chain.value_words, device=dev)
+    packed = Msg(*[
+        e.index_put((flat_idx,), v.to(e.dtype))[: C * n * q]
+        for e, v in zip(lanes, m)
+    ])
+    lane_node = (torch.arange(C * n * q, dtype=I32, device=dev) // q) % n
+    packed = packed._replace(
+        dst=torch.where(packed.op != OP_NOP, lane_node, NOWHERE).to(I32),
+        qid=torch.where(packed.op != OP_NOP, packed.qid, -1).to(I32),
+    )
+    dropped_t = (m.op != OP_NOP).sum() - ok.sum()
+    admitted = torch.zeros_like(ok)
+    admitted[order] = ok
+    return tree_map(lambda x: x.reshape((C, n, q) + x.shape[1:]), packed), \
+        admitted, dropped_t.to(I32)
+
+
+def route_stream(cluster: ClusterConfig, stream: Msg, queries_per_node: int,
+                 pmap=None, live_pmap=None) -> RoutedStream:
+    """Pack a flat ``[T, Q]`` global-key client stream into
+    ``[T, C, n, queries_per_node]`` lanes through the partition map
+    (``pmap`` is the client's view; ``live_pmap`` the authoritative map
+    for counting queries the entry node will NACK as stale)."""
+    C = cluster.n_chains
+    stream_local, owner, live, out_of_range = localize_stream(
+        cluster, stream, pmap)
+    local = stream_local.key
+    epoch = torch.as_tensor(0 if pmap is None else pmap.epoch, dtype=I32,
+                            device=stream.op.device)
+    if live_pmap is None:
+        n_stale = torch.zeros((), dtype=I32, device=stream.op.device)
+    else:
+        oc = owner.long().clamp(0, C - 1)
+        lc = local.long().clamp(0, cluster.chain.num_keys - 1)
+        se = live_pmap.slot_epoch[oc, lc]
+        sb = live_pmap.slot_bucket[oc, lc]
+        n_stale = (live & ((epoch < se) | (sb < 0))).sum()
+
+    packed, dropped = [], []
+    for i in range(stream.op.shape[0]):
+        lanes_t, _, drop_t = pack_tick(
+            cluster, queries_per_node,
+            tree_map(lambda x: x[i], stream_local), owner[i])
+        packed.append(lanes_t)
+        dropped.append(drop_t)
+    lanes = tree_map(lambda *xs: torch.stack(xs), *packed)
+    return RoutedStream(
+        lanes=lanes,
+        dropped=torch.stack(dropped).sum().to(I32),
+        out_of_range=out_of_range.sum().to(I32),
+        stale=n_stale.to(I32),
+    )
