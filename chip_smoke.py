@@ -8,10 +8,14 @@ kv_engine/csrc`` with nvcc (sm_90a), then:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. holds each kernel against its plain PyTorch version on the card, at
-   the engine's shapes (a [32, 65536, 4, 4] store, a [32, 320] batch),
-   on a seeded store with dirty versions, duplicate keys, window overflow
-   and out-of-range keys, and times kernel, plain version and library
-   yardstick beside the kernel's bound;
+   the shapes its path gives it, and times kernel, plain version and
+   library yardstick beside the kernel's bound: the per-node kernels on
+   a [32, 65536, 4, 4] store and a [32, 320] batch with dirty versions,
+   duplicate keys, window overflow and out-of-range keys; the bucketed
+   kernels on the tail replica of a seeded [8, 4, 65536, 4, 4] store and
+   458,752 global keys resolved through a map with two migrated buckets,
+   with duplicates, window overflow, parked (chain -1) entries and slots
+   outside [0, K);
 3. drives the main path: an 8-chain x 4-node NetCRAQ cluster of 65,536
    128-bit registers per node (about 170 MiB of int32 state on the card)
    through ``ChainSim.run`` with a 32-tick schedule and a 16-tick drain,
@@ -19,10 +23,29 @@ kv_engine/csrc`` with nvcc (sm_90a), then:
    checks drops == 0, inflight == 0, replies == offered, every
    acknowledged write read back from all 4 replicas, and one launch of
    each kernel per tick;
-4. runs the same configuration at 4 ticks on CUDA and on the CPU (plain
-   versions) and requires identical stores, metrics and reply logs;
+4. runs the same configuration at 4 ticks, and the live rebalance of
+   phase 7 at 12 ticks, on CUDA and on the CPU (plain versions) and
+   requires identical stores, metrics, reply logs and global-key
+   read-backs;
 5. times the ticks of the full-size run and where a tick's time goes;
-6. runs NetChain through phases 3-4 at the same size.
+6. runs NetChain through phases 3-4 at the same size;
+7. live rebalance (``benchmarks/fig_rebalance.py``'s run at full width):
+   a zipf tenant hot-spots chain 0, the control plane moves its two
+   hottest buckets to chains 1 and 2 (freeze, drain, copy, publish, one
+   stale-client tick each), and the run is held to an undisturbed twin
+   (chains 3-7 bit-identical), to its freeze windows (write NACKs only
+   there), to ``committed_view`` and to a serial replay of every
+   acknowledged write, read back for every global key through
+   ``partitioned_read_batch`` on the tail replica;
+8. global-key writes through ``partitioned_write_batch`` on a copy of
+   that tail under the migrated map: duplicates serialize, keys outside
+   the key space are dropped and read back as decision -1;
+9. failover and two-phase recovery (``benchmarks/fig_failover.py``'s
+   lifecycle at full width): a node dies, clients redirect after the
+   detector's timeout, the chain freezes, the replacement copies its
+   CRAQ source and is spliced back in; held to the freeze window, the
+   copy source, an undisturbed twin, the read-back of every
+   acknowledged write and 95 % of the twin's throughput after recovery.
 
 Any failure raises (non-zero exit).  Without a card, or without the repo
 beside it, the script exits non-zero before printing any result.  The
@@ -47,12 +70,16 @@ try:
     from repro_torch.core import store as store_lib  # noqa: E402
     from repro_torch.core import txn as txn_lib  # noqa: E402
     from repro_torch.core.chain import ChainSim  # noqa: E402
+    from repro_torch.core.coordinator import Coordinator  # noqa: E402
+    from repro_torch.core.failure import FailureDetector  # noqa: E402
     from repro_torch.core.metrics import ReplyLog  # noqa: E402
-    from repro_torch.core.store import batch_rank  # noqa: E402
+    from repro_torch.core.store import Store, batch_rank  # noqa: E402
     from repro_torch.core.types import (  # noqa: E402
-        OP_NOP, OP_WRITE_REPLY, ChainConfig, ClusterConfig, Msg, tree_map)
+        CLIENT_BASE, NOWHERE, OP_NOP, OP_READ, OP_WRITE, OP_WRITE_REPLY,
+        ChainConfig, ClusterConfig, Msg, PartitionMap, tree_map,
+        value_from_int)
     from repro_torch.core.workload import (  # noqa: E402
-        WorkloadConfig, make_schedule)
+        WorkloadConfig, _sample_keys, make_schedule, route_stream)
     from repro_torch.kernels.kv_engine import kernel as kv_kernel  # noqa: E402
     from repro_torch.kernels.kv_engine import ops as kv_ops  # noqa: E402
     from repro_torch.kernels.kv_engine import ref as kv_ref  # noqa: E402
@@ -73,7 +100,23 @@ KERNEL_SRC = "src/repro_torch/kernels/kv_engine/csrc/kv_engine.cu"
 REPLACES = {
     "kv_read": "src/repro/kernels/kv_engine/kernel.py:153",
     "kv_write": "src/repro/kernels/kv_engine/kernel.py:510",
+    "kv_bucketed_read": "src/repro/kernels/kv_engine/kernel.py:249",
+    "kv_bucketed_write": "src/repro/kernels/kv_engine/kernel.py:339",
 }
+# The partition map of phases 2 and 7-8, in fig_rebalance's proportions:
+# 14 buckets of 4096 registers per chain and two bucket-sized landing
+# regions in each chain's spare tail (458,752 global keys).
+BUCKETS_PER_CHAIN, SPARE_KEYS = 14, 8192
+# phase 7: fig_rebalance's stream, lanes and migration schedule;
+# per_tick = 0.75 * C * n * q saturates the hot chain's lanes
+REBALANCE = dict(ticks=44, q=4, hot_fraction=0.85, zipf_a=0.5,
+                 write_fraction=0.1, seed=0)
+FREEZE_AFTER, PUBLISH_AFTER = (12, 20), (18, 26)
+REDUCED_REBALANCE = dict(ticks=12, freeze=(2,), publish=(8,), drain=6)
+# phase 9: fig_failover's lifecycle
+FAILOVER = dict(ticks=48, q=8, fail_tick=12, freeze_tick=28,
+                recover_tick=32, chain=0, node=1, timeout_ticks=3,
+                write_fraction=0.1, seed=0)
 
 
 def log(*args):
@@ -86,12 +129,15 @@ def require(cond, msg) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cluster(protocol: str) -> ClusterConfig:
+def cluster(protocol: str, partitioned: bool = False) -> ClusterConfig:
+    """The phases' cluster; ``partitioned`` gives it the bucketed map."""
+    extra = (dict(buckets_per_chain=BUCKETS_PER_CHAIN, spare_keys=SPARE_KEYS)
+             if partitioned else {})
     return ClusterConfig(
         chain=ChainConfig(n_nodes=N_NODES, num_keys=NUM_KEYS,
                           num_versions=VERSIONS, value_words=WORDS,
                           protocol=protocol),
-        n_chains=N_CHAINS)
+        n_chains=N_CHAINS, **extra)
 
 
 def schedule(cl: ClusterConfig, ticks: int, device) -> Msg:
@@ -267,6 +313,13 @@ def check_kernels() -> dict:
         library=None,   # no single PyTorch call ranks and appends
         bound_bytes=write_bound_bytes(keys, active, accepted),
     )
+    return measure(out)
+
+
+def measure(out: dict) -> dict:
+    """Time each record's kernel, plain version and library yardstick
+    (device time from the profiler where it sees the card, else event
+    time) and turn its bound in bytes into ms at the card's HBM rate."""
     for rec in out.values():
         rec["bound_ms"] = rec.pop("bound_bytes") / HBM_BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
@@ -285,6 +338,156 @@ def check_kernels() -> dict:
                 rec["device_kernels_us"] = {
                     k: v / ITERS for k, v in kernels.items()}
     return out
+
+
+def migrated_map(cl: ClusterConfig, device) -> PartitionMap:
+    """Chain 0's buckets 0 and 1 moved to the landing regions of chains 1
+    and 2, at epoch 2 (the map phase 7 publishes, up to which buckets)."""
+    homes = [cl.bucket_home(b) for b in range(cl.num_buckets)]
+    owner, base = [c for c, _ in homes], [b for _, b in homes]
+    for bucket, dst in ((0, 1), (1, 2)):
+        owner[bucket], base[bucket] = dst, cl.keys_in_use
+    return PartitionMap.build(owner, base, 2, n_chains=cl.n_chains,
+                              num_keys=NUM_KEYS, bucket_slots=cl.bucket_slots,
+                              device=device)
+
+
+def bucketed_batch(cl: ClusterConfig, pmap: PartitionMap, gen):
+    """(slots, chains) of a batch of ``num_global_keys`` global keys
+    resolved through ``pmap``: the first 4096 over 64 keys (migrated and
+    home buckets, many writes each), 1 % parked on chain -1 and 1 % with
+    a slot outside [0, K)."""
+    G = cl.num_global_keys
+    dev = pmap.owner.device
+    i32 = torch.int32
+    gk = torch.randint(0, G, (G,), generator=gen, device=dev, dtype=i32)
+    n_dup = min(4096, G // 4)
+    gk[:n_dup] = torch.randint(0, 64, (n_dup,), generator=gen, device=dev,
+                               dtype=i32)
+    chains = cl.key_to_chain(gk, pmap).to(i32)
+    slots = cl.key_to_slot(gk, pmap).to(i32)
+    chains[torch.rand(G, generator=gen, device=dev) < 0.01] = -1
+    odd = torch.rand(G, generator=gen, device=dev) < 0.01
+    pick = torch.randint(0, 3, (G,), generator=gen, device=dev)
+    far = torch.tensor([-1, NUM_KEYS, NUM_KEYS + 7], dtype=i32, device=dev)
+    slots = torch.where(odd, far[pick], slots)
+    return slots.contiguous(), chains.contiguous()
+
+
+def bucketed_read_bound_bytes(pending, slots, chains) -> int:
+    """Bytes the flat read must move: slots and chains, per distinct
+    in-store (chain, slot) its pending word, cell 0 (W words + seq) and,
+    when dirty, the latest cell; the five outputs written once."""
+    B = slots.numel()
+    ok = (chains >= 0) & (chains < N_CHAINS) & (slots >= 0) & (
+        slots < NUM_KEYS)
+    flat = (chains.long() * NUM_KEYS + slots.long())[ok].unique()
+    dirty = int((pending.reshape(-1)[flat] > 0).sum())
+    cell = 4 * (WORDS + 1)
+    return (8 * B + flat.numel() * (4 + cell) + dirty * cell
+            + 4 * B * (2 * WORDS + 3))
+
+
+def bucketed_write_bound_bytes(slots, chains, active, accepted) -> int:
+    """Bytes the flat append must move: the batch (slot, chain, W words,
+    seq, active, rank), per distinct active in-store register its pending
+    word read and written, per accepted write one cell, and the accepted
+    flags."""
+    B = slots.numel()
+    live = (active > 0) & (chains >= 0) & (chains < N_CHAINS) & (
+        slots >= 0) & (slots < NUM_KEYS)
+    touched = (chains.long() * NUM_KEYS + slots.long())[live].unique().numel()
+    return (4 * B * (WORDS + 5) + 8 * touched
+            + int(accepted.sum()) * 4 * (WORDS + 1) + 4 * B)
+
+
+def check_bucketed_kernels() -> dict:
+    """The bucketed kernels against their plain versions on the tail
+    replica of a seeded full-size [C, n, K, V, W] store."""
+    cl = cluster("netcraq", partitioned=True)
+    device = "cuda"
+    gen = torch.Generator(device=device).manual_seed(12)
+    full = (N_CHAINS, N_NODES, NUM_KEYS, VERSIONS)
+    i32 = torch.int32
+    stores = [
+        torch.randint(0, 1 << 20, full + (WORDS,), generator=gen,
+                      device=device, dtype=i32),
+        torch.randint(-1, 100, full, generator=gen, device=device, dtype=i32),
+        torch.randint(0, VERSIONS, full[:3], generator=gen, device=device,
+                      dtype=i32),
+    ]
+    tail = [x[:, -1] for x in stores]
+    pmap = migrated_map(cl, device)
+    slots, chains = bucketed_batch(cl, pmap, gen)
+    B = slots.numel()
+    out = {}
+
+    # -- read --------------------------------------------------------------
+    got = kv_kernel.bucketed_read_engine(*tail, slots, chains)
+    exp = kv_ref.bucketed_read_engine_ref(*tail, slots, chains)
+    sync(device)
+    err = max_abs_err(got, exp)
+    require(err == 0, f"kv_bucketed_read differs from its plain version by "
+            f"{err}")
+    require(int((chains == -1).sum()) > 0 and int((slots >= NUM_KEYS).sum())
+            > 0 and int((got[2][chains == -1] != 0).sum()) == 0,
+            "the read check must park queries, and parked ones read zeros")
+    ch = chains.clamp(0, N_CHAINS - 1).long()
+    sl = slots.clamp(0, NUM_KEYS - 1).long()
+    out["kv_bucketed_read"] = dict(
+        max_abs_err=err,
+        calls=lambda n: [lambda: kv_kernel.bucketed_read_engine(
+            *tail, slots, chains)] * n,
+        plain=lambda n: [lambda: kv_ref.bucketed_read_engine_ref(
+            *tail, slots, chains)] * n,
+        # one advanced-index gather of each query's whole register row
+        library=lambda n: [lambda: tail[0][ch, sl]] * n,
+        bound_bytes=bucketed_read_bound_bytes(tail[2], slots, chains),
+    )
+
+    # -- write: two copies of the store, one per side -------------------------
+    stores[2].clamp_(max=1)
+    wvals = torch.randint(0, 1 << 20, (B, WORDS), generator=gen,
+                          device=device, dtype=i32)
+    wseqs = torch.randint(0, 1 << 16, (B,), generator=gen, device=device,
+                          dtype=i32)
+    active = torch.randint(0, 2, (B,), generator=gen, device=device,
+                           dtype=i32)
+    ok = (chains >= 0) & (slots >= 0) & (slots < NUM_KEYS)
+    target = torch.where(ok, chains.long() * NUM_KEYS + slots.long(), -1)
+    rank = batch_rank(target[None], (active.bool() & ok)[None])[0]
+    plain_stores = [x.clone() for x in stores]
+    pend0 = tail[2].clone()
+    got = kv_kernel.bucketed_write_engine(*tail, slots, chains, wvals, wseqs,
+                                          active, rank)
+    exp = kv_ref.bucketed_write_engine_ref(
+        *[x[:, -1] for x in plain_stores], slots, chains, wvals, wseqs,
+        active, rank)
+    sync(device)
+    err = max(max_abs_err(got, exp), max_abs_err(stores, plain_stores))
+    require(err == 0, f"kv_bucketed_write differs from its plain version by "
+            f"{err}")
+    accepted = got[3]
+    live = (active > 0) & ok
+    require(0 < int(accepted.sum()) < int(live.sum()),
+            "the write check must both accept and overflow")
+
+    def appends(fn):
+        # every timed append counts into its own copy of the same pending
+        return lambda n: [
+            lambda p=pend0.clone(): fn(tail[0], tail[1], p, slots, chains,
+                                       wvals, wseqs, active, rank)
+            for _ in range(n)]
+
+    out["kv_bucketed_write"] = dict(
+        max_abs_err=err,
+        calls=appends(kv_kernel.bucketed_write_engine),
+        plain=appends(kv_ref.bucketed_write_engine_ref),
+        library=None,   # no single PyTorch call ranks and appends
+        bound_bytes=bucketed_write_bound_bytes(slots, chains, active,
+                                               accepted),
+    )
+    return measure(out)
 
 
 # ---------------------------------------------------------------------------
@@ -348,9 +551,11 @@ def main_path(protocol: str, device="cuda") -> dict:
     n_keys = check_readback(state, protocol)
     require(n_keys > 0, f"{protocol}: no acknowledged write to read back")
     want_write = ticks if protocol == "netcraq" else 0
-    require(launches == {"kv_read": ticks, "kv_write": want_write},
+    require(launches == {"kv_read": ticks, "kv_write": want_write,
+                         "kv_bucketed_read": 0, "kv_bucketed_write": 0},
             f"{protocol}: launches {launches} over {ticks} ticks")
-    log(f"{protocol}: main path {ticks} ticks in {wall * 1e3:.3f} ms "
+    log(f"{protocol} ({on_card(device)}): main path {ticks} ticks in "
+        f"{wall * 1e3:.3f} ms "
         f"(first run, includes warm-up), offered={offered} "
         f"replies={m['replies']} drops={m['drops']} "
         f"dirty_appends={m['dirty_appends']} packets={m['packets']} "
@@ -372,7 +577,8 @@ def cpu_equality(protocol: str) -> None:
         out[dev] = sim.run(sim.init_state(), sched, extra_ticks=REDUCED_EXTRA)
         if dev == "cuda":
             torch.cuda.synchronize()
-        log(f"{protocol}: reduced run ({REDUCED_TICKS}+{REDUCED_EXTRA} "
+        log(f"{protocol} ({on_card(dev)}): reduced run "
+            f"({REDUCED_TICKS}+{REDUCED_EXTRA} "
             f"ticks) on {dev} in {time.perf_counter() - t0:.3f} s")
     for name in ("stores", "metrics", "replies", "locks", "inbox"):
         for f, a, b in zip(getattr(out["cpu"], name)._fields,
@@ -382,6 +588,514 @@ def cpu_equality(protocol: str) -> None:
                     f"{protocol}: CUDA and CPU runs differ in {name}.{f}")
     log(f"{protocol}: CUDA run == CPU plain run (stores, metrics, replies, "
         "locks, inbox)")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: live rebalance under a hot spot (fig_rebalance at full width)
+# ---------------------------------------------------------------------------
+def rebalance_stream(cl: ClusterConfig, ticks: int, per_tick: int,
+                     device) -> Msg:
+    """fig_rebalance's [T, Q] global-key client stream, drawn with a
+    seeded torch.Generator: ``hot_fraction`` of the queries hit a zipf
+    tenant whose keys all live on chain 0 (g = rank * C), the rest are
+    uniform; ``write_fraction`` of them are writes."""
+    T, Q, C = ticks, per_tick, cl.n_chains
+    gen = torch.Generator(device="cpu").manual_seed(REBALANCE["seed"])
+    wl = WorkloadConfig(key_skew="zipf", zipf_a=REBALANCE["zipf_a"])
+    hot_keys = _sample_keys(gen, (T, Q), cl.keys_in_use, wl) * C
+    bg = torch.randint(0, cl.num_global_keys, (T, Q), generator=gen,
+                       dtype=torch.int32)
+    is_hot = torch.rand((T, Q), generator=gen) < REBALANCE["hot_fraction"]
+    is_write = torch.rand((T, Q), generator=gen) < REBALANCE["write_fraction"]
+    vals = torch.randint(1, 1 << 20, (T, Q), generator=gen,
+                         dtype=torch.int32)
+    qid = torch.arange(T * Q, dtype=torch.int32).reshape(T, Q)
+    base = Msg.empty((T, Q), WORDS, device="cpu")
+    value = torch.zeros((T, Q, WORDS), dtype=torch.int32)
+    value[..., 0] = torch.where(is_write, vals, 0)
+    stream = base._replace(
+        op=torch.where(is_write, OP_WRITE, OP_READ).to(torch.int32),
+        key=torch.where(is_hot, hot_keys, bg).to(torch.int32),
+        value=value,
+        src=CLIENT_BASE + qid % 512,
+        client=CLIENT_BASE + qid % 512,
+        qid=qid,
+        t_inject=torch.arange(T, dtype=torch.int32)[:, None].expand(
+            T, Q).contiguous())
+    return tree_map(lambda x: x.to(device), stream)
+
+
+def hottest_buckets(cl: ClusterConfig, stream: Msg, upto: int, k: int = 2):
+    """The ``k`` most-offered buckets homed on chain 0 over the first
+    ``upto`` ticks (what a load-aware control plane would sample)."""
+    b = cl.bucket_of(stream.key[:upto].reshape(-1).long())
+    counts = torch.bincount(b, minlength=cl.num_buckets).tolist()
+    return sorted(range(cl.buckets_per_chain), key=lambda x: -counts[x])[:k]
+
+
+def per_tick(counts: list) -> torch.Tensor:
+    """[T, C] per-tick increments of a list of T cumulative [C] counters."""
+    stacked = torch.stack(counts)
+    return torch.diff(stacked, dim=0, prepend=torch.zeros_like(stacked[:1]))
+
+
+def rebalance_run(cl, stream, migrate: bool, device, *, ticks, freeze,
+                  publish, drain, hot):
+    """fig_rebalance's ``run_once``: route each tick through the clients'
+    cached map, tick, and (``migrate``) move ``hot[i]`` to chain i + 1
+    between freeze[i] and publish[i], with the clients keeping the
+    pre-publish map for one more tick.  Returns (coordinator, state,
+    replies per tick [T, C], write NACKs per tick [T, C], router stale
+    count, host seconds spent routing, ticking and in the control
+    plane).  Every tick ends in a copy to the host, so the three
+    sums split the wall time between them."""
+    q = REBALANCE["q"]
+    sim = ChainSim(cl, inject_capacity=q, route_capacity=max(256, 16 * q),
+                   reply_capacity=4096, device=device)
+    co = Coordinator(cl, device=device)
+    state = sim.init_state()
+    client_pmap = co.partition_map()
+    client_epoch = 0
+    live_pmap, live_epoch = client_pmap, 0
+    replies, nacks = [], []
+    router_stale = 0
+    moves = iter(enumerate(hot))
+    pending = None
+    spent = dict(route=0.0, tick=0.0, control=0.0)
+    clock = time.perf_counter
+    for t in range(ticks):
+        t0 = clock()
+        if live_epoch != co.partition_epoch:
+            live_pmap, live_epoch = co.partition_map(), co.partition_epoch
+        routed = route_stream(cl, tree_map(lambda x: x[t:t + 1], stream), q,
+                              pmap=client_pmap, live_pmap=live_pmap)
+        router_stale += int(routed.stale)
+        t1 = clock()
+        state = sim.tick(state, tree_map(lambda x: x[0], routed.lanes))
+        replies.append(state.metrics.replies.cpu())
+        nacks.append(state.metrics.write_nacks.cpu())
+        t2 = clock()
+        if migrate:
+            if t in freeze and pending is None:
+                i, pending = next(moves)
+                co.begin_rebalance(pending, i + 1)
+                state = co.install_roles(state)
+            if t in publish and pending is not None:
+                state = co.complete_rebalance(state)
+                pending = None
+            elif client_epoch != live_epoch:
+                client_pmap, client_epoch = live_pmap, live_epoch
+        sync(device)
+        t3 = clock()
+        spent["route"] += t1 - t0
+        spent["tick"] += t2 - t1
+        spent["control"] += t3 - t2
+    state = sim.drain(state, drain)
+    return (co, state, per_tick(replies), per_tick(nacks), router_stale,
+            spent)
+
+
+def serial_replay(cl: ClusterConfig, state, stream: Msg) -> torch.Tensor:
+    """[G] value word 0 of every global key after replaying each
+    acknowledged write in the engine's serialization order (the largest
+    write seq of a key wins) onto an empty store."""
+    r = state.replies
+    require(int(r.lost.sum()) == 0, "the reply log overflowed")
+    key_of = torch.full((int(stream.qid.max()) + 1,), -1, dtype=torch.long,
+                        device=stream.key.device)
+    key_of[stream.qid.reshape(-1).long()] = stream.key.reshape(-1).long()
+    cur = r.cursor.tolist()
+    keys, seqs, vals = [], [], []
+    for c in range(cl.n_chains):
+        w = r.op[c, :cur[c]] == OP_WRITE_REPLY
+        keys.append(key_of[r.qid[c, :cur[c]][w].long()])
+        seqs.append(r.seq[c, :cur[c]][w].long())
+        vals.append(r.value0[c, :cur[c]][w])
+    keys, seqs, vals = (torch.cat(x) for x in (keys, seqs, vals))
+    order = torch.argsort(keys * (1 << 32) + seqs)   # per key, seq rising
+    keys, vals = keys[order], vals[order]
+    newest = torch.ones_like(keys, dtype=torch.bool)
+    newest[:-1] = keys[1:] != keys[:-1]
+    out = torch.zeros(cl.num_global_keys, dtype=torch.int32,
+                      device=keys.device)
+    out[keys[newest]] = vals[newest]
+    return out
+
+
+def read_back(cl: ClusterConfig, state, pmap):
+    """Every global key read through ``partitioned_read_batch`` on the
+    tail replica (its ``[:, -1]`` slice, in place), in one launch.
+    Returns (reply_val [G, W], decision [G])."""
+    tail = Store(*[x[:, -1] for x in state.stores])
+    gkeys = torch.arange(cl.num_global_keys, dtype=torch.int32,
+                         device=state.stores.values.device)
+    rv, _, dec, _, _ = kv_ops.partitioned_read_batch(cl, tail, gkeys, pmap,
+                                                     is_tail=True)
+    return rv, dec
+
+
+def check_consistent(cl, co, state, stream, what: str) -> int:
+    """The read-back of every global key equals ``committed_view`` and
+    the serial replay of the acknowledged writes; replicas converged."""
+    vals = state.stores.values[..., 0, 0]
+    require(int(state.stores.pending.abs().sum()) == 0,
+            f"{what}: dirty versions left after the drain")
+    require(torch.equal(vals, vals[:, -1:].expand_as(vals)),
+            f"{what}: replicas did not converge")
+    rv, dec = read_back(cl, state, co.partition_map())
+    require(bool((dec == 0).all()), f"{what}: a read-back was not clean")
+    view = txn_lib.committed_view(cl, state)
+    require(sorted(view) == list(range(cl.num_global_keys)),
+            f"{what}: committed_view does not cover the key space")
+    view_t = torch.tensor([view[g] for g in range(cl.num_global_keys)],
+                          dtype=torch.int32, device=rv.device)
+    replay = serial_replay(cl, state, stream)
+    require(torch.equal(rv[:, 0], view_t),
+            f"{what}: read-back differs from committed_view")
+    require(torch.equal(rv[:, 0], replay),
+            f"{what}: read-back differs from the serial replay")
+    return int((replay != 0).sum())
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rebalance_phase(device="cuda") -> dict:
+    cl = cluster("netcraq", partitioned=True)
+    T, q = REBALANCE["ticks"], REBALANCE["q"]
+    per_tick = int(0.75 * N_CHAINS * N_NODES * q)
+    stream = rebalance_stream(cl, T, per_tick, device)
+    hot = hottest_buckets(cl, stream, FREEZE_AFTER[0])
+    kw = dict(ticks=T, freeze=FREEZE_AFTER, publish=PUBLISH_AFTER,
+              drain=4 * N_NODES, hot=hot)
+    t0 = time.perf_counter()
+    co_s, st_s, tput_s, nack_s, stale_s, _ = rebalance_run(
+        cl, stream, False, device, **kw)
+    sync(device)
+    t_static = time.perf_counter() - t0
+    kv_kernel.reset_launches()
+    t0 = time.perf_counter()
+    co_m, st_m, tput_m, nack_m, stale_m, spent = rebalance_run(
+        cl, stream, True, device, **kw)
+    sync(device)
+    t_run = time.perf_counter() - t0
+    n_written = check_consistent(cl, co_m, st_m, stream, "rebalance")
+    sync(device)
+    t_mig = time.perf_counter() - t0
+    launches = dict(kv_kernel.LAUNCHES)
+    check_consistent(cl, co_s, st_s, stream, "static twin")
+
+    m, m_s = st_m.metrics.per_chain(), st_s.metrics.per_chain()
+    require(sum(m["stale_routes"]) > 0 and stale_m > 0,
+            "no stale client was redirected")
+    require(sum(m["stale_routes"]) <= stale_m,
+            "more stale NACKs than stale-routed queries")
+    require(sum(m_s["stale_routes"]) == 0 and stale_s == 0,
+            "the static run saw stale routes")
+    require(m["migration_moves"] == [2, 1, 1] + [0] * (N_CHAINS - 3),
+            f"migration_moves {m['migration_moves']}")
+    require(sum(m["drops"]) == 0 and sum(m_s["drops"]) == 0, "drops")
+    frozen = {t for f, p in zip(FREEZE_AFTER, PUBLISH_AFTER)
+              for t in range(f + 1, p + 1)}
+    nack_ticks = {t for t in range(T) if int(nack_m[t].sum())}
+    require(nack_ticks and nack_ticks <= frozen and
+            int(nack_m[:, 1:].sum()) == 0,
+            f"write NACKs at ticks {sorted(nack_ticks)} outside the freeze "
+            f"windows {sorted(frozen)}")
+    require(int(nack_s.sum()) == 0, "the static run NACKed writes")
+    for c in range(3, N_CHAINS):
+        for name in ("stores", "replies", "metrics"):
+            for f, a, b in zip(getattr(st_m, name)._fields,
+                               getattr(st_m, name), getattr(st_s, name)):
+                if name == "metrics" and f == "migration_moves":
+                    continue
+                require(torch.equal(a[c], b[c]),
+                        f"spectator chain {c} diverged in {name}.{f}")
+        require(torch.equal(tput_m[:, c], tput_s[:, c]),
+                f"spectator chain {c} per-tick replies diverged")
+    require(launches["kv_bucketed_read"] > 0, f"launches {launches}")
+    window = slice(PUBLISH_AFTER[-1] + 2, T)
+    served_s = int(tput_s[window].sum())
+    served_m = int(tput_m[window].sum())
+    log(f"rebalance ({on_card(device)}): {T}+{4 * N_NODES} ticks at "
+        f"{per_tick} queries/tick, "
+        f"buckets {hot} of chain 0 moved to chains 1, 2 "
+        f"(now {[co_m.bucket_placement(b) for b in hot]}, epoch "
+        f"{co_m.partition_epoch}); replies over ticks {window.start}.."
+        f"{T - 1}: migrated {served_m}, static {served_s}, gain "
+        f"{served_m / max(served_s, 1):.4f}x; stale_routes "
+        f"{sum(m['stale_routes'])} (router {stale_m}); write_nacks "
+        f"{sum(m['write_nacks'])} at ticks {sorted(nack_ticks)}; "
+        f"migration_moves {m['migration_moves']}; drops 0; chains 3-"
+        f"{N_CHAINS - 1} bit-identical to the static twin; all "
+        f"{cl.num_global_keys} global keys read back through the map "
+        f"== committed_view == serial replay ({n_written} written); "
+        f"launches {launches}; wall {t_mig:.3f} s, of which the run "
+        f"{t_run:.3f} s (per schedule tick: routing "
+        f"{spent['route'] / T * 1e3:.3f} ms, tick {spent['tick'] / T * 1e3:.3f}"
+        f" ms, control plane {spent['control'] / T * 1e3:.3f} ms; the "
+        f"{4 * N_NODES} drain ticks the rest) and the read-back with its "
+        f"checks {t_mig - t_run:.3f} s (static twin {t_static:.3f} s)")
+    return {"launches": launches, "state": st_m, "coordinator": co_m,
+            "cluster": cl, "hot": hot, "gain": served_m / max(served_s, 1)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: global-key writes under the migrated map
+# ---------------------------------------------------------------------------
+def partitioned_write_phase(reb: dict) -> dict:
+    """fig_rebalance's final map; ``tests/test_kernels.py``'s partitioned
+    write/read checks at full size on a copy of the tail replica."""
+    cl, co, state = reb["cluster"], reb["coordinator"], reb["state"]
+    pmap = co.partition_map()
+    tail = Store(*[x[:, -1].clone() for x in state.stores])
+    before = Store(*[x.clone() for x in tail])
+    dev = tail.values.device
+    G = cl.num_global_keys
+    g_all = torch.arange(G, device=dev)
+    moved = g_all[torch.isin(cl.bucket_of(g_all),
+                             torch.tensor(reb["hot"], device=dev))]
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    rand = torch.randint(0, G, (512,), generator=gen).to(dev)
+    odd = torch.tensor([-1, -7, G, G + 5, 1 << 20], device=dev)
+    gkeys = torch.cat([moved, moved[:1024], rand, odd]).to(torch.int32)
+    B = gkeys.numel()
+    wvals = value_from_int(1_000_000 + torch.arange(B, device=dev))
+    wseqs = (1 << 20) + torch.arange(B, dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.int32, device=dev)
+    kv_kernel.reset_launches()
+    tail, acc = kv_ops.partitioned_write_batch(cl, tail, gkeys, wvals, wseqs,
+                                               active, pmap)
+    rv, rs, dec, chains, slots = kv_ops.partitioned_read_batch(
+        cl, tail, gkeys, pmap, is_tail=True)
+    sync(dev)
+    launches = dict(kv_kernel.LAUNCHES)
+
+    # the sequential expectation: per key, writes in batch order until
+    # the window (V - 1 dirty cells over a drained register) is full
+    keys = gkeys.tolist()
+    inr = [0 <= g < G for g in keys]
+    n_seen, exp_acc, last = {}, [], {}
+    for i, g in enumerate(keys):
+        ok = inr[i] and n_seen.get(g, 0) < VERSIONS - 1
+        exp_acc.append(ok)
+        if inr[i]:
+            n_seen[g] = n_seen.get(g, 0) + 1
+        if ok:
+            last[g] = 1_000_000 + i
+    inr_t = torch.tensor(inr, device=dev)
+    require(acc.tolist() == exp_acc, "accepted writes differ from the "
+            "sequential order")
+    require(max(n_seen.values()) >= 2, "the batch must repeat keys")
+    exp_val = torch.tensor([last.get(g, 0) if ok else 0
+                            for g, ok in zip(keys, inr)], device=dev)
+    require(torch.equal(rv[:, 0].long(), exp_val),
+            "a key's newest write is not what its read returns")
+    require(bool((dec[inr_t] == 1).all()) and bool((dec[~inr_t] == -1).all())
+            and int(rv[~inr_t].abs().sum()) == 0,
+            "decisions: written keys 1 (dirty at the tail), outside -1")
+    safe = torch.where(inr_t, gkeys, 0)
+    require(torch.equal(chains, torch.where(
+        inr_t, cl.key_to_chain(safe, pmap).to(torch.int32), -1)) and
+        torch.equal(slots[inr_t],
+                    cl.key_to_slot(gkeys[inr_t], pmap).to(torch.int32)),
+        "chains/slots differ from key_to_chain/key_to_slot")
+    touched = torch.zeros((N_CHAINS, NUM_KEYS), dtype=torch.bool, device=dev)
+    touched[chains[inr_t].long(), slots[inr_t].long()] = True
+    require(int((tail.pending - before.pending).sum()) == int(acc.sum()),
+            "pending grew by other than the accepted writes")
+    for f, a, b in zip(Store._fields, tail, before):
+        require(torch.equal(a[~touched], b[~touched]),
+                f"a write outside the key space changed {f}")
+    require(launches == {"kv_read": 0, "kv_write": 0, "kv_bucketed_read": 1,
+                         "kv_bucketed_write": 1}, f"launches {launches}")
+    log(f"partitioned writes: {B} global keys ({moved.numel()} in the "
+        f"migrated buckets, {len(keys) - sum(inr)} outside the key space) "
+        f"under map epoch {co.partition_epoch}: {int(acc.sum())} accepted, "
+        f"duplicates serialized, outside keys dropped and read back as "
+        f"decision -1, every other register untouched; launches {launches}")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: failover and two-phase recovery (fig_failover at full width)
+# ---------------------------------------------------------------------------
+def failover_schedule(cl: ClusterConfig, device) -> Msg:
+    """fig_failover's [T, C, n, 2q] schedule: q client queries per lane,
+    q NOP slots that a redirected lane lands in."""
+    f = FAILOVER
+    sched = make_schedule(cl, WorkloadConfig(
+        ticks=f["ticks"], queries_per_tick=f["q"],
+        write_fraction=f["write_fraction"], seed=f["seed"]), device=device)
+    pad = Msg.empty(tuple(sched.op.shape[:3]) + (f["q"],), WORDS,
+                    device=device)
+    return Msg.concat([sched, pad], dim=3)
+
+
+def redirect(inj: Msg, chain: int, dead: int, target: int, q: int) -> Msg:
+    """Client phase-1 failover: this tick's queries of the dead node's
+    lane ride the target node's spare slots instead."""
+    lane = tree_map(lambda x: x[chain, dead, :q].clone(), inj)
+    lane = lane._replace(dst=torch.where(lane.op != OP_NOP, target,
+                                         NOWHERE).to(torch.int32))
+    inj = tree_map(lambda x: x.clone(), inj)
+    for dst, src in zip(inj, lane):
+        dst[chain, target, q:2 * q] = src
+    blank = Msg.empty(inj.op.shape[-1], WORDS, device=inj.op.device)
+    for dst, src in zip(inj, blank):
+        dst[chain, dead] = src
+    return inj
+
+
+def failover_run(cl, sched, disturb: bool, device):
+    f = FAILOVER
+    q, c_fail, dead = f["q"], f["chain"], f["node"]
+    sim = ChainSim(cl, inject_capacity=2 * q, route_capacity=max(128, 16 * q),
+                   reply_capacity=4 * f["ticks"] * N_NODES * q * 2 + 64,
+                   device=device)
+    co = Coordinator(cl, device=device)
+    det = FailureDetector(n_nodes=N_NODES, timeout_ticks=f["timeout_ticks"])
+    state = sim.init_state()
+    dead_pos = co.chains[c_fail].position_of(dead)
+    replies, nacks, copy_ok = [], [], None
+    redirecting = False
+    spent = dict(control=0.0, tick=0.0)
+    clock = time.perf_counter
+    for t in range(f["ticks"]):
+        t0 = clock()
+        inj = tree_map(lambda x: x[t], sched)
+        if disturb:
+            if t == f["fail_tick"]:
+                co.fail_node(c_fail, dead)
+                state = co.install_roles(state)
+            if t == f["freeze_tick"]:
+                co.begin_recovery(c_fail)
+                state = co.install_roles(state)
+            if t == f["recover_tick"]:
+                src = co.recovery_source(c_fail, dead_pos)
+                _, stores = co.complete_recovery(
+                    c_fail, dead, dead_pos, state.stores, locks=state.locks)
+                copy_ok = all(torch.equal(x[c_fail, dead], x[c_fail, src])
+                              for x in stores)
+                state = co.install_roles(state._replace(stores=stores))
+                redirecting = False
+            if redirecting and t < f["recover_tick"]:
+                target = co.failover.redirect(co.chains[c_fail], dead,
+                                              client=dead, key=t)
+                inj = redirect(inj, c_fail, dead, target, q)
+            det.tick()
+            for i in co.chains[c_fail].node_ids:
+                det.heard_from(i)
+            if f["fail_tick"] <= t < f["recover_tick"] and det.suspected():
+                redirecting = True
+        sync(device)
+        t1 = clock()
+        state = sim.tick(state, inj)
+        replies.append(state.metrics.replies.cpu())
+        nacks.append(state.metrics.write_nacks.cpu())
+        spent["control"] += t1 - t0
+        spent["tick"] += clock() - t1
+    state = sim.drain(state, 4 * N_NODES)
+    return state, per_tick(replies), per_tick(nacks), copy_ok, spent
+
+
+def failover_phase(device="cuda") -> dict:
+    f = FAILOVER
+    cl = cluster("netcraq")
+    sched = failover_schedule(cl, device)
+    t0 = time.perf_counter()
+    base, tput_b, _, _, _ = failover_run(cl, sched, False, device)
+    kv_kernel.reset_launches()
+    failed, tput_f, nack_f, copy_ok, spent = failover_run(cl, sched, True,
+                                                          device)
+    sync(device)
+    launches = dict(kv_kernel.LAUNCHES)
+    wall = time.perf_counter() - t0
+    c_fail = f["chain"]
+    require(copy_ok, "the replacement's store differs from its copy source")
+    nack_ticks = {t for t in range(f["ticks"]) if int(nack_f[t].sum())}
+    window = set(range(f["freeze_tick"], f["recover_tick"]))
+    require(nack_ticks and nack_ticks <= window
+            and int(nack_f.sum()) == int(nack_f[:, c_fail].sum()),
+            f"write NACKs at ticks {sorted(nack_ticks)}, freeze window "
+            f"{sorted(window)}")
+    for c in range(N_CHAINS):
+        if c == c_fail:
+            continue
+        for name in ("stores", "replies", "metrics"):
+            for fld, a, b in zip(getattr(failed, name)._fields,
+                                 getattr(failed, name), getattr(base, name)):
+                require(torch.equal(a[c], b[c]),
+                        f"chain {c} diverged from the twin in {name}.{fld}")
+        require(torch.equal(tput_f[:, c], tput_b[:, c]),
+                f"chain {c} per-tick replies diverged from the twin")
+    n_keys = check_readback(failed, "failover")
+    col = tput_f[:, c_fail].double()
+    warm = min(4, f["fail_tick"] // 2)
+    baseline = float(col[warm:f["fail_tick"]].mean())
+    dip = float(col[f["fail_tick"]:f["recover_tick"]].min())
+    recovered = float(col[f["recover_tick"] + 2:].mean())
+    recovered_ref = float(tput_b[f["recover_tick"] + 2:, c_fail].double()
+                          .mean())
+    require(dip < baseline, "the failure made no visible dip")
+    require(recovered >= 0.95 * recovered_ref,
+            f"throughput did not recover: {recovered} vs undisturbed "
+            f"{recovered_ref}")
+    m = failed.metrics.asdict()
+    log(f"failover ({on_card(device)}): node {f['node']} of chain "
+        f"{c_fail} failed at tick "
+        f"{f['fail_tick']}, writes frozen {f['freeze_tick']}.."
+        f"{f['recover_tick'] - 1}, replacement copied from its CRAQ source "
+        f"at {f['recover_tick']}; chain {c_fail} replies/tick: baseline "
+        f"{baseline}, dip {dip}, recovered {recovered} (twin {recovered_ref}, "
+        f"recovered_frac {recovered / recovered_ref}); drops {m['drops']}, "
+        f"write_nacks {m['write_nacks']} at ticks {sorted(nack_ticks)}; "
+        f"chains 1-{N_CHAINS - 1} bit-identical to the twin; acknowledged "
+        f"keys read back from {N_NODES} replicas: {n_keys}; launches "
+        f"{launches}; wall {wall:.3f} s for both runs (disturbed run per "
+        f"schedule tick: tick {spent['tick'] / f['ticks'] * 1e3:.3f} ms, "
+        f"control plane, detector and redirect "
+        f"{spent['control'] / f['ticks'] * 1e3:.3f} ms)")
+    return {"launches": launches}
+
+
+def rebalance_equality() -> None:
+    """Phase 7's lifecycle at reduced depth (one move) on CUDA (kernels)
+    and on the CPU (plain versions): identical states and read-backs."""
+    cl = cluster("netcraq", partitioned=True)
+    r = REDUCED_REBALANCE
+    per_tick = int(0.75 * N_CHAINS * N_NODES * REBALANCE["q"])
+    out = []
+    for dev in ("cuda", "cpu"):
+        stream = rebalance_stream(cl, r["ticks"], per_tick, dev)
+        hot = hottest_buckets(cl, stream, r["freeze"][0], k=1)
+        t0 = time.perf_counter()
+        co, state, tput, nacks, _, _ = rebalance_run(
+            cl, stream, True, dev, ticks=r["ticks"], freeze=r["freeze"],
+            publish=r["publish"], drain=r["drain"], hot=hot)
+        out.append((state, read_back(cl, state, co.partition_map()), tput,
+                    nacks))
+        sync(dev)
+        log(f"rebalance ({on_card(dev)}): reduced run ({r['ticks']}+"
+            f"{r['drain']} ticks, "
+            f"bucket {hot[0]} moved) on {dev} in "
+            f"{time.perf_counter() - t0:.3f} s")
+    (gpu, gpu_rb, *gpu_t), (cpu, cpu_rb, *cpu_t) = out
+    for name in ("stores", "metrics", "replies", "locks", "inbox", "roles",
+                 "pmap"):
+        for f, a, b in zip(getattr(cpu, name)._fields, getattr(cpu, name),
+                           getattr(gpu, name)):
+            require(torch.equal(a, b.cpu()),
+                    f"rebalance: CUDA and CPU runs differ in {name}.{f}")
+    for a, b in zip((*cpu_rb, *cpu_t), (*gpu_rb, *gpu_t)):
+        require(torch.equal(a, b.cpu()),
+                "rebalance: CUDA and CPU read-backs differ")
+    require(int(gpu.metrics.migration_moves.sum()) == 2,
+            "rebalance: the reduced run moved no bucket")
+    log("rebalance: CUDA run == CPU plain run (stores, metrics, replies, "
+        "locks, inbox, roles, map, read-back of every global key)")
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +1171,8 @@ def tick_times(protocol: str, sim: ChainSim) -> dict:
     wall_us = (time.perf_counter() - t0) / len(ticks) * 1e6
     busy_us = None if dev_ms is None else dev_ms * 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log(f"{protocol}: {us_tick:.1f} us/tick over {len(ticks)} ticks "
+    log(f"{protocol} ({on_card('cuda')}): {us_tick:.1f} us/tick over "
+        f"{len(ticks)} ticks "
         f"(C={N_CHAINS} n={N_NODES} K={NUM_KEYS}); with stage events "
         f"{us_tick_traced:.1f} us/tick; per-tick stage time (us, stream "
         "time between a stage's first and last enqueue): "
@@ -481,6 +1196,12 @@ def tick_times(protocol: str, sim: ChainSim) -> dict:
                                         "kv_write_kernel"))}}
 
 
+def on_card(device) -> str:
+    """What a timing ran on: the card's name and power limit, or the
+    host's CPU."""
+    return smi() if torch.device(device).type == "cuda" else "host CPU"
+
+
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -501,11 +1222,13 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     kernels = check_kernels()
+    kernels.update(check_bucketed_kernels())
     floor = launch_floor_ms()
+    card = smi()
     us = lambda ms: "n/a" if ms is None else f"{ms * 1e3:.2f} us"
     for name, rec in kernels.items():
-        log(f"{name}: equals its plain version; device time per call "
-            f"{us(rec['ms'])} (plain {us(rec['plain_ms'])}, library "
+        log(f"{name} ({card}): equals its plain version; device time per "
+            f"call {us(rec['ms'])} (plain {us(rec['plain_ms'])}, library "
             f"{us(rec['library_ms'])}); event-timed call {us(rec['call_ms'])}"
             f" (plain {us(rec['plain_call_ms'])}, library "
             f"{us(rec['library_call_ms'])}); bound {us(rec['bound_ms'])} "
@@ -514,22 +1237,32 @@ def main() -> None:
 
     craq_run = main_path("netcraq")
     cpu_equality("netcraq")
+    rebalance_equality()
     craq_times = tick_times("netcraq", craq_run["sim"])
     chain_run = main_path("netchain")
     cpu_equality("netchain")
     chain_times = tick_times("netchain", chain_run["sim"])
+    reb = rebalance_phase()
+    writes = partitioned_write_phase(reb)
+    fail = failover_phase()
 
+    launches = {**craq_run["launches"],
+                "kv_bucketed_read": reb["launches"]["kv_bucketed_read"],
+                "kv_bucketed_write": writes["launches"]["kv_bucketed_write"]}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SRC,
-         "replaces": REPLACES[name],
-         "launches": craq_run["launches"][name],
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
         for name, rec in kernels.items()]}
     log(json.dumps({
+        "card": card,
         "netcraq": craq_times, "netchain": chain_times,
         "netchain_launches": chain_run["launches"],
+        "rebalance_launches": reb["launches"], "rebalance_gain": reb["gain"],
+        "partitioned_write_launches": writes["launches"],
+        "failover_launches": fail["launches"],
         "kernel_detail": kernels, "add_one_ms": floor,
         "seconds": time.perf_counter() - t_start,
     }))

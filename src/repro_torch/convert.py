@@ -1,23 +1,36 @@
 """Carry state between the JAX package and the port.
 
 The engine has no weights; what crosses over is state: a ``SimState``,
-message schedules, partition maps and role tables.  These functions take
-any NamedTuple-like object whose fields hold array-likes (the JAX
-package's pytrees after ``np.asarray``, or numpy arrays) and build the
-port's structure on a given device, field by field by name; ``to_numpy``
-turns the port's structures back into numpy for comparison.  Nothing
-here imports JAX: the caller hands over array-likes.
+message schedules, partition maps, role tables and the control plane's
+host state.  These functions take any NamedTuple-like object whose fields
+hold array-likes (the JAX package's pytrees after ``np.asarray``, or
+numpy arrays) and build the port's structure on a given device, field by
+field by name; ``to_numpy`` turns the port's structures back into numpy
+for comparison.  The configuration and control-plane converters read the
+reference's dataclasses and ``Coordinator`` by attribute name.  Nothing
+here imports JAX: the caller hands over the objects.
 """
 from __future__ import annotations
+
+import copy
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.core.chain import SimState
+from repro_torch.core.coordinator import ChainMembership, Coordinator
 from repro_torch.core.metrics import Metrics, ReplyLog
 from repro_torch.core.store import Store
 from repro_torch.core.txn import LockTable
-from repro_torch.core.types import Msg, PartitionMap, Roles, resolve_device
+from repro_torch.core.types import (
+    ChainConfig,
+    ClusterConfig,
+    Msg,
+    PartitionMap,
+    Roles,
+    resolve_device,
+)
 
 _NESTED = {
     "stores": Store,
@@ -59,3 +72,59 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def cluster_from(cfg) -> ClusterConfig:
+    """The port's ``ClusterConfig`` with the fields of ``cfg`` (a
+    reference ``ClusterConfig``)."""
+    chain = ChainConfig(**{f.name: getattr(cfg.chain, f.name)
+                           for f in dataclasses.fields(ChainConfig)})
+    return ClusterConfig(chain=chain, n_chains=cfg.n_chains,
+                         buckets_per_chain=cfg.buckets_per_chain,
+                         spare_keys=cfg.spare_keys)
+
+
+def memberships_from(chains) -> list[ChainMembership]:
+    """Port ``ChainMembership``s with the fields of ``chains``."""
+    return [ChainMembership(node_ids=list(m.node_ids), epoch=m.epoch,
+                            writes_frozen=m.writes_frozen) for m in chains]
+
+
+def coordinator_state(co) -> dict:
+    """The host state of a control plane (the reference's ``Coordinator``
+    or the port's) as plain Python values, equal between the two when
+    they agree: memberships, partition placement, epochs, free landing
+    regions, the open migration and the failure detectors."""
+    return {
+        "chains": [(list(m.node_ids), m.epoch, m.writes_frozen)
+                   for m in co.chains],
+        "owner": [int(x) for x in co._p_owner],
+        "base": [int(x) for x in co._p_base],
+        "epoch": int(co._p_epoch),
+        "slot_epoch": np.asarray(co._p_slot_epoch).tolist(),
+        "free": {int(c): [int(x) for x in v] for c, v in co._p_free.items()},
+        "pending_move": (None if co._pending_move is None
+                         else tuple(int(x) for x in co._pending_move)),
+        "failover_timeout": co.failover.timeout_ticks,
+        "detectors": [dataclasses.asdict(d) for d in co.detectors],
+    }
+
+
+def coordinator_from(co, device="cuda") -> Coordinator:
+    """A port ``Coordinator`` with the host state of ``co`` (the
+    reference's): the same cluster, memberships, partition placement,
+    epochs, free regions, open migration and detectors."""
+    out = Coordinator(cluster_from(co.cluster), device=device)
+    out.chains = memberships_from(co.chains)
+    out._p_owner = [int(x) for x in co._p_owner]
+    out._p_base = [int(x) for x in co._p_base]
+    out._p_epoch = int(co._p_epoch)
+    out._p_slot_epoch = np.array(co._p_slot_epoch, np.int32)
+    out._p_free = {int(c): [int(x) for x in v] for c, v in co._p_free.items()}
+    out._pending_move = (None if co._pending_move is None
+                         else tuple(int(x) for x in co._pending_move))
+    out.failover.timeout_ticks = co.failover.timeout_ticks
+    for mine, theirs in zip(out.detectors, co.detectors):
+        for f in dataclasses.fields(mine):
+            setattr(mine, f.name, copy.deepcopy(getattr(theirs, f.name)))
+    return out

@@ -61,6 +61,17 @@ class Metrics(NamedTuple):
         """Cluster totals (per-chain leaves are summed)."""
         return {k: int(v) for k, v in self.total()._asdict().items()}
 
+    def per_chain(self) -> dict:
+        """Per-chain counters as host lists (scalars become length-1;
+        the per-bucket conflict heat is summed over its buckets)."""
+        out = {}
+        for k, v in self._asdict().items():
+            a = torch.atleast_1d(v)
+            if a.dim() > 1:
+                a = a.sum(dim=tuple(range(1, a.dim())))
+            out[k] = [int(x) for x in a.tolist()]
+        return out
+
 
 class ReplyLog(NamedTuple):
     """Fixed-capacity per-chain record of replies that exited to clients."""

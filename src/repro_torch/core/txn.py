@@ -1,9 +1,11 @@
 """The tick-resident transaction stages of ``repro/core/txn.py``.
 
-Only what ``_chain_tick`` runs on every tick: the per-chain lock table,
-lease expiry and the head's lock stage (PREPARE acquires, COMMIT/ABORT
-release, validated COMMITs pass on to the node step as writes).  The
-wave coordinator, planners and drivers are not ported yet.
+What ``_chain_tick`` runs on every tick: the per-chain lock table, lease
+expiry and the head's lock stage (PREPARE acquires, COMMIT/ABORT
+release, validated COMMITs pass on to the node step as writes); and the
+host-side probes the control plane reads between ticks
+(``locks_all_free``, ``held_locks``, ``committed_view``).  The wave
+coordinator, planners and drivers are not ported yet.
 
 Every function takes a leading chain axis ``[C, ...]`` written out: the
 lock table is ``[C, K]`` and the inbox ``[C, n, cap]``.
@@ -30,6 +32,7 @@ from repro_torch.core.types import (
     OP_TXN_REPLY,
     TO_CLIENT,
     ChainConfig,
+    ClusterConfig,
     Msg,
     Roles,
     resolve_device,
@@ -64,6 +67,34 @@ class LockTable(NamedTuple):
 def init_locks(cfg: ChainConfig, n_chains: int = 1,
                lease_ticks: int = LEASE_OFF, device="cuda") -> LockTable:
     return LockTable.empty(cfg.num_keys, n_chains, lease_ticks, device)
+
+
+def locks_all_free(locks: LockTable) -> bool:
+    """Host-side check the control plane makes before a recovery copy: no
+    transaction holds a lock anywhere (``[K]`` and ``[C, K]`` tables)."""
+    return bool((locks.holder == -1).all())
+
+
+def held_locks(locks: LockTable) -> int:
+    """Host-side count of the locks held right now (``[K]`` and ``[C, K]``
+    tables): the leaked-lock probe at drain."""
+    return int((locks.holder != -1).sum())
+
+
+def committed_view(cluster: ClusterConfig, state, node: int = -1) -> dict:
+    """{global_key: committed value word 0} read from every chain's store
+    at physical slot ``node`` (default: the tail slot).  Call after a
+    drain, when all replicas agree.  The inverse goes through the state's
+    live ``PartitionMap`` (``ClusterConfig.global_key``), so a rebalanced
+    bucket reads from wherever it lives now; free regions are skipped."""
+    vals = state.stores.values[:, node, :, 0, 0]            # [C, K]
+    C, K = vals.shape
+    dev = vals.device
+    chains = torch.arange(C, device=dev).repeat_interleave(K)
+    slots = torch.arange(K, device=dev).repeat(C)
+    gks = cluster.global_key(slots, chains, state.pmap)
+    keep = gks >= 0
+    return dict(zip(gks[keep].tolist(), vals.reshape(-1)[keep].tolist()))
 
 
 def set_lease(locks: LockTable, lease_ticks) -> LockTable:

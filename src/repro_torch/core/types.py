@@ -301,6 +301,21 @@ class ClusterConfig:
             key // self.n_chains
         ) // self.bucket_slots
 
+    def bucket_home(self, bucket):
+        """(home chain, home base slot) of a bucket: its epoch-0 spot."""
+        return (
+            bucket // self.buckets_per_chain,
+            (bucket % self.buckets_per_chain) * self.bucket_slots,
+        )
+
+    def _bucket_index(self, key) -> torch.Tensor:
+        """``bucket_of(key)`` as a gather index with the reference's
+        clamping (a JAX gather wraps a negative index once and clamps the
+        rest), so any key answers where the reference's answers."""
+        b = self.bucket_of(key)
+        G = self.num_buckets
+        return torch.where(b < 0, b + G, b).clamp(0, G - 1).long()
+
     def default_partition(self, device="cuda") -> PartitionMap:
         """The epoch-0 map: every bucket at home."""
         dev = resolve_device(device)
@@ -317,18 +332,22 @@ class ClusterConfig:
 
     def key_to_chain(self, key, pmap: PartitionMap | None = None):
         """Owning chain of a global key; with a ``pmap`` a bucket-table
-        gather (``key`` must then be an in-range tensor)."""
+        gather (``key`` a tensor)."""
         if pmap is None:
             return key % self.n_chains
-        return pmap.owner[self.bucket_of(key).long()]
+        return pmap.owner[self._bucket_index(key)]
 
     def key_to_slot(self, key, pmap: PartitionMap | None = None):
         """Register index of a global key within its owning chain."""
         if pmap is None:
             return key // self.n_chains
-        return pmap.base[self.bucket_of(key).long()] + (
+        return pmap.base[self._bucket_index(key)] + (
             key // self.n_chains
         ) % self.bucket_slots
+
+    def local_key(self, key, pmap: PartitionMap | None = None):
+        """Alias of ``key_to_slot`` (the pre-rebalancing name)."""
+        return self.key_to_slot(key, pmap)
 
     def global_key(self, local, chain, pmap: PartitionMap | None = None):
         """Inverse of (key_to_chain, key_to_slot); -1 for free slots when
@@ -424,3 +443,11 @@ class Roles(NamedTuple):
                               device=dev),
         )
 
+
+def value_from_int(x, value_words: int = VALUE_WORDS,
+                   device=None) -> torch.Tensor:
+    """Pack a scalar int (or int tensor) into a VALUE payload: word 0 is
+    ``x``, the rest 0."""
+    x = torch.as_tensor(x, dtype=I32, device=device)
+    pads = [torch.zeros_like(x)] * (value_words - 1)
+    return torch.stack([x, *pads], dim=-1)

@@ -3,9 +3,14 @@
 ``cluster_read_engine`` and ``cluster_write_engine`` have the signatures
 of the reference's Pallas kernels (``repro/kernels/kv_engine/kernel.py``)
 with the leading "chain" axis read as any node axis ``N`` (the engine
-passes its flattened ``[C * n]`` nodes).  For tensors on the CPU they
-run the plain versions in ``ref.py``; for CUDA tensors they launch the
-kernels in ``csrc/kv_engine.cu`` or raise - there is no fallback.
+passes its flattened ``[C * n]`` nodes).  ``bucketed_read_engine`` and
+``bucketed_write_engine`` serve a flat batch resolved through the
+partition map (query i on chain ``chains[i]`` at register ``slots[i]``);
+their store leaves need contiguous inner dimensions only, so one replica
+of a ``[C, n, ...]`` cluster store (``x[:, -1]``) is read and written in
+place.  For tensors on the CPU the wrappers run the plain versions in
+``ref.py``; for CUDA tensors they launch the kernels in
+``csrc/kv_engine.cu`` or raise - there is no fallback.
 
 The CUDA source is compiled at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into a shared library with a plain C
@@ -39,7 +44,8 @@ BUILD_DIR = HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"kv_read": 0, "kv_write": 0}
+LAUNCHES = {"kv_read": 0, "kv_write": 0, "kv_bucketed_read": 0,
+            "kv_bucketed_write": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -88,16 +94,25 @@ def _lib():
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.kv_read_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 6
             lib.kv_read_launch.restype = i
             lib.kv_write_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 3
             lib.kv_write_launch.restype = i
+            lib.kv_bucketed_read_launch.argtypes = (
+                [p] * 5 + [i] * 4 + [ll] * 3 + [p] * 6)
+            lib.kv_bucketed_read_launch.restype = i
+            lib.kv_bucketed_write_launch.argtypes = (
+                [p] * 9 + [i] * 4 + [ll] * 3 + [p] * 3)
+            lib.kv_bucketed_write_launch.restype = i
             _LIB = lib
     return _LIB
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, device) -> None:
+def _check(name: str, x: torch.Tensor, shape: tuple, device,
+           free_lead: bool = False) -> None:
+    """dtype, shape, device and layout of one argument: contiguous, or
+    with ``free_lead`` contiguous in every dimension but the first."""
     if x.dtype != torch.int32:
         raise TypeError(f"{name}: expected int32, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
@@ -105,17 +120,25 @@ def _check(name: str, x: torch.Tensor, shape: tuple, device) -> None:
                          f"got {tuple(x.shape)}")
     if x.device != device:
         raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    if not free_lead:
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        return
+    inner = x[0]
+    if not inner.is_contiguous() or (
+            x.shape[0] > 1 and x.stride(0) < inner.numel()):
+        raise ValueError(f"{name}: must be contiguous past its first "
+                         "dimension, with rows that do not overlap")
 
 
 def _check_cells(name: str, W: int, cells) -> None:
-    """The CUDA kernels' cell moves: W = 4 words, 16-byte aligned."""
+    """The CUDA kernels' cell moves: W = 4 words, 16-byte aligned (every
+    row of a strided leaf too)."""
     if W != 4:
         raise ValueError(f"{name}: the CUDA kernel moves W = 4 word cells, "
                          f"got W = {W}")
     for x in cells:
-        if x.data_ptr() % 16:
+        if x.data_ptr() % 16 or x.stride(0) % 4:
             raise ValueError(f"{name}: value cells must be 16-byte aligned")
 
 
@@ -200,4 +223,96 @@ def cluster_write_engine(values, seqs, pending, keys, wvals, wseqs, active,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "kv_write")
     LAUNCHES["kv_write"] += 1
+    return values, seqs, pending, accepted
+
+
+def _store_checks(values, seqs, pending, batch):
+    """Checks of a bucketed call: store leaves with a free chain stride,
+    flat batch leaves ``(name, tensor, trailing shape)``."""
+    C, K, V, W = values.shape
+    B = batch[0][1].shape[0]
+    dev = values.device
+    for name, x, shape in (("values", values, (C, K, V, W)),
+                           ("seqs", seqs, (C, K, V)),
+                           ("pending", pending, (C, K))):
+        _check(name, x, shape, dev, free_lead=True)
+    for name, x, tail in batch:
+        _check(name, x, (B,) + tail, dev)
+    return C, K, V, W, B, dev
+
+
+def bucketed_read_engine(values, seqs, pending, slots, chains):
+    """Flat read lookup through the partition map in one launch.
+
+    ``values [C, K, V, W]``, ``seqs [C, K, V]``, ``pending [C, K]`` (inner
+    dimensions contiguous, any chain stride); ``slots``/``chains [B]``
+    (int32).  Returns (clean_val [B, W], clean_seq [B], latest_val
+    [B, W], latest_seq [B], pending_of_key [B]); a query whose chain lies
+    outside ``[0, C)`` (parked, -1) or whose slot lies outside ``[0, K)``
+    answers zeros.
+    """
+    C, K, V, W, B, dev = _store_checks(
+        values, seqs, pending, (("slots", slots, ()),
+                                ("chains", chains, ())))
+    if dev.type == "cpu":
+        return ref.bucketed_read_engine_ref(values, seqs, pending, slots,
+                                            chains)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_bucketed_read: unsupported device {dev}")
+    cv = torch.empty((B, W), dtype=torch.int32, device=dev)
+    lv = torch.empty((B, W), dtype=torch.int32, device=dev)
+    _check_cells("kv_bucketed_read", W, (values, cv, lv))
+    cs, ls, pb = (torch.empty((B,), dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    with torch.cuda.device(dev):
+        rc = _lib().kv_bucketed_read_launch(
+            values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
+            slots.data_ptr(), chains.data_ptr(), C, K, V, B,
+            values.stride(0), seqs.stride(0), pending.stride(0),
+            cv.data_ptr(), cs.data_ptr(), lv.data_ptr(), ls.data_ptr(),
+            pb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "kv_bucketed_read")
+    LAUNCHES["kv_bucketed_read"] += 1
+    return cv, cs, lv, ls, pb
+
+
+def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
+                          wseqs, active, rank):
+    """Flat append through the partition map in one launch: entry i lands
+    at cell ``pending + 1 + rank[i]`` of register ``slots[i]`` of chain
+    ``chains[i]``, accepted iff ``active``, the chain lies in ``[0, C)``,
+    the slot in ``[0, K)`` and the cell at most ``V - 1``; ``pending`` is
+    read before any write lands.
+
+    Store leaves as for the read (edited in place, as the reference
+    kernel aliases them to its outputs); ``slots``/``chains``/``wseqs``/
+    ``active``/``rank [B]`` and ``wvals [B, W]`` (int32).  Returns the
+    store leaves and ``accepted [B]`` int32.
+    """
+    W = values.shape[3]
+    C, K, V, W, B, dev = _store_checks(
+        values, seqs, pending, (("slots", slots, ()), ("chains", chains, ()),
+                                ("wvals", wvals, (W,)), ("wseqs", wseqs, ()),
+                                ("active", active, ()), ("rank", rank, ())))
+    if dev.type == "cpu":
+        return ref.bucketed_write_engine_ref(values, seqs, pending, slots,
+                                             chains, wvals, wseqs, active,
+                                             rank)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_bucketed_write: unsupported device {dev}")
+    _check_cells("kv_bucketed_write", W, (values, wvals))
+    # the first pass copies each write's pending count here, the second
+    # reads slots from it and counts into `pending`
+    snap = torch.empty((B,), dtype=torch.int32, device=dev)
+    accepted = torch.empty((B,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().kv_bucketed_write_launch(
+            values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
+            slots.data_ptr(), chains.data_ptr(), wvals.data_ptr(),
+            wseqs.data_ptr(), active.data_ptr(), rank.data_ptr(), C, K, V, B,
+            values.stride(0), seqs.stride(0), pending.stride(0),
+            snap.data_ptr(), accepted.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "kv_bucketed_write")
+    LAUNCHES["kv_bucketed_write"] += 1
     return values, seqs, pending, accepted

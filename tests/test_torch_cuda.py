@@ -1,7 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain version, and a
-small cluster run on CUDA against the same run on the CPU.  Imports no
-JAX, so it runs where only PyTorch is installed; without a card every
-test skips:
+"""The port on the card: each CUDA kernel against its plain version, a
+small cluster run and a live rebalance on CUDA against the same runs on
+the CPU.  Imports no JAX, so it runs where only PyTorch is installed;
+without a card every test skips:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -107,3 +107,96 @@ def test_cuda_cluster_run_matches_cpu_run(card, protocol):
     for name in ("stores", "metrics", "replies", "locks", "inbox"):
         for a, b in zip(getattr(cpu, name), getattr(gpu, name)):
             assert torch.equal(a, b.cpu()), name
+
+
+def _flat(rng, C, K, B):
+    """(slots, chains) with duplicates, parked chain -1 and slots outside
+    [0, K)."""
+    slots = rng.integers(0, K, B).astype(np.int32)
+    chains = rng.integers(0, C, B).astype(np.int32)
+    slots[: B // 4] = rng.integers(0, 3, B // 4)
+    chains[: B // 4] = 1
+    chains[rng.random(B) < 0.1] = -1
+    odd = rng.random(B) < 0.1
+    slots[odd] = rng.choice([-1, K, K + 9], int(odd.sum()))
+    return slots, chains
+
+
+@pytest.mark.parametrize("replica", [False, True])
+def test_cuda_bucketed_kernels_match_plain_versions(card, replica):
+    """Both bucketed kernels equal their plain versions, one launch each,
+    on a contiguous store and on the tail slice of a [C, n, ...] store
+    (read and written in place, the other replicas untouched)."""
+    rng = np.random.default_rng(31)
+    C, n, K, V, W, B = 6, 3, 2048, 4, 4, 4096
+    lead = (C, n) if replica else (C,)
+    full = [rng.integers(0, 1 << 20, lead + (K, V, W)).astype(np.int32),
+            rng.integers(-1, 100, lead + (K, V)).astype(np.int32),
+            rng.integers(0, 2, lead + (K,)).astype(np.int32)]
+    slots, chains = _flat(rng, C, K, B)
+    wvals = rng.integers(0, 1 << 20, (B, W)).astype(np.int32)
+    wseqs = rng.integers(0, 1000, B).astype(np.int32)
+    active = rng.integers(0, 2, B).astype(np.int32)
+    ok = (chains >= 0) & (slots >= 0) & (slots < K)
+    target = np.where(ok, chains.astype(np.int64) * K + slots, -1)
+    rank = batch_rank(torch.from_numpy(target)[None].to(card),
+                      torch.from_numpy(active & ok)[None].bool().to(card))[0]
+    dev = lambda a: torch.tensor(a, device=card)   # a copy per call
+    stores = {}
+    for side in ("kernel", "plain"):
+        x = [dev(a) for a in full]
+        stores[side] = (x, [y[:, -1] for y in x] if replica else x)
+    t_kernel.reset_launches()
+    got = t_kernel.bucketed_read_engine(*stores["kernel"][1], dev(slots),
+                                        dev(chains))
+    exp = t_ref.bucketed_read_engine_ref(*stores["plain"][1], dev(slots),
+                                         dev(chains))
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    batch = [dev(a) for a in (slots, chains, wvals, wseqs, active)]
+    got = t_kernel.bucketed_write_engine(*stores["kernel"][1], *batch, rank)
+    exp = t_ref.bucketed_write_engine_ref(*stores["plain"][1], *batch, rank)
+    torch.cuda.synchronize()
+    assert t_kernel.LAUNCHES["kv_bucketed_read"] == 1
+    assert t_kernel.LAUNCHES["kv_bucketed_write"] == 1
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    assert 0 < int(got[3].sum()) < int(active.sum())
+    for a, b in zip(stores["kernel"][0], stores["plain"][0]):
+        assert torch.equal(a, b)
+    if replica:
+        for a, orig in zip(stores["kernel"][0], full):
+            assert torch.equal(a[:, :-1].cpu(), torch.from_numpy(orig[:, :-1]))
+
+
+def test_cuda_rebalance_and_partitioned_ops_match_cpu(card):
+    """A live bucket migration and a global-key read-back and write on
+    CUDA equal the same on the CPU."""
+    from repro_torch.core.coordinator import Coordinator
+
+    cl = t_types.ClusterConfig(
+        chain=t_types.ChainConfig(n_nodes=4, num_keys=64, num_versions=4),
+        n_chains=2, buckets_per_chain=2, spare_keys=32)
+    wl = t_workload.WorkloadConfig(ticks=4, queries_per_tick=8,
+                                   write_fraction=0.4, seed=5)
+    gkeys = torch.arange(-2, cl.num_global_keys + 2, dtype=torch.int32)
+    out = {}
+    for d in ("cpu", card):
+        sim = ChainSim(cl, inject_capacity=8, route_capacity=64, device=d)
+        co = Coordinator(cl, device=d)
+        state = sim.run(sim.init_state(),
+                        t_workload.make_schedule(cl, wl, device=d),
+                        extra_ticks=10, assert_drained=True)
+        co.begin_rebalance(1, 1)
+        state = co.complete_rebalance(sim.drain(co.install_roles(state), 2))
+        pmap = co.partition_map()
+        tail = Store(*[x[:, -1] for x in state.stores])
+        read = t_ops.partitioned_read_batch(cl, tail, gkeys.to(d), pmap,
+                                            is_tail=True)
+        vals = t_types.value_from_int(gkeys.to(d) + 7)
+        tail, acc = t_ops.partitioned_write_batch(
+            cl, tail, gkeys.to(d), vals, gkeys.to(d) + 100,
+            torch.ones_like(gkeys, device=d), pmap)
+        out[str(d)] = (*read, acc, *state.stores, *state.metrics)
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert torch.equal(a, b.cpu())
