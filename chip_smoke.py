@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kv_engine kernels from ``src/repro_torch/kernels/
-kv_engine/csrc`` with nvcc (sm_90a), then:
+Builds the hand-written kernels from ``src/repro_torch/kernels/kv_engine/
+csrc`` and ``src/repro_torch/kernels/flash_attention/csrc`` with nvcc
+(sm_90a, one nvcc per source, both at once), then:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. holds each kernel against its plain PyTorch version on the card, at
@@ -45,7 +46,22 @@ kv_engine/csrc`` with nvcc (sm_90a), then:
    detector's timeout, the chain freezes, the replacement copies its
    CRAQ source and is spliced back in; held to the freeze window, the
    copy source, an undisturbed twin, the read-back of every
-   acknowledged write and 95 % of the twin's throughput after recovery.
+   acknowledged write and 95 % of the twin's throughput after recovery;
+10. the flash_attention kernel against its plain version, timed as in
+   phase 2 and bound by operations: one layer's prefill of phase 11
+   (q [8, 16, 2048, 128], k/v [8, 2, 2048, 128], bf16, causal), float32
+   at the same GQA group, a ragged tile edge (S = SK = 200) and S != SK
+   both ways; the SDPA yardstick is timed beside it;
+11. the serving path at full width (``examples/kv_serving.py``'s run):
+   the coordination store keeps model version and serving epoch, and
+   ``ServingEngine`` serves Qwen2.5-3B (36 layers, random weights from a
+   seed) 16 requests of 2048-token prompts, 32 new tokens each, in 2
+   waves of 8 through the kernel; held to the outputs, 72 kernel
+   launches and no plain-version call, determinism, a manual greedy
+   loop, the version bump, the naive attention path's prefill logits and,
+   at 2 layers, the CPU's plain versions; prints per wave prefill ms,
+   decode ms per token, tokens/s, p50/p99 latency and a decode step's
+   device-busy share.
 
 Any failure raises (non-zero exit).  Without a card, or without the repo
 beside it, the script exits non-zero before printing any result.  The
@@ -54,6 +70,8 @@ second-to-last line is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -63,17 +81,21 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 try:
+    from repro_torch.configs.base import get_config  # noqa: E402
     from repro_torch.core import chain as t_chain  # noqa: E402
     from repro_torch.core import store as store_lib  # noqa: E402
     from repro_torch.core import txn as txn_lib  # noqa: E402
     from repro_torch.core.chain import ChainSim  # noqa: E402
     from repro_torch.core.coordinator import Coordinator  # noqa: E402
-    from repro_torch.core.failure import FailureDetector  # noqa: E402
+    from repro_torch.core.failure import (  # noqa: E402
+        FailureDetector, HedgedReadPolicy)
     from repro_torch.core.metrics import ReplyLog  # noqa: E402
-    from repro_torch.core.store import Store, batch_rank  # noqa: E402
+    from repro_torch.core.store import Store, batch_rank, init_store  # noqa: E402
     from repro_torch.core.types import (  # noqa: E402
         CLIENT_BASE, NOWHERE, OP_NOP, OP_READ, OP_WRITE, OP_WRITE_REPLY,
         ChainConfig, ClusterConfig, Msg, PartitionMap, tree_map,
@@ -83,6 +105,13 @@ try:
     from repro_torch.kernels.kv_engine import kernel as kv_kernel  # noqa: E402
     from repro_torch.kernels.kv_engine import ops as kv_ops  # noqa: E402
     from repro_torch.kernels.kv_engine import ref as kv_ref  # noqa: E402
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+    from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+    from repro_torch.models import api  # noqa: E402
+    from repro_torch.models import transformer as TF  # noqa: E402
+    from repro_torch.models.transformer import OptFlags  # noqa: E402
+    from repro_torch.serve.engine import (  # noqa: E402
+        Request, ServingEngine, build_decode_step)
 except ImportError as exc:  # run outside a checkout of the repo
     sys.exit(f"chip_smoke: the repro_torch package is not beside this "
              f"script ({exc})")
@@ -96,12 +125,18 @@ EXTRA_TICKS = 16
 REDUCED_TICKS, REDUCED_EXTRA = 4, 8
 ITERS = 40                         # timed calls per kernel measurement
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-KERNEL_SRC = "src/repro_torch/kernels/kv_engine/csrc/kv_engine.cu"
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+KV_SRC = "src/repro_torch/kernels/kv_engine/csrc/kv_engine.cu"
+FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SOURCES = {"kv_read": KV_SRC, "kv_write": KV_SRC,
+           "kv_bucketed_read": KV_SRC, "kv_bucketed_write": KV_SRC,
+           "flash_attention": FA_SRC}
 REPLACES = {
     "kv_read": "src/repro/kernels/kv_engine/kernel.py:153",
     "kv_write": "src/repro/kernels/kv_engine/kernel.py:510",
     "kv_bucketed_read": "src/repro/kernels/kv_engine/kernel.py:249",
     "kv_bucketed_write": "src/repro/kernels/kv_engine/kernel.py:339",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
 }
 # The partition map of phases 2 and 7-8, in fig_rebalance's proportions:
 # 14 buckets of 4096 registers per chain and two bucket-sized landing
@@ -117,6 +152,16 @@ REDUCED_REBALANCE = dict(ticks=12, freeze=(2,), publish=(8,), drain=6)
 FAILOVER = dict(ticks=48, q=8, fail_tick=12, freeze_tick=28,
                 recover_tick=32, chain=0, node=1, timeout_ticks=3,
                 write_fraction=0.1, seed=0)
+# phases 10-11: examples/kv_serving.py's serving run at Qwen2.5-3B's full
+# width and depth: 16 requests of 2048-token prompts, 32 new tokens each,
+# in 2 waves of 8 slots; the weights are random from SERVE_SEED
+SERVE_ARCH, SLOTS, CACHE_LEN = "qwen2.5-3b", 8, 2080
+N_REQUESTS, PROMPT_LEN, MAX_NEW, SERVE_SEED = 16, 2048, 32, 0
+MODEL_VERSION_KEY, SERVING_EPOCH_KEY = 10, 11
+# the same path at full width and 2 layers, CUDA (kernel) against the CPU
+# (plain versions)
+REDUCED_SERVE = dict(n_layers=2, requests=2, prompt_len=256, steps=4)
+FA_ITERS = 10                      # timed calls per attention measurement
 
 
 def log(*args):
@@ -170,10 +215,11 @@ def time_calls(calls) -> float:
 
 
 def device_time(calls):
-    """(mean device ms per call, {kernel name: device us}) of the
-    zero-argument ``calls``, from torch.profiler's CUDA activity: the
-    summed duration of every kernel, copy and fill they launched.
-    (None, {}) if the profiler saw no device activity."""
+    """(mean device ms per call, {kernel name: device us}, number of
+    device activities) of the zero-argument ``calls``, from
+    torch.profiler's CUDA activity: the summed duration of every kernel,
+    copy and fill they launched.  (None, {}, 0) if the profiler saw no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -183,14 +229,16 @@ def device_time(calls):
             fn()
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
+    count = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
+            count += 1
     total = sum(by_name.values())
     if total <= 0:
-        return None, {}
-    return total / 1e3 / len(calls), by_name
+        return None, {}, 0
+    return total / 1e3 / len(calls), by_name, count
 
 
 def launch_floor_ms() -> float:
@@ -319,24 +367,29 @@ def check_kernels() -> dict:
 def measure(out: dict) -> dict:
     """Time each record's kernel, plain version and library yardstick
     (device time from the profiler where it sees the card, else event
-    time) and turn its bound in bytes into ms at the card's HBM rate."""
+    time) and turn its bound into ms: the larger of its bytes at the
+    card's HBM rate and its bf16 operations (``bound_flop``, where the
+    record has them) at the tensor-core peak."""
     for rec in out.values():
-        rec["bound_ms"] = rec.pop("bound_bytes") / HBM_BYTES_PER_S * 1e3
-        rec["bound_by"] = "bytes"
+        bytes_ms = rec.pop("bound_bytes") / HBM_BYTES_PER_S * 1e3
+        flop_ms = rec.pop("bound_flop", 0) / BF16_FLOP_PER_S * 1e3
+        rec["bound_ms"] = max(bytes_ms, flop_ms)
+        rec["bound_by"] = "operations" if flop_ms > bytes_ms else "bytes"
+        iters = rec.pop("iters", ITERS)
         for key in ("", "plain_", "library_"):
             make = rec.pop(key.rstrip("_") or "calls")
             if make is None:
                 rec[f"{key}ms"] = rec[f"{key}call_ms"] = None
                 continue
             time_calls(make(3))                       # warm-up
-            dev_ms, kernels = device_time(make(ITERS))
-            rec[f"{key}call_ms"] = time_calls(make(ITERS))
+            dev_ms, kernels, _ = device_time(make(iters))
+            rec[f"{key}call_ms"] = time_calls(make(iters))
             rec[f"{key}device_measured"] = dev_ms is not None
             rec[f"{key}ms"] = dev_ms if dev_ms is not None else \
                 rec[f"{key}call_ms"]
             if key == "":
                 rec["device_kernels_us"] = {
-                    k: v / ITERS for k, v in kernels.items()}
+                    k: v / iters for k, v in kernels.items()}
     return out
 
 
@@ -1166,7 +1219,7 @@ def tick_times(protocol: str, sim: ChainSim) -> dict:
         states[0] = sim.tick(states[0], inj)
 
     t0 = time.perf_counter()
-    dev_ms, kernels = device_time([lambda inj=inj: one_tick(inj)
+    dev_ms, kernels, _ = device_time([lambda inj=inj: one_tick(inj)
                                    for inj in ticks])
     wall_us = (time.perf_counter() - t0) / len(ticks) * 1e6
     busy_us = None if dev_ms is None else dev_ms * 1e3
@@ -1196,6 +1249,349 @@ def tick_times(protocol: str, sim: ChainSim) -> dict:
                                         "kv_write_kernel"))}}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the flash_attention kernel against its plain version
+# ---------------------------------------------------------------------------
+def attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype):
+    """q, k, v as the model hands them to the kernel: [B, H, S, D] views
+    of [B, S, H, D] projections."""
+    def one(H, T):
+        x = torch.randn((B, T, H, D), generator=gen, device="cuda")
+        return x.to(dtype).transpose(1, 2)
+    return one(HQ, S), one(HKV, SK), one(HKV, SK)
+
+
+def attention_bound(q, k, causal: bool = True):
+    """(bytes, operations) the attention must move and do for these
+    inputs: q and o once, k and v once; 4 * D operations (q.k and p.v)
+    per (query, key) pair under the kernel's mask."""
+    B, HQ, S, D = q.shape
+    HKV, SK = k.shape[1], k.shape[2]
+    pairs = (sum(min(i + 1, SK) for i in range(S)) if causal else S * SK)
+    nbytes = q.element_size() * D * (2 * B * HQ * S + 2 * B * HKV * SK)
+    return nbytes, 4 * D * B * HQ * pairs
+
+
+def check_flash_attention() -> dict:
+    """The kernel against its plain version on the card: the serving
+    shape (one layer's prefill of phase 11), float32 at the same GQA
+    group, a ragged tile edge and S != SK both ways; then times kernel,
+    plain version and the SDPA yardstick at the serving shape."""
+    cfg = get_config(SERVE_ARCH)
+    HQ, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("serving", SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2),
+             ("float32", 2, PROMPT_LEN, PROMPT_LEN, f32, 2e-5),
+             ("ragged", SLOTS, 200, 200, bf16, 2e-2),
+             ("s_lt_sk", 2, 200, 700, f32, 2e-5),
+             ("s_gt_sk", 2, 700, 200, bf16, 2e-2)]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    errs = {}
+    for name, B, S, SK, dtype, tol in cases:
+        q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
+        got = fa_kernel.flash_attention(q, k, v)
+        exp = fa_ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - exp.float()).abs().max())
+        require(bool(torch.isfinite(got).all()),
+                f"flash_attention {name}: non-finite output")
+        require(err <= tol, f"flash_attention {name} [{B}, {HQ}/{HKV}, "
+                f"{S}, {SK}, {D}] {dtype}: differs from its plain version "
+                f"by {err} > {tol}")
+        errs[name] = err
+        log(f"flash_attention {name}: q [{B}, {HQ}, {S}, {D}], k/v [{B}, "
+            f"{HKV}, {SK}, {D}] {str(dtype)[6:]}: max abs err {err:.3g} "
+            f"(tolerance {tol})")
+        del q, k, v, got, exp
+    q, k, v = attention_inputs(gen, SLOTS, HQ, HKV, PROMPT_LEN, PROMPT_LEN,
+                               D, bf16)
+    nbytes, flop = attention_bound(q, k)
+    rec = dict(
+        max_abs_err=max(errs.values()), case_errs=errs,
+        calls=lambda n: [lambda: fa_kernel.flash_attention(q, k, v)] * n,
+        plain=lambda n: [lambda: fa_ref.flash_attention_ref(q, k, v)] * n,
+        # timed here only; the port never calls it
+        library=lambda n: [lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)] * n,
+        bound_bytes=nbytes, bound_flop=flop, iters=FA_ITERS)
+    out = measure({"flash_attention": rec})
+    log(f"flash_attention at the serving shape: {flop / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; bound {out['flash_attention']['bound_ms']:.4f}"
+        f" ms by {out['flash_attention']['bound_by']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the serving path at full width (examples/kv_serving.py)
+# ---------------------------------------------------------------------------
+class PlainCalls:
+    """Counts calls of the attention plain versions while active (the
+    wrappers look them up on the ``ref`` module at each call)."""
+
+    NAMES = ("flash_attention_ref", "attention_ref")
+
+    def __init__(self):
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self._orig = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self._orig[name] = getattr(fa_ref, name)
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] += 1
+                return _fn(*a, **k)
+            setattr(fa_ref, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(fa_ref, name, fn)
+
+
+def memory_gib(device, peak: bool = False) -> str:
+    if torch.device(device).type != "cuda":
+        return "n/a"
+    used = (torch.cuda.max_memory_allocated() if peak
+            else torch.cuda.memory_allocated())
+    return f"{used / 2**30:.2f}"
+
+
+def rel_err(got, exp) -> float:
+    got, exp = got.float().cpu(), exp.float().cpu()
+    return float((got - exp).abs().max() / exp.abs().max())
+
+
+def percentile(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def decode_busy_share(eng: ServingEngine, batch, steps: int = 8) -> dict:
+    """Wall time of one decode step (after a prefill of ``batch``) and the
+    device-busy share of it: profiler device time of the same steps over
+    their unprofiled wall time."""
+    decode = build_decode_step(eng.cfg)
+    with torch.inference_mode():
+        logits, cache = api.prefill_fn(eng.cfg)(
+            eng.weights, batch, eng.cache_len, OptFlags(attn_impl="pallas"))
+        held = {"tok": torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None],
+                "cache": cache}
+
+        def step():
+            held["tok"], held["cache"] = decode(eng.weights, held["cache"],
+                                                held["tok"])
+        for _ in range(2):
+            step()
+        sync(eng.device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        sync(eng.device)
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+        if eng.device.type != "cuda":
+            return {"decode_step_ms": wall_ms, "device_busy_ms": None,
+                    "busy_share": None, "device_ops": None,
+                    "top_device_us": {}}
+        dev_ms, kernels, count = device_time([step] * steps)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"decode_step_ms": wall_ms, "device_busy_ms": dev_ms,
+            "busy_share": None if dev_ms is None else dev_ms / wall_ms,
+            "device_ops": count / steps,
+            "top_device_us": {k[:60]: v / steps for k, v in top}}
+
+
+def serving_phase(device="cuda") -> dict:
+    """examples/kv_serving.py on the card at Qwen2.5-3B's full width and
+    depth: the coordination store keeps model version and serving epoch,
+    the engine serves 16 requests of 2048 tokens in 2 waves through the
+    flash_attention kernel, and the run is held to its outputs, its
+    launches, determinism, a manual greedy loop, the naive attention path
+    and (at 2 layers) the CPU's plain versions."""
+    cfg = get_config(SERVE_ARCH)
+    coord = Coordinator(ChainConfig(n_nodes=4, num_keys=64), device=device)
+    store = Store(*[x[0] for x in init_store(coord.cfg, device=device)])
+    store = coord.put_host(store, MODEL_VERSION_KEY, 1)
+    store = coord.put_host(store, SERVING_EPOCH_KEY, 1)
+    require(coord.get_host(store, MODEL_VERSION_KEY) == 1 and
+            coord.get_host(store, SERVING_EPOCH_KEY) == 1,
+            "serving: the coordination store lost version or epoch")
+    detector = FailureDetector(n_nodes=4, timeout_ticks=8)
+    hedge = HedgedReadPolicy(fanout=2)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
+    params = api.init_params(cfg, gen, device)
+    eng = ServingEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
+                        flags=OptFlags(attn_impl="pallas"), device=device)
+    sync(device)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serving {cfg.name} at full width: {n_params / 1e9:.3f} B params "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_padded}); weights made and cast in "
+        f"{time.perf_counter() - t0:.1f} s; device memory "
+        f"{memory_gib(device)} GiB; coordination "
+        f"store: model_version=1, epoch=1; hedged reads target "
+        f"{hedge.targets(1, coord.chains[0])}")
+
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, PROMPT_LEN),
+                    max_new=MAX_NEW) for i in range(N_REQUESTS)]
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fa_kernel.reset_launches()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        done = eng.run(reqs, prompt_len=PROMPT_LEN)
+        wall = time.perf_counter() - t0
+    launches = fa_kernel.LAUNCHES["flash_attention"]
+    n_waves = -(-N_REQUESTS // SLOTS)
+    require(len(done) == N_REQUESTS, f"serving: {len(done)} requests done")
+    for r in done:
+        require(r.output is not None and len(r.output) == MAX_NEW and
+                int(r.output.min()) >= 0 and
+                int(r.output.max()) < cfg.vocab_padded,
+                f"serving: request {r.rid} output {r.output}")
+    require(launches == cfg.n_layers * n_waves,
+            f"serving: {launches} flash_attention launches, want "
+            f"{cfg.n_layers} x {n_waves}")
+    require(sum(plain.calls.values()) == 0,
+            f"serving: plain attention called on the kernel path "
+            f"{plain.calls}")
+    lat = eng.latencies_ms
+    waves = []
+    for w in eng.waves:
+        ms = w["prefill_ms"] + w["decode_ms"]
+        waves.append({**w, "decode_ms_per_token": w["decode_ms"]
+                      / max(w["decode_steps"], 1),
+                      "prompt_tokens_per_s": w["requests"] * PROMPT_LEN
+                      / w["prefill_ms"] * 1e3,
+                      "tokens_per_s": w["requests"] * MAX_NEW / ms * 1e3})
+    card = on_card(device)
+    for i, w in enumerate(waves):
+        log(f"serving wave {i} ({card}): {w['requests']} requests, prefill "
+            f"{w['prefill_ms']:.3f} ms ({w['prompt_tokens_per_s']:.1f} "
+            f"prompt tokens/s), decode {w['decode_ms_per_token']:.3f} ms per "
+            f"token, {w['tokens_per_s']:.2f} generated tokens/s")
+    log(f"serving ({card}): {N_REQUESTS} requests in {wall:.3f} s, latency "
+        f"p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms; "
+        f"flash_attention launches {launches}, plain calls {plain.calls}; "
+        f"peak device memory {memory_gib(device, peak=True)} GiB")
+
+    # the same prompt twice gives the same tokens; a manual greedy loop
+    # on the float32 parameters gives the engine's
+    prompt = reqs[0].prompt
+    r1, r2 = (eng.run([Request(rid=100 + i, prompt=prompt,
+                               max_new=MAX_NEW)], prompt_len=PROMPT_LEN)[0]
+              for i in range(2))
+    require(np.array_equal(r1.output, r2.output),
+            "serving: the same prompt served twice differs")
+    with torch.inference_mode():
+        batch = {"tokens": torch.as_tensor(prompt[None], dtype=torch.int32,
+                                           device=device)}
+        flags = OptFlags(attn_impl="pallas")
+        logits, cache = api.prefill_fn(cfg)(eng.params, batch, CACHE_LEN,
+                                            flags)
+        toks = [int(torch.argmax(logits[:, -1], -1)[0])]
+        for _ in range(MAX_NEW - 1):
+            tok = torch.tensor([[toks[-1]]], dtype=torch.int32,
+                               device=device)
+            logits, cache = api.decode_fn(cfg)(eng.params, cache, tok, flags)
+            toks.append(int(torch.argmax(logits[:, -1], -1)[0]))
+    require(np.array_equal(r1.output, np.asarray(toks)),
+            "serving: the manual greedy loop differs from the engine")
+    del cache, logits
+
+    # replica health, then the model rollout through the chain
+    for node in range(4):
+        detector.tick()
+        detector.heard_from(node)
+    require(detector.suspected() == [], "serving: a replica is suspected")
+    store = coord.put_host(store, MODEL_VERSION_KEY, 2)
+    require(coord.get_host(store, MODEL_VERSION_KEY) == 2,
+            "serving: the version bump did not read back")
+
+    # the first wave's prefill on the kernel and on the naive path
+    first = {"tokens": torch.as_tensor(
+        np.stack([r.prompt for r in reqs[:SLOTS]]), dtype=torch.int32,
+        device=device)}
+    with torch.inference_mode():
+        lk = api.prefill_fn(cfg)(eng.weights, first, CACHE_LEN,
+                                 OptFlags(attn_impl="pallas"))[0]
+        ln = api.prefill_fn(cfg)(eng.weights, first, CACHE_LEN,
+                                 OptFlags(attn_impl="naive"))[0]
+    naive_err = rel_err(lk, ln)
+    agree = float((lk.argmax(-1) == ln.argmax(-1)).float().mean())
+    require(naive_err <= 5e-2, f"serving: kernel-path prefill logits differ "
+            f"from the naive path's by {naive_err} of their max magnitude")
+    log(f"serving: first-wave prefill logits, kernel vs naive attention: "
+        f"max diff {naive_err:.4g} of the max magnitude; first tokens agree "
+        f"on {agree:.3f} of {SLOTS}")
+    busy = decode_busy_share(eng, first)
+    log(f"serving decode step ({card}): {busy['decode_step_ms']:.3f} ms wall"
+        f", device busy {busy['device_busy_ms']} ms, busy share "
+        f"{busy['busy_share']}, {busy['device_ops']} device kernels, copies "
+        f"and fills per step; top device us/step {busy['top_device_us']}")
+    del eng, params, lk, ln
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    reduced = serving_cpu_equality(device)
+    return {"launches": {"flash_attention": launches}, "waves": waves,
+            "latency_p50_ms": percentile(lat, 50),
+            "latency_p99_ms": percentile(lat, 99), "wall_s": wall,
+            "kernel_vs_naive_rel": naive_err, "first_token_agree": agree,
+            "decode": busy, "reduced_cpu": reduced}
+
+
+def serving_cpu_equality(device="cuda") -> dict:
+    """Phase 11's path at full width and 2 layers: prefill and teacher-
+    forced decode steps on CUDA (the kernel) and on the CPU (the plain
+    versions) from the same weights; logits within 2e-2 of their largest
+    magnitude (bf16 rounded in another order on each device)."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=REDUCED_SERVE["n_layers"])
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 1)
+    weights = {device: TF.compute_params(api.init_params(cfg, gen, device),
+                                         cfg)}
+    weights["cpu"] = TF.compute_params(weights[device], cfg, "cpu")
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    B, S = REDUCED_SERVE["requests"], REDUCED_SERVE["prompt_len"]
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    flags = OptFlags(attn_impl="pallas")
+    logits, forced = {}, None
+    for dev in ("cpu", device):
+        t0 = time.perf_counter()
+        fa_kernel.reset_launches()
+        with PlainCalls() as plain, torch.inference_mode():
+            lg, cache = api.prefill_fn(cfg)(
+                weights[dev], {"tokens": torch.as_tensor(
+                    toks, dtype=torch.int32, device=dev)}, S + 8, flags)
+            out = [lg]
+            if forced is None:
+                forced = torch.argmax(lg[:, -1], -1).to(torch.int32)
+            tok = forced[:, None].to(dev)
+            for _ in range(REDUCED_SERVE["steps"]):
+                lg, cache = api.decode_fn(cfg)(weights[dev], cache, tok,
+                                               flags)
+                out.append(lg)
+        logits[dev] = [x.cpu() for x in out]
+        want = (0, 1) if dev == "cpu" else (cfg.n_layers, 0)
+        got = (fa_kernel.LAUNCHES["flash_attention"],
+               plain.calls["flash_attention_ref"] // cfg.n_layers)
+        require(got == want, f"serving reduced on {dev}: (launches, plain "
+                f"calls per layer) {got}, want {want}")
+        log(f"serving reduced ({on_card(dev)}): {cfg.n_layers} layers, "
+            f"{B} x {S} prompt + {REDUCED_SERVE['steps']} decode steps in "
+            f"{time.perf_counter() - t0:.3f} s")
+    errs = [rel_err(c, p) for c, p in zip(logits[device], logits["cpu"])]
+    require(max(errs) <= 2e-2, f"serving reduced: CUDA logits differ from "
+            f"the CPU's by {errs} of their max magnitude")
+    log(f"serving reduced: CUDA (kernel) vs CPU (plain) logits, relative "
+        f"max diff per step {[f'{e:.3g}' for e in errs]}")
+    return {"rel_errs": errs}
+
+
 def on_card(device) -> str:
     """What a timing ran on: the card's name and power limit, or the
     host's CPU."""
@@ -1209,20 +1605,31 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def build_kernels() -> None:
+    """Both kernel sources built at once, one nvcc each."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(k.build) for k in (kv_kernel, fa_kernel)]
+        for b in builds:
+            b.result()
+    log(f"built {KV_SRC} and {FA_SRC} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device - this script measures the "
                  "port on a GPU and has no CPU mode")
     t_start = time.perf_counter()
-    t0 = time.perf_counter()
-    kv_kernel.build()
-    log(f"built {KERNEL_SRC} for sm_90a in {time.perf_counter() - t0:.1f} s")
+    build_kernels()
     log(smi())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)}; float32 matmul in "
+        f"TF32: {torch.backends.cuda.matmul.allow_tf32}")
 
     kernels = check_kernels()
     kernels.update(check_bucketed_kernels())
+    kernels.update(check_flash_attention())
     floor = launch_floor_ms()
     card = smi()
     us = lambda ms: "n/a" if ms is None else f"{ms * 1e3:.2f} us"
@@ -1232,8 +1639,8 @@ def main() -> None:
             f"{us(rec['library_ms'])}); event-timed call {us(rec['call_ms'])}"
             f" (plain {us(rec['plain_call_ms'])}, library "
             f"{us(rec['library_call_ms'])}); bound {us(rec['bound_ms'])} "
-            f"by bytes; one-element add_ {us(floor)}; device kernels "
-            f"{rec.get('device_kernels_us')}")
+            f"by {rec['bound_by']}; one-element add_ {us(floor)}; device "
+            f"kernels {rec.get('device_kernels_us')}")
 
     craq_run = main_path("netcraq")
     cpu_equality("netcraq")
@@ -1245,12 +1652,14 @@ def main() -> None:
     reb = rebalance_phase()
     writes = partitioned_write_phase(reb)
     fail = failover_phase()
+    serve = serving_phase()
 
     launches = {**craq_run["launches"],
                 "kv_bucketed_read": reb["launches"]["kv_bucketed_read"],
-                "kv_bucketed_write": writes["launches"]["kv_bucketed_write"]}
+                "kv_bucketed_write": writes["launches"]["kv_bucketed_write"],
+                **serve["launches"]}
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SRC,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -1262,7 +1671,7 @@ def main() -> None:
         "netchain_launches": chain_run["launches"],
         "rebalance_launches": reb["launches"], "rebalance_gain": reb["gain"],
         "partitioned_write_launches": writes["launches"],
-        "failover_launches": fail["launches"],
+        "failover_launches": fail["launches"], "serving": serve,
         "kernel_detail": kernels, "add_one_ms": floor,
         "seconds": time.perf_counter() - t_start,
     }))

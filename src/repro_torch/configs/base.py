@@ -1,0 +1,147 @@
+"""Architecture config schema + registry (the port's copy of
+``repro/configs/base.py``).
+
+Every architecture of the port is a ``repro_torch/configs/<id>.py``
+exporting ``CONFIG`` with the hyperparameters the reference gives it;
+``reduced()`` derives the CPU smoke-test variant (same family and
+topology, tiny widths).  ``cdtype()``/``pdtype()`` return torch dtypes.
+The port serves the dense decoders so far: the other architecture ids
+raise ``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def pad_vocab(v: int, multiple: int = 256) -> int:
+    """Megatron-style vocab padding for clean TP sharding."""
+    return ((v + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    # attention details
+    d_head: Optional[int] = None   # default d_model // n_heads
+    qkv_bias: bool = False
+    rotary_fraction: float = 1.0   # chatglm3 "2d RoPE" rotates half the dims
+    rope_base: float = 10000.0
+    tie_embeddings: bool = False
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    shared_expert: bool = False
+    capacity_factor: float = 1.25
+    expert_pad: int = 0
+    moe_group_tokens: int = 2048
+
+    # SSM (mamba2 / zamba2)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+
+    # hybrid (zamba2): shared attention block applied every k mamba layers
+    shared_attn_every: int = 0
+
+    # encoder-decoder (whisper)
+    enc_layers: int = 0
+    dec_layers: int = 0
+    enc_len: int = 1500
+
+    # multimodal stubs
+    vis_len: int = 0               # VLM: prepended patch-embedding tokens
+
+    # precision
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    # provenance
+    source: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        return pad_vocab(self.vocab)
+
+    def cdtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: same family & topology, tiny widths."""
+        small_heads = max(2, min(self.n_heads, 4))
+        kv = max(1, min(self.n_kv_heads, small_heads))
+        while small_heads % kv:
+            kv -= 1
+        return dataclasses.replace(
+            self,
+            n_layers=min(self.n_layers, 4),
+            d_model=128,
+            d_head=32,
+            n_heads=small_heads,
+            n_kv_heads=kv,
+            d_ff=256 if self.d_ff else 0,
+            vocab=512,
+            n_experts=min(self.n_experts, 8) if self.n_experts else 0,
+            expert_pad=0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=32 if self.ssm_state else 64,
+            shared_attn_every=2 if self.shared_attn_every else 0,
+            enc_layers=min(self.enc_layers, 2),
+            dec_layers=min(self.dec_layers, 2),
+            enc_len=32,
+            vis_len=8 if self.vis_len else 0,
+        )
+
+
+_MODULES = {
+    "qwen2.5-3b": "qwen2_5_3b",
+    "chatglm3-6b": "chatglm3_6b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "llama3.2-3b": "llama3_2_3b",
+}
+
+# The reference's other architectures, and the slice of the port that
+# brings each (ROADMAP, queue 1, item 14).
+_LATER = {
+    "mamba2-1.3b": "the SSM slice (mamba2 with the ssd_scan kernel)",
+    "zamba2-2.7b": "the hybrid slice, after the SSM slice",
+    "llama4-scout-17b-a16e": "the MoE slice",
+    "granite-moe-3b-a800m": "the MoE slice",
+    "internvl2-26b": "the VLM slice",
+    "whisper-base": "the encoder-decoder slice",
+}
+
+ARCH_IDS = list(_MODULES) + list(_LATER)
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in _LATER:
+        raise NotImplementedError(
+            f"{arch_id}: the port serves dense decoders so far; "
+            f"{_LATER[arch_id]} brings it")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG

@@ -1,8 +1,10 @@
-"""Carry state between the JAX package and the port.
+"""Carry state and weights between the JAX package and the port.
 
-The engine has no weights; what crosses over is state: a ``SimState``,
+For the engine, what crosses over is state: a ``SimState``,
 message schedules, partition maps, role tables and the control plane's
-host state.  These functions take any NamedTuple-like object whose fields
+host state.  For the models it is a parameter tree: ``lm_params_from``
+builds the port's from the reference's ``init_lm`` pytree, and
+``lm_params_to_numpy`` turns it back.  These functions take any NamedTuple-like object whose fields
 hold array-likes (the JAX package's pytrees after ``np.asarray``, or
 numpy arrays) and build the port's structure on a given device, field by
 field by name; ``to_numpy`` turns the port's structures back into numpy
@@ -17,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.chain import SimState
 from repro_torch.core.coordinator import ChainMembership, Coordinator
@@ -128,3 +131,64 @@ def coordinator_from(co, device="cuda") -> Coordinator:
         for f in dataclasses.fields(mine):
             setattr(mine, f.name, copy.deepcopy(getattr(theirs, f.name)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# model parameters
+# ---------------------------------------------------------------------------
+def params_from(tree: dict, device="cuda"):
+    """A port parameter tree from a reference parameter dict with numpy
+    leaves: ``nn.ParameterDict`` for a dict of arrays, ``nn.ModuleDict``
+    for a dict of dicts."""
+    return _params_module(tree, resolve_device(device))
+
+
+def _params_module(tree: dict, device):
+    leaves = [not isinstance(v, dict) for v in tree.values()]
+    if all(leaves):
+        return nn.ParameterDict({
+            k: nn.Parameter(_tensor(v, device), requires_grad=False)
+            for k, v in tree.items()})
+    if any(leaves):
+        raise ValueError(f"mixed parameter dict {sorted(tree)}")
+    return nn.ModuleDict({k: _params_module(v, device)
+                          for k, v in tree.items()})
+
+
+def _index(tree: dict, i: int) -> dict:
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def lm_params_from(params: dict, cfg, device="cuda"):
+    """The port's parameter tree (``transformer.init_lm``'s structure) from
+    the reference's ``init_lm`` pytree with numpy leaves: the stacked
+    ``[L, ...]`` layer leaves are split into ``cfg.n_layers`` blocks."""
+    dev = resolve_device(device)
+    top = {k: v for k, v in params.items() if k != "layers"}
+    out = _params_module(top, dev)
+    out["layers"] = nn.ModuleList([
+        _params_module(_index(params["layers"], i), dev)
+        for i in range(cfg.n_layers)])
+    return nn.ModuleDict({k: out[k] for k in params})
+
+
+def _numpy_tree(module) -> dict:
+    if isinstance(module, nn.ParameterDict):
+        return {k: p.detach().cpu().numpy() for k, p in module.items()}
+    return {k: _numpy_tree(m) for k, m in module.items()}
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The reference's pytree layout (layers stacked on ``[L, ...]``) with
+    numpy leaves, from the port's parameter tree."""
+    out = {k: _numpy_tree(m) for k, m in params.items() if k != "layers"}
+    blocks = [_numpy_tree(b) for b in params["layers"]]
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(x[k] for x in leaves)) for k in leaves[0]}
+        return np.stack(leaves)
+
+    out["layers"] = stack(*blocks)
+    return {k: out[k] for k in params}

@@ -1,0 +1,102 @@
+"""Wrapper of the hand-written CUDA flash_attention kernel.
+
+``flash_attention`` has the signature of the reference's Pallas kernel
+(``repro/kernels/flash_attention/kernel.py``) without its tile sizes and
+interpret flag: q ``[B, HQ, S, D]`` and k/v ``[B, HKV, SK, D]``, bf16 or
+float32, ``HQ`` a multiple of ``HKV``, ``D <= 256``.  Any strides are
+taken as long as the last dimension is contiguous, so the transposed
+``[B, S, H, D] -> [B, H, S, D]`` views of the model are read in place;
+the output has q's layout.  For tensors on the CPU it runs the plain
+version (``ref.flash_attention_ref``); for CUDA tensors it launches the
+kernel in ``csrc/flash_attention.cu`` or raises - there is no fallback.
+
+The CUDA source is compiled at first use into a shared library with a
+plain C interface, loaded with ``ctypes`` (``repro_torch.kernels.build``:
+``build/libflash_attention_<hash>.so`` beside this file).
+
+``LAUNCHES`` counts kernel launches; only a launch of the CUDA kernel adds
+to it.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+
+import torch
+
+from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.flash_attention import ref
+
+LAUNCHES = {"flash_attention": 0}
+MAX_HEAD_DIM = 256
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _declare(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_attention_launch.argtypes = (
+        [p] * 4 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
+    lib.flash_attention_launch.restype = i
+
+
+_LIBRARY = CudaLibrary(
+    pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    "flash_attention", _declare)
+build = _LIBRARY.build
+
+
+def _check(q, k, v) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 4:
+            raise ValueError(f"{name}: expected [B, H, S, D], got "
+                             f"{tuple(x.shape)}")
+        if x.dtype != q.dtype or x.dtype not in _DTYPES:
+            raise TypeError(f"{name}: expected bf16 or float32 like q, got "
+                            f"{x.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{name}: on {x.device}, q on {q.device}")
+        if x.stride(3) != 1 and x.shape[3] > 1:
+            raise ValueError(f"{name}: the last dimension must be "
+                             "contiguous")
+    B, HQ, S, D = q.shape
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != B or \
+            k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    HKV, SK = k.shape[1], k.shape[2]
+    if HKV < 1 or HQ % HKV:
+        raise ValueError(f"HQ={HQ} is not a multiple of HKV={HKV}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
+    if SK < 1:
+        raise ValueError("no keys (SK = 0)")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """Causal (top-left) GQA attention, forward; see ``ref.py`` for the
+    function.  Returns ``[B, HQ, S, D]`` in q's dtype."""
+    _check(q, k, v)
+    dev = q.device
+    if dev.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    B, HQ, S, D = q.shape
+    HKV, SK = k.shape[1], k.shape[2]
+    scale = (D ** -0.5) if scale is None else scale
+    o = torch.empty_like(q)
+    strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
+    with torch.cuda.device(dev):
+        rc = _LIBRARY.lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, HQ, HKV, S, SK, D, *strides,
+            float(scale), int(causal),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+    LAUNCHES["flash_attention"] += 1
+    return o

@@ -12,13 +12,11 @@ place.  For tensors on the CPU the wrappers run the plain versions in
 ``ref.py``; for CUDA tensors they launch the kernels in
 ``csrc/kv_engine.cu`` or raise - there is no fallback.
 
-The CUDA source is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into a shared library with a plain C
-interface, loaded with ``ctypes``.  The library lands in ``build/``
-beside this file, named by a hash of the source, so an edited source is
-rebuilt.  The kernels move a value cell as one 16-byte word, so on CUDA
-they take ``W = 4`` (the paper's 128-bit value) and 16-byte aligned
-value leaves only.
+The CUDA source is compiled at first use into a shared library with a
+plain C interface, loaded with ``ctypes`` (``repro_torch.kernels.build``:
+``build/libkv_engine_<hash>.so`` beside this file).  The kernels move a
+value cell as one 16-byte word, so on CUDA they take ``W = 4`` (the
+paper's 128-bit value) and 16-byte aligned value leaves only.
 
 ``LAUNCHES`` counts kernel launches per kernel name; only a launch of a
 CUDA kernel adds to it.
@@ -26,29 +24,15 @@ CUDA kernel adds to it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import torch
 
+from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.kv_engine import ref
-
-HERE = pathlib.Path(__file__).resolve().parent
-CSRC = HERE / "csrc" / "kv_engine.cu"
-BUILD_DIR = HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"kv_read": 0, "kv_write": 0, "kv_bucketed_read": 0,
             "kv_bucketed_write": 0}
-
-_LIB = None
-_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -56,57 +40,25 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the kv_engine kernels need the "
-                       "CUDA toolkit to build")
-
-
-def build() -> pathlib.Path:
-    """Compile ``csrc/kv_engine.cu`` (if not built yet) and return the
-    library's path."""
-    src = CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libkv_engine_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+def _declare(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kv_read_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 6
+    lib.kv_read_launch.restype = i
+    lib.kv_write_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 3
+    lib.kv_write_launch.restype = i
+    lib.kv_bucketed_read_launch.argtypes = (
+        [p] * 5 + [i] * 4 + [ll] * 3 + [p] * 6)
+    lib.kv_bucketed_read_launch.restype = i
+    lib.kv_bucketed_write_launch.argtypes = (
+        [p] * 9 + [i] * 4 + [ll] * 3 + [p] * 3)
+    lib.kv_bucketed_write_launch.restype = i
 
 
-def _lib():
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.kv_read_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 6
-            lib.kv_read_launch.restype = i
-            lib.kv_write_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 3
-            lib.kv_write_launch.restype = i
-            lib.kv_bucketed_read_launch.argtypes = (
-                [p] * 5 + [i] * 4 + [ll] * 3 + [p] * 6)
-            lib.kv_bucketed_read_launch.restype = i
-            lib.kv_bucketed_write_launch.argtypes = (
-                [p] * 9 + [i] * 4 + [ll] * 3 + [p] * 3)
-            lib.kv_bucketed_write_launch.restype = i
-            _LIB = lib
-    return _LIB
+_LIBRARY = CudaLibrary(
+    pathlib.Path(__file__).resolve().parent / "csrc" / "kv_engine.cu",
+    "kv_engine", _declare)
+build = _LIBRARY.build
+_lib = _LIBRARY.lib
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, device,

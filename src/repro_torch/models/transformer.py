@@ -1,0 +1,225 @@
+"""Decoder-only LM assembly, dense family (the port's copy of the dense
+paths of ``repro/models/transformer.py``).
+
+The reference stacks its layer parameters on a leading ``[L, ...]`` axis
+and scans over them; here the layers are an ``nn.ModuleList`` of
+``nn.ModuleDict`` blocks and the scan is a Python loop.  Parameter names
+and layouts are the reference's, so ``repro_torch.convert`` moves a
+parameter tree across key by key.  The caches keep the reference's
+stacked layout: ``{"kv": (k [L, B, T, KV, D], v [L, B, T, KV, D]),
+"t": int}``.  The other families (moe, ssm, hybrid, encdec) and the VLM
+stub frontend raise ``NotImplementedError``: later slices bring them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.types import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+# the leaves whose every use casts them to the compute dtype first
+# (dense weights and biases, the embedding table); norm scales are read
+# in float32 and are not among them
+_COMPUTE_LEAVES = ("w", "b", "table")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptFlags:
+    """Performance knobs, with the reference's fields and defaults.  The
+    serving path reads ``attn_impl`` (prefill attention: "naive" or
+    "pallas") and ``seq_parallel_decode``; the others belong to the
+    training and multi-device paths of later slices."""
+
+    remat: str = "none"
+    chunked_ce: bool = False
+    ce_chunk: int = 1024
+    seq_parallel_decode: bool = False
+    seq_parallel_acts: bool = False
+    donate_cache: bool = True
+    flash_kernel: bool = False
+    attn_impl: str = "naive"
+    kv_cache_dtype: str = ""
+    unroll_layers: bool = False
+    cast_params_bf16: bool = False
+
+
+BASELINE_FLAGS = OptFlags()
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            "serves the dense family")
+    if cfg.vis_len:
+        raise NotImplementedError(
+            f"{cfg.name}: the VLM stub frontend (vis_len) is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _block_init(gen, cfg: ArchConfig, device):
+    dt = cfg.pdtype()
+    return nn.ModuleDict({
+        "ln1": L.rmsnorm_init(cfg.d_model, dt, device),
+        "attn": A.attn_init(gen, cfg, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, dt, device),
+        "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+    })
+
+
+def init_lm(cfg: ArchConfig, gen: torch.Generator, device="cuda"):
+    """Random parameters from ``gen`` (drawn on the generator's device),
+    placed on ``device``."""
+    _dense_only(cfg)
+    device = resolve_device(device)
+    dt = cfg.pdtype()
+    params = nn.ModuleDict({
+        "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt,
+                              device),
+        "layers": nn.ModuleList([_block_init(gen, cfg, device)
+                                 for _ in range(cfg.n_layers)]),
+        "final_norm": L.rmsnorm_init(cfg.d_model, dt, device),
+    })
+    if not cfg.tie_embeddings:
+        params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
+                                      dtype=dt, device=device)
+    return params
+
+
+def _map_params(params, fn):
+    """A new parameter tree of the same structure with ``fn(name,
+    tensor)`` in place of every leaf (``name`` is the leaf's key)."""
+    if isinstance(params, nn.ParameterDict):
+        return nn.ParameterDict({
+            k: nn.Parameter(fn(k, p.data), requires_grad=False)
+            for k, p in params.items()})
+    if isinstance(params, nn.ModuleList):
+        return nn.ModuleList([_map_params(m, fn) for m in params])
+    return nn.ModuleDict({k: _map_params(m, fn) for k, m in params.items()})
+
+
+def compute_params(params, cfg: ArchConfig, device=None):
+    """The parameters as the forward pass reads them: the dense weights,
+    biases and the embedding table cast once to the compute dtype, norm
+    scales as they are, all on ``device`` (default: where they are).
+    Every use of a cast leaf casts it first anyway, and a cast is
+    deterministic, so the outputs are bit for bit those of ``params``;
+    what changes is that a step reads bf16 weights instead of converting
+    float32 ones on every call."""
+    cd = cfg.cdtype()
+
+    def cast(name, x):
+        return x.to(device=device or x.device,
+                    dtype=cd if name in _COMPUTE_LEAVES else x.dtype)
+
+    return _map_params(params, cast)
+
+
+def head_weight(params, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["head"]["w"]
+
+
+def _logits(params, cfg: ArchConfig, x):
+    """Final norm and head: float32 logits of the compute-dtype product."""
+    x = L.rmsnorm(params["final_norm"], x)
+    return (x @ head_weight(params, cfg).to(x.dtype)).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Forward (scoring)
+# ---------------------------------------------------------------------------
+def _embed_inputs(params, cfg: ArchConfig, tokens, embeds):
+    if embeds is not None:
+        raise NotImplementedError("stub frontend embeddings (VLM/audio) "
+                                  "are not ported yet")
+    return L.embed(params["embed"], tokens, compute_dtype=cfg.cdtype())
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(
+        B, S)
+
+
+def _mlp(layer_p, h, cfg: ArchConfig):
+    inner = L.rmsnorm(layer_p["ln2"], h)
+    return h + L.swiglu(layer_p["mlp"], inner, compute_dtype=cfg.cdtype())
+
+
+def lm_forward(params, cfg: ArchConfig, tokens, *,
+               embeds: Optional[torch.Tensor] = None,
+               flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
+    """Final hidden states ``[B, S, d]`` (after the final norm)."""
+    _dense_only(cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    impl = "pallas" if flags.flash_kernel else flags.attn_impl
+    for layer_p in params["layers"]:
+        h = x + A.attn_apply(layer_p["attn"], L.rmsnorm(layer_p["ln1"], x),
+                             cfg, positions=positions, impl=impl)
+        x = _mlp(layer_p, h, cfg)
+    return L.rmsnorm(params["final_norm"], x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+def lm_prefill(params, cfg: ArchConfig, tokens, *, cache_len: int,
+               embeds=None, flags: OptFlags = BASELINE_FLAGS):
+    """Run the prompt ``tokens [B, S]``; return (last-position logits
+    ``[B, 1, V]`` float32, cache ``{"kv": (k, v) [L, B, T, KV, D], "t":
+    S}``).  Prefill attention runs ``flags.attn_impl``."""
+    _dense_only(cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    ks, vs = [], []
+    for layer_p in params["layers"]:
+        a, (k, v) = A.attn_prefill(
+            layer_p["attn"], L.rmsnorm(layer_p["ln1"], x), cfg,
+            positions=positions, cache_len=cache_len, impl=flags.attn_impl)
+        ks.append(k)
+        vs.append(v)
+        x = _mlp(layer_p, x + a, cfg)
+    cache = {"kv": (torch.stack(ks), torch.stack(vs)), "t": S}
+    return _logits(params, cfg, x[:, -1:]), cache
+
+
+def lm_decode_step(params, cfg: ArchConfig, cache, token, *,
+                   flags: OptFlags = BASELINE_FLAGS):
+    """One token step: ``token [B, 1]`` -> (logits ``[B, 1, V]`` float32,
+    cache with ``t + 1``).  The cache's KV tensors are updated in place
+    (the reference donates them) and returned in the new cache."""
+    _dense_only(cfg)
+    cd = cfg.cdtype()
+    x = L.embed(params["embed"], token, compute_dtype=cd)
+    t = cache["t"]
+    k_all, v_all = cache["kv"]
+    for i, layer_p in enumerate(params["layers"]):
+        a, _ = A.attn_decode(
+            layer_p["attn"], L.rmsnorm(layer_p["ln1"], x),
+            (k_all[i], v_all[i]), t, cfg,
+            seq_parallel=flags.seq_parallel_decode)
+        x = _mlp(layer_p, x + a, cfg)
+    return _logits(params, cfg, x), {"kv": (k_all, v_all), "t": t + 1}
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int,
+                      device="cuda"):
+    """A fresh (empty) decode cache."""
+    _dense_only(cfg)
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"kv": tuple(torch.zeros(shape, dtype=cfg.cdtype(), device=dev)
+                        for _ in range(2)),
+            "t": 0}

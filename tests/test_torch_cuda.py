@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, a
-small cluster run and a live rebalance on CUDA against the same runs on
-the CPU.  Imports no JAX, so it runs where only PyTorch is installed;
+small cluster run, a live rebalance and a reduced serving run on CUDA
+against the same runs on the CPU.  Imports no JAX, so it runs where only PyTorch is installed;
 without a card every test skips:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -18,6 +18,8 @@ from repro_torch.core.store import Store  # noqa: E402
 from repro_torch.kernels.kv_engine import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.kv_engine import ops as t_ops  # noqa: E402
 from repro_torch.kernels.kv_engine import ref as t_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +202,67 @@ def test_cuda_rebalance_and_partitioned_ops_match_cpu(card):
         out[str(d)] = (*read, acc, *state.stores, *state.metrics)
     for a, b in zip(out["cpu"], out[str(card)]):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("B,HQ,HKV,S,SK,D,causal,dtype,tol", [
+    (2, 16, 2, 256, 256, 128, True, torch.bfloat16, 2e-2),
+    (1, 16, 2, 192, 192, 128, True, torch.float32, 2e-5),
+    (1, 4, 2, 200, 200, 64, True, torch.bfloat16, 2e-2),
+    (1, 4, 1, 100, 224, 32, True, torch.float32, 2e-5),
+    (1, 4, 4, 130, 70, 256, False, torch.float32, 2e-5),
+])
+def test_cuda_flash_attention_matches_plain_version(card, B, HQ, HKV, S,
+                                                    SK, D, causal, dtype,
+                                                    tol):
+    """The kernel equals its plain version: GQA, ragged tiles, S != SK,
+    head dims 32-256, and the transposed views the model hands over."""
+    rng = np.random.default_rng(41)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype) for shape in
+        ((B, S, HQ, D), (B, SK, HKV, D), (B, SK, HKV, D)))
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    fa_kernel.reset_launches()
+    got = fa_kernel.flash_attention(q, k, v, causal=causal)
+    exp = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    assert float((got.float() - exp.float()).abs().max()) <= tol
+
+
+def test_cuda_serving_matches_cpu(card):
+    """A reduced Qwen2.5-3B served on CUDA through the kernel gives the
+    CPU's tokens and prefill logits (float32 compute, where the two differ
+    only in summation order)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.models.transformer import OptFlags
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(),
+                              n_layers=2, compute_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, 40) for _ in range(3)]
+    out, logits = {}, {}
+    for d in ("cpu", card):
+        eng = ServingEngine(cfg, params, slots=2, cache_len=64,
+                            flags=OptFlags(attn_impl="pallas"), device=d)
+        fa_kernel.reset_launches()
+        done = eng.run([Request(rid=i, prompt=p, max_new=6)
+                        for i, p in enumerate(prompts)], prompt_len=40)
+        out[str(d)] = np.stack([r.output for r in done])
+        launches = fa_kernel.LAUNCHES["flash_attention"]
+        assert launches == (0 if d == "cpu" else 2 * cfg.n_layers)
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                                   device=d)
+            logits[str(d)] = api.prefill_fn(cfg)(
+                eng.weights, {"tokens": toks}, 64,
+                OptFlags(attn_impl="pallas"))[0].cpu()
+    np.testing.assert_array_equal(out["cpu"], out[str(card)])
+    exp = logits["cpu"]
+    assert float((logits[str(card)] - exp).abs().max()
+                 / exp.abs().max()) < 1e-4

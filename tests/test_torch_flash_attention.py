@@ -1,0 +1,155 @@
+"""The port's attention against the reference's.
+
+On the CPU ``mha(impl="pallas")`` runs the flash_attention kernel's plain
+version (``ref.flash_attention_ref``); it is held against the reference's
+Pallas kernel in interpret mode (as ``tests/test_kernels.py`` runs it) on
+that test's cases, a GQA group of 8 and a causal ``S != SK`` case.
+``mha(impl="naive")`` is held against the reference's ``attention_ref``.
+The CUDA kernel itself is held against the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  Tolerances are the
+reference kernel test's: 2e-5 in float32 (summation order), 2e-2 in bf16
+(one rounding of the output).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention import kernel as j_kernel  # noqa: E402
+from repro.kernels.flash_attention import ref as j_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as t_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as t_ref  # noqa: E402
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _inputs(seed, B, HQ, HKV, S, SK, D, dtype):
+    """The same q, k, v for both packages (float32 numpy, then each
+    package's cast)."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
+              ((B, HQ, S, D), (B, HKV, SK, D), (B, HKV, SK, D))]
+    jdt, tdt, tol = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays], tol)
+
+
+def _err(got, exp) -> float:
+    return float(np.abs(got.float().numpy()
+                        - np.asarray(exp.astype(jnp.float32))).max())
+
+
+@pytest.mark.parametrize("B,HQ,HKV,S,SK,D,causal,dtype", [
+    # tests/test_kernels.py::test_flash_pallas_matches_ref
+    (2, 4, 2, 256, 256, 64, True, "f32"),
+    (1, 8, 8, 128, 128, 128, True, "bf16"),
+    (1, 4, 1, 200, 200, 64, False, "f32"),
+    (2, 2, 2, 128, 128, 32, True, "bf16"),
+    # a GQA group of 8 (Qwen2.5-3B's 16 / 2 heads), both types
+    (1, 8, 1, 128, 128, 128, True, "bf16"),
+    (1, 8, 1, 96, 96, 64, True, "f32"),
+    # causal with S != SK: the kernel's top-left alignment
+    (1, 4, 2, 100, 224, 32, True, "f32"),
+    (1, 4, 2, 160, 96, 32, True, "bf16"),
+])
+def test_flash_plain_matches_pallas_kernel(B, HQ, HKV, S, SK, D, causal,
+                                           dtype):
+    (jq, jk, jv), (tq, tk, tv), tol = _inputs(1, B, HQ, HKV, S, SK, D,
+                                              dtype)
+    exp = j_kernel.flash_attention(jq, jk, jv, causal=causal)
+    t_kernel.reset_launches()
+    got = t_ops.mha(tq, tk, tv, causal=causal, impl="pallas")
+    assert got.dtype == tq.dtype and got.shape == (B, HQ, S, D)
+    assert _err(got, exp) < tol
+    # on the CPU the wrapper runs the plain version: no launch
+    assert t_kernel.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("B,HQ,HKV,S,SK,D,causal,dtype", [
+    (2, 4, 2, 64, 64, 32, True, "f32"),
+    (1, 8, 1, 48, 48, 64, True, "bf16"),
+    (1, 4, 2, 40, 72, 32, True, "f32"),
+    (1, 4, 4, 72, 40, 16, False, "bf16"),
+])
+def test_naive_matches_attention_ref(B, HQ, HKV, S, SK, D, causal, dtype):
+    (jq, jk, jv), (tq, tk, tv), tol = _inputs(2, B, HQ, HKV, S, SK, D,
+                                              dtype)
+    exp = j_ref.attention_ref(jq, jk, jv, causal=causal)
+    got = t_ops.mha(tq, tk, tv, causal=causal, impl="naive")
+    assert got.dtype == tq.dtype and got.shape == (B, HQ, S, D)
+    assert _err(got, exp) < tol
+
+
+def test_causal_alignment_differs_when_s_ne_sk():
+    """The reference's two causal masks disagree when S != SK (the Pallas
+    kernel aligns top-left, attention_ref bottom-right); the port follows
+    each, so each side matches its counterpart and not the other."""
+    (jq, jk, jv), (tq, tk, tv), tol = _inputs(3, 1, 4, 2, 64, 160, 32,
+                                              "f32")
+    j_flash = j_kernel.flash_attention(jq, jk, jv, causal=True)
+    j_naive = j_ref.attention_ref(jq, jk, jv, causal=True)
+    t_flash = t_ops.mha(tq, tk, tv, causal=True, impl="pallas")
+    t_naive = t_ops.mha(tq, tk, tv, causal=True, impl="naive")
+    assert _err(t_flash, j_flash) < tol and _err(t_naive, j_naive) < tol
+    assert _err(t_flash, j_naive) > 0.1 and _err(t_naive, j_flash) > 0.1
+    # at S == SK the two agree
+    (jq, jk, jv), (tq, tk, tv), tol = _inputs(3, 1, 4, 2, 96, 96, 32, "f32")
+    assert float((t_ops.mha(tq, tk, tv, impl="pallas")
+                  - t_ops.mha(tq, tk, tv, impl="naive")).abs().max()) < tol
+
+
+def test_flash_reads_strided_views_in_place():
+    """The model hands the kernel transposed [B, S, H, D] views: the
+    result equals that of contiguous copies, in q's layout."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((2, 40, 8, 32),
+                                             dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 40, 2, 32),
+                                             dtype=np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 40, 2, 32),
+                                             dtype=np.float32))
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    got = t_kernel.flash_attention(*views)
+    exp = t_kernel.flash_attention(*[x.contiguous() for x in views])
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("case", ["heads", "head_dim", "dtype", "rank",
+                                  "last_dim", "no_keys"])
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
+    q = torch.zeros(1, 4, 8, 32)
+    k = v = torch.zeros(1, 2, 8, 32)
+    if case == "heads":
+        k = v = torch.zeros(1, 3, 8, 32)
+    elif case == "head_dim":
+        q, k, v = (torch.zeros(x.shape[:3] + (288,)) for x in (q, k, v))
+    elif case == "dtype":
+        k = k.half()
+    elif case == "rank":
+        q = q[0]
+    elif case == "last_dim":
+        q = torch.zeros(1, 4, 32, 8).transpose(2, 3)
+    else:
+        k = v = torch.zeros(1, 2, 0, 32)
+    with pytest.raises((ValueError, TypeError)):
+        t_kernel.flash_attention(q, k, v)
+
+
+def test_mha_chunked_waits_for_the_training_slice():
+    x = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(NotImplementedError):
+        t_ops.mha(x, x, x, impl="chunked")
+    with pytest.raises(ValueError):
+        t_ops.mha(x, x, x, impl="fused")
+
+
+def test_plain_versions_agree_at_s_eq_sk_with_the_reference_oracle():
+    """The kernel's plain version equals the reference's oracle (the
+    target of the reference kernel test) at the serving path's S == SK."""
+    (jq, jk, jv), (tq, tk, tv), tol = _inputs(5, 2, 8, 1, 80, 80, 64,
+                                              "bf16")
+    exp = j_ref.attention_ref(jq, jk, jv, causal=True)
+    assert _err(t_ref.flash_attention_ref(tq, tk, tv), exp) < tol
