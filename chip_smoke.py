@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/kv_engine/
-csrc`` and ``src/repro_torch/kernels/flash_attention/csrc`` with nvcc
-(sm_90a, one nvcc per source, both at once), then:
+csrc``, ``src/repro_torch/kernels/flash_attention/csrc`` and
+``src/repro_torch/kernels/ssd_scan/csrc`` with nvcc (sm_90a, one nvcc per
+source, all three at once), then:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. holds each kernel against its plain PyTorch version on the card, at
@@ -61,7 +62,21 @@ csrc`` and ``src/repro_torch/kernels/flash_attention/csrc`` with nvcc
    loop, the version bump, the naive attention path's prefill logits and,
    at 2 layers, the CPU's plain versions; prints per wave prefill ms,
    decode ms per token, tokens/s, p50/p99 latency and a decode step's
-   device-busy share.
+   device-busy share;
+12. the ssd_scan kernel against its plain version (``ssd_chunked``), y
+   and the final state, timed as in phase 2 beside its bound: one
+   layer's prefill of phase 13 (x [8, 2000, 64, 64] bf16 as the model's
+   strided view, dt [8, 2000, 64], B/C [8, 2000, 128] shared by the
+   heads, chunk 64 with a ragged last chunk), float32 x, L = 2048,
+   L = 40 < chunk, chunks 16 and 32; no library call computes the scan;
+13. the same serving run as phase 11 on Mamba2-1.3B (48 layers, random
+   weights from a seed; 16 requests of 2000-token prompts, 32 new tokens
+   each, 2 waves of 8) with every SSD core of prefill on the kernel;
+   held to 96 launches and no plain-version call, determinism, a manual
+   greedy loop, the version bump, the plain path's (``impl="chunked"``)
+   prefill logits and ``lm_forward`` scoring of 2 x 2000 tokens (48
+   launches) at full depth and, at 2 layers, the CPU's plain versions;
+   prints the same serving metrics and the peak device memory.
 
 Any failure raises (non-zero exit).  Without a card, or without the repo
 beside it, the script exits non-zero before printing any result.  The
@@ -71,6 +86,7 @@ second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -107,6 +123,9 @@ try:
     from repro_torch.kernels.kv_engine import ref as kv_ref  # noqa: E402
     from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
     from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
     from repro_torch.models import api  # noqa: E402
     from repro_torch.models import transformer as TF  # noqa: E402
     from repro_torch.models.transformer import OptFlags  # noqa: E402
@@ -126,17 +145,20 @@ REDUCED_TICKS, REDUCED_EXTRA = 4, 8
 ITERS = 40                         # timed calls per kernel measurement
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12             # H100 SXM f32 peak outside tensor cores
 KV_SRC = "src/repro_torch/kernels/kv_engine/csrc/kv_engine.cu"
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SOURCES = {"kv_read": KV_SRC, "kv_write": KV_SRC,
            "kv_bucketed_read": KV_SRC, "kv_bucketed_write": KV_SRC,
-           "flash_attention": FA_SRC}
+           "flash_attention": FA_SRC, "ssd_scan": SSD_SRC}
 REPLACES = {
     "kv_read": "src/repro/kernels/kv_engine/kernel.py:153",
     "kv_write": "src/repro/kernels/kv_engine/kernel.py:510",
     "kv_bucketed_read": "src/repro/kernels/kv_engine/kernel.py:249",
     "kv_bucketed_write": "src/repro/kernels/kv_engine/kernel.py:339",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:94",
 }
 # The partition map of phases 2 and 7-8, in fig_rebalance's proportions:
 # 14 buckets of 4096 registers per chain and two bucket-sized landing
@@ -158,8 +180,12 @@ FAILOVER = dict(ticks=48, q=8, fail_tick=12, freeze_tick=28,
 SERVE_ARCH, SLOTS, CACHE_LEN = "qwen2.5-3b", 8, 2080
 N_REQUESTS, PROMPT_LEN, MAX_NEW, SERVE_SEED = 16, 2048, 32, 0
 MODEL_VERSION_KEY, SERVING_EPOCH_KEY = 10, 11
-# the same path at full width and 2 layers, CUDA (kernel) against the CPU
-# (plain versions)
+# phases 12-13: the same run at Mamba2-1.3B's full width and depth, on
+# 2000-token prompts (not a multiple of the SSD chunk of 64, so every
+# sequence ends in a ragged chunk, as real prompts do)
+SSM_ARCH, SSM_PROMPT_LEN = "mamba2-1.3b", 2000
+# each serving path at full width and 2 layers, CUDA (kernel) against the
+# CPU (plain versions)
 REDUCED_SERVE = dict(n_layers=2, requests=2, prompt_len=256, steps=4)
 FA_ITERS = 10                      # timed calls per attention measurement
 
@@ -1322,31 +1348,180 @@ def check_flash_attention() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the serving path at full width (examples/kv_serving.py)
+# phase 12: the ssd_scan kernel against its plain version
+# ---------------------------------------------------------------------------
+def ssd_inputs(gen, Bz, L, H, P, N, dtype):
+    """x, dt, A, B, C, D as the Mamba-2 mixer hands them to the kernel: x,
+    B and C strided views of one conv output [Bz, L, H*P + 2N] (x in
+    ``dtype``, B and C float32), dt [Bz, L, H] in (0.01, 0.2), A < 0."""
+    wide = torch.randn((Bz, L, H * P + 2 * N), generator=gen, device="cuda")
+    x = wide.to(dtype)[..., : H * P].reshape(Bz, L, H, P)
+    wide = wide * 0.3
+    dt = torch.rand((Bz, L, H), generator=gen, device="cuda") * 0.19 + 0.01
+    A = -(torch.rand((H,), generator=gen, device="cuda") * 1.5 + 0.5)
+    D = torch.randn((H,), generator=gen, device="cuda")
+    return x, dt, A, wide[..., H * P: H * P + N], wide[..., H * P + N:], D
+
+
+def ssd_bound(x, B, chunk: int = 64):
+    """(bytes, operations) the scan must move and do for these inputs: x
+    and dt read once, B and C once per batch (shared by the heads), A and
+    D once, y and h_final written once; per (batch, head) and chunk of q
+    rows, the causal C.B and M.x products over q(q+1)/2 pairs and the
+    C.h and state products over q rows, 2 operations per multiply-add."""
+    Bz, L, H, P = x.shape
+    N = B.shape[-1]
+    nbytes = (2 * x.element_size() * Bz * L * H * P + 4 * Bz * L * H
+              + 2 * 4 * Bz * L * N + 2 * 4 * H + 4 * Bz * H * N * P)
+    flop = 0
+    for l0 in range(0, L, min(chunk, L)):
+        q = min(chunk, L - l0)
+        flop += 2 * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P)
+    return nbytes, flop * Bz * H
+
+
+def check_ssd_scan() -> dict:
+    """The kernel against its plain version (``ssd_chunked``) on the card:
+    one Mamba2-1.3B layer's prefill of phase 13 (8 x 2000 tokens, bf16 x,
+    a ragged last chunk), float32 x, L = 2048, L = 40 < chunk, chunks 16
+    and 32; y within ``tol`` of its largest magnitude, the final state
+    within 1e-5 of its own.  Then times kernel and plain version at the
+    prefill shape; no single PyTorch call computes the scan."""
+    cfg = get_config(SSM_ARCH)
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("prefill", SLOTS, SSM_PROMPT_LEN, 64, bf16, 1e-2),
+             ("float32", 2, SSM_PROMPT_LEN, 64, f32, 1e-5),
+             ("L2048", 2, 2048, 64, bf16, 1e-2),
+             ("short", SLOTS, 40, 64, bf16, 1e-2),
+             ("chunk16", 2, 500, 16, f32, 1e-5),
+             ("chunk32", 2, 500, 32, bf16, 1e-2)]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    errs = {}
+    for name, Bz, L, chunk, dtype, tol in cases:
+        x, dt, A, Bm, Cm, D = ssd_inputs(gen, Bz, L, H, P, N, dtype)
+        y, h = ssd_kernel.ssd_scan_heads(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                         h_final=True)
+        ey, eh = ssd_ops.ssd(x, dt, A, Bm, Cm, D, impl="chunked",
+                             chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+                f"ssd_scan {name}: non-finite output")
+        err_y = float((y.float() - ey.float()).abs().max())
+        err_h = float((h - eh).abs().max())
+        rel_y = err_y / float(ey.float().abs().max())
+        rel_h = err_h / float(eh.abs().max())
+        require(rel_y <= tol and rel_h <= 1e-5,
+                f"ssd_scan {name} [{Bz}, {L}, {H}, {P}], N {N}, chunk "
+                f"{chunk}, {dtype}: differs from its plain version by "
+                f"{rel_y} (y) / {rel_h} (h_final) of the max magnitude")
+        errs[name] = {"y": err_y, "h_final": err_h}
+        log(f"ssd_scan {name}: x [{Bz}, {L}, {H}, {P}] {str(dtype)[6:]}, "
+            f"N {N}, chunk {chunk}: max abs err y {err_y:.3g} ({rel_y:.3g} "
+            f"of its max; tolerance {tol}), h_final {err_h:.3g} "
+            f"({rel_h:.3g}; tolerance 1e-5)")
+        del x, dt, A, Bm, Cm, D, y, h, ey, eh
+    x, dt, A, Bm, Cm, D = ssd_inputs(gen, SLOTS, SSM_PROMPT_LEN, H, P, N,
+                                     bf16)
+    nbytes, flop = ssd_bound(x, Bm)
+    rec = dict(
+        max_abs_err=max(e["y"] for e in errs.values()), case_errs=errs,
+        calls=lambda n: [lambda: ssd_kernel.ssd_scan_heads(
+            x, dt, A, Bm, Cm, D, h_final=True)] * n,
+        plain=lambda n: [lambda: ssd_ops.ssd(
+            x, dt, A, Bm, Cm, D, impl="chunked", return_state=True)] * n,
+        library=None,   # no single PyTorch call computes the chunked scan
+        bound_bytes=nbytes, bound_flop=flop, iters=FA_ITERS)
+    out = measure({"ssd_scan": rec})
+    log(f"ssd_scan at the prefill shape: {flop / 1e9:.2f} GFLOP "
+        f"({flop / BF16_FLOP_PER_S * 1e6:.1f} us at the bf16 peak, "
+        f"{flop / F32_FLOP_PER_S * 1e6:.1f} us at the f32 CUDA-core peak), "
+        f"{nbytes / 1e6:.1f} MB ({nbytes / HBM_BYTES_PER_S * 1e6:.1f} us); "
+        f"bound {out['ssd_scan']['bound_ms']:.4f} ms by "
+        f"{out['ssd_scan']['bound_by']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 13: the serving paths at full width (examples/kv_serving.py)
 # ---------------------------------------------------------------------------
 class PlainCalls:
-    """Counts calls of the attention plain versions while active (the
-    wrappers look them up on the ``ref`` module at each call)."""
+    """Counts calls of a kernel's plain versions while active (the
+    wrappers and ops look them up on the ``ref`` module at each call)."""
 
-    NAMES = ("flash_attention_ref", "attention_ref")
-
-    def __init__(self):
-        self.calls = dict.fromkeys(self.NAMES, 0)
+    def __init__(self, module, names):
+        self.module = module
+        self.calls = dict.fromkeys(names, 0)
         self._orig = {}
 
     def __enter__(self):
-        for name in self.NAMES:
-            fn = self._orig[name] = getattr(fa_ref, name)
+        for name in self.calls:
+            fn = self._orig[name] = getattr(self.module, name)
 
             def counted(*a, _fn=fn, _name=name, **k):
                 self.calls[_name] += 1
                 return _fn(*a, **k)
-            setattr(fa_ref, name, counted)
+            setattr(self.module, name, counted)
         return self
 
     def __exit__(self, *exc):
         for name, fn in self._orig.items():
-            setattr(fa_ref, name, fn)
+            setattr(self.module, name, fn)
+
+
+@contextlib.contextmanager
+def naive_attention():
+    """The dense model's plain path: prefill attention on the naive
+    softmax."""
+    yield OptFlags(attn_impl="naive")
+
+
+@contextlib.contextmanager
+def chunked_ssd():
+    """The SSM model's plain path on the card: ``ops.ssd(impl="pallas")``
+    answered by ``impl="chunked"`` (the reference's own route) while
+    active."""
+    kernel_route = ssd_kernel.ssd_scan_heads
+
+    def plain(x, dt, A, B, C, D, *, chunk, h_final):
+        return ssd_ops.ssd(x, dt, A, B, C, D, impl="chunked", chunk=chunk,
+                           return_state=h_final)
+    ssd_kernel.ssd_scan_heads = plain
+    try:
+        yield OptFlags()
+    finally:
+        ssd_kernel.ssd_scan_heads = kernel_route
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePath:
+    """One serving path: the model, its prompts, the kernel its prefill
+    launches (``kernel.LAUNCHES[key]``), that kernel's plain versions
+    (the first is the one the CPU runs per layer) and the plain path the
+    kernel path is held to at full depth."""
+    phase: int
+    arch: str
+    prompt_len: int
+    cache_len: int
+    kernel: object
+    key: str
+    plain_module: object
+    plain_names: tuple
+    flags: OptFlags
+    plain_path: object
+    score: bool            # also hold lm_forward (scoring) to the plain path
+
+
+SERVE_PATHS = {
+    "dense": ServePath(11, SERVE_ARCH, PROMPT_LEN, CACHE_LEN, fa_kernel,
+                       "flash_attention", fa_ref,
+                       ("flash_attention_ref", "attention_ref"),
+                       OptFlags(attn_impl="pallas"), naive_attention, False),
+    "ssm": ServePath(13, SSM_ARCH, SSM_PROMPT_LEN, SSM_PROMPT_LEN,
+                     ssd_kernel, "ssd_scan", ssd_ref,
+                     ("ssd_chunked", "ssd_scan_with_final_ref"), OptFlags(),
+                     chunked_ssd, True),
+}
 
 
 def memory_gib(device, peak: bool = False) -> str:
@@ -1366,14 +1541,15 @@ def percentile(xs, q) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
-def decode_busy_share(eng: ServingEngine, batch, steps: int = 8) -> dict:
+def decode_busy_share(eng: ServingEngine, batch, flags: OptFlags,
+                      steps: int = 8) -> dict:
     """Wall time of one decode step (after a prefill of ``batch``) and the
     device-busy share of it: profiler device time of the same steps over
     their unprofiled wall time."""
     decode = build_decode_step(eng.cfg)
     with torch.inference_mode():
-        logits, cache = api.prefill_fn(eng.cfg)(
-            eng.weights, batch, eng.cache_len, OptFlags(attn_impl="pallas"))
+        logits, cache = api.prefill_fn(eng.cfg)(eng.weights, batch,
+                                                eng.cache_len, flags)
         held = {"tok": torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None],
                 "cache": cache}
 
@@ -1400,64 +1576,75 @@ def decode_busy_share(eng: ServingEngine, batch, steps: int = 8) -> dict:
             "top_device_us": {k[:60]: v / steps for k, v in top}}
 
 
-def serving_phase(device="cuda") -> dict:
-    """examples/kv_serving.py on the card at Qwen2.5-3B's full width and
+def describe(cfg) -> str:
+    if cfg.family == "ssm":
+        return (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+                f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv "
+                f"{cfg.ssm_conv}")
+    return f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}"
+
+
+def serving_phase(path: ServePath, device="cuda") -> dict:
+    """examples/kv_serving.py on the card at the model's full width and
     depth: the coordination store keeps model version and serving epoch,
-    the engine serves 16 requests of 2048 tokens in 2 waves through the
-    flash_attention kernel, and the run is held to its outputs, its
-    launches, determinism, a manual greedy loop, the naive attention path
-    and (at 2 layers) the CPU's plain versions."""
-    cfg = get_config(SERVE_ARCH)
+    the engine serves 16 requests in 2 waves with prefill through the
+    path's kernel, and the run is held to its outputs, its launches,
+    determinism, a manual greedy loop, the plain path (and for scoring
+    models lm_forward on both) and, at 2 layers, the CPU's plain
+    versions."""
+    cfg = get_config(path.arch)
+    kernel, key, flags = path.kernel, path.key, path.flags
+    name = f"serving {cfg.name}"
     coord = Coordinator(ChainConfig(n_nodes=4, num_keys=64), device=device)
     store = Store(*[x[0] for x in init_store(coord.cfg, device=device)])
     store = coord.put_host(store, MODEL_VERSION_KEY, 1)
     store = coord.put_host(store, SERVING_EPOCH_KEY, 1)
     require(coord.get_host(store, MODEL_VERSION_KEY) == 1 and
             coord.get_host(store, SERVING_EPOCH_KEY) == 1,
-            "serving: the coordination store lost version or epoch")
+            f"{name}: the coordination store lost version or epoch")
     detector = FailureDetector(n_nodes=4, timeout_ticks=8)
     hedge = HedgedReadPolicy(fanout=2)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
     params = api.init_params(cfg, gen, device)
-    eng = ServingEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
-                        flags=OptFlags(attn_impl="pallas"), device=device)
+    eng = ServingEngine(cfg, params, slots=SLOTS, cache_len=path.cache_len,
+                        flags=flags, device=device)
     sync(device)
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"serving {cfg.name} at full width: {n_params / 1e9:.3f} B params "
-        f"({cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_padded}); weights made and cast in "
+    log(f"{name} at full width: {n_params / 1e9:.3f} B params "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {describe(cfg)}, "
+        f"vocab {cfg.vocab_padded}); weights made and cast in "
         f"{time.perf_counter() - t0:.1f} s; device memory "
         f"{memory_gib(device)} GiB; coordination "
         f"store: model_version=1, epoch=1; hedged reads target "
         f"{hedge.targets(1, coord.chains[0])}")
 
     rng = np.random.default_rng(SERVE_SEED)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, PROMPT_LEN),
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
+                                               path.prompt_len),
                     max_new=MAX_NEW) for i in range(N_REQUESTS)]
     sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    fa_kernel.reset_launches()
-    with PlainCalls() as plain:
+    kernel.reset_launches()
+    with PlainCalls(path.plain_module, path.plain_names) as plain:
         t0 = time.perf_counter()
-        done = eng.run(reqs, prompt_len=PROMPT_LEN)
+        done = eng.run(reqs, prompt_len=path.prompt_len)
         wall = time.perf_counter() - t0
-    launches = fa_kernel.LAUNCHES["flash_attention"]
+    launches = kernel.LAUNCHES[key]
     n_waves = -(-N_REQUESTS // SLOTS)
-    require(len(done) == N_REQUESTS, f"serving: {len(done)} requests done")
+    require(len(done) == N_REQUESTS, f"{name}: {len(done)} requests done")
     for r in done:
         require(r.output is not None and len(r.output) == MAX_NEW and
                 int(r.output.min()) >= 0 and
                 int(r.output.max()) < cfg.vocab_padded,
-                f"serving: request {r.rid} output {r.output}")
+                f"{name}: request {r.rid} output {r.output}")
     require(launches == cfg.n_layers * n_waves,
-            f"serving: {launches} flash_attention launches, want "
-            f"{cfg.n_layers} x {n_waves}")
+            f"{name}: {launches} {key} launches, want {cfg.n_layers} x "
+            f"{n_waves}")
     require(sum(plain.calls.values()) == 0,
-            f"serving: plain attention called on the kernel path "
+            f"{name}: plain versions called on the kernel path "
             f"{plain.calls}")
     lat = eng.latencies_ms
     waves = []
@@ -1465,34 +1652,34 @@ def serving_phase(device="cuda") -> dict:
         ms = w["prefill_ms"] + w["decode_ms"]
         waves.append({**w, "decode_ms_per_token": w["decode_ms"]
                       / max(w["decode_steps"], 1),
-                      "prompt_tokens_per_s": w["requests"] * PROMPT_LEN
+                      "prompt_tokens_per_s": w["requests"] * path.prompt_len
                       / w["prefill_ms"] * 1e3,
                       "tokens_per_s": w["requests"] * MAX_NEW / ms * 1e3})
     card = on_card(device)
     for i, w in enumerate(waves):
-        log(f"serving wave {i} ({card}): {w['requests']} requests, prefill "
+        log(f"{name} wave {i} ({card}): {w['requests']} requests, prefill "
             f"{w['prefill_ms']:.3f} ms ({w['prompt_tokens_per_s']:.1f} "
             f"prompt tokens/s), decode {w['decode_ms_per_token']:.3f} ms per "
             f"token, {w['tokens_per_s']:.2f} generated tokens/s")
-    log(f"serving ({card}): {N_REQUESTS} requests in {wall:.3f} s, latency "
+    peak = memory_gib(device, peak=True)
+    log(f"{name} ({card}): {N_REQUESTS} requests in {wall:.3f} s, latency "
         f"p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms; "
-        f"flash_attention launches {launches}, plain calls {plain.calls}; "
-        f"peak device memory {memory_gib(device, peak=True)} GiB")
+        f"{key} launches {launches}, plain calls {plain.calls}; "
+        f"peak device memory {peak} GiB")
 
     # the same prompt twice gives the same tokens; a manual greedy loop
     # on the float32 parameters gives the engine's
     prompt = reqs[0].prompt
     r1, r2 = (eng.run([Request(rid=100 + i, prompt=prompt,
-                               max_new=MAX_NEW)], prompt_len=PROMPT_LEN)[0]
-              for i in range(2))
+                               max_new=MAX_NEW)],
+                      prompt_len=path.prompt_len)[0] for i in range(2))
     require(np.array_equal(r1.output, r2.output),
-            "serving: the same prompt served twice differs")
+            f"{name}: the same prompt served twice differs")
     with torch.inference_mode():
         batch = {"tokens": torch.as_tensor(prompt[None], dtype=torch.int32,
                                            device=device)}
-        flags = OptFlags(attn_impl="pallas")
-        logits, cache = api.prefill_fn(cfg)(eng.params, batch, CACHE_LEN,
-                                            flags)
+        logits, cache = api.prefill_fn(cfg)(eng.params, batch,
+                                            path.cache_len, flags)
         toks = [int(torch.argmax(logits[:, -1], -1)[0])]
         for _ in range(MAX_NEW - 1):
             tok = torch.tensor([[toks[-1]]], dtype=torch.int32,
@@ -1500,56 +1687,87 @@ def serving_phase(device="cuda") -> dict:
             logits, cache = api.decode_fn(cfg)(eng.params, cache, tok, flags)
             toks.append(int(torch.argmax(logits[:, -1], -1)[0]))
     require(np.array_equal(r1.output, np.asarray(toks)),
-            "serving: the manual greedy loop differs from the engine")
+            f"{name}: the manual greedy loop differs from the engine")
     del cache, logits
 
     # replica health, then the model rollout through the chain
     for node in range(4):
         detector.tick()
         detector.heard_from(node)
-    require(detector.suspected() == [], "serving: a replica is suspected")
+    require(detector.suspected() == [], f"{name}: a replica is suspected")
     store = coord.put_host(store, MODEL_VERSION_KEY, 2)
     require(coord.get_host(store, MODEL_VERSION_KEY) == 2,
-            "serving: the version bump did not read back")
+            f"{name}: the version bump did not read back")
 
-    # the first wave's prefill on the kernel and on the naive path
+    # the first wave's prefill (and, for scoring, lm_forward over two of
+    # its prompts) on the kernel path and on the plain path
     first = {"tokens": torch.as_tensor(
         np.stack([r.prompt for r in reqs[:SLOTS]]), dtype=torch.int32,
         device=device)}
+    scored = first["tokens"][:2]
+    out = {}
     with torch.inference_mode():
-        lk = api.prefill_fn(cfg)(eng.weights, first, CACHE_LEN,
-                                 OptFlags(attn_impl="pallas"))[0]
-        ln = api.prefill_fn(cfg)(eng.weights, first, CACHE_LEN,
-                                 OptFlags(attn_impl="naive"))[0]
-    naive_err = rel_err(lk, ln)
-    agree = float((lk.argmax(-1) == ln.argmax(-1)).float().mean())
-    require(naive_err <= 5e-2, f"serving: kernel-path prefill logits differ "
-            f"from the naive path's by {naive_err} of their max magnitude")
-    log(f"serving: first-wave prefill logits, kernel vs naive attention: "
-        f"max diff {naive_err:.4g} of the max magnitude; first tokens agree "
-        f"on {agree:.3f} of {SLOTS}")
-    busy = decode_busy_share(eng, first)
-    log(f"serving decode step ({card}): {busy['decode_step_ms']:.3f} ms wall"
+        kernel.reset_launches()
+        lk = api.prefill_fn(cfg)(eng.weights, first, path.cache_len,
+                                 flags)[0]
+        out["score_launches"] = None
+        if path.score:
+            kernel.reset_launches()
+            hk = TF.lm_forward(eng.weights, cfg, scored, flags=flags)
+            out["score_launches"] = kernel.LAUNCHES[key]
+            require(out["score_launches"] == cfg.n_layers,
+                    f"{name}: scoring launched {key} "
+                    f"{out['score_launches']} times, want {cfg.n_layers}")
+        with path.plain_path() as plain_flags, \
+                PlainCalls(path.plain_module, path.plain_names) as plain:
+            kernel.reset_launches()
+            ln = api.prefill_fn(cfg)(eng.weights, first, path.cache_len,
+                                     plain_flags)[0]
+            hn = (TF.lm_forward(eng.weights, cfg, scored, flags=plain_flags)
+                  if path.score else None)
+        require(kernel.LAUNCHES[key] == 0 and sum(plain.calls.values()) > 0,
+                f"{name}: the plain path launched {key} or called no plain "
+                f"version ({plain.calls})")
+    plain_err = rel_err(lk, ln)
+    agree = float((lk.argmax(-1) == ln.argmax(-1)).float().sum())
+    require(plain_err <= 5e-2, f"{name}: kernel-path prefill logits differ "
+            f"from the plain path's by {plain_err} of their max magnitude")
+    log(f"{name}: first-wave prefill logits, kernel vs plain path: max "
+        f"diff {plain_err:.4g} of the max magnitude; first tokens agree on "
+        f"{agree:.0f} of {SLOTS}")
+    out["score_rel"] = None
+    if path.score:
+        out["score_rel"] = rel_err(hk, hn)
+        require(out["score_rel"] <= 5e-2, f"{name}: kernel-path lm_forward "
+                f"differs from the plain path's by {out['score_rel']}")
+        log(f"{name}: lm_forward scoring {tuple(scored.shape)} tokens "
+            f"through {out['score_launches']} {key} launches, kernel vs "
+            f"plain path: max diff {out['score_rel']:.4g} of the max "
+            f"magnitude")
+        del hk, hn
+    busy = decode_busy_share(eng, first, flags)
+    log(f"{name} decode step ({card}): {busy['decode_step_ms']:.3f} ms wall"
         f", device busy {busy['device_busy_ms']} ms, busy share "
         f"{busy['busy_share']}, {busy['device_ops']} device kernels, copies "
         f"and fills per step; top device us/step {busy['top_device_us']}")
     del eng, params, lk, ln
     if device == "cuda":
         torch.cuda.empty_cache()
-    reduced = serving_cpu_equality(device)
-    return {"launches": {"flash_attention": launches}, "waves": waves,
+    reduced = serving_cpu_equality(path, device)
+    return {"launches": {key: launches}, "waves": waves,
             "latency_p50_ms": percentile(lat, 50),
             "latency_p99_ms": percentile(lat, 99), "wall_s": wall,
-            "kernel_vs_naive_rel": naive_err, "first_token_agree": agree,
-            "decode": busy, "reduced_cpu": reduced}
+            "peak_gib": peak, "kernel_vs_plain_rel": plain_err,
+            "first_token_agree": agree, **out, "decode": busy,
+            "reduced_cpu": reduced}
 
 
-def serving_cpu_equality(device="cuda") -> dict:
-    """Phase 11's path at full width and 2 layers: prefill and teacher-
-    forced decode steps on CUDA (the kernel) and on the CPU (the plain
-    versions) from the same weights; logits within 2e-2 of their largest
-    magnitude (bf16 rounded in another order on each device)."""
-    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
+    """The path at full width and 2 layers: prefill and teacher-forced
+    decode steps on CUDA (the kernel) and on the CPU (the plain versions)
+    from the same weights; logits within 2e-2 of their largest magnitude
+    (bf16 rounded in another order on each device)."""
+    cfg = dataclasses.replace(get_config(path.arch),
                               n_layers=REDUCED_SERVE["n_layers"])
     gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 1)
     weights = {device: TF.compute_params(api.init_params(cfg, gen, device),
@@ -1558,37 +1776,37 @@ def serving_cpu_equality(device="cuda") -> dict:
     rng = np.random.default_rng(SERVE_SEED + 1)
     B, S = REDUCED_SERVE["requests"], REDUCED_SERVE["prompt_len"]
     toks = rng.integers(0, cfg.vocab, (B, S))
-    flags = OptFlags(attn_impl="pallas")
     logits, forced = {}, None
     for dev in ("cpu", device):
         t0 = time.perf_counter()
-        fa_kernel.reset_launches()
-        with PlainCalls() as plain, torch.inference_mode():
+        path.kernel.reset_launches()
+        with PlainCalls(path.plain_module, path.plain_names) as plain, \
+                torch.inference_mode():
             lg, cache = api.prefill_fn(cfg)(
                 weights[dev], {"tokens": torch.as_tensor(
-                    toks, dtype=torch.int32, device=dev)}, S + 8, flags)
+                    toks, dtype=torch.int32, device=dev)}, S + 8, path.flags)
             out = [lg]
             if forced is None:
                 forced = torch.argmax(lg[:, -1], -1).to(torch.int32)
             tok = forced[:, None].to(dev)
             for _ in range(REDUCED_SERVE["steps"]):
                 lg, cache = api.decode_fn(cfg)(weights[dev], cache, tok,
-                                               flags)
+                                               path.flags)
                 out.append(lg)
         logits[dev] = [x.cpu() for x in out]
         want = (0, 1) if dev == "cpu" else (cfg.n_layers, 0)
-        got = (fa_kernel.LAUNCHES["flash_attention"],
-               plain.calls["flash_attention_ref"] // cfg.n_layers)
-        require(got == want, f"serving reduced on {dev}: (launches, plain "
-                f"calls per layer) {got}, want {want}")
-        log(f"serving reduced ({on_card(dev)}): {cfg.n_layers} layers, "
-            f"{B} x {S} prompt + {REDUCED_SERVE['steps']} decode steps in "
-            f"{time.perf_counter() - t0:.3f} s")
+        got = (path.kernel.LAUNCHES[path.key],
+               plain.calls[path.plain_names[0]] // cfg.n_layers)
+        require(got == want, f"serving {cfg.name} reduced on {dev}: "
+                f"(launches, plain calls per layer) {got}, want {want}")
+        log(f"serving {cfg.name} reduced ({on_card(dev)}): {cfg.n_layers} "
+            f"layers, {B} x {S} prompt + {REDUCED_SERVE['steps']} decode "
+            f"steps in {time.perf_counter() - t0:.3f} s")
     errs = [rel_err(c, p) for c, p in zip(logits[device], logits["cpu"])]
-    require(max(errs) <= 2e-2, f"serving reduced: CUDA logits differ from "
-            f"the CPU's by {errs} of their max magnitude")
-    log(f"serving reduced: CUDA (kernel) vs CPU (plain) logits, relative "
-        f"max diff per step {[f'{e:.3g}' for e in errs]}")
+    require(max(errs) <= 2e-2, f"serving {cfg.name} reduced: CUDA logits "
+            f"differ from the CPU's by {errs} of their max magnitude")
+    log(f"serving {cfg.name} reduced: CUDA (kernel) vs CPU (plain) logits, "
+        f"relative max diff per step {[f'{e:.3g}' for e in errs]}")
     return {"rel_errs": errs}
 
 
@@ -1606,13 +1824,14 @@ def smi() -> str:
 
 
 def build_kernels() -> None:
-    """Both kernel sources built at once, one nvcc each."""
+    """The three kernel sources built at once, one nvcc each."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(k.build) for k in (kv_kernel, fa_kernel)]
+    kernels = (kv_kernel, fa_kernel, ssd_kernel)
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        builds = [pool.submit(k.build) for k in kernels]
         for b in builds:
             b.result()
-    log(f"built {KV_SRC} and {FA_SRC} for sm_90a in "
+    log(f"built {KV_SRC}, {FA_SRC} and {SSD_SRC} for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1630,6 +1849,7 @@ def main() -> None:
     kernels = check_kernels()
     kernels.update(check_bucketed_kernels())
     kernels.update(check_flash_attention())
+    kernels.update(check_ssd_scan())
     floor = launch_floor_ms()
     card = smi()
     us = lambda ms: "n/a" if ms is None else f"{ms * 1e3:.2f} us"
@@ -1652,12 +1872,13 @@ def main() -> None:
     reb = rebalance_phase()
     writes = partitioned_write_phase(reb)
     fail = failover_phase()
-    serve = serving_phase()
+    serve = serving_phase(SERVE_PATHS["dense"])
+    ssm = serving_phase(SERVE_PATHS["ssm"])
 
     launches = {**craq_run["launches"],
                 "kv_bucketed_read": reb["launches"]["kv_bucketed_read"],
                 "kv_bucketed_write": writes["launches"]["kv_bucketed_write"],
-                **serve["launches"]}
+                **serve["launches"], **ssm["launches"]}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -1672,6 +1893,7 @@ def main() -> None:
         "rebalance_launches": reb["launches"], "rebalance_gain": reb["gain"],
         "partitioned_write_launches": writes["launches"],
         "failover_launches": fail["launches"], "serving": serve,
+        "ssm_serving": ssm,
         "kernel_detail": kernels, "add_one_ms": floor,
         "seconds": time.perf_counter() - t_start,
     }))

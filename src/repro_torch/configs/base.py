@@ -5,8 +5,9 @@ Every architecture of the port is a ``repro_torch/configs/<id>.py``
 exporting ``CONFIG`` with the hyperparameters the reference gives it;
 ``reduced()`` derives the CPU smoke-test variant (same family and
 topology, tiny widths).  ``cdtype()``/``pdtype()`` return torch dtypes.
-The port serves the dense decoders so far: the other architecture ids
-raise ``NotImplementedError`` naming the slice that brings them.
+The port serves the dense decoders and the SSM family (mamba2) so far:
+the other architecture ids raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -83,6 +84,14 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         return pad_vocab(self.vocab)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
@@ -122,12 +131,12 @@ _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "llama3.2-3b": "llama3_2_3b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 # The reference's other architectures, and the slice of the port that
 # brings each (ROADMAP, queue 1, item 14).
 _LATER = {
-    "mamba2-1.3b": "the SSM slice (mamba2 with the ssd_scan kernel)",
     "zamba2-2.7b": "the hybrid slice, after the SSM slice",
     "llama4-scout-17b-a16e": "the MoE slice",
     "granite-moe-3b-a800m": "the MoE slice",
@@ -141,7 +150,7 @@ ARCH_IDS = list(_MODULES) + list(_LATER)
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id in _LATER:
         raise NotImplementedError(
-            f"{arch_id}: the port serves dense decoders so far; "
+            f"{arch_id}: the port serves the dense and SSM decoders so far; "
             f"{_LATER[arch_id]} brings it")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG

@@ -34,6 +34,7 @@ from repro_torch.core.types import (
     Roles,
     resolve_device,
 )
+from repro_torch.models.layers import ParamTree
 
 _NESTED = {
     "stores": Store,
@@ -139,7 +140,8 @@ def coordinator_from(co, device="cuda") -> Coordinator:
 def params_from(tree: dict, device="cuda"):
     """A port parameter tree from a reference parameter dict with numpy
     leaves: ``nn.ParameterDict`` for a dict of arrays, ``nn.ModuleDict``
-    for a dict of dicts."""
+    for a dict of dicts, ``layers.ParamTree`` for a dict that holds both
+    (the Mamba-2 mixer's)."""
     return _params_module(tree, resolve_device(device))
 
 
@@ -150,7 +152,10 @@ def _params_module(tree: dict, device):
             k: nn.Parameter(_tensor(v, device), requires_grad=False)
             for k, v in tree.items()})
     if any(leaves):
-        raise ValueError(f"mixed parameter dict {sorted(tree)}")
+        return ParamTree({
+            k: (_params_module(v, device) if isinstance(v, dict)
+                else _tensor(v, device))
+            for k, v in tree.items()})
     return nn.ModuleDict({k: _params_module(v, device)
                           for k, v in tree.items()})
 
@@ -174,9 +179,9 @@ def lm_params_from(params: dict, cfg, device="cuda"):
 
 
 def _numpy_tree(module) -> dict:
-    if isinstance(module, nn.ParameterDict):
-        return {k: p.detach().cpu().numpy() for k, p in module.items()}
-    return {k: _numpy_tree(m) for k, m in module.items()}
+    return {k: (_numpy_tree(m) if isinstance(m, nn.Module)
+                else m.detach().cpu().numpy())
+            for k, m in module.items()}
 
 
 def lm_params_to_numpy(params) -> dict:

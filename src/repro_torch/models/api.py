@@ -1,13 +1,15 @@
-"""Model API of the port (the reference's ``models/api.py``), dense
-family:
+"""Model API of the port (the reference's ``models/api.py``), dense and
+SSM families:
 
   init_params(cfg, gen, device)                -> params
   prefill_fn(cfg)(params, batch, cache_len)    -> (logits, cache)
   decode_fn(cfg)(params, cache, token)         -> (logits, cache')
   init_decode_cache(cfg, batch, cache_len)     -> cache
 
-The encoder-decoder family raises ``NotImplementedError`` here; the
-other families raise in ``transformer``.
+For the SSM family ``cache_len`` is not read: its decode state is O(1)
+in the sequence.  The encoder-decoder family raises
+``NotImplementedError`` here; the other families not yet ported (moe,
+hybrid) raise in ``transformer``.
 """
 from __future__ import annotations
 

@@ -3,8 +3,10 @@ apply functions read them.
 
 Parameters are ``nn.ParameterDict``s keyed as the reference's dicts
 (``{"w", "b"}``, ``{"scale"}``, ``{"table"}``) and nested in
-``nn.ModuleDict``s, so the two packages' trees match name for name and
-``repro_torch.convert`` moves weights across by key.  Weights keep the
+``nn.ModuleDict``s (a ``ParamTree`` where one dict holds tensors and
+sub-dicts side by side, as the Mamba-2 mixer's does), so the two
+packages' trees match name for name and ``repro_torch.convert`` moves
+weights across by key.  Weights keep the
 reference's layouts (``dense`` is ``x @ w`` with ``w [d_in, d_out]``)
 and its roundings: ``dense`` casts ``x`` and ``w`` to the compute dtype
 before the product, ``rmsnorm`` works in float32 and casts back,
@@ -20,6 +22,42 @@ F32 = torch.float32
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+class ParamTree(nn.Module):
+    """A parameter dict whose entries are tensors and sub-trees side by
+    side (the reference's mamba dict: ``conv_w``, ``A_log``, ... beside
+    ``in_proj``, ``norm``), read by key like the other dicts."""
+
+    def __init__(self, entries: dict):
+        super().__init__()
+        self._order = list(entries)
+        for k, v in entries.items():
+            if isinstance(v, nn.Module):
+                self.add_module(k, v)
+            else:
+                self.register_parameter(
+                    k, v if isinstance(v, nn.Parameter) else _param(v))
+
+    def __getitem__(self, key: str):
+        if key not in self._order:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._order
+
+    def __iter__(self):
+        return iter(self._order)
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+    def keys(self):
+        return list(self._order)
+
+    def items(self):
+        return [(k, self[k]) for k in self._order]
 
 
 def _normal(gen: torch.Generator, shape, dtype, device, scale: float):

@@ -1,14 +1,18 @@
-"""Decoder-only LM assembly, dense family (the port's copy of the dense
-paths of ``repro/models/transformer.py``).
+"""Decoder-only LM assembly, dense and SSM families (the port's copy of
+those paths of ``repro/models/transformer.py``).
 
 The reference stacks its layer parameters on a leading ``[L, ...]`` axis
 and scans over them; here the layers are an ``nn.ModuleList`` of
 ``nn.ModuleDict`` blocks and the scan is a Python loop.  Parameter names
 and layouts are the reference's, so ``repro_torch.convert`` moves a
 parameter tree across key by key.  The caches keep the reference's
-stacked layout: ``{"kv": (k [L, B, T, KV, D], v [L, B, T, KV, D]),
-"t": int}``.  The other families (moe, ssm, hybrid, encdec) and the VLM
-stub frontend raise ``NotImplementedError``: later slices bring them.
+stacked layouts: dense ``{"kv": (k [L, B, T, KV, D], v [L, B, T, KV,
+D]), "t": int}``, SSM ``{"ssm": {"conv": [L, B, K-1, Ch], "ssm": [L, B,
+H, N, P]}, "t": int}``; decode updates them in place.  The SSM mixer
+runs its SSD core on the ssd_scan kernel when the activations are on a
+card (``mamba2.py``'s docstring).  The other families (moe, hybrid,
+encdec) and the VLM stub frontend raise ``NotImplementedError``: later
+slices bring them.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
 # the leaves whose every use casts them to the compute dtype first
 # (dense weights and biases, the embedding table); norm scales are read
@@ -52,11 +57,14 @@ class OptFlags:
 BASELINE_FLAGS = OptFlags()
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "serves the dense family")
+            f"serves the families {PORTED_FAMILIES}")
     if cfg.vis_len:
         raise NotImplementedError(
             f"{cfg.name}: the VLM stub frontend (vis_len) is not ported yet")
@@ -67,6 +75,11 @@ def _dense_only(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 def _block_init(gen, cfg: ArchConfig, device):
     dt = cfg.pdtype()
+    if cfg.family == "ssm":
+        return nn.ModuleDict({
+            "ln": L.rmsnorm_init(cfg.d_model, dt, device),
+            "mamba": M.mamba_init(gen, cfg, device),
+        })
     return nn.ModuleDict({
         "ln1": L.rmsnorm_init(cfg.d_model, dt, device),
         "attn": A.attn_init(gen, cfg, device),
@@ -78,7 +91,7 @@ def _block_init(gen, cfg: ArchConfig, device):
 def init_lm(cfg: ArchConfig, gen: torch.Generator, device="cuda"):
     """Random parameters from ``gen`` (drawn on the generator's device),
     placed on ``device``."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     device = resolve_device(device)
     dt = cfg.pdtype()
     params = nn.ModuleDict({
@@ -101,6 +114,11 @@ def _map_params(params, fn):
         return nn.ParameterDict({
             k: nn.Parameter(fn(k, p.data), requires_grad=False)
             for k, p in params.items()})
+    if isinstance(params, L.ParamTree):
+        return L.ParamTree({
+            k: (_map_params(v, fn) if isinstance(v, nn.Module)
+                else fn(k, v.data))
+            for k, v in params.items()})
     if isinstance(params, nn.ModuleList):
         return nn.ModuleList([_map_params(m, fn) for m in params])
     return nn.ModuleDict({k: _map_params(m, fn) for k, m in params.items()})
@@ -109,8 +127,9 @@ def _map_params(params, fn):
 def compute_params(params, cfg: ArchConfig, device=None):
     """The parameters as the forward pass reads them: the dense weights,
     biases and the embedding table cast once to the compute dtype, norm
-    scales as they are, all on ``device`` (default: where they are).
-    Every use of a cast leaf casts it first anyway, and a cast is
+    scales and the mixer's conv, decay, skip and dt-bias leaves as they
+    are (the reference casts them at each use), all on ``device``
+    (default: where they are).  Every use of a cast leaf casts it first anyway, and a cast is
     deterministic, so the outputs are bit for bit those of ``params``;
     what changes is that a step reads bf16 weights instead of converting
     float32 ones on every call."""
@@ -155,12 +174,24 @@ def _mlp(layer_p, h, cfg: ArchConfig):
     return h + L.swiglu(layer_p["mlp"], inner, compute_dtype=cfg.cdtype())
 
 
+def _mixer(layer_p, x, cfg: ArchConfig, *, return_state: bool = False):
+    """The SSM block's mixer on ``rmsnorm(x)``, on the ssd_scan kernel
+    when ``x`` is on a card."""
+    return M.mamba_apply(layer_p["mamba"], L.rmsnorm(layer_p["ln"], x), cfg,
+                         use_kernel=x.device.type == "cuda",
+                         return_state=return_state)
+
+
 def lm_forward(params, cfg: ArchConfig, tokens, *,
                embeds: Optional[torch.Tensor] = None,
                flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
     """Final hidden states ``[B, S, d]`` (after the final norm)."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
+    if cfg.family == "ssm":
+        for layer_p in params["layers"]:
+            x = x + _mixer(layer_p, x, cfg)
+        return L.rmsnorm(params["final_norm"], x)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     impl = "pallas" if flags.flash_kernel else flags.attn_impl
@@ -178,10 +209,22 @@ def lm_prefill(params, cfg: ArchConfig, tokens, *, cache_len: int,
                embeds=None, flags: OptFlags = BASELINE_FLAGS):
     """Run the prompt ``tokens [B, S]``; return (last-position logits
     ``[B, 1, V]`` float32, cache ``{"kv": (k, v) [L, B, T, KV, D], "t":
-    S}``).  Prefill attention runs ``flags.attn_impl``."""
-    _dense_only(cfg)
+    S}``, or for the SSM family ``{"ssm": {"conv", "ssm"}, "t": S}``).
+    Prefill attention runs ``flags.attn_impl``; the SSM family has no
+    ``cache_len`` (its state is O(1) in the sequence)."""
+    _check_ported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
+    if cfg.family == "ssm":
+        convs, ssms = [], []
+        for layer_p in params["layers"]:
+            out, st = _mixer(layer_p, x, cfg, return_state=True)
+            x = x + out
+            convs.append(st["conv"])
+            ssms.append(st["ssm"])
+        cache = {"ssm": {"conv": torch.stack(convs),
+                         "ssm": torch.stack(ssms)}, "t": S}
+        return _logits(params, cfg, x[:, -1:]), cache
     positions = _positions(B, S, x.device)
     ks, vs = [], []
     for layer_p in params["layers"]:
@@ -198,12 +241,21 @@ def lm_prefill(params, cfg: ArchConfig, tokens, *, cache_len: int,
 def lm_decode_step(params, cfg: ArchConfig, cache, token, *,
                    flags: OptFlags = BASELINE_FLAGS):
     """One token step: ``token [B, 1]`` -> (logits ``[B, 1, V]`` float32,
-    cache with ``t + 1``).  The cache's KV tensors are updated in place
-    (the reference donates them) and returned in the new cache."""
-    _dense_only(cfg)
+    cache with ``t + 1``).  The cache's KV (or SSM state) tensors are
+    updated in place (the reference donates them) and returned in the new
+    cache."""
+    _check_ported(cfg)
     cd = cfg.cdtype()
     x = L.embed(params["embed"], token, compute_dtype=cd)
     t = cache["t"]
+    if cfg.family == "ssm":
+        st = cache["ssm"]
+        for i, layer_p in enumerate(params["layers"]):
+            out, _ = M.mamba_decode_step(
+                layer_p["mamba"], L.rmsnorm(layer_p["ln"], x),
+                {"conv": st["conv"][i], "ssm": st["ssm"][i]}, cfg)
+            x = x + out
+        return _logits(params, cfg, x), {"ssm": st, "t": t + 1}
     k_all, v_all = cache["kv"]
     for i, layer_p in enumerate(params["layers"]):
         a, _ = A.attn_decode(
@@ -217,9 +269,15 @@ def lm_decode_step(params, cfg: ArchConfig, cache, token, *,
 def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int,
                       device="cuda"):
     """A fresh (empty) decode cache."""
-    _dense_only(cfg)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    _check_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        st = M.mamba_init_state(cfg, batch, device=dev)
+        return {"ssm": {k: torch.zeros((cfg.n_layers, *v.shape),
+                                       dtype=v.dtype, device=dev)
+                        for k, v in st.items()},
+                "t": 0}
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"kv": tuple(torch.zeros(shape, dtype=cfg.cdtype(), device=dev)
                         for _ in range(2)),
             "t": 0}

@@ -5,9 +5,11 @@ with per-request latency accounting (the reference's
 ``build_prefill_step`` / ``build_decode_step`` are the step functions;
 ``ServingEngine`` is the host loop: it admits requests in waves of
 ``slots``, prefills each wave together, decodes it in lock step and
-records when each request was submitted and done.  It runs on one device
-(``device``, CUDA unless the caller asks for the CPU) under
-``torch.inference_mode()``.  The multi-replica cache protocols of the
+records when each request was submitted and done.  It serves every
+family ``transformer`` has ported (dense, SSM) with no logic of its own
+per family: the cache is whatever the model's prefill returns and its
+decode updates.  It runs on one device (``device``, CUDA unless the
+caller asks for the CPU) under ``torch.inference_mode()``.  The multi-replica cache protocols of the
 reference's ``serve/kv_cache.py`` come with the torch.distributed slice.
 """
 from __future__ import annotations

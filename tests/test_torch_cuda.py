@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, a
-small cluster run, a live rebalance and a reduced serving run on CUDA
-against the same runs on the CPU.  Imports no JAX, so it runs where only PyTorch is installed;
-without a card every test skips:
+small cluster run, a live rebalance and reduced serving runs (dense and
+SSM) on CUDA against the same runs on the CPU.  Imports no JAX, so it
+runs where only PyTorch is installed; without a card every test skips:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -20,6 +20,8 @@ from repro_torch.kernels.kv_engine import ops as t_ops  # noqa: E402
 from repro_torch.kernels.kv_engine import ref as t_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +268,81 @@ def test_cuda_serving_matches_cpu(card):
     exp = logits["cpu"]
     assert float((logits[str(card)] - exp).abs().max()
                  / exp.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("Bz,L,H,P,N,chunk,dtype,tol", [
+    (2, 256, 8, 64, 128, 64, torch.bfloat16, 2e-2),
+    (2, 256, 8, 64, 128, 64, torch.float32, 1e-4),
+    (2, 200, 4, 64, 128, 64, torch.bfloat16, 2e-2),
+    (1, 40, 4, 32, 16, 64, torch.float32, 1e-4),
+    (1, 130, 3, 32, 64, 16, torch.float32, 1e-4),
+    (1, 100, 3, 64, 32, 32, torch.bfloat16, 2e-2),
+])
+def test_cuda_ssd_scan_matches_plain_version(card, Bz, L, H, P, N, chunk,
+                                             dtype, tol):
+    """The kernel equals its plain version (``ssd_chunked`` through
+    ``ops.ssd(impl="chunked")``), y and the final state: bf16 and f32 x, ragged and short sequences, chunks of
+    16-64, x, B and C as strided views of one projection (the model's
+    split) and B/C shared by the heads."""
+    rng = np.random.default_rng(42)
+    f32 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card)
+    wide = f32(Bz, L, H * P + 2 * N)
+    x = wide.to(dtype)[..., : H * P].reshape(Bz, L, H, P)
+    wide = wide * 0.3
+    Bm, Cm = wide[..., H * P: H * P + N], wide[..., H * P + N:]
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (Bz, L, H)).astype(
+        np.float32)).to(card)
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, H).astype(np.float32)).to(
+        card)
+    D = f32(H)
+    ssd_kernel.reset_launches()
+    y, h = ssd_kernel.ssd_scan_heads(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                     h_final=True)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES["ssd_scan"] == 1
+    ey, eh = ssd_ops.ssd(x, dt, A, Bm, Cm, D, impl="chunked", chunk=chunk,
+                         return_state=True)
+    assert y.dtype == dtype and y.is_contiguous()
+    assert bool(torch.isfinite(y).all())
+    assert float((y.float() - ey.float()).abs().max()) <= tol
+    assert float((h - eh).abs().max()) <= 1e-4
+
+
+def test_cuda_ssm_serving_matches_cpu(card):
+    """A reduced Mamba2-1.3B served on CUDA through the ssd_scan kernel
+    gives the CPU's tokens and prefill logits and scoring states (float32
+    compute, where the two differ only in summation order)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b").reduced(),
+                              n_layers=2, compute_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, 75) for _ in range(3)]
+    out, logits, hidden = {}, {}, {}
+    for d in ("cpu", card):
+        eng = ServingEngine(cfg, params, slots=2, cache_len=75, device=d)
+        ssd_kernel.reset_launches()
+        done = eng.run([Request(rid=i, prompt=p, max_new=6)
+                        for i, p in enumerate(prompts)], prompt_len=75)
+        out[str(d)] = np.stack([r.output for r in done])
+        launches = ssd_kernel.LAUNCHES["ssd_scan"]
+        assert launches == (0 if d == "cpu" else 2 * cfg.n_layers)
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                                   device=d)
+            logits[str(d)] = api.prefill_fn(cfg)(
+                eng.weights, {"tokens": toks}, 75)[0].cpu()
+            hidden[str(d)] = TF.lm_forward(eng.weights, cfg, toks).cpu()
+    np.testing.assert_array_equal(out["cpu"], out[str(card)])
+    for got in (logits, hidden):
+        exp = got["cpu"]
+        assert float((got[str(card)] - exp).abs().max()
+                     / exp.abs().max()) < 1e-4

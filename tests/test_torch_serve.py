@@ -71,14 +71,19 @@ def _pair(tree):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_match_reference(arch):
     jcfg = j_get_config(arch)
-    if jcfg.family != "dense":
+    if jcfg.family not in ("dense", "ssm"):     # the ported families
         with pytest.raises(NotImplementedError):
             get_config(arch)
         return
     tcfg = get_config(arch)
     for j, t in ((jcfg, tcfg), (jcfg.reduced(), tcfg.reduced())):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
-        assert (t.head_dim, t.vocab_padded) == (j.head_dim, j.vocab_padded)
+        if t.family == "ssm":    # attention-free: no head_dim at full size
+            assert (t.d_inner, t.ssm_heads, t.vocab_padded) == (
+                j.d_inner, j.ssm_heads, j.vocab_padded)
+        else:
+            assert (t.head_dim, t.vocab_padded) == (j.head_dim,
+                                                    j.vocab_padded)
     assert tcfg.cdtype() == torch.bfloat16
     assert tcfg.pdtype() == torch.float32
 
@@ -344,8 +349,9 @@ def test_decode_steps_are_deterministic():
 
 
 def test_prefill_and_decode_step_builders():
-    # the reference runs this on mamba2, whose family a later slice
-    # brings; the dense family's steps are held to the same contract
+    # the reference runs this on mamba2 (tests/test_torch_mamba.py holds
+    # the SSM family's steps); the dense family's are held to the same
+    # contract
     cfg = dataclasses.replace(get_config(ARCH).reduced(), n_layers=2)
     params = api.init_params(cfg, torch.Generator().manual_seed(0), CPU)
     pf = build_prefill_step(cfg, cache_len=32)
@@ -364,7 +370,7 @@ def test_prefill_and_decode_step_builders():
     assert tok.shape == (2, 1)
     assert cache["t"] == 8 + 4
     with pytest.raises(NotImplementedError):
-        api.init_params(dataclasses.replace(cfg, family="ssm"),
+        api.init_params(dataclasses.replace(cfg, family="moe"),
                         torch.Generator(), CPU)
 
 
