@@ -48,21 +48,26 @@ source, all three at once), then:
    CRAQ source and is spliced back in; held to the freeze window, the
    copy source, an undisturbed twin, the read-back of every
    acknowledged write and 95 % of the twin's throughput after recovery;
-10. the flash_attention kernel against its plain version, timed as in
-   phase 2 and bound by operations: one layer's prefill of phase 11
-   (q [8, 16, 2048, 128], k/v [8, 2, 2048, 128], bf16, causal), float32
-   at the same GQA group, a ragged tile edge (S = SK = 200) and S != SK
-   both ways; the SDPA yardstick is timed beside it;
+10. the flash_attention kernel's two routes against their plain version,
+   timed as in phase 2 and bound by operations: the tensor-core route
+   (bf16) at one layer's prefill of phase 11 (q [8, 16, 2048, 128], k/v
+   [8, 2, 2048, 128], causal), a ragged tile edge (S = SK = 200) and
+   S > SK, the f32 route at float32 (same GQA group) and S < SK; the
+   SDPA yardstick is timed beside each route, and the f32 kernel on the
+   bf16 serving shape (the design the tensor-core route replaced);
 11. the serving path at full width (``examples/kv_serving.py``'s run):
    the coordination store keeps model version and serving epoch, and
    ``ServingEngine`` serves Qwen2.5-3B (36 layers, random weights from a
    seed) 16 requests of 2048-token prompts, 32 new tokens each, in 2
    waves of 8 through the kernel; held to the outputs, 72 kernel
-   launches and no plain-version call, determinism, a manual greedy
-   loop, the version bump, the naive attention path's prefill logits and,
-   at 2 layers, the CPU's plain versions; prints per wave prefill ms,
-   decode ms per token, tokens/s, p50/p99 latency and a decode step's
-   device-busy share;
+   launches all on the tensor-core route and no plain-version call,
+   determinism, a manual greedy loop, the version bump, the naive
+   attention path's prefill logits and, at 2 layers, the CPU's plain
+   versions; prints per wave prefill ms, decode ms per token, tokens/s,
+   p50/p99 latency and a decode step's device-busy share; then the f32
+   route's own path, Qwen2.5-3B in float32 compute at full width and 2
+   layers, its launches all on the f32 route, held to the CPU's logits
+   and tokens;
 12. the ssd_scan kernel against its plain version (``ssd_chunked``), y
    and the final state, timed as in phase 2 beside its bound: one
    layer's prefill of phase 13 (x [8, 2000, 64, 64] bf16 as the model's
@@ -151,13 +156,15 @@ FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SOURCES = {"kv_read": KV_SRC, "kv_write": KV_SRC,
            "kv_bucketed_read": KV_SRC, "kv_bucketed_write": KV_SRC,
-           "flash_attention": FA_SRC, "ssd_scan": SSD_SRC}
+           "flash_attention": FA_SRC, "flash_attention_f32": FA_SRC,
+           "ssd_scan": SSD_SRC}
 REPLACES = {
     "kv_read": "src/repro/kernels/kv_engine/kernel.py:153",
     "kv_write": "src/repro/kernels/kv_engine/kernel.py:510",
     "kv_bucketed_read": "src/repro/kernels/kv_engine/kernel.py:249",
     "kv_bucketed_write": "src/repro/kernels/kv_engine/kernel.py:339",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
+    "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:96",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:94",
 }
 # The partition map of phases 2 and 7-8, in fig_rebalance's proportions:
@@ -394,11 +401,13 @@ def measure(out: dict) -> dict:
     """Time each record's kernel, plain version and library yardstick
     (device time from the profiler where it sees the card, else event
     time) and turn its bound into ms: the larger of its bytes at the
-    card's HBM rate and its bf16 operations (``bound_flop``, where the
-    record has them) at the tensor-core peak."""
+    card's HBM rate and its operations (``bound_flop``, where the record
+    has them) at the record's peak (``flop_per_s``; the bf16 tensor-core
+    peak unless stated)."""
     for rec in out.values():
         bytes_ms = rec.pop("bound_bytes") / HBM_BYTES_PER_S * 1e3
-        flop_ms = rec.pop("bound_flop", 0) / BF16_FLOP_PER_S * 1e3
+        peak = rec.pop("flop_per_s", BF16_FLOP_PER_S)
+        flop_ms = rec.pop("bound_flop", 0) / peak * 1e3
         rec["bound_ms"] = max(bytes_ms, flop_ms)
         rec["bound_by"] = "operations" if flop_ms > bytes_ms else "bytes"
         iters = rec.pop("iters", ITERS)
@@ -1299,51 +1308,93 @@ def attention_bound(q, k, causal: bool = True):
 
 
 def check_flash_attention() -> dict:
-    """The kernel against its plain version on the card: the serving
-    shape (one layer's prefill of phase 11), float32 at the same GQA
-    group, a ragged tile edge and S != SK both ways; then times kernel,
-    plain version and the SDPA yardstick at the serving shape."""
+    """Both routes of the kernel against its plain version on the card:
+    the tensor-core route at the serving shape (one layer's prefill of
+    phase 11), a ragged tile edge and S > SK, the f32 route at float32 and
+    S < SK, each case held to the route ``fa_kernel.route`` gives it; then
+    times each route beside its plain version, the SDPA yardstick and its
+    bound: the tensor-core route at the serving shape, the f32 route at
+    its float32 case.  The design the tensor-core route replaced (the f32
+    kernel, which a misaligned bf16 view still takes) is timed at the
+    serving shape too."""
     cfg = get_config(SERVE_ARCH)
     HQ, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("serving", SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2),
-             ("float32", 2, PROMPT_LEN, PROMPT_LEN, f32, 2e-5),
-             ("ragged", SLOTS, 200, 200, bf16, 2e-2),
-             ("s_lt_sk", 2, 200, 700, f32, 2e-5),
-             ("s_gt_sk", 2, 700, 200, bf16, 2e-2)]
+    cases = [("serving", SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2, "mma"),
+             ("float32", 2, PROMPT_LEN, PROMPT_LEN, f32, 2e-5, "f32"),
+             ("ragged", SLOTS, 200, 200, bf16, 2e-2, "mma"),
+             ("s_lt_sk", 2, 200, 700, f32, 2e-5, "f32"),
+             ("s_gt_sk", 2, 700, 200, bf16, 2e-2, "mma")]
     gen = torch.Generator(device="cuda").manual_seed(13)
-    errs = {}
-    for name, B, S, SK, dtype, tol in cases:
+    errs = {"mma": {}, "f32": {}}
+    for name, B, S, SK, dtype, tol, want in cases:
         q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
+        fa_kernel.reset_launches()
         got = fa_kernel.flash_attention(q, k, v)
         exp = fa_ref.flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
+        require(fa_kernel.LAUNCHES[f"flash_attention_{want}"] == 1,
+                f"flash_attention {name}: took the wrong route "
+                f"{fa_kernel.LAUNCHES}, want {want}")
         err = float((got.float() - exp.float()).abs().max())
         require(bool(torch.isfinite(got).all()),
                 f"flash_attention {name}: non-finite output")
         require(err <= tol, f"flash_attention {name} [{B}, {HQ}/{HKV}, "
                 f"{S}, {SK}, {D}] {dtype}: differs from its plain version "
                 f"by {err} > {tol}")
-        errs[name] = err
-        log(f"flash_attention {name}: q [{B}, {HQ}, {S}, {D}], k/v [{B}, "
-            f"{HKV}, {SK}, {D}] {str(dtype)[6:]}: max abs err {err:.3g} "
-            f"(tolerance {tol})")
+        errs[want][name] = err
+        log(f"flash_attention {name} ({want} route): q [{B}, {HQ}, {S}, "
+            f"{D}], k/v [{B}, {HKV}, {SK}, {D}] {str(dtype)[6:]}: max abs "
+            f"err {err:.3g} (tolerance {tol})")
         del q, k, v, got, exp
-    q, k, v = attention_inputs(gen, SLOTS, HQ, HKV, PROMPT_LEN, PROMPT_LEN,
+
+    def record(q, k, v, peak):
+        nbytes, flop = attention_bound(q, k)
+        return dict(
+            calls=lambda n: [lambda: fa_kernel.flash_attention(q, k, v)] * n,
+            plain=lambda n: [lambda: fa_ref.flash_attention_ref(q, k, v)] * n,
+            # timed here only; the port never calls it
+            library=lambda n: [lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)] * n,
+            bound_bytes=nbytes, bound_flop=flop, flop_per_s=peak,
+            iters=FA_ITERS)
+    serving = attention_inputs(gen, SLOTS, HQ, HKV, PROMPT_LEN, PROMPT_LEN,
                                D, bf16)
-    nbytes, flop = attention_bound(q, k)
-    rec = dict(
-        max_abs_err=max(errs.values()), case_errs=errs,
-        calls=lambda n: [lambda: fa_kernel.flash_attention(q, k, v)] * n,
-        plain=lambda n: [lambda: fa_ref.flash_attention_ref(q, k, v)] * n,
-        # timed here only; the port never calls it
-        library=lambda n: [lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)] * n,
-        bound_bytes=nbytes, bound_flop=flop, iters=FA_ITERS)
-    out = measure({"flash_attention": rec})
-    log(f"flash_attention at the serving shape: {flop / 1e9:.1f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB; bound {out['flash_attention']['bound_ms']:.4f}"
-        f" ms by {out['flash_attention']['bound_by']}")
+    single = attention_inputs(gen, 2, HQ, HKV, PROMPT_LEN, PROMPT_LEN, D,
+                              f32)
+    out = measure({
+        "flash_attention": dict(record(*serving, BF16_FLOP_PER_S),
+                                max_abs_err=max(errs["mma"].values()),
+                                case_errs=errs["mma"]),
+        "flash_attention_f32": dict(record(*single, F32_FLOP_PER_S),
+                                    max_abs_err=max(errs["f32"].values()),
+                                    case_errs=errs["f32"])})
+    for name, (q, k, _), peak in (("flash_attention", serving, "bf16 "
+                                   "tensor-core"),
+                                  ("flash_attention_f32", single,
+                                   "f32 CUDA-core")):
+        rec = out[name]
+        nbytes, flop = attention_bound(q, k)
+        rec["tflop_per_s"] = flop / rec["ms"] / 1e9
+        log(f"{name} at q {list(q.shape)} {str(q.dtype)[6:]}: "
+            f"{flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; {rec['ms']:.4f}"
+            f" ms per call = {rec['tflop_per_s']:.1f} TFLOP/s; SDPA "
+            f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} at the {peak} peak")
+    # the replaced design: a bf16 view whose rows are not 16-byte aligned
+    # takes the f32 kernel
+    padded = [torch.empty(x.shape[:3] + (D + 1,), dtype=bf16,
+                          device="cuda")[..., :D] for x in serving]
+    for dst, src in zip(padded, serving):
+        dst.copy_(src)
+    require(fa_kernel.route(*padded) == "f32",
+            "a misaligned bf16 view should take the f32 route")
+    time_calls([lambda: fa_kernel.flash_attention(*padded)] * 2)
+    old_ms, _, _ = device_time([lambda: fa_kernel.flash_attention(*padded)]
+                               * 3)
+    out["flash_attention"]["replaced_design_ms"] = old_ms
+    log(f"flash_attention at the serving shape on the design this route "
+        f"replaced (the f32 kernel, bf16 inputs): {old_ms} ms per call")
     return out
 
 
@@ -1496,7 +1547,8 @@ def chunked_ssd():
 @dataclasses.dataclass(frozen=True)
 class ServePath:
     """One serving path: the model, its prompts, the kernel its prefill
-    launches (``kernel.LAUNCHES[key]``), that kernel's plain versions
+    launches (``kernel.LAUNCHES[key]``; every one of them also under
+    ``route`` where the kernel has routes), that kernel's plain versions
     (the first is the one the CPU runs per layer) and the plain path the
     kernel path is held to at full depth."""
     phase: int
@@ -1505,22 +1557,25 @@ class ServePath:
     cache_len: int
     kernel: object
     key: str
+    route: str | None
     plain_module: object
     plain_names: tuple
     flags: OptFlags
     plain_path: object
     score: bool            # also hold lm_forward (scoring) to the plain path
+    kernel_tag: str        # in the device names of the kernel's launches
 
 
 SERVE_PATHS = {
     "dense": ServePath(11, SERVE_ARCH, PROMPT_LEN, CACHE_LEN, fa_kernel,
-                       "flash_attention", fa_ref,
+                       "flash_attention", "flash_attention_mma", fa_ref,
                        ("flash_attention_ref", "attention_ref"),
-                       OptFlags(attn_impl="pallas"), naive_attention, False),
+                       OptFlags(attn_impl="pallas"), naive_attention, False,
+                       "flash_"),
     "ssm": ServePath(13, SSM_ARCH, SSM_PROMPT_LEN, SSM_PROMPT_LEN,
-                     ssd_kernel, "ssd_scan", ssd_ref,
+                     ssd_kernel, "ssd_scan", None, ssd_ref,
                      ("ssd_chunked", "ssd_scan_with_final_ref"), OptFlags(),
-                     chunked_ssd, True),
+                     chunked_ssd, True, "ssd_scan_kernel"),
 }
 
 
@@ -1574,6 +1629,39 @@ def decode_busy_share(eng: ServingEngine, batch, flags: OptFlags,
             "busy_share": None if dev_ms is None else dev_ms / wall_ms,
             "device_ops": count / steps,
             "top_device_us": {k[:60]: v / steps for k, v in top}}
+
+
+def prefill_split(eng: ServingEngine, batch, flags: OptFlags,
+                  kernel_tag: str) -> dict:
+    """Wall time of one warm prefill of ``batch`` and where its device
+    time goes (torch.profiler): the path's kernel (device kernels whose
+    name holds ``kernel_tag``), matrix products (cuBLAS/cuBLASLt, CUTLASS)
+    and everything else."""
+    def step():
+        return api.prefill_fn(eng.cfg)(eng.weights, batch, eng.cache_len,
+                                       flags)
+    with torch.inference_mode():
+        step()
+        sync(eng.device)
+        t0 = time.perf_counter()
+        step()
+        sync(eng.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if eng.device.type != "cuda":
+            return {"wall_ms": wall_ms, "device_ms": None}
+        dev_ms, kernels, count = device_time([step])
+    gemm_tags = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+    split = {"kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, us in kernels.items():
+        low = name.lower()
+        part = ("kernel" if kernel_tag in name else "matmul"
+                if any(t in low for t in gemm_tags) else "other")
+        split[part] += us / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy_share": None if dev_ms is None else dev_ms / wall_ms,
+            "device_ops": count, "device_ms_by_part": split,
+            "top_device_us": {k[:60]: v for k, v in top}}
 
 
 def describe(cfg) -> str:
@@ -1643,6 +1731,10 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     require(launches == cfg.n_layers * n_waves,
             f"{name}: {launches} {key} launches, want {cfg.n_layers} x "
             f"{n_waves}")
+    if path.route is not None:
+        require(kernel.LAUNCHES[path.route] == launches,
+                f"{name}: not every launch took the {path.route} route "
+                f"({kernel.LAUNCHES})")
     require(sum(plain.calls.values()) == 0,
             f"{name}: plain versions called on the kernel path "
             f"{plain.calls}")
@@ -1664,7 +1756,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     peak = memory_gib(device, peak=True)
     log(f"{name} ({card}): {N_REQUESTS} requests in {wall:.3f} s, latency "
         f"p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms; "
-        f"{key} launches {launches}, plain calls {plain.calls}; "
+        f"{key} launches {launches} ({path.route or 'one'} route), plain "
+        f"calls {plain.calls}; "
         f"peak device memory {peak} GiB")
 
     # the same prompt twice gives the same tokens; a manual greedy loop
@@ -1745,6 +1838,12 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             f"plain path: max diff {out['score_rel']:.4g} of the max "
             f"magnitude")
         del hk, hn
+    pre = prefill_split(eng, first, flags, path.kernel_tag)
+    log(f"{name} warm prefill of {SLOTS} x {path.prompt_len} tokens "
+        f"({card}): {pre['wall_ms']:.3f} ms wall, device {pre['device_ms']}"
+        f" ms (busy share {pre.get('busy_share')}); device ms by part "
+        f"{pre.get('device_ms_by_part')}; top device us "
+        f"{pre.get('top_device_us')}")
     busy = decode_busy_share(eng, first, flags)
     log(f"{name} decode step ({card}): {busy['decode_step_ms']:.3f} ms wall"
         f", device busy {busy['device_busy_ms']} ms, busy share "
@@ -1758,7 +1857,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             "latency_p50_ms": percentile(lat, 50),
             "latency_p99_ms": percentile(lat, 99), "wall_s": wall,
             "peak_gib": peak, "kernel_vs_plain_rel": plain_err,
-            "first_token_agree": agree, **out, "decode": busy,
+            "first_token_agree": agree, **out, "prefill": pre,
+            "decode": busy,
             "reduced_cpu": reduced}
 
 
@@ -1808,6 +1908,62 @@ def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
     log(f"serving {cfg.name} reduced: CUDA (kernel) vs CPU (plain) logits, "
         f"relative max diff per step {[f'{e:.3g}' for e in errs]}")
     return {"rel_errs": errs}
+
+
+def f32_route_serving(device="cuda") -> dict:
+    """The f32 route's own path: Qwen2.5-3B served in float32 compute
+    (``compute_dtype="float32"``) at full width and 2 layers, where every
+    prefill attention takes the f32 kernel; the launch counters are zeroed
+    just before the serving run and read just after.  Held to the same run
+    on the CPU's plain versions: prefill logits within 1e-4 of their max
+    magnitude (float32 summed in another order; tests/test_torch_cuda.py's
+    limit) and the tokens."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=REDUCED_SERVE["n_layers"],
+                              compute_dtype="float32")
+    params = api.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SERVE_SEED + 2),
+        device)
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    B, S = REDUCED_SERVE["requests"], REDUCED_SERVE["prompt_len"]
+    prompts = [rng.integers(0, cfg.vocab, S) for _ in range(B)]
+    flags = OptFlags(attn_impl="pallas")
+    tokens, logits = {}, {}
+    for dev in (device, "cpu"):
+        eng = ServingEngine(cfg, params, slots=B, cache_len=S + 8,
+                            flags=flags, device=dev)
+        sync(dev)
+        fa_kernel.reset_launches()
+        done = eng.run([Request(rid=i, prompt=pr,
+                                max_new=REDUCED_SERVE["steps"])
+                        for i, pr in enumerate(prompts)], prompt_len=S)
+        got = dict(fa_kernel.LAUNCHES)
+        want = cfg.n_layers if dev == device else 0
+        require(got["flash_attention_f32"] == want and
+                got["flash_attention"] == want,
+                f"f32-route serving on {dev}: launches {got}, want {want} "
+                "on the f32 route")
+        if dev == device:
+            launches = got["flash_attention_f32"]
+        tokens[dev] = np.stack([r.output for r in done])
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                                   device=dev)
+            logits[dev] = api.prefill_fn(cfg)(
+                eng.weights, {"tokens": toks}, S + 8, flags)[0].cpu()
+        del eng
+    rel = rel_err(logits[device], logits["cpu"])
+    same = bool(np.array_equal(tokens[device], tokens["cpu"]))
+    require(rel <= 1e-4, f"f32-route serving: CUDA prefill logits differ "
+            f"from the CPU's by {rel} of their max magnitude")
+    require(same, f"f32-route serving: CUDA tokens {tokens[device]} differ "
+            f"from the CPU's {tokens['cpu']}")
+    log(f"serving {cfg.name} in float32 compute ({on_card(device)}): "
+        f"{cfg.n_layers} layers, {B} x {S} prompt, "
+        f"{REDUCED_SERVE['steps']} new tokens each; {launches} launches, "
+        f"all on the f32 route; prefill logits vs CPU {rel:.3g} of the max "
+        f"magnitude; tokens equal the CPU's")
+    return {"launches": {"flash_attention_f32": launches}, "rel_err": rel}
 
 
 def on_card(device) -> str:
@@ -1873,12 +2029,14 @@ def main() -> None:
     writes = partitioned_write_phase(reb)
     fail = failover_phase()
     serve = serving_phase(SERVE_PATHS["dense"])
+    serve_f32 = f32_route_serving()
     ssm = serving_phase(SERVE_PATHS["ssm"])
 
     launches = {**craq_run["launches"],
                 "kv_bucketed_read": reb["launches"]["kv_bucketed_read"],
                 "kv_bucketed_write": writes["launches"]["kv_bucketed_write"],
-                **serve["launches"], **ssm["launches"]}
+                **serve["launches"], **serve_f32["launches"],
+                **ssm["launches"]}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
@@ -1893,6 +2051,7 @@ def main() -> None:
         "rebalance_launches": reb["launches"], "rebalance_gain": reb["gain"],
         "partitioned_write_launches": writes["launches"],
         "failover_launches": fail["launches"], "serving": serve,
+        "serving_f32_route": serve_f32,
         "ssm_serving": ssm,
         "kernel_detail": kernels, "add_one_ms": floor,
         "seconds": time.perf_counter() - t_start,

@@ -1,4 +1,72 @@
-// Hand-written Hopper (sm_90a) kernel: causal GQA flash attention, forward.
+// Hand-written Hopper (sm_90a) kernels: causal GQA flash attention, forward.
+//
+// Both replace the TPU kernel
+//   src/repro/kernels/flash_attention/kernel.py::flash_attention
+//   (_flash_kernel, pallas_call over the grid (B, HQ, q tiles, kv tiles)).
+// The Python wrapper (kernel.py::route) sends bf16 inputs with D in
+// {64, 128} and 16-byte-aligned bases and row strides to the tensor-core
+// kernel below and everything else to the f32 kernel after it.
+//
+// ---------------------------------------------------------------------------
+// The bf16 route: flash_mma_kernel (entry point flash_attention_mma_launch).
+//
+// What it computes: the Pallas kernel's function (q [B, HQ, S, D], k/v
+// [B, HKV, SK, D]; query head h reads KV head h / (HQ / HKV); scores q.k *
+// scale in f32; mask k_pos < SK and, when causal, k_pos <= q_pos, aligned
+// top-left; masked scores the finite -1e30; online softmax with f32 running
+// max and sum; output acc / (l == 0 ? 1 : l) in bf16), except that the
+// probabilities p are rounded to bf16 for the p.v product, as SDPA and
+// FlashAttention do.  q.k is exact: a product of two bf16 values is exact
+// in f32, so only the summation order differs from the reference.
+//
+// What bounds it on this card: operations.  At the serving shape (B = 8,
+// HQ = 16, HKV = 2, S = SK = 2048, D = 128, causal) the pairs under the
+// mask need 4 * D operations each, about 137 GFLOP against about 151 MB of
+// inputs and output: 139 us at the bf16 tensor-core peak (989 TFLOP/s),
+// 45 us at 3.35 TB/s.  The f32 kernel runs the same work on the CUDA cores
+// (67 TFLOP/s peak), so it cannot come within 15x of that bound.
+//
+// What the design does about it:
+// - Both products on the tensor cores with bf16 operands and f32
+//   accumulation (wgmma).  One block per (b, h, 64-row q tile): a consumer
+//   warpgroup (warps 0-3) owns the 64 query rows; S = Q K^T is
+//   wgmma.m64n64k16 with Q and K from shared memory, both K-major (D is the
+//   contraction axis); O += P V is wgmma.m64n{D}k16 with P from registers
+//   and V from shared memory read transposed (MN-major) through its
+//   descriptor.
+// - P never leaves the registers: the S accumulator's layout (thread lane
+//   holds rows lane/4 and lane/4 + 8 of its warp's 16, columns 2 (lane % 4)
+//   + 8 j and the next) is the A-operand layout of the second product, so
+//   after the online-softmax update each pair of probabilities is packed to
+//   bf16x2 in place.  Row max and sum are reduced across the four threads
+//   of a row with quad shuffles (the sum once, at the end); exp2 with
+//   scale * log2(e) folded into one FMA.
+// - Asynchronous staging: a producer warp (warp 4) issues TMA loads
+//   (cp.async.bulk.tensor.4d over [B, H, S, D] with the caller's strides,
+//   128-byte swizzle, zero fill past S and SK) of Q once and of each
+//   64-key K/V tile into a ring of stages in shared memory, with a full and
+//   an empty mbarrier per stage, so tile j + 1 loads while tile j computes.
+//   The tensor maps are encoded on the host per launch, with
+//   cuTensorMapEncodeTiled taken from the driver through
+//   cudaGetDriverEntryPointByVersion (cudaGetDriverEntryPoint before CUDA
+//   12.5), so the build needs no -lcuda.
+// - Causal work: tiles wholly above the diagonal are never loaded; only
+//   the diagonal tile and the tile that holds SK are masked element by
+//   element (zero-filled keys past SK score 0, not -1e30, so they are
+//   masked too); the heaviest q tiles start first.
+// - Occupancy: 160 threads; shared memory (1 + 2 ST) * D * 128 bytes for
+//   the tiles, a 1 KB alignment pad and 8 bytes for each of the 1 + 2 ST
+//   barriers: D = 128 with ST = 2 stages 81,920 + 1,064 bytes, two blocks
+//   (10 warps) per SM; D = 64 with ST = 3 57,344 + 1,080 bytes, three
+//   blocks (15 warps) per SM.  Registers:
+//   __launch_bounds__(160, 2 or 3) caps them at 204 (D = 128) or 136 (D =
+//   64) per thread; the consumer holds the S tile (32 f32), the O tile
+//   (D / 2 f32) and P (16 bf16x2).
+// - The output is written from registers in q's layout (bf16 pairs), rows
+//   past S not at all.
+//
+// ---------------------------------------------------------------------------
+// The f32 route: flash_fwd_kernel (entry point flash_attention_launch).
 //
 // flash_fwd_kernel replaces the TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention
@@ -17,10 +85,12 @@
 // D = 128, bf16) the work is about 137 GFLOP against about 151 MB: some
 // 900 operations per byte, far above the card's crossover of about 295.
 // It is bound by operations.  The least time is that of the bf16 tensor
-// cores (989 TFLOP/s); this first design keeps the reference's f32 math
-// and runs it as f32 FMAs on the CUDA cores (67 TFLOP/s), so it sits
-// more than an order of magnitude above that bound by construction.
-// Tensor cores (mma/wgmma with bf16 operands) and TMA are later work.
+// cores (989 TFLOP/s); this kernel keeps the reference's f32 math and
+// runs it as f32 FMAs on the CUDA cores (67 TFLOP/s), so it sits more
+// than an order of magnitude above that bound by construction.  It is
+// the route of f32 inputs (held to 2e-5, which bf16 products cannot
+// meet), of bf16 with other head dims and of unaligned views; bf16 at
+// D = 64 and 128 takes the tensor-core kernel above.
 //
 // What the design does about it:
 // - The TPU's sequential kv grid axis becomes a loop inside the block:
@@ -46,9 +116,12 @@
 // The entry point returns cudaGetLastError() after the launch, so a
 // refused launch surfaces in the Python wrapper.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 namespace {
 
@@ -309,4 +382,447 @@ extern "C" int flash_attention_launch(
                                    sv, so, scale, causal, s);
   return dispatch<float>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk, sv, so,
                          scale, causal, s);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 route: the tensor-core kernel.
+// ---------------------------------------------------------------------------
+namespace mma {
+
+constexpr int kRows = 64;             // query rows per block (one warpgroup)
+constexpr int kKeys = 64;             // keys per K/V tile
+constexpr int kBox = 64 * 64 * 2;     // one TMA box: 64 rows x 64 bf16
+constexpr int kThreads = 160;         // consumer warpgroup + producer warp
+constexpr int kConsumers = 128;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 64 x 64 box of a [B, H, rows, D] tensor map into shared memory at
+// dst, completing bytes on the barrier; coordinates innermost first.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int row, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(row),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// A K-major operand (rows x D, D contiguous, 64-column boxes of 8 KB, each
+// 8-row group 1 KB apart): the 16 columns of k-step kk.
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+  return desc(tile + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024);
+}
+
+// V as the MN-major B operand of P V (keys x D, D contiguous): the 16 keys
+// of k-step kk; the next 64 columns of D are a box (8 KB) further on, the
+// next 8 keys 1 KB.
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * 128, kBox, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching accumulator registers across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64] (scale_d = 0: D = A B), A and
+// B from shared memory, both K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (bf16 pairs in
+// the accumulator layout), B from shared memory, MN-major (transposed)
+// with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers (bf16 pairs in
+// the accumulator layout), B from shared memory, MN-major (transposed)
+// with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+struct OutStrides {
+  long long b, h, s;   // in elements; the last dimension is dense
+};
+
+template <int D, int ST>
+constexpr int smem_bytes() {
+  return (1 + 2 * ST) * (D / 64) * kBox + 1024 + 8 * (1 + 2 * ST);
+}
+
+template <int D, int ST, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    flash_mma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     __nv_bfloat16* __restrict__ o, int B, int HQ, int HKV,
+                     int S, int SK, OutStrides so, float scale_log2,
+                     int causal) {
+  constexpr int NB = D / 64;            // 64-column boxes per row
+  constexpr int kTile = NB * kBox;      // one Q, K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t bars = base + (1 + 2 * ST) * kTile;
+  const uint32_t q_bar = bars;
+  auto sK = [&](int s) { return base + (1 + 2 * s) * kTile; };
+  auto sV = [&](int s) { return base + (2 + 2 * s) * kTile; };
+  auto full = [&](int s) { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 + 8 * ST + 8 * s; };
+
+  const int BH = B * HQ;
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int bh = blockIdx.x % BH;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / BH);   // heaviest first
+  const int b = bh / HQ, h = bh % HQ;
+  const int hk = h / (HQ / HKV);
+  const int q0 = qt * kRows;
+  int n_kt = (SK + kKeys - 1) / kKeys;
+  if (causal) n_kt = min(n_kt, qt + 1);   // q0 + 63 < (qt + 1) * 64
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {
+    // producer: Q once, then the K/V ring
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, kTile);
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        tma_load(sQ + c * kBox, &tq, q_bar, c * 64, q0, h, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % ST;
+        mbar_wait(empty(s), ((kt / ST) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * kTile);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load(sK(s) + c * kBox, &tk, full(s), c * 64, kt * kKeys, hk, b);
+          tma_load(sV(s) + c * kBox, &tv, full(s), c * 64, kt * kKeys, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: thread lane of warp w holds rows r0 = 16 w + lane/4
+  // and r0 + 8 of the tile, columns 8 j + 2 (lane % 4) and the next
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16 + g;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[32];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_bar, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % ST;
+    mbar_wait(full(s), (kt / ST) & 1);
+
+    // S = Q K^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, k_major(sQ, kk), k_major(sK(s), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // mask the diagonal tile and the tile that holds SK
+    const int k0 = kt * kKeys;
+    if (k0 + kKeys > SK || (causal && k0 + kKeys - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const int row = q0 + r0 + 8 * ((i / 2) & 1);
+        if (col >= SK || (causal && col > row)) sc[i] = kNegInf;
+      }
+    }
+
+    // online softmax on the scores in registers (log2 domain)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) & 1;
+      mx[r] = fmaxf(mx[r], sc[i] * scale_log2);
+    }
+    float alpha[2], mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      mc[r] = -mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) & 1;
+      sc[i] = ex2(fmaf(sc[i], scale_log2, mc[r]));
+      l[r] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) & 1];
+
+    // O += P V, P packed to bf16 in place as the A operand
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (D == 64)
+        wgmma_rs_n64(acc, pa[kk], mn_major(sV(s), kk));
+      else
+        wgmma_rs_n128(acc, pa[kk], mn_major(sV(s), kk));
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+  }
+  __nv_bfloat16* oh = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = oh + (long long)row * so.s + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
+  }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver once.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A [B, H, rows, D] bf16 tensor (strides in elements, the last dimension
+// dense) as a tensor map of 64 x 64 boxes, 128-byte swizzle, zero fill.
+CUresult tensor_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int B,
+                    int H, int rows, int D, long long sb, long long sh,
+                    long long ss) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D, int ST, int MINB>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           void* o, int B, int HQ, int HKV, int S, int SK, OutStrides so,
+           float scale_log2, int causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D, ST>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<D, ST, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((S + kRows - 1) / kRows) * B * HQ;
+  flash_mma_kernel<D, ST, MINB><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, HQ, HKV, S, SK, so,
+      scale_log2, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
+// Error codes of flash_attention_mma_launch beside cudaError_t's.
+#define FA_MMA_NO_ENCODER 9001       // cuTensorMapEncodeTiled not found
+#define FA_MMA_BAD_TENSOR_MAP 9002   // a tensor map was refused
+
+// bf16 q/k/v/o; D in {64, 128}; bases 16-byte aligned; strides in elements
+// (batch, head, row), multiples of 8, the last dimension contiguous; HQ a
+// multiple of HKV, SK >= 1.
+extern "C" int flash_attention_mma_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int HQ,
+    int HKV, int S, int SK, int D, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, float scale, int causal, void* stream) {
+  if ((D != 64 && D != 128) || HKV < 1 || HQ % HKV != 0 || SK < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)B * HQ * S == 0) return (int)cudaGetLastError();
+  mma::EncodeTiled fn = mma::encode_tiled();
+  if (fn == nullptr) return FA_MMA_NO_ENCODER;
+  CUtensorMap tq, tk, tv;
+  if (mma::tensor_map(&tq, fn, q, B, HQ, S, D, q_sb, q_sh, q_ss) !=
+          CUDA_SUCCESS ||
+      mma::tensor_map(&tk, fn, k, B, HKV, SK, D, k_sb, k_sh, k_ss) !=
+          CUDA_SUCCESS ||
+      mma::tensor_map(&tv, fn, v, B, HKV, SK, D, v_sb, v_sh, v_ss) !=
+          CUDA_SUCCESS)
+    return FA_MMA_BAD_TENSOR_MAP;
+  const mma::OutStrides so{o_sb, o_sh, o_ss};
+  const float scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D == 64)
+    return mma::launch<64, 3, 3>(tq, tk, tv, o, B, HQ, HKV, S, SK, so,
+                                 scale_log2, causal, s);
+  return mma::launch<128, 2, 2>(tq, tk, tv, o, B, HQ, HKV, S, SK, so,
+                                scale_log2, causal, s);
 }

@@ -7,15 +7,25 @@ float32, ``HQ`` a multiple of ``HKV``, ``D <= 256``.  Any strides are
 taken as long as the last dimension is contiguous, so the transposed
 ``[B, S, H, D] -> [B, H, S, D]`` views of the model are read in place;
 the output has q's layout.  For tensors on the CPU it runs the plain
-version (``ref.flash_attention_ref``); for CUDA tensors it launches the
-kernel in ``csrc/flash_attention.cu`` or raises - there is no fallback.
+version (``ref.flash_attention_ref``); for CUDA tensors it launches one
+of the two kernels in ``csrc/flash_attention.cu`` or raises - there is no
+fallback from one kernel to the other, nor to the plain version.
+
+``route(q, k, v)`` picks the kernel: ``"mma"``, the tensor-core kernel
+(bf16 products with f32 accumulation, p rounded to bf16 for p.v), for
+bf16 inputs with ``D`` in {64, 128} whose bases are 16-byte aligned and
+whose batch, head and row strides are positive multiples of 8 elements
+(what its TMA tensor maps take); ``"f32"``, the f32-math kernel, for
+everything else: float32 inputs (held to 2e-5, which bf16 products cannot
+meet), other head dims and unaligned views.
 
 The CUDA source is compiled at first use into a shared library with a
 plain C interface, loaded with ``ctypes`` (``repro_torch.kernels.build``:
 ``build/libflash_attention_<hash>.so`` beside this file).
 
-``LAUNCHES`` counts kernel launches; only a launch of the CUDA kernel adds
-to it.
+``LAUNCHES`` counts kernel launches: ``"flash_attention"`` every launch,
+``"flash_attention_mma"`` and ``"flash_attention_f32"`` those of each
+route; only a launch of a CUDA kernel adds to them.
 """
 from __future__ import annotations
 
@@ -27,13 +37,16 @@ import torch
 from repro_torch.kernels.build import CudaLibrary
 from repro_torch.kernels.flash_attention import ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_mma": 0,
+            "flash_attention_f32": 0}
 MAX_HEAD_DIM = 256
+MMA_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def _declare(lib) -> None:
@@ -41,6 +54,9 @@ def _declare(lib) -> None:
     lib.flash_attention_launch.argtypes = (
         [p] * 4 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_mma_launch.argtypes = (
+        [p] * 4 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, p])
+    lib.flash_attention_mma_launch.restype = i
 
 
 _LIBRARY = CudaLibrary(
@@ -76,6 +92,18 @@ def _check(q, k, v) -> None:
         raise ValueError("no keys (SK = 0)")
 
 
+def route(q, k, v) -> str:
+    """The kernel a CUDA launch of these (checked) inputs takes: "mma" or
+    "f32" (see the module's docstring)."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in MMA_HEAD_DIMS:
+        return "f32"
+    for x in (q, k, v):
+        if x.data_ptr() % 16 or any(st <= 0 or st % 8
+                                    for st in x.stride()[:3]):
+            return "f32"
+    return "mma"
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """Causal (top-left) GQA attention, forward; see ``ref.py`` for the
     function.  Returns ``[B, HQ, S, D]`` in q's dtype."""
@@ -90,13 +118,22 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     scale = (D ** -0.5) if scale is None else scale
     o = torch.empty_like(q)
     strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
+    path = route(q, k, v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(dev):
-        rc = _LIBRARY.lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, HQ, HKV, S, SK, D, *strides,
-            float(scale), int(causal),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = _LIBRARY.lib()
+        if path == "mma":
+            rc = lib.flash_attention_mma_launch(
+                *ptrs, B, HQ, HKV, S, SK, D, *strides, float(scale),
+                int(causal), stream)
+        else:
+            rc = lib.flash_attention_launch(
+                *ptrs, int(q.dtype == torch.bfloat16), B, HQ, HKV, S, SK, D,
+                *strides, float(scale), int(causal), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash_attention ({path} route) launch failed: "
+                           f"error {rc}")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention_{path}"] += 1
     return o

@@ -3,8 +3,9 @@
   impl="naive"   - dense softmax (``ref.attention_ref``), the oracle
   impl="pallas"  - the flash_attention kernel (``kernel.flash_attention``;
                    the name is the reference's, whose kernel is Pallas):
-                   on CUDA the hand-written kernel, on the CPU its plain
-                   version
+                   on CUDA one of the two hand-written kernels (bf16 on
+                   the tensor cores, the rest in f32; ``kernel.route``),
+                   on the CPU their plain version
   impl="chunked" - the reference's online softmax in XLA with its custom
                    VJP, the training path: it comes with the training slice
 

@@ -227,9 +227,59 @@ def test_cuda_flash_attention_matches_plain_version(card, B, HQ, HKV, S,
     got = fa_kernel.flash_attention(q, k, v, causal=causal)
     exp = fa_ref.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    # float32 takes the f32 kernel; bf16 at D = 64 or 128 the tensor cores
+    route = "mma" if dtype == torch.bfloat16 and D in (64, 128) else "f32"
     assert fa_kernel.LAUNCHES["flash_attention"] == 1
+    assert fa_kernel.LAUNCHES[f"flash_attention_{route}"] == 1
     assert got.dtype == dtype and got.stride() == q.stride()
     assert float((got.float() - exp.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,HQ,HKV,S,SK,D,causal,view", [
+    # head dims 64 and 128; GQA groups 1, 2 and 8
+    (1, 4, 4, 128, 128, 64, True, True),
+    (2, 16, 2, 256, 256, 128, True, True),
+    (1, 16, 2, 256, 256, 64, True, True),
+    (1, 8, 1, 192, 192, 128, True, True),
+    (1, 8, 1, 192, 192, 64, True, True),
+    # S = SK ragged: no multiple of the 64-row tiles
+    (1, 4, 2, 200, 200, 128, True, True),
+    (1, 8, 2, 1000, 1000, 128, True, True),
+    (1, 4, 1, 1000, 1000, 64, True, True),
+    # S != SK both ways (the mask aligned top-left)
+    (1, 4, 2, 100, 224, 128, True, True),
+    (1, 4, 2, 700, 200, 64, True, True),
+    (2, 8, 2, 300, 130, 128, True, True),
+    # non-causal, with S != SK
+    (1, 4, 4, 130, 70, 128, False, True),
+    (1, 8, 2, 70, 300, 64, False, True),
+    # contiguous [B, H, S, D] tensors instead of the model's views
+    (2, 8, 2, 200, 200, 128, True, False),
+    (1, 4, 4, 64, 64, 64, False, False),
+])
+def test_cuda_flash_attention_mma_route_matches_plain_version(
+        card, B, HQ, HKV, S, SK, D, causal, view):
+    """The tensor-core route equals the plain version (which keeps p in
+    f32) at the bf16 tolerance: head dims 64/128, GQA groups 1/2/8,
+    ragged tiles, S != SK, non-causal, transposed views and contiguous
+    tensors; every case is launched on that route."""
+    rng = np.random.default_rng(43)
+    shapes = ((B, S, HQ, D), (B, SK, HKV, D), (B, SK, HKV, D))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, torch.bfloat16) for shape in shapes)
+    q, k, v = (x.transpose(1, 2) if view else
+               x.transpose(1, 2).contiguous() for x in (q, k, v))
+    assert fa_kernel.route(q, k, v) == "mma"
+    fa_kernel.reset_launches()
+    got = fa_kernel.flash_attention(q, k, v, causal=causal)
+    exp = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES == {"flash_attention": 1,
+                                  "flash_attention_mma": 1,
+                                  "flash_attention_f32": 0}
+    assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - exp.float()).abs().max()) <= 2e-2
 
 
 def test_cuda_serving_matches_cpu(card):
@@ -258,6 +308,8 @@ def test_cuda_serving_matches_cpu(card):
         out[str(d)] = np.stack([r.output for r in done])
         launches = fa_kernel.LAUNCHES["flash_attention"]
         assert launches == (0 if d == "cpu" else 2 * cfg.n_layers)
+        # float32 compute: every launch on the f32 route
+        assert fa_kernel.LAUNCHES["flash_attention_f32"] == launches
         with torch.inference_mode():
             toks = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
                                    device=d)

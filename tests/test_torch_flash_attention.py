@@ -138,6 +138,48 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
         t_kernel.flash_attention(q, k, v)
 
 
+def _route_inputs(case):
+    """q, k, v on the CPU for each case of the route rule."""
+    bf16 = torch.bfloat16
+    view = lambda H, D, dt=bf16: torch.zeros(2, 40, H, D,
+                                             dtype=dt).transpose(1, 2)
+    if case.startswith("bf16_d"):   # head dims 32, 64, 128, 256
+        D = int(case[6:])
+        return view(8, D), view(2, D), view(2, D)
+    if case == "bf16_contiguous":
+        return (torch.zeros(1, 8, 40, 128, dtype=bf16),
+                torch.zeros(1, 2, 40, 128, dtype=bf16),
+                torch.zeros(1, 2, 40, 128, dtype=bf16))
+    if case == "f32":
+        return view(8, 128, torch.float32), view(2, 128, torch.float32), \
+            view(2, 128, torch.float32)
+    if case == "bf16_row_stride":   # rows of 130 elements: not 16-byte
+        k = torch.zeros(2, 40, 2, 130, dtype=bf16)[..., :128]
+        return view(8, 128), k.transpose(1, 2), view(2, 128)
+    # case == "bf16_base": a base 2 bytes past a 16-byte boundary
+    flat = torch.zeros(1 + 2 * 40 * 2 * 128, dtype=bf16)[1:]
+    v = flat.view(2, 40, 2, 128).transpose(1, 2)
+    return view(8, 128), view(2, 128), v
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16_d64", "mma"), ("bf16_d128", "mma"), ("bf16_contiguous", "mma"),
+    ("f32", "f32"), ("bf16_d32", "f32"), ("bf16_d256", "f32"),
+    ("bf16_row_stride", "f32"), ("bf16_base", "f32"),
+])
+def test_flash_route_rule(case, want):
+    """The rule that picks a CUDA kernel, on CPU tensors: bf16 with head
+    dim 64 or 128 and 16-byte-aligned bases and strides takes the
+    tensor-core kernel; float32, other head dims and misaligned views
+    the f32 one.  On the CPU the wrapper still runs the plain version."""
+    q, k, v = _route_inputs(case)
+    assert t_kernel.route(q, k, v) == want
+    t_kernel.reset_launches()
+    got = t_kernel.flash_attention(q, k, v)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert all(n == 0 for n in t_kernel.LAUNCHES.values())
+
+
 def test_mha_chunked_waits_for_the_training_slice():
     x = torch.zeros(1, 2, 4, 8)
     with pytest.raises(NotImplementedError):
