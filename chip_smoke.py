@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card, at full size.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 12,13]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/kv_engine/
 csrc``, ``src/repro_torch/kernels/flash_attention/csrc`` and
@@ -68,20 +68,31 @@ source, all three at once), then:
    route's own path, Qwen2.5-3B in float32 compute at full width and 2
    layers, its launches all on the f32 route, held to the CPU's logits
    and tokens;
-12. the ssd_scan kernel against its plain version (``ssd_chunked``), y
-   and the final state, timed as in phase 2 beside its bound: one
-   layer's prefill of phase 13 (x [8, 2000, 64, 64] bf16 as the model's
-   strided view, dt [8, 2000, 64], B/C [8, 2000, 128] shared by the
-   heads, chunk 64 with a ragged last chunk), float32 x, L = 2048,
+12. the ssd_scan kernel pair (``ssd_cb_kernel``: C B^T per batch and
+   chunk; ``ssd_scan_kernel``: the scan in 3xTF32 on the tensor cores)
+   against its plain version (``ssd_chunked``), y and the final state,
+   one launch of each per call, timed as in phase 2 beside its bound:
+   one layer's prefill of phase 13 (x [8, 2000, 64, 64] bf16 as the
+   model's strided view, dt [8, 2000, 64], B/C [8, 2000, 128] shared by
+   the heads, chunk 64 with a ragged last chunk), float32 x, L = 2048,
    L = 40 < chunk, chunks 16 and 32; no library call computes the scan;
+   prints the per-call time, each kernel's share of it, and the bounds
+   by bytes and by operations at the bf16 and the 3xTF32 rates; then
+   ``chunk_cb`` (the first kernel alone) against ``ref.chunk_cb`` and a
+   batched ``torch.matmul``;
 13. the same serving run as phase 11 on Mamba2-1.3B (48 layers, random
    weights from a seed; 16 requests of 2000-token prompts, 32 new tokens
-   each, 2 waves of 8) with every SSD core of prefill on the kernel;
-   held to 96 launches and no plain-version call, determinism, a manual
-   greedy loop, the version bump, the plain path's (``impl="chunked"``)
-   prefill logits and ``lm_forward`` scoring of 2 x 2000 tokens (48
-   launches) at full depth and, at 2 layers, the CPU's plain versions;
-   prints the same serving metrics and the peak device memory.
+   each, 2 waves of 8) with every SSD core of prefill on the kernels;
+   held to 96 launches of each kernel of the pair and no plain-version
+   call, determinism, a manual greedy loop, the version bump, the plain
+   path's (``impl="chunked"``) prefill logits and ``lm_forward`` scoring
+   of 2 x 2000 tokens (48 launches of each) at full depth and, at 2
+   layers, the CPU's plain versions; prints the same serving metrics and
+   the peak device memory.
+
+``--phases 12,13`` runs the build, phase 1 and the named phases only
+(4 and 5 bring 3 along, 8 brings 7); the JSON record then lists the
+kernels of the phases that ran.
 
 Any failure raises (non-zero exit).  Without a card, or without the repo
 beside it, the script exits non-zero before printing any result.  The
@@ -151,13 +162,14 @@ ITERS = 40                         # timed calls per kernel measurement
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 peak outside tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor-core peak
 KV_SRC = "src/repro_torch/kernels/kv_engine/csrc/kv_engine.cu"
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SOURCES = {"kv_read": KV_SRC, "kv_write": KV_SRC,
            "kv_bucketed_read": KV_SRC, "kv_bucketed_write": KV_SRC,
            "flash_attention": FA_SRC, "flash_attention_f32": FA_SRC,
-           "ssd_scan": SSD_SRC}
+           "ssd_cb": SSD_SRC, "ssd_scan": SSD_SRC}
 REPLACES = {
     "kv_read": "src/repro/kernels/kv_engine/kernel.py:153",
     "kv_write": "src/repro/kernels/kv_engine/kernel.py:510",
@@ -165,6 +177,7 @@ REPLACES = {
     "kv_bucketed_write": "src/repro/kernels/kv_engine/kernel.py:339",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:96",
     "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:96",
+    "ssd_cb": "src/repro/kernels/ssd_scan/kernel.py:94",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:94",
 }
 # The partition map of phases 2 and 7-8, in fig_rebalance's proportions:
@@ -1415,29 +1428,47 @@ def ssd_inputs(gen, Bz, L, H, P, N, dtype):
 
 
 def ssd_bound(x, B, chunk: int = 64):
-    """(bytes, operations) the scan must move and do for these inputs: x
-    and dt read once, B and C once per batch (shared by the heads), A and
-    D once, y and h_final written once; per (batch, head) and chunk of q
-    rows, the causal C.B and M.x products over q(q+1)/2 pairs and the
-    C.h and state products over q rows, 2 operations per multiply-add."""
+    """(bytes, operations, operations of C B^T) the scan must move and do
+    for these inputs: x and dt read once, B and C once per batch (shared by
+    the heads), A and D once, y and h_final written once; per (batch,
+    head) and chunk of q rows, the causal C.B and M.x products over
+    q(q+1)/2 pairs and the C.h and state products over q rows, 2
+    operations per multiply-add.  The last count is the C.B part, which
+    the kernels do once per batch instead of once per head."""
     Bz, L, H, P = x.shape
     N = B.shape[-1]
     nbytes = (2 * x.element_size() * Bz * L * H * P + 4 * Bz * L * H
               + 2 * 4 * Bz * L * N + 2 * 4 * H + 4 * Bz * H * N * P)
-    flop = 0
+    flop = cb = 0
     for l0 in range(0, L, min(chunk, L)):
         q = min(chunk, L - l0)
         flop += 2 * (q * (q + 1) // 2 * (N + P) + 2 * q * N * P)
-    return nbytes, flop * Bz * H
+        cb += 2 * q * (q + 1) // 2 * N
+    return nbytes, flop * Bz * H, cb * Bz * H
+
+
+def cb_inputs(B, chunk: int = 64):
+    """(bytes, operations) of G = C B^T per chunk: B and C read once, G
+    (q x q per chunk) written once, every pair of a chunk's rows."""
+    Bz, L, N = B.shape
+    nbytes = flop = 0
+    for l0 in range(0, L, min(chunk, L)):
+        q = min(chunk, L - l0)
+        nbytes += 4 * q * q
+        flop += 2 * q * q * N
+    return (2 * 4 * Bz * L * N + Bz * nbytes), Bz * flop
 
 
 def check_ssd_scan() -> dict:
-    """The kernel against its plain version (``ssd_chunked``) on the card:
-    one Mamba2-1.3B layer's prefill of phase 13 (8 x 2000 tokens, bf16 x,
-    a ragged last chunk), float32 x, L = 2048, L = 40 < chunk, chunks 16
-    and 32; y within ``tol`` of its largest magnitude, the final state
-    within 1e-5 of its own.  Then times kernel and plain version at the
-    prefill shape; no single PyTorch call computes the scan."""
+    """The kernels against their plain versions on the card: the pair
+    (``ssd_scan_heads``: ``ssd_cb_kernel`` then ``ssd_scan_kernel``)
+    against ``ssd_chunked`` at one Mamba2-1.3B layer's prefill of phase 13
+    (8 x 2000 tokens, bf16 x, a ragged last chunk), float32 x, L = 2048,
+    L = 40 < chunk, chunks 16 and 32, y within ``tol`` of its largest
+    magnitude, the final state within 1e-5 of its own; ``chunk_cb`` alone
+    against ``ref.chunk_cb`` at the prefill shape.  Then times both beside
+    their plain versions at the prefill shape; no single PyTorch call
+    computes the scan, one ``torch.matmul`` computes C B^T per chunk."""
     cfg = get_config(SSM_ARCH)
     H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1451,8 +1482,11 @@ def check_ssd_scan() -> dict:
     errs = {}
     for name, Bz, L, chunk, dtype, tol in cases:
         x, dt, A, Bm, Cm, D = ssd_inputs(gen, Bz, L, H, P, N, dtype)
+        ssd_kernel.reset_launches()
         y, h = ssd_kernel.ssd_scan_heads(x, dt, A, Bm, Cm, D, chunk=chunk,
                                          h_final=True)
+        require(ssd_kernel.LAUNCHES == {"ssd_cb": 1, "ssd_scan": 1},
+                f"ssd_scan {name}: launches {ssd_kernel.LAUNCHES}")
         ey, eh = ssd_ops.ssd(x, dt, A, Bm, Cm, D, impl="chunked",
                              chunk=chunk, return_state=True)
         torch.cuda.synchronize()
@@ -1474,22 +1508,68 @@ def check_ssd_scan() -> dict:
         del x, dt, A, Bm, Cm, D, y, h, ey, eh
     x, dt, A, Bm, Cm, D = ssd_inputs(gen, SLOTS, SSM_PROMPT_LEN, H, P, N,
                                      bf16)
-    nbytes, flop = ssd_bound(x, Bm)
-    rec = dict(
-        max_abs_err=max(e["y"] for e in errs.values()), case_errs=errs,
-        calls=lambda n: [lambda: ssd_kernel.ssd_scan_heads(
-            x, dt, A, Bm, Cm, D, h_final=True)] * n,
-        plain=lambda n: [lambda: ssd_ops.ssd(
-            x, dt, A, Bm, Cm, D, impl="chunked", return_state=True)] * n,
-        library=None,   # no single PyTorch call computes the chunked scan
-        bound_bytes=nbytes, bound_flop=flop, iters=FA_ITERS)
-    out = measure({"ssd_scan": rec})
-    log(f"ssd_scan at the prefill shape: {flop / 1e9:.2f} GFLOP "
+    g = ssd_kernel.chunk_cb(Bm, Cm)
+    eg = ssd_ref.chunk_cb(Bm, Cm)
+    torch.cuda.synchronize()
+    cb_err = float((g - eg).abs().max())
+    cb_rel = cb_err / float(eg.abs().max())
+    require(tuple(g.shape) == tuple(eg.shape) and cb_rel <= 1e-5,
+            f"ssd_cb: differs from its plain version by {cb_rel} of the "
+            f"max magnitude")
+    log(f"ssd_cb: B/C [{SLOTS}, {SSM_PROMPT_LEN}, {N}] -> G "
+        f"{list(g.shape)}: max abs err {cb_err:.3g} ({cb_rel:.3g} of its "
+        f"max; tolerance 1e-5, float32 summed in another order)")
+    # the library yardstick: one batched matmul over chunks padded once
+    q = 64
+    pad = (-SSM_PROMPT_LEN) % q
+    padded = [F.pad(t, (0, 0, 0, pad)).reshape(SLOTS, -1, q, N)
+              for t in (Bm, Cm)]
+    nbytes, flop, cb_flop = ssd_bound(x, Bm)
+    cb_bytes, cb_ops = cb_inputs(Bm)
+    out = measure({
+        "ssd_cb": dict(
+            max_abs_err=cb_err,
+            calls=lambda n: [lambda: ssd_kernel.chunk_cb(Bm, Cm)] * n,
+            plain=lambda n: [lambda: ssd_ref.chunk_cb(Bm, Cm)] * n,
+            library=lambda n: [lambda: torch.matmul(
+                padded[1], padded[0].transpose(-1, -2))] * n,
+            bound_bytes=cb_bytes, bound_flop=cb_ops,
+            flop_per_s=F32_FLOP_PER_S, iters=FA_ITERS),
+        "ssd_scan": dict(
+            max_abs_err=max(e["y"] for e in errs.values()), case_errs=errs,
+            calls=lambda n: [lambda: ssd_kernel.ssd_scan_heads(
+                x, dt, A, Bm, Cm, D, h_final=True)] * n,
+            plain=lambda n: [lambda: ssd_ops.ssd(
+                x, dt, A, Bm, Cm, D, impl="chunked", return_state=True)] * n,
+            library=None,   # no single PyTorch call computes the scan
+            bound_bytes=nbytes, bound_flop=flop, iters=FA_ITERS)})
+    rec = out["ssd_scan"]
+    split = {("ssd_cb" if "ssd_cb_kernel" in k else "ssd_scan" if
+              "ssd_scan_kernel" in k else k[:40]): us
+             for k, us in rec["device_kernels_us"].items()}
+    pair_us = sum(split.values())
+    tc_flop = 3 * (flop - cb_flop)
+    log(f"ssd_scan at the prefill shape ({smi()}): "
+        f"{rec['ms'] * 1e3:.2f} us per call (event-timed "
+        f"{rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms'] * 1e3:.2f} "
+        f"us), per kernel of the pair "
+        + ", ".join(f"{k} {us:.2f} us ({us / pair_us:.1%})"
+                    for k, us in split.items())
+        + f"; {flop / 1e9:.2f} GFLOP of the plain version "
         f"({flop / BF16_FLOP_PER_S * 1e6:.1f} us at the bf16 peak, "
         f"{flop / F32_FLOP_PER_S * 1e6:.1f} us at the f32 CUDA-core peak), "
-        f"{nbytes / 1e6:.1f} MB ({nbytes / HBM_BYTES_PER_S * 1e6:.1f} us); "
-        f"bound {out['ssd_scan']['bound_ms']:.4f} ms by "
-        f"{out['ssd_scan']['bound_by']}")
+        f"{(flop - cb_flop) / 1e9:.2f} GFLOP once C B^T is per batch "
+        f"({(flop - cb_flop) / (TF32_FLOP_PER_S / 3) * 1e6:.1f} us at "
+        f"TF32/3, the 3xTF32 rate; {tc_flop / rec['ms'] / 1e9:.1f} TFLOP/s "
+        f"of TF32 products counted as three), {nbytes / 1e6:.1f} MB "
+        f"({nbytes / HBM_BYTES_PER_S * 1e6:.1f} us); bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
+    cb = out["ssd_cb"]
+    log(f"ssd_cb at the prefill shape: {cb['ms'] * 1e3:.2f} us (plain "
+        f"{cb['plain_ms'] * 1e3:.2f} us, torch.matmul "
+        f"{cb['library_ms'] * 1e3:.2f} us), {cb_ops / 1e9:.3f} GFLOP, "
+        f"{cb_bytes / 1e6:.1f} MB; bound {cb['bound_ms'] * 1e3:.2f} us by "
+        f"{cb['bound_by']}")
     return out
 
 
@@ -1548,7 +1628,8 @@ def chunked_ssd():
 class ServePath:
     """One serving path: the model, its prompts, the kernel its prefill
     launches (``kernel.LAUNCHES[key]``; every one of them also under
-    ``route`` where the kernel has routes), that kernel's plain versions
+    ``route`` where the kernel has routes, and once more under ``paired``
+    where a second kernel runs before it), that kernel's plain versions
     (the first is the one the CPU runs per layer) and the plain path the
     kernel path is held to at full depth."""
     phase: int
@@ -1564,6 +1645,7 @@ class ServePath:
     plain_path: object
     score: bool            # also hold lm_forward (scoring) to the plain path
     kernel_tag: str        # in the device names of the kernel's launches
+    paired: str | None = None
 
 
 SERVE_PATHS = {
@@ -1575,7 +1657,7 @@ SERVE_PATHS = {
     "ssm": ServePath(13, SSM_ARCH, SSM_PROMPT_LEN, SSM_PROMPT_LEN,
                      ssd_kernel, "ssd_scan", None, ssd_ref,
                      ("ssd_chunked", "ssd_scan_with_final_ref"), OptFlags(),
-                     chunked_ssd, True, "ssd_scan_kernel"),
+                     chunked_ssd, True, "ssd_", paired="ssd_cb"),
 }
 
 
@@ -1735,6 +1817,10 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
         require(kernel.LAUNCHES[path.route] == launches,
                 f"{name}: not every launch took the {path.route} route "
                 f"({kernel.LAUNCHES})")
+    if path.paired is not None:
+        require(kernel.LAUNCHES[path.paired] == launches,
+                f"{name}: {kernel.LAUNCHES[path.paired]} {path.paired} "
+                f"launches, want one per {key} launch ({launches})")
     require(sum(plain.calls.values()) == 0,
             f"{name}: plain versions called on the kernel path "
             f"{plain.calls}")
@@ -1756,8 +1842,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     peak = memory_gib(device, peak=True)
     log(f"{name} ({card}): {N_REQUESTS} requests in {wall:.3f} s, latency "
         f"p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms; "
-        f"{key} launches {launches} ({path.route or 'one'} route), plain "
-        f"calls {plain.calls}; "
+        f"{key} launches {launches} ({path.route or 'one'} route; all "
+        f"launches {kernel.LAUNCHES}), plain calls {plain.calls}; "
         f"peak device memory {peak} GiB")
 
     # the same prompt twice gives the same tokens; a manual greedy loop
@@ -1808,9 +1894,12 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             kernel.reset_launches()
             hk = TF.lm_forward(eng.weights, cfg, scored, flags=flags)
             out["score_launches"] = kernel.LAUNCHES[key]
-            require(out["score_launches"] == cfg.n_layers,
-                    f"{name}: scoring launched {key} "
-                    f"{out['score_launches']} times, want {cfg.n_layers}")
+            require(out["score_launches"] == cfg.n_layers and
+                    (path.paired is None or
+                     kernel.LAUNCHES[path.paired] == cfg.n_layers),
+                    f"{name}: scoring launched {kernel.LAUNCHES}, want "
+                    f"{cfg.n_layers} of {key}"
+                    + ("" if path.paired is None else f" and {path.paired}"))
         with path.plain_path() as plain_flags, \
                 PlainCalls(path.plain_module, path.plain_names) as plain:
             kernel.reset_launches()
@@ -1818,7 +1907,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
                                      plain_flags)[0]
             hn = (TF.lm_forward(eng.weights, cfg, scored, flags=plain_flags)
                   if path.score else None)
-        require(kernel.LAUNCHES[key] == 0 and sum(plain.calls.values()) > 0,
+        require(sum(kernel.LAUNCHES.values()) == 0 and
+                sum(plain.calls.values()) > 0,
                 f"{name}: the plain path launched {key} or called no plain "
                 f"version ({plain.calls})")
     plain_err = rel_err(lk, ln)
@@ -1853,7 +1943,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
     reduced = serving_cpu_equality(path, device)
-    return {"launches": {key: launches}, "waves": waves,
+    paired = {} if path.paired is None else {path.paired: launches}
+    return {"launches": {key: launches, **paired}, "waves": waves,
             "latency_p50_ms": percentile(lat, 50),
             "latency_p99_ms": percentile(lat, 99), "wall_s": wall,
             "peak_gib": peak, "kernel_vs_plain_rel": plain_err,
@@ -1991,7 +2082,34 @@ def build_kernels() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def main() -> None:
+ALL_PHASES = tuple(range(1, 14))
+
+
+def parse_phases(argv) -> set:
+    """``--phases 12,13``: the build, phase 1 and the named phases (a
+    phase that needs an earlier one's run brings it along: 4 and 5 need 3,
+    8 needs 7).  No argument: every phase."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers (default: all)")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return set(ALL_PHASES)
+    phases = {1} | {int(x) for x in args.phases.split(",") if x.strip()}
+    if not phases <= set(ALL_PHASES):
+        ap.error(f"phases outside {ALL_PHASES[0]}-{ALL_PHASES[-1]}: "
+                 f"{sorted(phases - set(ALL_PHASES))}")
+    if phases & {4, 5}:
+        phases.add(3)
+    if 8 in phases:
+        phases.add(7)
+    return phases
+
+
+def main(argv=None) -> None:
+    phases = parse_phases(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device - this script measures the "
                  "port on a GPU and has no CPU mode")
@@ -2000,12 +2118,17 @@ def main() -> None:
     log(smi())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; float32 matmul in "
-        f"TF32: {torch.backends.cuda.matmul.allow_tf32}")
+        f"TF32: {torch.backends.cuda.matmul.allow_tf32}; phases "
+        f"{sorted(phases)}")
 
-    kernels = check_kernels()
-    kernels.update(check_bucketed_kernels())
-    kernels.update(check_flash_attention())
-    kernels.update(check_ssd_scan())
+    kernels = {}
+    if 2 in phases:
+        kernels.update(check_kernels())
+        kernels.update(check_bucketed_kernels())
+    if 10 in phases:
+        kernels.update(check_flash_attention())
+    if 12 in phases:
+        kernels.update(check_ssd_scan())
     floor = launch_floor_ms()
     card = smi()
     us = lambda ms: "n/a" if ms is None else f"{ms * 1e3:.2f} us"
@@ -2018,42 +2141,50 @@ def main() -> None:
             f"by {rec['bound_by']}; one-element add_ {us(floor)}; device "
             f"kernels {rec.get('device_kernels_us')}")
 
-    craq_run = main_path("netcraq")
-    cpu_equality("netcraq")
-    rebalance_equality()
-    craq_times = tick_times("netcraq", craq_run["sim"])
-    chain_run = main_path("netchain")
-    cpu_equality("netchain")
-    chain_times = tick_times("netchain", chain_run["sim"])
-    reb = rebalance_phase()
-    writes = partitioned_write_phase(reb)
-    fail = failover_phase()
-    serve = serving_phase(SERVE_PATHS["dense"])
-    serve_f32 = f32_route_serving()
-    ssm = serving_phase(SERVE_PATHS["ssm"])
+    run, launches = {}, {}
+    if 3 in phases:
+        craq_run = main_path("netcraq")
+        launches.update(craq_run["launches"])
+    if 4 in phases:
+        cpu_equality("netcraq")
+        rebalance_equality()
+    if 5 in phases:
+        run["netcraq"] = tick_times("netcraq", craq_run["sim"])
+    if 6 in phases:
+        chain_run = main_path("netchain")
+        cpu_equality("netchain")
+        run["netchain"] = tick_times("netchain", chain_run["sim"])
+        run["netchain_launches"] = chain_run["launches"]
+    if 7 in phases:
+        reb = rebalance_phase()
+        launches["kv_bucketed_read"] = reb["launches"]["kv_bucketed_read"]
+        run["rebalance_launches"] = reb["launches"]
+        run["rebalance_gain"] = reb["gain"]
+    if 8 in phases:
+        writes = partitioned_write_phase(reb)
+        launches["kv_bucketed_write"] = \
+            writes["launches"]["kv_bucketed_write"]
+        run["partitioned_write_launches"] = writes["launches"]
+    if 9 in phases:
+        run["failover_launches"] = failover_phase()["launches"]
+    if 11 in phases:
+        run["serving"] = serving_phase(SERVE_PATHS["dense"])
+        run["serving_f32_route"] = f32_route_serving()
+        launches.update(run["serving"]["launches"])
+        launches.update(run["serving_f32_route"]["launches"])
+    if 13 in phases:
+        run["ssm_serving"] = serving_phase(SERVE_PATHS["ssm"])
+        launches.update(run["ssm_serving"]["launches"])
 
-    launches = {**craq_run["launches"],
-                "kv_bucketed_read": reb["launches"]["kv_bucketed_read"],
-                "kv_bucketed_write": writes["launches"]["kv_bucketed_write"],
-                **serve["launches"], **serve_f32["launches"],
-                **ssm["launches"]}
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name], "launches": launches.get(name),
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
         for name, rec in kernels.items()]}
     log(json.dumps({
-        "card": card,
-        "netcraq": craq_times, "netchain": chain_times,
-        "netchain_launches": chain_run["launches"],
-        "rebalance_launches": reb["launches"], "rebalance_gain": reb["gain"],
-        "partitioned_write_launches": writes["launches"],
-        "failover_launches": fail["launches"], "serving": serve,
-        "serving_f32_route": serve_f32,
-        "ssm_serving": ssm,
-        "kernel_detail": kernels, "add_one_ms": floor,
+        "card": card, **run, "kernel_detail": kernels, "add_one_ms": floor,
         "seconds": time.perf_counter() - t_start,
     }))
     log(json.dumps(record))

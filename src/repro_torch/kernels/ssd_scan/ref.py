@@ -14,6 +14,14 @@ the kernel's plain version): within a chunk of Q steps the masked
 the ``[N, P]`` state.  Both work in float32 and return ``y`` in x's dtype
 and the final state ``[BH, N, P]`` in float32.  Inputs are ``x [BH, L,
 P]``, ``dt [BH, L]``, ``A``/``D [BH]``, ``B``/``C [BH, L, N]``.
+``chunk_cb`` is the plain version of the first kernel, ``C B^T`` per
+chunk.
+
+For the tests of the kernel's numerics, ``ssd_chunked`` takes the
+product its three per-head matrix products use; ``tf32_product`` and
+``split_tf32_product`` emulate the tensor cores' TF32 (operands rounded
+to a 10-bit mantissa, products summed in float32) and the kernel's
+3xTF32 (``a_hi b_hi + a_hi b_lo + a_lo b_hi``).
 """
 from __future__ import annotations
 
@@ -69,10 +77,53 @@ def ssd_scan_ref(x, dt, A, B, C, D):
     return y
 
 
-def ssd_chunked(x, dt, A, B, C, D, chunk: int = 64):
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` rounded to TF32 (10-bit mantissa), to nearest with
+    ties away from zero (``cvt.rna.tf32.f32``), on the int32 view."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(F32)
+
+
+def tf32_truncate(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``a`` with its low 13 mantissa bits cleared: the TF32 part
+    the tensor cores read of an operand."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(F32)
+
+
+def tf32_product(a, b):
+    """``a @ b`` with both operands rounded to TF32 (the products of two
+    TF32 values are exact in float32)."""
+    return torch.matmul(tf32_round(a), tf32_round(b))
+
+
+def split_tf32_product(a, b):
+    """``a @ b`` in 3xTF32, the kernel's products: each operand split
+    into ``hi = tf32(v)`` (rounded) and ``lo = v - hi``, of which the
+    tensor cores read the TF32 part (truncated), and ``a_lo b_hi + a_hi
+    b_lo + a_hi b_hi``."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_truncate(a - ah), tf32_truncate(b - bh)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def chunk_cb(B, C, chunk: int = 64):
+    """G = C B^T per chunk: B and C ``[Bz, L, N]`` -> ``[Bz, chunks, Q,
+    Q]`` float32 (``Q = min(chunk, L)``; a ragged last chunk padded with
+    zero rows)."""
+    Bz, L, N = B.shape
+    chunk = min(chunk, L)
+    pad = (-L) % chunk
+    Bf = F.pad(B.to(F32), (0, 0, 0, pad)).reshape(Bz, -1, chunk, N)
+    Cf = F.pad(C.to(F32), (0, 0, 0, pad)).reshape(Bz, -1, chunk, N)
+    return torch.einsum("bctn,bcsn->bcts", Cf, Bf)
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk: int = 64, product=torch.matmul):
     """The chunked SSD, one chunk at a time: (y [BH, L, P] in x's dtype,
     h_final [BH, N, P] float32).  A ragged last chunk is padded with
-    zero steps (``dt = 0``, ``x = 0``), which leave the state as it is."""
+    zero steps (``dt = 0``, ``x = 0``), which leave the state as it is.
+    ``product`` computes the three batched per-head matrix products (M x,
+    C h and the state update); C B^T is exact float32."""
     BH, L, P = x.shape
     N = B.shape[-1]
     chunk = min(chunk, L)
@@ -98,12 +149,11 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 64):
         g = torch.einsum("btn,bsn->bts", Cc, Bc)
         decay = torch.exp(cum[:, :, None] - cum[:, None, :])
         m = torch.where(causal, g * decay, 0.0) * dtc[:, None, :]
-        y = torch.einsum("bts,bsp->btp", m, xc)
-        y = y + torch.exp(cum)[:, :, None] * torch.einsum(
-            "btn,bnp->btp", Cc, h)
+        y = product(m, xc)
+        y = y + torch.exp(cum)[:, :, None] * product(Cc, h)
         w = Bc * (dtc * torch.exp(cum[:, -1:] - cum))[:, :, None]
-        h = torch.exp(cum[:, -1])[:, None, None] * h + torch.einsum(
-            "btn,btp->bnp", w, xc)
+        h = torch.exp(cum[:, -1])[:, None, None] * h + product(
+            w.transpose(1, 2), xc)
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(BH, nc * chunk, P)[:, :L]
     y = y + D.to(F32)[:, None, None] * xf.reshape(BH, nc * chunk, P)[:, :L]

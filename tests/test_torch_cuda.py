@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -329,13 +330,20 @@ def test_cuda_serving_matches_cpu(card):
     (1, 40, 4, 32, 16, 64, torch.float32, 1e-4),
     (1, 130, 3, 32, 64, 16, torch.float32, 1e-4),
     (1, 100, 3, 64, 32, 32, torch.bfloat16, 2e-2),
+    # the scoring grid (2 sequences of Mamba2-1.3B's 64 heads)
+    (2, 300, 64, 64, 128, 64, torch.bfloat16, 2e-2),
+    # P not a multiple of a warp's 16 rows; N < 128 with a ragged chunk
+    (2, 150, 4, 48, 96, 64, torch.bfloat16, 2e-2),
+    (2, 77, 5, 40, 24, 64, torch.float32, 1e-4),
+    (1, 90, 2, 8, 8, 32, torch.float32, 1e-4),
 ])
 def test_cuda_ssd_scan_matches_plain_version(card, Bz, L, H, P, N, chunk,
                                              dtype, tol):
-    """The kernel equals its plain version (``ssd_chunked`` through
-    ``ops.ssd(impl="chunked")``), y and the final state: bf16 and f32 x, ragged and short sequences, chunks of
-    16-64, x, B and C as strided views of one projection (the model's
-    split) and B/C shared by the heads."""
+    """The kernel pair equals its plain version (``ssd_chunked`` through
+    ``ops.ssd(impl="chunked")``), y and the final state, with one launch
+    of each kernel: bf16 and f32 x, ragged and short sequences, chunks of
+    16-64, P and N below the tiles, x, B and C as strided views of one
+    projection (the model's split) and B/C shared by the heads."""
     rng = np.random.default_rng(42)
     f32 = lambda *s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(s).astype(np.float32)).to(card)
@@ -353,13 +361,62 @@ def test_cuda_ssd_scan_matches_plain_version(card, Bz, L, H, P, N, chunk,
     y, h = ssd_kernel.ssd_scan_heads(x, dt, A, Bm, Cm, D, chunk=chunk,
                                      h_final=True)
     torch.cuda.synchronize()
-    assert ssd_kernel.LAUNCHES["ssd_scan"] == 1
+    assert ssd_kernel.LAUNCHES == {"ssd_cb": 1, "ssd_scan": 1}
     ey, eh = ssd_ops.ssd(x, dt, A, Bm, Cm, D, impl="chunked", chunk=chunk,
                          return_state=True)
     assert y.dtype == dtype and y.is_contiguous()
     assert bool(torch.isfinite(y).all())
     assert float((y.float() - ey.float()).abs().max()) <= tol
     assert float((h - eh).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,x_offset,bc_pad", [
+    (torch.bfloat16, 1, 1),    # x 2-byte aligned: staged without cp.async
+    (torch.bfloat16, 2, 0),    # x 4-byte aligned: 4-byte cp.async
+    (torch.float32, 1, 1),     # f32 x, B/C rows of an odd stride: 4-byte
+])
+def test_cuda_ssd_scan_misaligned_views(card, dtype, x_offset, bc_pad):
+    """Views whose bases or row strides rule out 16-byte copies take the
+    narrower staging paths and still equal the plain version."""
+    rng = np.random.default_rng(44)
+    Bz, L, H, P, N = 2, 150, 4, 32, 40
+    width = x_offset + H * P + 2 * N + bc_pad
+    wide = torch.from_numpy(rng.standard_normal((Bz, L, width)).astype(
+        np.float32)).to(card)
+    x = wide.to(dtype)[..., x_offset: x_offset + H * P].reshape(Bz, L, H, P)
+    scaled = wide * 0.3
+    Bm = scaled[..., x_offset + H * P: x_offset + H * P + N]
+    Cm = scaled[..., x_offset + H * P + N: x_offset + H * P + 2 * N]
+    assert x.data_ptr() % 16 and Bm.data_ptr() % 16
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (Bz, L, H)).astype(
+        np.float32)).to(card)
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, H).astype(np.float32)).to(
+        card)
+    D = torch.from_numpy(rng.standard_normal(H).astype(np.float32)).to(card)
+    y, h = ssd_kernel.ssd_scan_heads(x, dt, A, Bm, Cm, D, h_final=True)
+    ey, eh = ssd_ops.ssd(x, dt, A, Bm, Cm, D, impl="chunked",
+                         return_state=True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((y.float() - ey.float()).abs().max()) <= tol
+    assert float((h - eh).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("Bz,L,N,chunk", [(2, 200, 128, 64), (3, 45, 20, 16)])
+def test_cuda_chunk_cb_matches_plain_version(card, Bz, L, N, chunk):
+    """The first kernel alone: C B^T per chunk of strided B/C views, a
+    ragged last chunk zero past L, float32 within 1e-5 of the magnitude
+    (the same products summed in another order)."""
+    rng = np.random.default_rng(43)
+    wide = torch.from_numpy(rng.standard_normal((Bz, L, 2 * N + 3)).astype(
+        np.float32)).to(card)
+    Bm, Cm = wide[..., :N], wide[..., N: 2 * N]
+    ssd_kernel.reset_launches()
+    g = ssd_kernel.chunk_cb(Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.LAUNCHES == {"ssd_cb": 1, "ssd_scan": 0}
+    exp = ssd_ref.chunk_cb(Bm, Cm, chunk=chunk)
+    assert tuple(g.shape) == tuple(exp.shape)
+    assert float((g - exp).abs().max() / exp.abs().max()) <= 1e-5
 
 
 def test_cuda_ssm_serving_matches_cpu(card):
@@ -387,6 +444,7 @@ def test_cuda_ssm_serving_matches_cpu(card):
         out[str(d)] = np.stack([r.output for r in done])
         launches = ssd_kernel.LAUNCHES["ssd_scan"]
         assert launches == (0 if d == "cpu" else 2 * cfg.n_layers)
+        assert ssd_kernel.LAUNCHES["ssd_cb"] == launches
         with torch.inference_mode():
             toks = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
                                    device=d)

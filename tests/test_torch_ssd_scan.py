@@ -216,3 +216,79 @@ def test_plain_versions_agree():
     y2, h2 = t_ref.ssd_scan_with_final_ref(*args)
     assert float((y1 - y2).abs().max()) < F32_TOL
     assert float((h1 - h2).abs().max()) < F32_TOL
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_tf32_products_keep_the_final_state_within_1e5(dtype):
+    """The kernel's product arithmetic on the CPU: ``ssd_chunked`` with its
+    three per-head products (M x, C h, the state update) in 3xTF32 keeps
+    the final state within 1e-5 of its magnitude of the reference's
+    ``ssd_chunked`` (the limit ``chip_smoke.py`` holds the kernel to),
+    and with plain TF32 products misses that limit at the same inputs,
+    which is why the kernel splits its operands.  Inputs are drawn as
+    phase 12 draws them (N = 128, P = 64, a ragged last chunk)."""
+    rng = np.random.default_rng(17)
+    BH, L, P, N = 2, 200, 64, 128
+    wide = rng.standard_normal((BH, L, P + 2 * N)).astype(np.float32)
+    inputs = dict(
+        x=wide[..., :P], dt=rng.uniform(0.01, 0.2, (BH, L)).astype(
+            np.float32),
+        A=-rng.uniform(0.5, 2.0, BH).astype(np.float32),
+        B=wide[..., P: P + N] * 0.3, C=wide[..., P + N:] * 0.3,
+        D=rng.standard_normal(BH).astype(np.float32))
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+         inputs.items()}
+    t["x"] = t["x"].to(tdt)
+    j = {k: jnp.asarray(v.float().numpy()) for k, v in t.items()}
+    _, h_ref = j_ref.ssd_chunked(j["x"], j["dt"], j["A"], j["B"], j["C"],
+                                 j["D"], chunk=64)
+    h_ref = np.asarray(h_ref)
+    args = (t["x"], t["dt"], t["A"], t["B"], t["C"], t["D"])
+
+    def rel(product):
+        _, h = t_ref.ssd_chunked(*args, chunk=64, product=product)
+        return float(np.abs(h.numpy() - h_ref).max() / np.abs(h_ref).max())
+    assert rel(t_ref.split_tf32_product) <= 1e-5
+    assert rel(t_ref.tf32_product) > 1e-5
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """``tf32_round`` rounds as ``cvt.rna.tf32.f32`` (to nearest, ties
+    away from zero, on a 10-bit mantissa); ``tf32_truncate`` keeps the
+    TF32 part the tensor cores read; hi + lo recovers the value to 2^-21
+    of its magnitude."""
+    ulp = 2.0 ** -10
+    v = torch.tensor([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, -(1 + ulp / 2),
+                      1 + 1.5 * ulp, 3.0, 1 + ulp - 2 ** -23],
+                     dtype=torch.float32)
+    assert t_ref.tf32_round(v).tolist() == [
+        1 + ulp, 1.0, -(1 + ulp), 1 + 2 * ulp, 3.0, 1 + ulp]
+    assert t_ref.tf32_truncate(v).tolist() == [1.0, 1.0, -1.0, 1 + ulp, 3.0,
+                                               1.0]
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        1000).astype(np.float32))
+    hi = t_ref.tf32_round(x)
+    lo = t_ref.tf32_truncate(x - hi)
+    assert float(((hi + lo) - x).abs().max() / x.abs().max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("L,chunk", [(200, 64), (40, 64), (75, 16)])
+def test_chunk_cb_plain_version(L, chunk):
+    """``chunk_cb`` (on the CPU its plain version): C B^T within each
+    chunk, a ragged last chunk zero past L, against numpy."""
+    rng = np.random.default_rng(12)
+    B, C = (rng.standard_normal((2, L, 24)).astype(np.float32)
+            for _ in range(2))
+    t_kernel.reset_launches()
+    g = t_kernel.chunk_cb(torch.from_numpy(B), torch.from_numpy(C),
+                          chunk=chunk)
+    assert t_kernel.LAUNCHES == {"ssd_cb": 0, "ssd_scan": 0}
+    q = min(chunk, L)
+    nc = -(-L // q)
+    pad = ((0, 0), (0, nc * q - L), (0, 0))
+    Bp = np.pad(B, pad).reshape(2, nc, q, 24)
+    Cp = np.pad(C, pad).reshape(2, nc, q, 24)
+    exp = np.einsum("bctn,bcsn->bcts", Cp, Bp)
+    assert tuple(g.shape) == exp.shape
+    np.testing.assert_allclose(g.numpy(), exp, rtol=1e-5, atol=1e-5)
