@@ -13,7 +13,11 @@ source, all three at once), then:
    the shapes its path gives it, and times kernel, plain version and
    library yardstick beside the kernel's bound: the per-node kernels on
    a [32, 65536, 4, 4] store and a [32, 320] batch with dirty versions,
-   duplicate keys, window overflow and out-of-range keys; the bucketed
+   duplicate keys, window overflow and out-of-range keys, each in its
+   ops mode (the node step's read with its decision, the append with
+   its rank; the main path's mode, one device activity per call of
+   ``kv_ops``) and its engine mode (the Pallas kernels' contract), with
+   an empty kernel of the same grid timed beside them; the bucketed
    kernels on the tail replica of a seeded [8, 4, 65536, 4, 4] store and
    458,752 global keys resolved through a map with two migrated buckets,
    with duplicates, window overflow, parked (chain -1) entries and slots
@@ -29,7 +33,8 @@ source, all three at once), then:
    phase 7 at 12 ticks, on CUDA and on the CPU (plain versions) and
    requires identical stores, metrics, reply logs and global-key
    read-backs;
-5. times the ticks of the full-size run and where a tick's time goes;
+5. times the ticks of the full-size run and where a tick's time goes,
+   with the device activities per tick and the two kv stages;
 6. runs NetChain through phases 3-4 at the same size;
 7. live rebalance (``benchmarks/fig_rebalance.py``'s run at full width):
    a zipf tenant hot-spots chain 0, the control plane moves its two
@@ -260,11 +265,12 @@ def time_calls(calls) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / len(calls)
 
 
-def device_time(calls):
+def device_time(calls, counts: dict | None = None):
     """(mean device ms per call, {kernel name: device us}, number of
     device activities) of the zero-argument ``calls``, from
     torch.profiler's CUDA activity: the summed duration of every kernel,
-    copy and fill they launched.  (None, {}, 0) if the profiler saw no
+    copy and fill they launched; ``counts``, where given, gets the
+    number of activities by name.  (None, {}, 0) if the profiler saw no
     device activity."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -281,6 +287,8 @@ def device_time(calls):
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
             count += 1
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     total = sum(by_name.values())
     if total <= 0:
         return None, {}, 0
@@ -319,9 +327,10 @@ def max_abs_err(got, exp) -> int:
 
 
 def read_bound_bytes(pending, keys) -> int:
-    """Bytes the read must move for this batch: the keys, per distinct
-    in-range (node, key) its pending word, cell 0 (W words + seq) and,
-    when dirty, the latest cell; the five outputs written once."""
+    """Bytes the engine-mode read must move for this batch: the keys, per
+    distinct in-range (node, key) its pending word, cell 0 (W words +
+    seq) and, when dirty, the latest cell; the five outputs written
+    once."""
     N, B = keys.shape
     ok = (keys >= 0) & (keys < NUM_KEYS)
     rows = torch.arange(N, device=keys.device)[:, None].expand(N, B)
@@ -332,11 +341,24 @@ def read_bound_bytes(pending, keys) -> int:
             + 4 * N * B * (2 * WORDS + 3))
 
 
+def decide_bound_bytes(keys) -> int:
+    """Bytes the ops-mode read must move: the keys and the nodes' tail
+    flags, per distinct (node, register the key resolves to) its pending
+    word and the one cell (W words + seq) its reply takes, and the reply
+    and decision written once."""
+    N, B = keys.shape
+    rows = torch.arange(N, device=keys.device)[:, None].expand(N, B)
+    reg = store_lib.gather_index(keys, NUM_KEYS).long()
+    regs = (rows * NUM_KEYS + reg).unique().numel()
+    return (4 * N * B + N + regs * 4 * (WORDS + 2)
+            + 4 * N * B * (WORDS + 2))
+
+
 def write_bound_bytes(keys, active, accepted) -> int:
-    """Bytes the append must move: the batch (keys, W words, seq, active,
-    rank), per distinct active in-range (node, key) its pending word read
-    and written, per accepted write one cell (W words + seq), and the
-    accepted flags."""
+    """Bytes the engine-mode append must move: the batch (keys, W words,
+    seq, active, rank), per distinct active in-range (node, key) its
+    pending word read and written, per accepted write one cell (W words
+    + seq), and the accepted flags."""
     N, B = keys.shape
     live = (active > 0) & (keys >= 0) & (keys < NUM_KEYS)
     rows = torch.arange(N, device=keys.device)[:, None].expand(N, B)
@@ -345,28 +367,88 @@ def write_bound_bytes(keys, active, accepted) -> int:
             + int(accepted.sum()) * 4 * (WORDS + 1) + 4 * N * B)
 
 
+def append_bound_bytes(keys, active, accepted) -> int:
+    """Bytes the ops-mode append must move (it reads no rank): every
+    lane's key and active byte, per distinct active (node, register its
+    key clamps to) the pending word, per write that lands its W words
+    and seq read and its cell written, per distinct register written to
+    its pending word, and the accepted bytes."""
+    N, B = keys.shape
+    rows = torch.arange(N, device=keys.device)[:, None].expand(N, B)
+    wrapped = torch.where(keys < 0, keys + NUM_KEYS, keys).long()
+    lands = accepted & (wrapped >= 0) & (wrapped < NUM_KEYS)
+    read = (rows * NUM_KEYS + wrapped.clamp(0, NUM_KEYS - 1))[active]
+    written = (rows * NUM_KEYS + wrapped)[lands]
+    return (5 * N * B + 4 * read.unique().numel()
+            + 8 * (WORDS + 1) * int(lands.sum())
+            + 4 * written.unique().numel() + N * B)
+
+
+def one_launch_per_call(name: str, kernel: str, fn) -> None:
+    """The main path's entry ``fn`` dispatches one device activity per
+    call, its kernel's (where the profiler sees the card)."""
+    counts: dict[str, int] = {}
+    calls = 4
+    _, _, n = device_time([fn] * calls, counts=counts)
+    if n == 0:
+        log(f"{name}: profiler saw no device activity: launches per call "
+            "not measured")
+        return
+    # the profiler may drop one record of a window, never add one
+    require(calls - 1 <= n <= calls and all(kernel in k for k in counts),
+            f"{name}: {n} device activities for {calls} calls: {counts}")
+    log(f"{name}: one device activity per call ({kernel}; {n} of {calls} "
+        "recorded)")
+
+
 def check_kernels() -> dict:
     N, B = N_CHAINS * N_NODES, INJECT + ROUTE
     gen = torch.Generator(device="cpu").manual_seed(11)
     values, seqs, pending, keys = (x.cuda() for x in seeded_store(gen, N, B))
+    # each chain's last node is its tail, as in the flattened [C * n] roles
+    is_tail = torch.arange(N, device="cuda") % N_NODES == N_NODES - 1
     out = {}
+    # the grids kv_engine.cu launches the two kernels with: a thread per
+    # query in blocks of 256; a block per node of B threads (B <= 512)
+    read_grid = ((N * B + 255) // 256, 256)
+    write_grid = (N, (B + 31) // 32 * 32)
 
-    # -- read --------------------------------------------------------------
+    # -- read: the node step's (ops mode), then the Pallas contract --------
+    got = kv_kernel.cluster_read_decide(values, seqs, pending, keys, is_tail)
+    exp = kv_ref.cluster_read_decide_ref(values, seqs, pending, keys,
+                                         is_tail)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, exp)
+    require(err == 0, f"kv_read (ops) differs from its plain version by "
+            f"{err}")
+    require(set(got[2].unique().tolist()) == {0, 1, 2},
+            "the read check must take all three decisions")
+    rows = torch.arange(N, device="cuda")[:, None]
+    keys_in = store_lib.gather_index(keys, NUM_KEYS).long()
+    out["kv_read"] = dict(
+        max_abs_err=err, grid=read_grid,
+        calls=lambda n: [lambda: kv_kernel.cluster_read_decide(
+            values, seqs, pending, keys, is_tail)] * n,
+        plain=lambda n: [lambda: kv_ref.cluster_read_decide_ref(
+            values, seqs, pending, keys, is_tail)] * n,
+        # one advanced-index gather of each query's whole register row
+        library=lambda n: [lambda: values[rows, keys_in]] * n,
+        bound_bytes=decide_bound_bytes(keys),
+    )
     got = kv_kernel.cluster_read_engine(values, seqs, pending, keys)
     exp = kv_ref.cluster_read_engine_ref(values, seqs, pending, keys)
     torch.cuda.synchronize()
     err = max_abs_err(got, exp)
-    require(err == 0, f"kv_read differs from its plain version by {err}")
-    rows = torch.arange(N, device="cuda")[:, None]
-    keys_in = keys.clamp(0, NUM_KEYS - 1)
-    out["kv_read"] = dict(
-        max_abs_err=err,
+    require(err == 0, f"kv_read (engine) differs from its plain version by "
+            f"{err}")
+    keys_ok = keys.clamp(0, NUM_KEYS - 1).long()
+    out["kv_read_engine"] = dict(
+        max_abs_err=err, grid=read_grid,
         calls=lambda n: [lambda: kv_kernel.cluster_read_engine(
             values, seqs, pending, keys)] * n,
         plain=lambda n: [lambda: kv_ref.cluster_read_engine_ref(
             values, seqs, pending, keys)] * n,
-        # one advanced-index gather of each query's whole register row
-        library=lambda n: [lambda: values[rows, keys_in]] * n,
+        library=lambda n: [lambda: values[rows, keys_ok]] * n,
         bound_bytes=read_bound_bytes(pending, keys),
     )
 
@@ -378,36 +460,74 @@ def check_kernels() -> dict:
                           dtype=torch.int32).cuda()
     active = torch.randint(0, 2, (N, B), generator=gen,
                            dtype=torch.int32).cuda()
-    rank = batch_rank(keys, active.bool())
+    live_b = active.bool()
     snap = [x.clone() for x in (values, seqs, pending)]
+    got = kv_kernel.cluster_write_append(*[x.clone() for x in snap], keys,
+                                         wvals, wseqs, live_b)
+    exp = kv_ref.cluster_write_append_ref(*[x.clone() for x in snap], keys,
+                                          wvals, wseqs, live_b)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, exp)
+    require(err == 0, f"kv_write (ops) differs from its plain version by "
+            f"{err}")
+    require(0 < int(got[3].sum()) < int(live_b.sum()),
+            "the ops write check must both accept and overflow")
+    appended = got[3]
+    rank = batch_rank(keys, live_b)
     got = kv_kernel.cluster_write_engine(values, seqs, pending, keys, wvals,
                                          wseqs, active, rank)
     plain = [x.clone() for x in snap]
     exp = kv_ref.cluster_write_engine_ref(*plain, keys, wvals, wseqs, active,
                                           rank)
     torch.cuda.synchronize()
-    err = max_abs_err(got, exp)
-    require(err == 0, f"kv_write differs from its plain version by {err}")
+    err_engine = max_abs_err(got, exp)
+    require(err_engine == 0, f"kv_write (engine) differs from its plain "
+            f"version by {err_engine}")
     accepted = got[3]
     live = (active > 0) & (keys >= 0) & (keys < NUM_KEYS)
     require(0 < int(accepted.sum()) < int(live.sum()),
-            "the write check must both accept and overflow")
+            "the engine write check must both accept and overflow")
     # every timed append starts from its own copy of the same pending
     # snapshot, so each one does the work of the checked one
-    def appends(fn):
+    def appends(fn, *batch):
         return lambda n: [
             lambda p=snap[2].clone(): fn(values, seqs, p, keys, wvals,
-                                         wseqs, active, rank)
+                                         wseqs, *batch)
             for _ in range(n)]
 
     out["kv_write"] = dict(
-        max_abs_err=err,
-        calls=appends(kv_kernel.cluster_write_engine),
-        plain=appends(kv_ref.cluster_write_engine_ref),
+        max_abs_err=err, grid=write_grid,
+        calls=appends(kv_kernel.cluster_write_append, live_b),
+        plain=appends(kv_ref.cluster_write_append_ref, live_b),
         library=None,   # no single PyTorch call ranks and appends
+        bound_bytes=append_bound_bytes(keys, live_b, appended),
+    )
+    out["kv_write_engine"] = dict(
+        max_abs_err=err_engine, grid=write_grid,
+        calls=appends(kv_kernel.cluster_write_engine, active, rank),
+        plain=appends(kv_ref.cluster_write_engine_ref, active, rank),
+        library=None,
         bound_bytes=write_bound_bytes(keys, active, accepted),
     )
-    return measure(out)
+
+    # the main path's entry points: one launch each, nothing around it
+    store = Store(*[x.clone() for x in snap], torch.ones_like(pending))
+    one_launch_per_call("kv_ops.cluster_read_batch", "kv_read_kernel",
+                        lambda: kv_ops.cluster_read_batch(store, keys,
+                                                          is_tail=is_tail))
+    one_launch_per_call("kv_ops.cluster_write_batch", "kv_write_kernel",
+                        lambda: kv_ops.cluster_write_batch(
+                            store, keys, wvals, wseqs, live_b))
+    grids = {name: rec.pop("grid") for name, rec in out.items()}
+    out = measure(out)
+    for name, (blocks, threads) in grids.items():
+        launch = lambda b=blocks, t=threads: kv_kernel.empty_kernel(b, t)
+        time_calls([launch] * 3)
+        _, kernels, n = device_time([launch] * ITERS)
+        out[name]["empty_kernel_ms"] = (sum(kernels.values()) / n / 1e3
+                                        if n else None)
+        out[name]["empty_kernel_grid"] = [blocks, threads]
+    return out
 
 
 def measure(out: dict) -> dict:
@@ -430,14 +550,21 @@ def measure(out: dict) -> dict:
                 rec[f"{key}ms"] = rec[f"{key}call_ms"] = None
                 continue
             time_calls(make(3))                       # warm-up
-            dev_ms, kernels, _ = device_time(make(iters))
+            counts: dict[str, int] = {}
+            dev_ms, kernels, _ = device_time(make(iters), counts=counts)
+            # the profiler now and then drops one kernel record from a
+            # window; the calls are alike, so each kernel counts its mean
+            # over the launches kept, times its launches per call
+            kernels = {k: us / counts[k] * max(1, round(counts[k] / iters))
+                       for k, us in kernels.items()}
+            if dev_ms is not None:
+                dev_ms = sum(kernels.values()) / 1e3
             rec[f"{key}call_ms"] = time_calls(make(iters))
             rec[f"{key}device_measured"] = dev_ms is not None
             rec[f"{key}ms"] = dev_ms if dev_ms is not None else \
                 rec[f"{key}call_ms"]
             if key == "":
-                rec["device_kernels_us"] = {
-                    k: v / iters for k, v in kernels.items()}
+                rec["device_kernels_us"] = kernels
     return out
 
 
@@ -1266,12 +1393,16 @@ def tick_times(protocol: str, sim: ChainSim) -> dict:
     def one_tick(inj):
         states[0] = sim.tick(states[0], inj)
 
+    counts: dict[str, int] = {}
     t0 = time.perf_counter()
-    dev_ms, kernels, _ = device_time([lambda inj=inj: one_tick(inj)
-                                   for inj in ticks])
+    dev_ms, kernels, n_act = device_time([lambda inj=inj: one_tick(inj)
+                                          for inj in ticks], counts=counts)
     wall_us = (time.perf_counter() - t0) / len(ticks) * 1e6
     busy_us = None if dev_ms is None else dev_ms * 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    kv_names = [k for k in kernels if "kv_" in k]
+    kv_us = {k: kernels[k] / len(ticks) for k in kv_names}
+    kv_per_tick = {k: counts[k] / len(ticks) for k in kv_names}
     log(f"{protocol} ({on_card('cuda')}): {us_tick:.1f} us/tick over "
         f"{len(ticks)} ticks "
         f"(C={N_CHAINS} n={N_NODES} K={NUM_KEYS}); with stage events "
@@ -1281,20 +1412,26 @@ def tick_times(protocol: str, sim: ChainSim) -> dict:
             stages.items(), key=lambda kv: -kv[1])))
     if busy_us is None:
         log(f"{protocol}: profiler saw no device activity: device busy "
-            "share not measured")
+            "share and activities per tick not measured")
     else:
         log(f"{protocol}: under the profiler {wall_us:.1f} us/tick wall, "
             f"device busy {busy_us:.1f} us/tick "
             f"(idle share {1 - busy_us / wall_us:.4f}); top device time "
             "per tick (us): " + "; ".join(
                 f"{k[:60]}={v / len(ticks):.1f}" for k, v in top))
+        log(f"{protocol}: {n_act / len(ticks):.2f} device activities per "
+            "tick; kv stages (us of stream time per tick): "
+            + ", ".join(f"{k}={stages[k]:.1f}" for k in (
+                "kv_read (ops)", "kv_write (ops, incl. rank)") if k in stages)
+            + "; kv kernels per tick (launches, device us): "
+            + "; ".join(f"{k[:48]} {kv_per_tick[k]:.2f}, {kv_us[k]:.2f}"
+                        for k in kv_names))
     return {"us_per_tick": us_tick, "stages_us": stages,
             "device_busy_us_per_tick": busy_us,
             "profiled_wall_us_per_tick": wall_us,
-            "kv_device_us_per_tick": {
-                k: v / len(ticks) for k, v in kernels.items()
-                if any(n in k for n in ("kv_read_kernel", "kv_snapshot_kernel",
-                                        "kv_write_kernel"))}}
+            "device_activities_per_tick": n_act / len(ticks),
+            "kv_device_us_per_tick": kv_us,
+            "kv_launches_per_tick": kv_per_tick}
 
 
 # ---------------------------------------------------------------------------
@@ -2138,8 +2275,11 @@ def main(argv=None) -> None:
             f"{us(rec['library_ms'])}); event-timed call {us(rec['call_ms'])}"
             f" (plain {us(rec['plain_call_ms'])}, library "
             f"{us(rec['library_call_ms'])}); bound {us(rec['bound_ms'])} "
-            f"by {rec['bound_by']}; one-element add_ {us(floor)}; device "
-            f"kernels {rec.get('device_kernels_us')}")
+            f"by {rec['bound_by']}; one-element add_ {us(floor)}"
+            + (f"; empty kernel of the same grid "
+               f"{us(rec['empty_kernel_ms'])}" if "empty_kernel_ms" in rec
+               else "")
+            + f"; device kernels {rec.get('device_kernels_us')}")
 
     run, launches = {}, {}
     if 3 in phases:
@@ -2182,7 +2322,7 @@ def main(argv=None) -> None:
          "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-        for name, rec in kernels.items()]}
+        for name, rec in kernels.items() if name in SOURCES]}
     log(json.dumps({
         "card": card, **run, "kernel_detail": kernels, "add_one_ms": floor,
         "seconds": time.perf_counter() - t_start,

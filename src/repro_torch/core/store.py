@@ -74,6 +74,20 @@ def scatter_index(keys: torch.Tensor, size: int) -> torch.Tensor:
     return torch.where((k >= 0) & (k < size), k, size)
 
 
+def last_writes(target: torch.Tensor) -> torch.Tensor:
+    """Mask of the entries of a flat scatter ``target`` (int64) that are
+    the last to write their target.  The reference's scatter applies
+    its updates in order, so of two writes to one cell the later stays;
+    a torch scatter with repeated targets keeps either, from run to run
+    once it runs on several threads."""
+    order = torch.sort(target, stable=True).indices
+    ends = torch.ones_like(target, dtype=torch.bool)
+    ends[:-1] = target[order[1:]] != target[order[:-1]]
+    last = torch.empty_like(ends)
+    last[order] = ends
+    return last
+
+
 def _rows(keys: torch.Tensor) -> torch.Tensor:
     """[N, 1] node index matching a [N, B] key batch."""
     return torch.arange(keys.shape[0], device=keys.device)[:, None]
@@ -186,14 +200,18 @@ def append_dirty(store: Store, keys, values, seqs, active,
     rank = batch_rank(keys, active, dense=dense_rank)
     slot = take(store.pending, keys) + 1 + rank
     accepted = active & (slot <= V - 1)
-    # (key, slot) pairs are unique among accepted entries; an accepted
-    # entry lands where the reference's scatter puts its key, if anywhere
+    # an accepted entry lands where the reference's scatter puts its key,
+    # if anywhere; (key, slot) pairs are unique among accepted entries of
+    # one raw key, but two raw keys of one register (-1 and K - 1) can
+    # share a cell, and then the later write stays
     dst = scatter_index(keys, K).long()
     land = accepted & (dst < K)
     rows = _rows(keys).expand_as(keys)
     n_i, k_i, s_i = rows[land], dst[land], slot[land].long()
-    store.values[n_i, k_i, s_i] = values[land]
-    store.seqs[n_i, k_i, s_i] = seqs[land].to(I32)
+    last = last_writes((n_i * K + k_i) * V + s_i)
+    n_i, k_i, s_i = n_i[last], k_i[last], s_i[last]
+    store.values[n_i, k_i, s_i] = values[land][last]
+    store.seqs[n_i, k_i, s_i] = seqs[land][last].to(I32)
     store.pending.add_(per_key_count(keys, accepted, K))
     return store, accepted
 

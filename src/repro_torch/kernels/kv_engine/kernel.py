@@ -3,23 +3,31 @@
 ``cluster_read_engine`` and ``cluster_write_engine`` have the signatures
 of the reference's Pallas kernels (``repro/kernels/kv_engine/kernel.py``)
 with the leading "chain" axis read as any node axis ``N`` (the engine
-passes its flattened ``[C * n]`` nodes).  ``bucketed_read_engine`` and
-``bucketed_write_engine`` serve a flat batch resolved through the
-partition map (query i on chain ``chains[i]`` at register ``slots[i]``);
-their store leaves need contiguous inner dimensions only, so one replica
-of a ``[C, n, ...]`` cluster store (``x[:, -1]``) is read and written in
-place.  For tensors on the CPU the wrappers run the plain versions in
-``ref.py``; for CUDA tensors they launch the kernels in
-``csrc/kv_engine.cu`` or raise - there is no fallback.
+passes its flattened ``[C * n]`` nodes); ``read_engine`` and
+``write_engine`` are their one-chain slices.  ``cluster_read_decide``
+and ``cluster_write_append`` launch the same two kernels in their ops
+mode: a node step's whole read (the key resolution and the NetCRAQ
+decision) or its whole dirty append (the key resolution and the
+within-batch rank), one launch each, on the inbox's tensors as they
+come.  ``bucketed_read_engine`` and ``bucketed_write_engine`` serve a
+flat batch resolved through the partition map (query i on chain
+``chains[i]`` at register ``slots[i]``); their store leaves need
+contiguous inner dimensions only, so one replica of a ``[C, n, ...]``
+cluster store (``x[:, -1]``) is read and written in place.  For tensors
+on the CPU the wrappers run the plain versions in ``ref.py``; for CUDA
+tensors they launch the kernels in ``csrc/kv_engine.cu`` or raise -
+there is no fallback.
 
 The CUDA source is compiled at first use into a shared library with a
 plain C interface, loaded with ``ctypes`` (``repro_torch.kernels.build``:
 ``build/libkv_engine_<hash>.so`` beside this file).  The kernels move a
 value cell as one 16-byte word, so on CUDA they take ``W = 4`` (the
-paper's 128-bit value) and 16-byte aligned value leaves only.
+paper's 128-bit value) and 16-byte aligned value leaves only.  An append
+stages its batch in one block's shared memory, so on CUDA a batch holds
+at most ``WRITE_MAX_BATCH`` lanes per node.
 
-``LAUNCHES`` counts kernel launches per kernel name; only a launch of a
-CUDA kernel adds to it.
+``LAUNCHES`` counts kernel launches per kernel name (both modes of a
+kernel under its name); only a launch of a CUDA kernel adds to it.
 """
 from __future__ import annotations
 
@@ -35,6 +43,12 @@ LAUNCHES = {"kv_read": 0, "kv_write": 0, "kv_bucketed_read": 0,
             "kv_bucketed_write": 0}
 
 
+# An append block's shared memory: 17 bytes a lane (kv_engine.cu,
+# kWriteSmemPerLane) and 128 of its own within the 232,448 bytes a block
+# may take on sm_90.
+WRITE_MAX_BATCH = (232448 - 128) // 17
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -44,8 +58,14 @@ def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.kv_read_launch.argtypes = [p] * 4 + [i] * 4 + [p] * 6
     lib.kv_read_launch.restype = i
-    lib.kv_write_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 3
+    lib.kv_read_decide_launch.argtypes = [p] * 5 + [i] * 5 + [p] * 4
+    lib.kv_read_decide_launch.restype = i
+    lib.kv_write_launch.argtypes = [p] * 8 + [i] * 4 + [p] * 2
     lib.kv_write_launch.restype = i
+    lib.kv_append_launch.argtypes = [p] * 7 + [i] * 4 + [p] * 2
+    lib.kv_append_launch.restype = i
+    lib.kv_empty_launch.argtypes = [i, i, p]
+    lib.kv_empty_launch.restype = i
     lib.kv_bucketed_read_launch.argtypes = (
         [p] * 5 + [i] * 4 + [ll] * 3 + [p] * 6)
     lib.kv_bucketed_read_launch.restype = i
@@ -62,11 +82,11 @@ _lib = _LIBRARY.lib
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, device,
-           free_lead: bool = False) -> None:
+           free_lead: bool = False, dtype=torch.int32) -> None:
     """dtype, shape, device and layout of one argument: contiguous, or
     with ``free_lead`` contiguous in every dimension but the first."""
-    if x.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(x.shape)}")
@@ -99,14 +119,21 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def cluster_read_engine(values, seqs, pending, keys):
-    """Batched read lookup for every node in one launch.
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
-    ``values [N, K, V, W]``, ``seqs [N, K, V]``, ``pending [N, K]``,
-    ``keys [N, B]`` (int32).  Returns (clean_val [N, B, W], clean_seq
-    [N, B], latest_val [N, B, W], latest_seq [N, B], pending_of_key
-    [N, B]); a key outside ``[0, K)`` answers zeros.
-    """
+
+def _check_batch(name: str, B: int) -> None:
+    if B > WRITE_MAX_BATCH:
+        raise ValueError(f"{name}: a batch of {B} lanes per node does not "
+                         f"fit one block's shared memory (at most "
+                         f"{WRITE_MAX_BATCH})")
+
+
+def _node_checks(values, seqs, pending, keys, batch=()):
+    """Checks of a per-node call: contiguous store leaves, ``keys
+    [N, B]`` and batch leaves ``(name, tensor, trailing shape, dtype)``
+    of ``[N, B, ...]``."""
     N, K, V, W = values.shape
     B = keys.shape[1]
     dev = values.device
@@ -115,6 +142,20 @@ def cluster_read_engine(values, seqs, pending, keys):
                            ("pending", pending, (N, K)),
                            ("keys", keys, (N, B))):
         _check(name, x, shape, dev)
+    for name, x, tail, dtype in batch:
+        _check(name, x, (N, B) + tail, dev, dtype=dtype)
+    return N, K, V, W, B, dev
+
+
+def cluster_read_engine(values, seqs, pending, keys):
+    """Batched read lookup for every node in one launch.
+
+    ``values [N, K, V, W]``, ``seqs [N, K, V]``, ``pending [N, K]``,
+    ``keys [N, B]`` (int32).  Returns (clean_val [N, B, W], clean_seq
+    [N, B], latest_val [N, B, W], latest_seq [N, B], pending_of_key
+    [N, B]); a key outside ``[0, K)`` answers zeros.
+    """
+    N, K, V, W, B, dev = _node_checks(values, seqs, pending, keys)
     if dev.type == "cpu":
         return ref.cluster_read_engine_ref(values, seqs, pending, keys)
     if dev.type != "cuda":
@@ -128,11 +169,56 @@ def cluster_read_engine(values, seqs, pending, keys):
         rc = _lib().kv_read_launch(
             values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
             keys.data_ptr(), N, K, V, B, cv.data_ptr(), cs.data_ptr(),
-            lv.data_ptr(), ls.data_ptr(), pb.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            lv.data_ptr(), ls.data_ptr(), pb.data_ptr(), _stream(dev))
     _raise_on(rc, "kv_read")
     LAUNCHES["kv_read"] += 1
     return cv, cs, lv, ls, pb
+
+
+def cluster_read_decide(values, seqs, pending, keys, is_tail=False):
+    """A node step's read for every node in one launch (the read kernel's
+    ops mode).
+
+    Store leaves as for ``cluster_read_engine``; ``keys [N, B]`` int32 as
+    the inbox carries them; ``is_tail`` a bool or an ``[N]`` bool tensor.
+    A key reads the register the reference store's gather clamps it to
+    (wrapped once if negative, then clamped into ``[0, K)``).  Returns
+    (reply_val [N, B, W], reply_seq [N, B], decision [N, B]) int32:
+    decision 0 for a clean register (reply: cell 0), 1 for a dirty one
+    at a tail node (reply: the latest cell), 2 for a dirty one elsewhere
+    (reply: cell 0; the read goes on to the tail).
+    """
+    N, K, V, W, B, dev = _node_checks(values, seqs, pending, keys)
+    per_node = isinstance(is_tail, torch.Tensor)
+    if per_node:
+        _check("is_tail", is_tail, (N,), dev, dtype=torch.bool)
+    if dev.type == "cpu":
+        return ref.cluster_read_decide_ref(values, seqs, pending, keys,
+                                           is_tail)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_read: unsupported device {dev}")
+    rv = torch.empty((N, B, W), dtype=torch.int32, device=dev)
+    _check_cells("kv_read", W, (values, rv))
+    rs, dec = (torch.empty((N, B), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    with torch.cuda.device(dev):
+        rc = _lib().kv_read_decide_launch(
+            values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
+            keys.data_ptr(), is_tail.data_ptr() if per_node else None,
+            0 if per_node else int(bool(is_tail)), N, K, V, B,
+            rv.data_ptr(), rs.data_ptr(), dec.data_ptr(), _stream(dev))
+    _raise_on(rc, "kv_read")
+    LAUNCHES["kv_read"] += 1
+    return rv, rs, dec
+
+
+def read_engine(values, seqs, pending, keys):
+    """One chain's read lookup: the one-node slice of
+    ``cluster_read_engine`` (``values [K, V, W]``, ``seqs [K, V]``,
+    ``pending [K]``, ``keys [B]``)."""
+    outs = cluster_read_engine(values[None], seqs[None], pending[None],
+                               keys[None])
+    return tuple(o[0] for o in outs)
 
 
 def cluster_write_engine(values, seqs, pending, keys, wvals, wseqs, active,
@@ -144,38 +230,93 @@ def cluster_write_engine(values, seqs, pending, keys, wvals, wseqs, active,
     updated in place (the reference kernel aliases them to its outputs)
     and returned with ``accepted [N, B]`` int32.
     """
-    N, K, V, W = values.shape
-    B = keys.shape[1]
-    dev = values.device
-    for name, x, shape in (("values", values, (N, K, V, W)),
-                           ("seqs", seqs, (N, K, V)),
-                           ("pending", pending, (N, K)),
-                           ("keys", keys, (N, B)),
-                           ("wvals", wvals, (N, B, W)),
-                           ("wseqs", wseqs, (N, B)),
-                           ("active", active, (N, B)),
-                           ("rank", rank, (N, B))):
-        _check(name, x, shape, dev)
+    W = values.shape[3]
+    N, K, V, W, B, dev = _node_checks(
+        values, seqs, pending, keys,
+        (("wvals", wvals, (W,), torch.int32),
+         ("wseqs", wseqs, (), torch.int32),
+         ("active", active, (), torch.int32),
+         ("rank", rank, (), torch.int32)))
     if dev.type == "cpu":
         return ref.cluster_write_engine_ref(values, seqs, pending, keys,
                                             wvals, wseqs, active, rank)
     if dev.type != "cuda":
         raise ValueError(f"kv_write: unsupported device {dev}")
     _check_cells("kv_write", W, (values, wvals))
-    # the kernel's first pass copies each write's pending count here, its
-    # second reads slots from it and counts into `pending`
-    snap = torch.empty((N, B), dtype=torch.int32, device=dev)
+    _check_batch("kv_write", B)
     accepted = torch.empty((N, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().kv_write_launch(
             values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
             keys.data_ptr(), wvals.data_ptr(), wseqs.data_ptr(),
             active.data_ptr(), rank.data_ptr(), N, K, V, B,
-            snap.data_ptr(), accepted.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            accepted.data_ptr(), _stream(dev))
     _raise_on(rc, "kv_write")
     LAUNCHES["kv_write"] += 1
     return values, seqs, pending, accepted
+
+
+def cluster_write_append(values, seqs, pending, keys, wvals, wseqs, active,
+                         dense_rank: bool = False):
+    """A node step's dirty appends for every node in one launch (the
+    write kernel's ops mode, which ranks the batch itself).
+
+    Store leaves as for the read; ``keys``/``wseqs [N, B]`` and ``wvals
+    [N, B, W]`` int32 and ``active [N, B]`` bool, as the inbox carries
+    them.  As the reference store's ``append_dirty``: an active write
+    ranks among the earlier active writes of its row with the same key,
+    takes cell ``pending + 1 + rank`` with ``pending`` read before any
+    write lands at the register the gather clamps its key to, and is
+    accepted iff that cell is at most ``V - 1``; it lands where the
+    scatter puts its key (wrapped once if negative, else nowhere).  The
+    store leaves are edited in place and returned with ``accepted
+    [N, B]`` bool.  ``dense_rank`` picks the plain version's rank
+    algorithm; both give the rank the kernel takes in its block.
+    """
+    W = values.shape[3]
+    N, K, V, W, B, dev = _node_checks(
+        values, seqs, pending, keys,
+        (("wvals", wvals, (W,), torch.int32),
+         ("wseqs", wseqs, (), torch.int32),
+         ("active", active, (), torch.bool)))
+    if dev.type == "cpu":
+        return ref.cluster_write_append_ref(values, seqs, pending, keys,
+                                            wvals, wseqs, active,
+                                            dense_rank=dense_rank)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_write: unsupported device {dev}")
+    _check_cells("kv_write", W, (values, wvals))
+    _check_batch("kv_write", B)
+    accepted = torch.empty((N, B), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().kv_append_launch(
+            values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
+            keys.data_ptr(), wvals.data_ptr(), wseqs.data_ptr(),
+            active.data_ptr(), N, K, V, B, accepted.data_ptr(),
+            _stream(dev))
+    _raise_on(rc, "kv_write")
+    LAUNCHES["kv_write"] += 1
+    return values, seqs, pending, accepted
+
+
+def write_engine(values, seqs, pending, keys, wvals, wseqs, active, rank):
+    """One chain's append: the one-node slice of ``cluster_write_engine``
+    (store leaves ``[K, ...]``, edited in place; batch leaves ``[B]`` and
+    ``wvals [B, W]``)."""
+    outs = cluster_write_engine(values[None], seqs[None], pending[None],
+                                keys[None], wvals[None], wseqs[None],
+                                active[None], rank[None])
+    return tuple(o[0] for o in outs)
+
+
+def empty_kernel(blocks: int, threads: int, device="cuda") -> None:
+    """Launch an empty kernel of ``blocks`` x ``threads`` on ``device``'s
+    current stream: the device time of a launch that does nothing, the
+    floor under the per-node kernels.  Counted nowhere."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        _raise_on(_lib().kv_empty_launch(blocks, threads, _stream(dev)),
+                  "kv_empty")
 
 
 def _store_checks(values, seqs, pending, batch):
@@ -222,7 +363,7 @@ def bucketed_read_engine(values, seqs, pending, slots, chains):
             slots.data_ptr(), chains.data_ptr(), C, K, V, B,
             values.stride(0), seqs.stride(0), pending.stride(0),
             cv.data_ptr(), cs.data_ptr(), lv.data_ptr(), ls.data_ptr(),
-            pb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            pb.data_ptr(), _stream(dev))
     _raise_on(rc, "kv_bucketed_read")
     LAUNCHES["kv_bucketed_read"] += 1
     return cv, cs, lv, ls, pb
@@ -263,8 +404,7 @@ def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
             slots.data_ptr(), chains.data_ptr(), wvals.data_ptr(),
             wseqs.data_ptr(), active.data_ptr(), rank.data_ptr(), C, K, V, B,
             values.stride(0), seqs.stride(0), pending.stride(0),
-            snap.data_ptr(), accepted.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            snap.data_ptr(), accepted.data_ptr(), _stream(dev))
     _raise_on(rc, "kv_bucketed_write")
     LAUNCHES["kv_bucketed_write"] += 1
     return values, seqs, pending, accepted

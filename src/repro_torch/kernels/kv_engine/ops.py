@@ -1,32 +1,31 @@
 """kv_engine kernels <-> ``repro_torch.core.store`` integration.
 
-The counterparts of the reference's ``ops.py::cluster_read_batch`` and
-``cluster_write_batch``: the NetCRAQ read decision on top of the read
-kernel, and the within-batch rank plus the write kernel.  The node
-steps send their store reads and dirty appends through these, so on
-CUDA they run on the hand-written kernels.  ``partitioned_read_batch``
-and ``partitioned_write_batch`` are the global-key entry points: they
+The counterparts of the reference's ``ops.py``: ``cluster_read_batch``
+(the NetCRAQ read decision) and ``cluster_write_batch`` (the dirty
+appends with their within-batch rank) for per-node batches, and
+``craq_read_batch``/``craq_write_batch``, their one-chain slices.  The
+node steps send their store reads and dirty appends through these, and
+on CUDA each is one launch of a kernel's ops mode
+(``kernel.cluster_read_decide``, ``kernel.cluster_write_append``): the
+key resolution, the rank and the read decision run inside the kernel,
+on the inbox's tensors as they come.  On the CPU the same wrappers run
+the plain composition (``ref.cluster_read_decide_ref``,
+``ref.cluster_write_append_ref``).  ``partitioned_read_batch`` and
+``partitioned_write_batch`` are the global-key entry points: they
 resolve a flat batch of global keys through a live ``PartitionMap`` and
 serve it on the bucketed kernels.
 
 The node steps are held to the reference's jnp store, not to its Pallas
-kernels, and the two differ for a key outside ``[0, K)``: the kernels
-(here as in the reference) answer zeros and accept nothing there, while
-the store clamps a gather and wraps a scatter once, then drops it.  So
-these functions resolve the keys first (``store.gather_index``,
-``store.scatter_index``) and give the kernels keys they treat as the
-store would.
+kernels, and the two differ for a key outside ``[0, K)``: the Pallas
+kernels (and the engine mode here) answer zeros and accept nothing
+there, while the store clamps a gather and wraps a scatter once, then
+drops it.  The per-node batches here follow the store.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.store import (
-    Store,
-    batch_rank,
-    gather_index,
-    scatter_index,
-)
+from repro_torch.core.store import Store, batch_rank
 from repro_torch.kernels.kv_engine import kernel as _k
 
 I32 = torch.int32
@@ -42,17 +41,10 @@ def cluster_read_batch(store: Store, keys: torch.Tensor, is_tail=False):
     tail (dirty at a non-tail node).  A key outside ``[0, K)`` reads the
     register the reference's gather clamps it to.
     """
-    cv, cs, lv, ls, pend = _k.cluster_read_engine(
-        store.values, store.seqs, store.pending,
-        gather_index(keys, store.num_keys).to(I32).contiguous())
-    clean = pend == 0
-    tail = torch.as_tensor(is_tail, dtype=torch.bool, device=keys.device)
-    tail = tail.reshape(-1, 1) if tail.dim() else tail
-    dirty_tail = ~clean & tail
-    decision = torch.where(clean, 0, torch.where(tail, 1, 2)).to(I32)
-    reply_val = torch.where(dirty_tail[..., None], lv, cv)
-    reply_seq = torch.where(dirty_tail, ls, cs)
-    return reply_val, reply_seq, decision
+    if isinstance(is_tail, torch.Tensor):
+        is_tail = is_tail.to(torch.bool).contiguous()
+    return _k.cluster_read_decide(store.values, store.seqs, store.pending,
+                                  keys.to(I32).contiguous(), is_tail)
 
 
 def cluster_write_batch(store: Store, keys, wvals, wseqs, active,
@@ -63,25 +55,36 @@ def cluster_write_batch(store: Store, keys, wvals, wseqs, active,
 
     As in the reference's ``store.append_dirty``, a write whose key the
     scatter drops (outside ``[0, K)`` after one wrap) lands nowhere but
-    is accepted if the slot of its clamped register fits.  The kernel
-    gets the wrapped keys and rejects such a write, so its verdict is
-    taken here, before the launch moves ``pending``.
+    is accepted if the slot of its clamped register fits.  The casts are
+    no-ops for the inbox's int32 lanes and bool mask.
     """
-    K, V = store.num_keys, store.num_versions
-    active = active.to(torch.bool)
-    rank = batch_rank(keys, active, dense=dense_rank)
-    dst = scatter_index(keys, K).to(I32)
-    base = store.pending.gather(1, gather_index(keys, K).long())
-    lost_ok = active & (dst == K) & (base + rank < V - 1)
-    values, seqs, pending, accepted = _k.cluster_write_engine(
-        store.values, store.seqs, store.pending, dst.contiguous(),
+    values, seqs, pending, accepted = _k.cluster_write_append(
+        store.values, store.seqs, store.pending, keys.to(I32).contiguous(),
         wvals.to(I32).contiguous(), wseqs.to(I32).contiguous(),
-        active.to(I32), rank,
-    )
-    return (
-        store._replace(values=values, seqs=seqs, pending=pending),
-        accepted.to(torch.bool) | lost_ok,
-    )
+        active.to(torch.bool).contiguous(), dense_rank=dense_rank)
+    return store._replace(values=values, seqs=seqs, pending=pending), accepted
+
+
+def _one_chain(store: Store) -> Store:
+    return Store(*[x[None] for x in store])
+
+
+def craq_read_batch(store: Store, keys: torch.Tensor, is_tail=False):
+    """One chain's read decision: the one-node slice of
+    ``cluster_read_batch`` (store leaves ``[K, ...]``, ``keys [B]``).
+    Returns (reply_val [B, W], reply_seq [B], decision [B])."""
+    outs = cluster_read_batch(_one_chain(store), keys[None], is_tail=is_tail)
+    return tuple(o[0] for o in outs)
+
+
+def craq_write_batch(store: Store, keys, wvals, wseqs, active):
+    """One chain's append: the one-node slice of ``cluster_write_batch``.
+    The store's ``[K, ...]`` leaves are edited in place.  Returns (store,
+    accepted [B] bool)."""
+    new, accepted = cluster_write_batch(_one_chain(store), keys[None],
+                                        wvals[None], wseqs[None],
+                                        active[None])
+    return Store(*[x[0] for x in new]), accepted[0]
 
 
 def _resolve(cluster, gkeys, pmap):

@@ -12,13 +12,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.types import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 
 F32 = torch.float32
 
 
-def attn_init(gen, cfg: ArchConfig, device="cpu"):
+def attn_init(gen, cfg: ArchConfig, device="cuda"):
+    device = resolve_device(device)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(dtype=cfg.pdtype(), device=device)
     return nn.ModuleDict({
@@ -111,9 +113,11 @@ def attn_decode(p, x, cache, t: int, cfg: ArchConfig, *,
     return out, (k_cache, v_cache)
 
 
-def init_cache(cfg: ArchConfig, batch: int, cache_len: int, device="cpu"):
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               device="cuda"):
     """An empty ``(k, v)`` cache ``[batch, cache_len, KV, D]`` in the
     compute dtype."""
+    device = resolve_device(device)
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return tuple(torch.zeros(shape, dtype=cfg.cdtype(), device=device)
                  for _ in range(2))

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.types import resolve_device
+
 F32 = torch.float32
 
 
@@ -68,7 +70,8 @@ def _normal(gen: torch.Generator, shape, dtype, device, scale: float):
 
 
 def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,
-               dtype=F32, device="cpu", scale: float | None = None):
+               dtype=F32, device="cuda", scale: float | None = None):
+    device = resolve_device(device)
     scale = (d_in ** -0.5) if scale is None else scale
     p = {"w": _param(_normal(gen, (d_in, d_out), dtype, device, scale))}
     if bias:
@@ -83,7 +86,8 @@ def dense(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
     return y
 
 
-def rmsnorm_init(d: int, dtype=F32, device="cpu"):
+def rmsnorm_init(d: int, dtype=F32, device="cuda"):
+    device = resolve_device(device)
     return nn.ParameterDict(
         {"scale": _param(torch.ones((d,), dtype=dtype, device=device))})
 
@@ -96,7 +100,8 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].to(F32)).to(dt)
 
 
-def embed_init(gen, vocab: int, d: int, dtype=F32, device="cpu"):
+def embed_init(gen, vocab: int, d: int, dtype=F32, device="cuda"):
+    device = resolve_device(device)
     return nn.ParameterDict(
         {"table": _param(_normal(gen, (vocab, d), dtype, device, 0.02))})
 
@@ -110,7 +115,8 @@ def embed(p, ids: torch.Tensor, *, compute_dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def swiglu_init(gen, d: int, f: int, dtype=F32, device="cpu"):
+def swiglu_init(gen, d: int, f: int, dtype=F32, device="cuda"):
+    device = resolve_device(device)
     return nn.ModuleDict({
         "w_gate": dense_init(gen, d, f, dtype=dtype, device=device),
         "w_up": dense_init(gen, d, f, dtype=dtype, device=device),

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.types import resolve_device
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
 
@@ -137,7 +138,8 @@ def mamba_apply(p, hidden: torch.Tensor, cfg: ArchConfig, *,
 # Decode path (O(1) state)
 # ---------------------------------------------------------------------------
 def mamba_init_state(cfg: ArchConfig, batch: int, dtype=None,
-                     device="cpu"):
+                     device="cuda"):
+    device = resolve_device(device)
     di, H, N, P, conv_ch = _dims(cfg)
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch),

@@ -93,6 +93,155 @@ def test_cuda_ops_match_cpu_on_out_of_range_keys(card):
         assert torch.equal(a, b.cpu())
 
 
+def _node_batch(rng, N, K, V, B):
+    """A store with dirty versions (pending 0..V-1) and a [N, B] batch
+    with duplicates in each row's first quarter and a fifth of the keys
+    among -1, K - 1, K and -K - 1."""
+    values, seqs, pending = _arrays(rng, N, K, V, 4, B, V - 1)
+    keys = rng.integers(0, K, (N, B)).astype(np.int32)
+    q = max(B // 4, 1)
+    keys[:, :q] = rng.integers(0, 4, (N, q))
+    odd = rng.random((N, B)) < 0.2
+    keys[odd] = rng.choice(np.array([-1, K - 1, K, -K - 1], np.int32),
+                           int(odd.sum()))
+    return values, seqs, pending, keys
+
+
+@pytest.mark.parametrize("N,K,V,B", [(32, 4096, 4, 320), (4, 64, 4, 1),
+                                     (3, 256, 5, 2000), (2, 8, 4, 96)])
+def test_cuda_kv_read_modes_match_plain_versions(card, N, K, V, B):
+    """The read kernel in its engine mode (the Pallas contract) and its
+    ops mode (the node step's read, per-node and scalar tail flags)
+    equals its plain versions exactly, one launch per call."""
+    rng = np.random.default_rng(40 + B)
+    values, seqs, pending, keys = _node_batch(rng, N, K, V, B)
+    dev = lambda a: torch.from_numpy(a).to(card)
+    store = [dev(a) for a in (values, seqs, pending)]
+    t_kernel.reset_launches()
+    got = t_kernel.cluster_read_engine(*store, dev(keys))
+    exp = t_ref.cluster_read_engine_ref(*store, dev(keys))
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    flags = [dev(rng.random(N) < 0.5), True, False]
+    for flag in flags:
+        got = t_kernel.cluster_read_decide(*store, dev(keys), flag)
+        exp = t_ref.cluster_read_decide_ref(*store, dev(keys), flag)
+        for g, e in zip(got, exp):
+            assert torch.equal(g, e)
+    torch.cuda.synchronize()
+    assert t_kernel.LAUNCHES["kv_read"] == 1 + len(flags)
+
+
+@pytest.mark.parametrize("N,K,V,B", [(32, 4096, 4, 320), (4, 64, 4, 1),
+                                     (3, 256, 5, 2000), (2, 8, 4, 96)])
+def test_cuda_kv_write_modes_match_plain_versions(card, N, K, V, B):
+    """The write kernel in its ops mode (raw keys, the rank taken in the
+    block, bool flags) and its engine mode (the caller's rank) equals its
+    plain versions exactly, one launch per call.  The plain versions run
+    on the CPU: when -1 and K - 1 land on one cell, its scatter keeps
+    the later write, as the kernel does, where a CUDA scatter promises no
+    order."""
+    rng = np.random.default_rng(50 + B)
+    values, seqs, pending, keys = _node_batch(rng, N, K, V, B)
+    pending = np.minimum(pending, 1).astype(np.int32)
+    wvals = rng.integers(0, 1 << 20, (N, B, 4)).astype(np.int32)
+    wseqs = rng.integers(0, 1000, (N, B)).astype(np.int32)
+    active = rng.random((N, B)) < 0.7
+    rank = batch_rank(torch.from_numpy(keys), torch.from_numpy(active))
+    t_kernel.reset_launches()
+    for mode in ("ops", "engine"):
+        out = {}
+        for d in ("cpu", card):
+            t = lambda a: torch.tensor(a, device=d)    # a copy per call
+            leaves = [t(a) for a in (values, seqs, pending)]
+            batch = [t(a) for a in (keys, wvals, wseqs)]
+            if mode == "ops":
+                fn = (t_kernel.cluster_write_append if d == card
+                      else t_ref.cluster_write_append_ref)
+                out[str(d)] = fn(*leaves, *batch, t(active))
+            else:
+                fn = (t_kernel.cluster_write_engine if d == card
+                      else t_ref.cluster_write_engine_ref)
+                out[str(d)] = fn(*leaves, *batch,
+                                 t(active.astype(np.int32)), rank.to(d))
+        for a, b in zip(out["cpu"], out[str(card)]):
+            assert a.dtype == b.dtype
+            assert torch.equal(a, b.cpu()), mode
+        if B > 1:
+            acc = out["cpu"][3].bool()
+            assert 0 < int(acc.sum()) < int(active.sum())
+    assert t_kernel.LAUNCHES["kv_write"] == 2
+
+
+def test_cuda_kv_write_rejects_a_batch_past_shared_memory(card):
+    N, K, V, B = 1, 16, 4, t_kernel.WRITE_MAX_BATCH + 1
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        t_kernel.cluster_write_append(
+            z(N, K, V, 4), z(N, K, V), z(N, K), z(N, B), z(N, B, 4),
+            z(N, B), torch.ones((N, B), dtype=torch.bool, device=card))
+
+
+def _device_kernels(fn, calls: int) -> list:
+    """Names of the device activities of ``calls`` calls of ``fn``, from
+    the profiler (which may drop one record of a window, never add
+    one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_cuda_node_step_kv_ops_are_one_launch_each(card):
+    """A node step's read and its dirty appends are one kernel each with
+    nothing else on the device between the store and the outputs, and a
+    NetCRAQ tick launches each once and no snapshot kernel."""
+    rng = np.random.default_rng(60)
+    N, K, V, B = 8, 256, 4, 80
+    values, seqs, pending, keys = _node_batch(rng, N, K, V, B)
+    dev = lambda a: torch.tensor(a, device=card)
+    store = Store(*map(dev, (values, seqs, np.minimum(pending, 1),
+                             np.ones((N, K), np.int32))))
+    keys = dev(keys)
+    tail = dev(np.arange(N) % 4 == 3)
+    wvals = dev(rng.integers(0, 1 << 20, (N, B, 4)).astype(np.int32))
+    wseqs = dev(rng.integers(0, 1000, (N, B)).astype(np.int32))
+    active = dev(rng.random((N, B)) < 0.5)
+    names = _device_kernels(
+        lambda: t_ops.cluster_read_batch(store, keys, is_tail=tail), 4)
+    assert len(names) in (3, 4), names
+    assert all("kv_read_kernel" in n for n in names), names
+    names = _device_kernels(
+        lambda: t_ops.cluster_write_batch(store, keys, wvals, wseqs, active),
+        4)
+    assert len(names) in (3, 4), names
+    assert all("kv_write_kernel" in n for n in names), names
+
+    cl = t_types.ClusterConfig(
+        chain=t_types.ChainConfig(n_nodes=4, num_keys=256, num_versions=4),
+        n_chains=2)
+    sim = ChainSim(cl, inject_capacity=16, route_capacity=64, device=card)
+    sched = t_workload.make_schedule(
+        cl, t_workload.WorkloadConfig(ticks=3, queries_per_tick=16,
+                                      write_fraction=0.4, seed=2),
+        device=card)
+    state = [sim.run(sim.init_state(), sched, extra_ticks=0)]
+    inj = t_types.tree_map(lambda x: x[0], sched)
+
+    def tick():
+        state[0] = sim.tick(state[0], inj)
+
+    names = _device_kernels(tick, 3)
+    assert sum("kv_read_kernel" in n for n in names) in (2, 3)
+    assert sum("kv_write_kernel" in n for n in names) in (2, 3)
+    assert not any("snapshot" in n for n in names), names
+
 @pytest.mark.parametrize("protocol", ["netcraq", "netchain"])
 def test_cuda_cluster_run_matches_cpu_run(card, protocol):
     cl = t_types.ClusterConfig(

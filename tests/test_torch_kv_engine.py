@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.core import store as j_store  # noqa: E402
 from repro.core.store import Store as JStore  # noqa: E402
 from repro.core.store import batch_rank as j_batch_rank  # noqa: E402
 from repro.kernels.kv_engine import kernel as j_kernel  # noqa: E402
@@ -23,6 +24,7 @@ from repro_torch.core.store import Store as TStore  # noqa: E402
 from repro_torch.core.store import batch_rank  # noqa: E402
 from repro_torch.kernels.kv_engine import kernel as t_kernel  # noqa: E402
 from repro_torch.kernels.kv_engine import ops as t_ops  # noqa: E402
+from repro_torch.kernels.kv_engine import ref as t_ref  # noqa: E402
 
 
 def _t(x):
@@ -169,6 +171,244 @@ def test_wrappers_reject_bad_inputs(bad):
             torch.zeros((C, B, W), dtype=torch.int32), keys, keys, keys)
 
 
+
+# ---------------------------------------------------------------------------
+# the node step's read and append (the kernels' ops mode) against the
+# reference store, and the one-chain views
+# ---------------------------------------------------------------------------
+def _node_batch(rng, N, K, V, B):
+    """A store with every pending count in [0, V - 1] (full version
+    windows included) and a [N, B] batch with duplicates in each row's
+    first quarter and a fifth of the keys among -1, K - 1, K, -K - 1."""
+    values, seqs, pending = _store_arrays(rng, N, K, V, 4, V - 1)
+    keys = rng.integers(0, K, (N, B)).astype(np.int32)
+    keys[:, : B // 4] = rng.integers(0, 3, (N, B // 4))
+    odd = rng.random((N, B)) < 0.2
+    keys[odd] = rng.choice(np.array([-1, K - 1, K, -K - 1], np.int32),
+                           int(odd.sum()))
+    return values, seqs, pending, keys
+
+
+def _j_node_read(store, keys, tail):
+    """The reference store's read on one node, as its node step decides."""
+    cv, cs = j_store.read_clean(store, keys)
+    lv, ls = j_store.read_latest(store, keys)
+    clean = j_store.is_clean(store, keys)
+    dirty_tail = ~clean & tail
+    return (jnp.where(dirty_tail[:, None], lv, cv),
+            jnp.where(dirty_tail, ls, cs),
+            jnp.where(clean, 0, jnp.where(tail, 1, 2)).astype(jnp.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("tail", ["mixed", "all", "none"])
+def test_cluster_read_batch_matches_reference_store(seed, tail):
+    N, K, V, B = 4, 16, 4, 48
+    rng = np.random.default_rng(500 + seed)
+    values, seqs, pending, keys = _node_batch(rng, N, K, V, B)
+    per_node = {"mixed": np.array([False, True, False, True]),
+                "all": np.ones(N, bool), "none": np.zeros(N, bool)}[tail]
+    js = JStore(*[jnp.asarray(a) for a in (values, seqs, pending,
+                                           np.ones((N, K), np.int32))])
+    exp = jax.vmap(_j_node_read)(js, jnp.asarray(keys),
+                                 jnp.asarray(per_node))
+    ts = TStore(*[_t(a) for a in (values, seqs, pending,
+                                  np.ones((N, K), np.int32))])
+    before = dict(t_kernel.LAUNCHES)
+    flags = [torch.from_numpy(per_node)]
+    if tail != "mixed":
+        flags.append(tail == "all")       # the scalar flag answers the same
+    for flag in flags:
+        got = t_ops.cluster_read_batch(ts, _t(keys), is_tail=flag)
+        for g, e in zip(got, exp):
+            _eq(g, e)
+    assert t_kernel.LAUNCHES == before  # the CPU path launches nothing
+    decisions = {"mixed": {0, 1, 2}, "all": {0, 1}, "none": {0, 2}}[tail]
+    assert set(np.unique(got[2].numpy()).tolist()) == decisions
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cluster_write_batch_matches_reference_store(seed):
+    N, K, V, B = 4, 16, 4, 48
+    rng = np.random.default_rng(600 + seed)
+    values, seqs, pending, keys = _node_batch(rng, N, K, V, B)
+    pending = np.minimum(pending, 1).astype(np.int32)
+    pending[:, :2] = V - 1                 # full windows: every write drops
+    wvals = rng.integers(0, 1 << 20, (N, B, 4)).astype(np.int32)
+    wseqs = rng.integers(0, 1000, (N, B)).astype(np.int32)
+    active = rng.random((N, B)) < 0.7
+    next_seq = np.ones((N, K), np.int32)
+    js = JStore(*[jnp.asarray(a) for a in (values, seqs, pending, next_seq)])
+    jnew, jacc = jax.vmap(j_store.append_dirty)(
+        js, jnp.asarray(keys), jnp.asarray(wvals), jnp.asarray(wseqs),
+        jnp.asarray(active))
+    ts = TStore(*[_t(a) for a in (values, seqs, pending, next_seq)])
+    before = dict(t_kernel.LAUNCHES)
+    tnew, tacc = t_ops.cluster_write_batch(ts, _t(keys), _t(wvals),
+                                           _t(wseqs), _t(active))
+    assert t_kernel.LAUNCHES == before
+    _eq(tacc, jacc)
+    for f in JStore._fields:
+        _eq(getattr(tnew, f), getattr(jnew, f))
+    acc = tacc.numpy()
+    assert 0 < acc.sum() < active.sum()
+    # a dropped key (K, -K - 1) is accepted where its clamped slot fits
+    assert acc[active & ((keys == K) | (keys == -K - 1))].any()
+
+
+def test_two_raw_keys_of_one_cell_keep_the_later_write():
+    """-1 and K - 1 resolve to one register and rank apart, so their
+    writes can share a cell; the reference's scatter keeps the later one.
+    At this size torch's own scatter runs on several threads and kept
+    either; the plain append and ``store.append_dirty`` keep the later,
+    run after run."""
+    from repro_torch.core import store as t_store
+
+    N, K, V, B = 3, 256, 5, 2000
+    rng = np.random.default_rng(2050)
+    values, seqs, pending, keys = _node_batch(rng, N, K, V, B)
+    pending = np.minimum(pending, 1).astype(np.int32)
+    wvals = rng.integers(0, 1 << 20, (N, B, 4)).astype(np.int32)
+    wseqs = rng.integers(0, 1 << 20, (N, B)).astype(np.int32)
+    active = rng.random((N, B)) < 0.7
+    leaves = (values, seqs, pending, np.ones((N, K), np.int32))
+    jnew, jacc = jax.vmap(j_store.append_dirty)(
+        JStore(*map(jnp.asarray, leaves)),
+        *map(jnp.asarray, (keys, wvals, wseqs, active)))
+    for _ in range(3):
+        for fn in (t_ops.cluster_write_batch, t_store.append_dirty):
+            tnew, tacc = fn(TStore(*[_t(a.copy()) for a in leaves]),
+                            *map(_t, (keys, wvals, wseqs, active)))
+            _eq(tacc, jacc)
+            for f in JStore._fields:
+                _eq(getattr(tnew, f), getattr(jnew, f))
+    # the case is there: a -1 and a K - 1 write accepted into one slot
+    rank = np.asarray(jax.vmap(j_batch_rank)(jnp.asarray(keys),
+                                             jnp.asarray(active)))
+    acc = np.asarray(jacc)
+    shared = [(n, r) for n in range(N) for r in range(V)
+              if ((keys[n] == -1) & acc[n] & (rank[n] == r)).any()
+              and ((keys[n] == K - 1) & acc[n] & (rank[n] == r)).any()]
+    assert shared
+
+@pytest.mark.parametrize("K,V,W,B", [(256, 4, 4, 128), (1024, 4, 4, 512),
+                                     (512, 8, 2, 256), (2048, 2, 8, 64)])
+def test_read_engine_one_chain_matches_pallas(K, V, W, B):
+    rng = np.random.default_rng(K + B)
+    values = rng.integers(0, 1 << 20, (K, V, W)).astype(np.int32)
+    seqs = rng.integers(-1, 100, (K, V)).astype(np.int32)
+    pending = rng.integers(0, V - 1, (K,)).astype(np.int32)
+    keys = rng.integers(0, K, (B,)).astype(np.int32)
+    args = (values, seqs, pending, keys)
+    exp = j_kernel.read_engine(*[jnp.asarray(a) for a in args])
+    for e, r in zip(exp, j_ref.read_engine_ref(*[jnp.asarray(a)
+                                                for a in args])):
+        np.testing.assert_array_equal(np.asarray(e), np.asarray(r))
+    for fn in (t_kernel.read_engine, t_ref.read_engine_ref):
+        for g, e in zip(fn(*[_t(a) for a in args]), exp):
+            _eq(g, e)
+
+
+@pytest.mark.parametrize("K,V,W,B,key_space", [
+    (256, 4, 4, 128, 16),   # heavy collisions
+    (1024, 6, 4, 256, 1024),
+    (512, 3, 2, 64, 4),     # overflow-heavy
+])
+def test_write_engine_one_chain_matches_sequential_oracle(K, V, W, B,
+                                                          key_space):
+    rng = np.random.default_rng(K + B + key_space)
+    values = np.zeros((K, V, W), np.int32)
+    seqs = np.full((K, V), -1, np.int32)
+    seqs[:, 0] = 0
+    pending = np.zeros((K,), np.int32)
+    keys = rng.integers(0, key_space, (B,)).astype(np.int32)
+    wvals = rng.integers(0, 1 << 20, (B, W)).astype(np.int32)
+    wseqs = rng.integers(0, 1000, (B,)).astype(np.int32)
+    active = rng.integers(0, 2, (B,)).astype(np.int32)
+    rank = np.asarray(j_batch_rank(jnp.asarray(keys),
+                                   jnp.asarray(active, bool)))
+    _eq(batch_rank(_t(keys)[None], _t(active)[None].bool())[0], rank)
+    args = (values, seqs, pending, keys, wvals, wseqs, active, rank)
+    exp = j_kernel.write_engine(*[jnp.asarray(a) for a in args])
+    oracle = j_ref.write_engine_ref(*[jnp.asarray(a) for a in args])
+    for e, o in zip(exp, oracle):
+        np.testing.assert_array_equal(np.asarray(e), np.asarray(o))
+    for fn in (t_kernel.write_engine, t_ref.write_engine_ref):
+        leaves = [_t(a.copy()) for a in args[:3]]
+        got = fn(*leaves, *[_t(a) for a in args[3:]])
+        for g, e in zip(got, exp):
+            _eq(g, e)
+        for g, leaf in zip(got, leaves):   # edited in place
+            assert g.data_ptr() == leaf.data_ptr()
+
+
+def test_craq_ops_one_chain_match_reference():
+    """``tests/test_kernels.py::test_kv_ops_integration_with_store`` in
+    torch form: a write batch, then reads at a non-tail node (clean or
+    forward) and at the tail (clean or answered dirty), equal to the
+    reference's one-chain ops."""
+    from repro.core.store import init_store as j_init
+    from repro.core.types import ChainConfig as JChain
+    from repro_torch.core.store import init_store as t_init
+    from repro_torch.core.types import ChainConfig as TChain
+
+    rng = np.random.default_rng(13)
+    B = 64
+    keys = rng.integers(0, 256, (B,)).astype(np.int32)
+    vals = rng.integers(0, 100, (B, 4)).astype(np.int32)
+    seqs = np.arange(1, B + 1, dtype=np.int32)
+    active = np.ones((B,), bool)
+    jstore2, jacc = j_ops.craq_write_batch(
+        j_init(JChain(n_nodes=4, num_keys=256, num_versions=4)),
+        *map(jnp.asarray, (keys, vals, seqs, active)))
+    store = t_init(TChain(n_nodes=4, num_keys=256, num_versions=4),
+                   shape=(), device="cpu")
+    store2, acc = t_ops.craq_write_batch(store, *map(_t, (keys, vals, seqs,
+                                                          active)))
+    assert store2.values.data_ptr() == store.values.data_ptr()
+    _eq(acc, jacc)
+    assert bool(acc.any())
+    for f in JStore._fields:
+        _eq(getattr(store2, f), getattr(jstore2, f))
+    for is_tail, allowed in ((False, {0, 2}), (True, {0, 1})):
+        got = t_ops.craq_read_batch(store2, _t(keys), is_tail=is_tail)
+        exp = j_ops.craq_read_batch(jstore2, jnp.asarray(keys),
+                                    is_tail=is_tail)
+        for g, e in zip(got, exp):
+            _eq(g, e)
+        assert set(np.unique(got[2].numpy()).tolist()) <= allowed
+
+
+@pytest.mark.parametrize("bad", ["active", "is_tail", "keys"])
+def test_ops_mode_wrappers_reject_bad_inputs(bad):
+    """The ops-mode wrappers take the inbox's dtypes as they come (int32
+    lanes, bool masks) and cast nothing; the ops functions cast."""
+    N, K, V, W, B = 2, 8, 3, 4, 4
+    values = torch.zeros((N, K, V, W), dtype=torch.int32)
+    seqs = torch.zeros((N, K, V), dtype=torch.int32)
+    pending = torch.zeros((N, K), dtype=torch.int32)
+    keys = torch.zeros((N, B), dtype=torch.int32)
+    active = torch.ones((N, B), dtype=torch.bool)
+    tail = torch.zeros(N, dtype=torch.bool)
+    if bad == "active":
+        active = active.int()
+    elif bad == "is_tail":
+        tail = torch.zeros(N + 1, dtype=torch.bool)
+    else:
+        keys = keys.long()
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "active":
+            t_kernel.cluster_write_append(
+                values, seqs, pending, keys,
+                torch.zeros((N, B, W), dtype=torch.int32), keys, active)
+        else:
+            t_kernel.cluster_read_decide(values, seqs, pending, keys, tail)
+    if bad != "is_tail":   # the ops functions cast to the kernels' dtypes
+        store = TStore(values, seqs, pending, pending.clone())
+        t_ops.cluster_read_batch(store, keys, is_tail=tail)
+        t_ops.cluster_write_batch(store, keys,
+                                  torch.zeros((N, B, W), dtype=torch.int32),
+                                  keys, active)
 
 # ---------------------------------------------------------------------------
 # bucketed (partition-map) kernels and the global-key ops

@@ -170,8 +170,8 @@ def test_attention_prefill_and_decode_match_reference(impl, cd):
 
 def test_attn_decode_seq_parallel_waits_for_the_distributed_slice():
     _, tcfg = _cfgs()
-    p = TA.attn_init(torch.Generator().manual_seed(0), tcfg)
-    cache = TA.init_cache(tcfg, 1, 8)
+    p = TA.attn_init(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    cache = TA.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError):
         TA.attn_decode(p, torch.zeros(1, 1, tcfg.d_model), cache, 0, tcfg,
                        seq_parallel=True)
