@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card, at full size.
 
-    python3 chip_smoke.py [--phases 12,13]
+    python3 chip_smoke.py [--phases 12,13] [--src OTHER_CHECKOUT/src]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/kv_engine/
 csrc``, ``src/repro_torch/kernels/flash_attention/csrc`` and
@@ -19,9 +19,13 @@ source, all three at once), then:
    ``kv_ops``) and its engine mode (the Pallas kernels' contract), with
    an empty kernel of the same grid timed beside them; the bucketed
    kernels on the tail replica of a seeded [8, 4, 65536, 4, 4] store and
-   458,752 global keys resolved through a map with two migrated buckets,
-   with duplicates, window overflow, parked (chain -1) entries and slots
-   outside [0, K);
+   458,752 global keys under a map with two migrated buckets, each in its
+   ops mode (``partitioned_read_batch``/``partitioned_write_batch`` in
+   one launch: raw global keys with duplicates, window overflow and 1 %
+   outside the key space, the map lookup, decision and rank inside) and
+   its engine mode (the keys resolved, 1 % parked on chain -1 and 1 % with
+   a slot outside [0, K)), each bound by bytes and, beside that, by the
+   32-byte sectors the card must move;
 3. drives the main path: an 8-chain x 4-node NetCRAQ cluster of 65,536
    128-bit registers per node (about 170 MiB of int32 state on the card)
    through ``ChainSim.run`` with a 32-tick schedule and a 16-tick drain,
@@ -43,10 +47,13 @@ source, all three at once), then:
    (chains 3-7 bit-identical), to its freeze windows (write NACKs only
    there), to ``committed_view`` and to a serial replay of every
    acknowledged write, read back for every global key through
-   ``partitioned_read_batch`` on the tail replica;
+   ``partitioned_read_batch`` on the tail replica in one launch; then the
+   read-back's device activities, device time and wall time per call;
 8. global-key writes through ``partitioned_write_batch`` on a copy of
    that tail under the migrated map: duplicates serialize, keys outside
-   the key space are dropped and read back as decision -1;
+   the key space are dropped and read back as decision -1, one launch of
+   each kernel; then both entry points' device activities, device time
+   and wall time per call at that batch;
 9. failover and two-phase recovery (``benchmarks/fig_failover.py``'s
    lifecycle at full width): a node dies, clients redirect after the
    detector's timeout, the chain freezes, the replacement copies its
@@ -95,9 +102,12 @@ source, all three at once), then:
    layers, the CPU's plain versions; prints the same serving metrics and
    the peak device memory.
 
-``--phases 12,13`` runs the build, phase 1 and the named phases only
-(4 and 5 bring 3 along, 8 brings 7); the JSON record then lists the
-kernels of the phases that ran.
+``--phases 12,13`` runs the build of the kernels those phases use,
+phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7);
+the JSON record then lists the kernels of the phases that ran.  ``--src
+DIR`` measures the ``repro_torch`` under DIR instead of the one beside
+the script (the parent commit's, say, for ``--phases 7,8``: its entry
+points' cost per call beside this tree's, in one call).
 
 Any failure raises (non-zero exit).  Without a card, or without the repo
 beside it, the script exits non-zero before printing any result.  The
@@ -116,7 +126,18 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+
+
+def package_dir(argv) -> pathlib.Path:
+    """``--src DIR``: measure the ``repro_torch`` under DIR (the src/ of
+    another checkout, say the parent commit's) with this script's phases;
+    by default the one beside the script."""
+    if "--src" in argv[:-1]:
+        return pathlib.Path(argv[argv.index("--src") + 1]).resolve()
+    return ROOT / "src"
+
+
+sys.path.insert(0, str(package_dir(sys.argv[1:])))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -401,6 +422,38 @@ def one_launch_per_call(name: str, kernel: str, fn) -> None:
         "recorded)")
 
 
+def per_call(what: str, make, calls: int = 5) -> dict:
+    """An entry point's cost per call: its device activities (kernels,
+    copies, fills) and their device time from the profiler, and the wall
+    time between host clocks around ``calls`` calls and a synchronize.
+    ``make(n)`` gives n zero-argument calls, each on inputs of its own
+    where a call edits them."""
+    for fn in make(2):   # warm-up: the build, the scratch
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a window of a long process may record nothing
+        counts: dict[str, int] = {}
+        dev_ms, _, n = device_time(make(calls), counts=counts)
+        if n:
+            break
+    fns = make(calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / calls * 1e6
+    rec = {"activities": n / calls,
+           "device_us": None if dev_ms is None else dev_ms * 1e3,
+           "wall_us": wall_us, "by_name": counts}
+    log(f"{what} ({smi()}): {rec['activities']:.2f} device activities a "
+        f"call, device time "
+        + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
+        + f" a call, wall {wall_us:.2f} us a call ({calls} calls); "
+        f"activities {counts}")
+    return rec
+
+
 def check_kernels() -> dict:
     N, B = N_CHAINS * N_NODES, INJECT + ROUTE
     gen = torch.Generator(device="cpu").manual_seed(11)
@@ -539,6 +592,9 @@ def measure(out: dict) -> dict:
     peak unless stated)."""
     for rec in out.values():
         bytes_ms = rec.pop("bound_bytes") / HBM_BYTES_PER_S * 1e3
+        if "sector_bytes" in rec:   # the same moves in whole sectors
+            rec["sector_bound_ms"] = (rec.pop("sector_bytes")
+                                      / HBM_BYTES_PER_S * 1e3)
         peak = rec.pop("flop_per_s", BF16_FLOP_PER_S)
         flop_ms = rec.pop("bound_flop", 0) / peak * 1e3
         rec["bound_ms"] = max(bytes_ms, flop_ms)
@@ -581,10 +637,12 @@ def migrated_map(cl: ClusterConfig, device) -> PartitionMap:
 
 
 def bucketed_batch(cl: ClusterConfig, pmap: PartitionMap, gen):
-    """(slots, chains) of a batch of ``num_global_keys`` global keys
-    resolved through ``pmap``: the first 4096 over 64 keys (migrated and
-    home buckets, many writes each), 1 % parked on chain -1 and 1 % with
-    a slot outside [0, K)."""
+    """(gkeys, slots, chains) of a batch of ``num_global_keys`` global
+    keys: the first 4096 over 64 keys (migrated and home buckets, many
+    writes each) and 1 % outside the key space (-1, -7, G, G + 5), for the
+    ops modes; the engine modes' (slots, chains) are those keys resolved
+    through ``pmap``, with 1 % parked on chain -1 and 1 % with a slot
+    outside [0, K)."""
     G = cl.num_global_keys
     dev = pmap.owner.device
     i32 = torch.int32
@@ -594,46 +652,125 @@ def bucketed_batch(cl: ClusterConfig, pmap: PartitionMap, gen):
                                dtype=i32)
     chains = cl.key_to_chain(gk, pmap).to(i32)
     slots = cl.key_to_slot(gk, pmap).to(i32)
+    outside = torch.tensor([-1, -7, G, G + 5], dtype=i32, device=dev)
+    pick = torch.randint(0, 4, (G,), generator=gen, device=dev)
+    gk = torch.where(torch.rand(G, generator=gen, device=dev) < 0.01,
+                     outside[pick], gk)
     chains[torch.rand(G, generator=gen, device=dev) < 0.01] = -1
     odd = torch.rand(G, generator=gen, device=dev) < 0.01
     pick = torch.randint(0, 3, (G,), generator=gen, device=dev)
     far = torch.tensor([-1, NUM_KEYS, NUM_KEYS + 7], dtype=i32, device=dev)
     slots = torch.where(odd, far[pick], slots)
-    return slots.contiguous(), chains.contiguous()
+    return gk.contiguous(), slots.contiguous(), chains.contiguous()
 
 
-def bucketed_read_bound_bytes(pending, slots, chains) -> int:
-    """Bytes the flat read must move: slots and chains, per distinct
-    in-store (chain, slot) its pending word, cell 0 (W words + seq) and,
-    when dirty, the latest cell; the five outputs written once."""
-    B = slots.numel()
+SECTOR = 32   # bytes the card moves per access: a sector of a cache line
+
+
+def sectors_of(addr: torch.Tensor) -> int:
+    """Distinct 32-byte sectors of the byte addresses ``addr`` (each an
+    access that lies within one sector: a 4-byte word or an aligned
+    16-byte cell)."""
+    return int(torch.unique(addr // SECTOR).numel())
+
+
+def dense_sectors(*nbytes: int) -> int:
+    """Sectors of arrays read or written whole, in order."""
+    return sum(-(-n // SECTOR) for n in nbytes)
+
+
+class Leaves:
+    """Byte addresses of one replica's store leaves (``[C, K, ...]`` with
+    a free chain stride, as the bucketed kernels take them)."""
+
+    def __init__(self, values, seqs, pending):
+        self.v, self.s, self.p = values, seqs, pending
+
+    def cell(self, c, s, q):
+        return (self.v.data_ptr() + 4 * (c * self.v.stride(0)
+                                         + (s * VERSIONS + q) * WORDS))
+
+    def seq(self, c, s, q):
+        return self.s.data_ptr() + 4 * (c * self.s.stride(0)
+                                        + s * VERSIONS + q)
+
+    def pend(self, c, s):
+        return self.p.data_ptr() + 4 * (c * self.p.stride(0) + s)
+
+
+def read_bounds(leaves: Leaves, chains, slots, tail=None, n_in=2,
+                n_map=0) -> tuple:
+    """(bytes, sectors) a flat read must move: its ``n_in`` int32 inputs
+    per query (``n_map`` map words), per distinct in-store register the
+    pending word and the cells it answers with (engine, ``tail`` None:
+    cell 0 and, when dirty, the latest; ops: the one cell of the reply),
+    each with its seq, and the outputs (engine: two cells and three
+    words a query; ops: a cell and four words)."""
+    B = chains.numel()
     ok = (chains >= 0) & (chains < N_CHAINS) & (slots >= 0) & (
         slots < NUM_KEYS)
-    flat = (chains.long() * NUM_KEYS + slots.long())[ok].unique()
-    dirty = int((pending.reshape(-1)[flat] > 0).sum())
-    cell = 4 * (WORDS + 1)
-    return (8 * B + flat.numel() * (4 + cell) + dirty * cell
-            + 4 * B * (2 * WORDS + 3))
+    c, s = chains[ok].long(), slots[ok].long()
+    p = leaves.p[c, s].long()
+    if tail is None:
+        q = torch.cat([torch.zeros_like(p), p[(p > 0) & (p < VERSIONS)]])
+        cs = torch.cat([c, c[(p > 0) & (p < VERSIONS)]])
+        ss = torch.cat([s, s[(p > 0) & (p < VERSIONS)]])
+        out = B * 4 * (2 * WORDS + 3)
+    else:
+        q = p if tail else torch.zeros_like(p)
+        keep = (q >= 0) & (q < VERSIONS)
+        cs, ss, q = c[keep], s[keep], q[keep]
+        out = B * 4 * (WORDS + 4)
+    regs = torch.unique(c * NUM_KEYS + s).numel()
+    cells = torch.unique((cs * NUM_KEYS + ss) * VERSIONS + q).numel()
+    nbytes = 4 * (n_in * B + n_map) + 4 * regs + 4 * (WORDS + 1) * cells \
+        + out
+    nsect = (dense_sectors(4 * B * n_in, 4 * n_map, out)
+             + sectors_of(leaves.pend(c, s)) + sectors_of(leaves.cell(cs, ss, q))
+             + sectors_of(leaves.seq(cs, ss, q)))
+    return nbytes, nsect * SECTOR
 
 
-def bucketed_write_bound_bytes(slots, chains, active, accepted) -> int:
-    """Bytes the flat append must move: the batch (slot, chain, W words,
-    seq, active, rank), per distinct active in-store register its pending
-    word read and written, per accepted write one cell, and the accepted
-    flags."""
-    B = slots.numel()
-    live = (active > 0) & (chains >= 0) & (chains < N_CHAINS) & (
-        slots >= 0) & (slots < NUM_KEYS)
-    touched = (chains.long() * NUM_KEYS + slots.long())[live].unique().numel()
-    return (4 * B * (WORDS + 5) + 8 * touched
-            + int(accepted.sum()) * 4 * (WORDS + 1) + 4 * B)
+def write_bounds(leaves: Leaves, chains, slots, live, rank, accepted,
+                 wvals, wseqs, in_bytes: int, flag_bytes: int) -> tuple:
+    """(bytes, sectors) a flat append must move: ``in_bytes`` of inputs
+    per lane (keys, mask, rank as the mode takes them) and ``flag_bytes``
+    of accept flag; per distinct live register its pending word read, and
+    written where a write was accepted; per accepted write its cell (W
+    words) and seq read from the batch and written to the store.
+    ``leaves`` hold the pending counts as they were before the append;
+    ``rank`` is the write's place among the live writes to its target."""
+    B = chains.numel()
+    c, s = chains.long(), slots.long()
+    lc, ls = c[live], s[live]
+    ac = accepted.bool() & live
+    slot = leaves.p[c.clamp(0, N_CHAINS - 1), s.clamp(0, NUM_KEYS - 1)] \
+        + 1 + rank
+    lands = ac & (slot >= 0)
+    dc, ds, dq = c[lands], s[lands], slot[lands].long()
+    lanes = torch.nonzero(lands).flatten()
+    read_regs = torch.unique(lc * NUM_KEYS + ls).numel()
+    wrote_regs = torch.unique(c[ac] * NUM_KEYS + s[ac]).numel()
+    n_land = int(lands.sum())
+    nbytes = (B * (in_bytes + flag_bytes) + 4 * (read_regs + wrote_regs)
+              + 2 * 4 * (WORDS + 1) * n_land)
+    nsect = (dense_sectors(B * in_bytes, B * flag_bytes)
+             + sectors_of(leaves.pend(lc, ls))
+             + sectors_of(leaves.pend(c[ac], s[ac]))
+             + sectors_of(leaves.cell(dc, ds, dq))
+             + sectors_of(leaves.seq(dc, ds, dq))
+             + sectors_of(wvals.data_ptr() + 16 * lanes)
+             + sectors_of(wseqs.data_ptr() + 4 * lanes))
+    return nbytes, nsect * SECTOR
 
 
-def check_bucketed_kernels() -> dict:
-    """The bucketed kernels against their plain versions on the tail
-    replica of a seeded full-size [C, n, K, V, W] store."""
+def check_bucketed_kernels(device="cuda") -> dict:
+    """Both modes of the bucketed kernels against their plain versions on
+    the tail replica of a seeded full-size [C, n, K, V, W] store: the ops
+    modes (``bucketed_read_resolve``/``bucketed_write_append``, what
+    ``partitioned_read_batch``/``partitioned_write_batch`` launch) on raw
+    global keys, the engine modes on resolved slots and chains."""
     cl = cluster("netcraq", partitioned=True)
-    device = "cuda"
     gen = torch.Generator(device=device).manual_seed(12)
     full = (N_CHAINS, N_NODES, NUM_KEYS, VERSIONS)
     i32 = torch.int32
@@ -645,35 +782,60 @@ def check_bucketed_kernels() -> dict:
                       dtype=i32),
     ]
     tail = [x[:, -1] for x in stores]
+    leaves = Leaves(*tail)
     pmap = migrated_map(cl, device)
-    slots, chains = bucketed_batch(cl, pmap, gen)
+    gkeys, slots, chains = bucketed_batch(cl, pmap, gen)
+    in_range, g_chains, g_slots = kv_ref.place_keys_ref(gkeys, cl, pmap)
     B = slots.numel()
+    n_map = 2 * cl.num_buckets
     out = {}
 
-    # -- read --------------------------------------------------------------
+    # -- read: the global-key read (ops mode), then the Pallas contract ------
+    got = kv_kernel.bucketed_read_resolve(*tail, gkeys, cl, pmap, True)
+    exp = kv_ref.partitioned_read_ref(*tail, gkeys, cl, pmap, True)
+    sync(device)
+    err = max_abs_err(got, exp)
+    require(err == 0, f"kv_bucketed_read (ops) differs from its plain "
+            f"version by {err}")
+    require(set(got[2].unique().tolist()) == {-1, 0, 1},
+            "the ops read check must take decisions -1, 0 and 1")
+    ch = g_chains.clamp(0, N_CHAINS - 1).long()
+    sl = g_slots.clamp(0, NUM_KEYS - 1).long()
+    nbytes, nsect = read_bounds(leaves, g_chains, g_slots, tail=True,
+                                n_in=1, n_map=n_map)
+    out["kv_bucketed_read"] = dict(
+        max_abs_err=err,
+        calls=lambda n: [lambda: kv_kernel.bucketed_read_resolve(
+            *tail, gkeys, cl, pmap, True)] * n,
+        plain=lambda n: [lambda: kv_ref.partitioned_read_ref(
+            *tail, gkeys, cl, pmap, True)] * n,
+        # one advanced-index gather of each query's whole register row
+        library=lambda n: [lambda: tail[0][ch, sl]] * n,
+        bound_bytes=nbytes, sector_bytes=nsect,
+    )
     got = kv_kernel.bucketed_read_engine(*tail, slots, chains)
     exp = kv_ref.bucketed_read_engine_ref(*tail, slots, chains)
     sync(device)
     err = max_abs_err(got, exp)
-    require(err == 0, f"kv_bucketed_read differs from its plain version by "
-            f"{err}")
+    require(err == 0, f"kv_bucketed_read (engine) differs from its plain "
+            f"version by {err}")
     require(int((chains == -1).sum()) > 0 and int((slots >= NUM_KEYS).sum())
             > 0 and int((got[2][chains == -1] != 0).sum()) == 0,
             "the read check must park queries, and parked ones read zeros")
-    ch = chains.clamp(0, N_CHAINS - 1).long()
-    sl = slots.clamp(0, NUM_KEYS - 1).long()
-    out["kv_bucketed_read"] = dict(
+    ch_e = chains.clamp(0, N_CHAINS - 1).long()
+    sl_e = slots.clamp(0, NUM_KEYS - 1).long()
+    nbytes, nsect = read_bounds(leaves, chains, slots)
+    out["kv_bucketed_read_engine"] = dict(
         max_abs_err=err,
         calls=lambda n: [lambda: kv_kernel.bucketed_read_engine(
             *tail, slots, chains)] * n,
         plain=lambda n: [lambda: kv_ref.bucketed_read_engine_ref(
             *tail, slots, chains)] * n,
-        # one advanced-index gather of each query's whole register row
-        library=lambda n: [lambda: tail[0][ch, sl]] * n,
-        bound_bytes=bucketed_read_bound_bytes(tail[2], slots, chains),
+        library=lambda n: [lambda: tail[0][ch_e, sl_e]] * n,
+        bound_bytes=nbytes, sector_bytes=nsect,
     )
 
-    # -- write: two copies of the store, one per side -------------------------
+    # -- write: the global-key append (ops mode), then the Pallas contract ---
     stores[2].clamp_(max=1)
     wvals = torch.randint(0, 1 << 20, (B, WORDS), generator=gen,
                           device=device, dtype=i32)
@@ -681,39 +843,74 @@ def check_bucketed_kernels() -> dict:
                           dtype=i32)
     active = torch.randint(0, 2, (B,), generator=gen, device=device,
                            dtype=i32)
-    ok = (chains >= 0) & (slots >= 0) & (slots < NUM_KEYS)
-    target = torch.where(ok, chains.long() * NUM_KEYS + slots.long(), -1)
-    rank = batch_rank(target[None], (active.bool() & ok)[None])[0]
-    plain_stores = [x.clone() for x in stores]
+    live_b = active.bool()
+    snap = [x.clone() for x in stores]
     pend0 = tail[2].clone()
-    got = kv_kernel.bucketed_write_engine(*tail, slots, chains, wvals, wseqs,
-                                          active, rank)
-    exp = kv_ref.bucketed_write_engine_ref(
-        *[x[:, -1] for x in plain_stores], slots, chains, wvals, wseqs,
-        active, rank)
-    sync(device)
-    err = max(max_abs_err(got, exp), max_abs_err(stores, plain_stores))
-    require(err == 0, f"kv_bucketed_write differs from its plain version by "
-            f"{err}")
-    accepted = got[3]
-    live = (active > 0) & ok
-    require(0 < int(accepted.sum()) < int(live.sum()),
-            "the write check must both accept and overflow")
 
-    def appends(fn):
+    def each_side(fn_kernel, fn_plain, *batch):
+        """The kernel on the store, its plain version on a copy; returns
+        (kernel's outputs, max abs error over outputs and stores)."""
+        plain_stores = [x.clone() for x in stores]
+        got = fn_kernel(*tail, *batch)
+        exp = fn_plain(*[x[:, -1] for x in plain_stores], *batch)
+        sync(device)
+        err = max(max_abs_err(got, exp), max_abs_err(stores, plain_stores))
+        for x, y in zip(stores, snap):
+            x.copy_(y)
+        return got, err
+
+    got, err = each_side(kv_kernel.bucketed_write_append,
+                         kv_ref.partitioned_write_ref, gkeys, wvals, wseqs,
+                         live_b, cl, pmap)
+    require(err == 0, f"kv_bucketed_write (ops) differs from its plain "
+            f"version by {err}")
+    live_ops = live_b & in_range & (g_chains >= 0) & (g_slots >= 0) & (
+        g_slots < NUM_KEYS)
+    require(0 < int(got[3].sum()) < int(live_ops.sum()),
+            "the ops write check must both accept and overflow")
+    rank = batch_rank((g_chains.long() * NUM_KEYS + g_slots.long())[None],
+                      (live_b & in_range)[None])[0]
+    nbytes, nsect = write_bounds(leaves, g_chains, g_slots, live_ops,
+                                 rank, got[3], wvals, wseqs, 5, 1)
+    nbytes += 4 * n_map
+    nsect += dense_sectors(4 * n_map) * SECTOR
+
+    def appends(fn, *batch):
         # every timed append counts into its own copy of the same pending
         return lambda n: [
-            lambda p=pend0.clone(): fn(tail[0], tail[1], p, slots, chains,
-                                       wvals, wseqs, active, rank)
+            lambda p=pend0.clone(): fn(tail[0], tail[1], p, *batch)
             for _ in range(n)]
 
     out["kv_bucketed_write"] = dict(
         max_abs_err=err,
-        calls=appends(kv_kernel.bucketed_write_engine),
-        plain=appends(kv_ref.bucketed_write_engine_ref),
+        calls=appends(kv_kernel.bucketed_write_append, gkeys, wvals, wseqs,
+                      live_b, cl, pmap),
+        plain=appends(kv_ref.partitioned_write_ref, gkeys, wvals, wseqs,
+                      live_b, cl, pmap),
         library=None,   # no single PyTorch call ranks and appends
-        bound_bytes=bucketed_write_bound_bytes(slots, chains, active,
-                                               accepted),
+        bound_bytes=nbytes, sector_bytes=nsect,
+    )
+    ok = (chains >= 0) & (slots >= 0) & (slots < NUM_KEYS)
+    target = torch.where(ok, chains.long() * NUM_KEYS + slots.long(), -1)
+    rank = batch_rank(target[None], (active.bool() & ok)[None])[0]
+    got, err = each_side(kv_kernel.bucketed_write_engine,
+                         kv_ref.bucketed_write_engine_ref, slots, chains,
+                         wvals, wseqs, active, rank)
+    require(err == 0, f"kv_bucketed_write (engine) differs from its plain "
+            f"version by {err}")
+    live = (active > 0) & ok
+    require(0 < int(got[3].sum()) < int(live.sum()),
+            "the engine write check must both accept and overflow")
+    nbytes, nsect = write_bounds(leaves, chains, slots, live, rank,
+                                 got[3], wvals, wseqs, 16, 4)
+    out["kv_bucketed_write_engine"] = dict(
+        max_abs_err=err,
+        calls=appends(kv_kernel.bucketed_write_engine, slots, chains, wvals,
+                      wseqs, active, rank),
+        plain=appends(kv_ref.bucketed_write_engine_ref, slots, chains, wvals,
+                      wseqs, active, rank),
+        library=None,
+        bound_bytes=nbytes, sector_bytes=nsect,
     )
     return measure(out)
 
@@ -1043,7 +1240,20 @@ def rebalance_phase(device="cuda") -> dict:
                         f"spectator chain {c} diverged in {name}.{f}")
         require(torch.equal(tput_m[:, c], tput_s[:, c]),
                 f"spectator chain {c} per-tick replies diverged")
-    require(launches["kv_bucketed_read"] > 0, f"launches {launches}")
+    require(launches["kv_bucketed_read"] == 1 and
+            launches["kv_bucketed_write"] == 0,
+            f"the read-back must be one launch: launches {launches}")
+    tail = Store(*[x[:, -1] for x in st_m.stores])
+    gkeys = torch.arange(cl.num_global_keys, dtype=torch.int32,
+                         device=tail.values.device)
+    pmap = co_m.partition_map()
+    read_back_cost = None
+    if torch.device(device).type == "cuda":
+        read_back_cost = per_call(
+            f"partitioned_read_batch, phase 7's read-back of "
+            f"{cl.num_global_keys} keys",
+            lambda n: [lambda: kv_ops.partitioned_read_batch(
+                cl, tail, gkeys, pmap, is_tail=True)] * n)
     window = slice(PUBLISH_AFTER[-1] + 2, T)
     served_s = int(tput_s[window].sum())
     served_m = int(tput_m[window].sum())
@@ -1067,7 +1277,8 @@ def rebalance_phase(device="cuda") -> dict:
         f"{4 * N_NODES} drain ticks the rest) and the read-back with its "
         f"checks {t_mig - t_run:.3f} s (static twin {t_static:.3f} s)")
     return {"launches": launches, "state": st_m, "coordinator": co_m,
-            "cluster": cl, "hot": hot, "gain": served_m / max(served_s, 1)}
+            "cluster": cl, "hot": hot, "gain": served_m / max(served_s, 1),
+            "read_back_cost": read_back_cost}
 
 
 # ---------------------------------------------------------------------------
@@ -1144,7 +1355,21 @@ def partitioned_write_phase(reb: dict) -> dict:
         f"under map epoch {co.partition_epoch}: {int(acc.sum())} accepted, "
         f"duplicates serialized, outside keys dropped and read back as "
         f"decision -1, every other register untouched; launches {launches}")
-    return {"launches": launches}
+    if dev.type != "cuda":
+        return {"launches": launches}
+    # each timed write on its own copy of the tail as it was
+    write_cost = per_call(
+        f"partitioned_write_batch, phase 8's {B} keys",
+        lambda n: [lambda st=Store(*[x.clone() for x in before]):
+                   kv_ops.partitioned_write_batch(cl, st, gkeys, wvals,
+                                                  wseqs, active, pmap)
+                   for _ in range(n)])
+    read_cost = per_call(
+        f"partitioned_read_batch, phase 8's {B} keys",
+        lambda n: [lambda: kv_ops.partitioned_read_batch(
+            cl, tail, gkeys, pmap, is_tail=True)] * n)
+    return {"launches": launches, "write_cost": write_cost,
+            "read_cost": read_cost}
 
 
 # ---------------------------------------------------------------------------
@@ -2207,16 +2432,19 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def build_kernels() -> None:
-    """The three kernel sources built at once, one nvcc each."""
+def build_kernels(phases) -> None:
+    """The kernel sources the phases run, built at once, one nvcc each
+    (all three for a whole run)."""
     t0 = time.perf_counter()
-    kernels = (kv_kernel, fa_kernel, ssd_kernel)
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        builds = [pool.submit(k.build) for k in kernels]
+    kernels = [(src, k) for src, k, uses in (
+        (KV_SRC, kv_kernel, range(2, 10)), (FA_SRC, fa_kernel, (10, 11)),
+        (SSD_SRC, ssd_kernel, (12, 13))) if set(uses) & phases]
+    with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
+        builds = [pool.submit(k.build) for _, k in kernels]
         for b in builds:
             b.result()
-    log(f"built {KV_SRC}, {FA_SRC} and {SSD_SRC} for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"built {', '.join(src for src, _ in kernels) or 'nothing'} for "
+        f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
 ALL_PHASES = tuple(range(1, 14))
@@ -2231,6 +2459,9 @@ def parse_phases(argv) -> set:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phase numbers (default: all)")
+    ap.add_argument("--src", default=None,
+                    help="the src/ directory whose repro_torch to measure "
+                    "(default: the one beside this script)")
     args = ap.parse_args(argv)
     if args.phases is None:
         return set(ALL_PHASES)
@@ -2251,7 +2482,7 @@ def main(argv=None) -> None:
         sys.exit("chip_smoke: no CUDA device - this script measures the "
                  "port on a GPU and has no CPU mode")
     t_start = time.perf_counter()
-    build_kernels()
+    build_kernels(phases)
     log(smi())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; float32 matmul in "
@@ -2275,7 +2506,10 @@ def main(argv=None) -> None:
             f"{us(rec['library_ms'])}); event-timed call {us(rec['call_ms'])}"
             f" (plain {us(rec['plain_call_ms'])}, library "
             f"{us(rec['library_call_ms'])}); bound {us(rec['bound_ms'])} "
-            f"by {rec['bound_by']}; one-element add_ {us(floor)}"
+            f"by {rec['bound_by']}"
+            + (f" ({us(rec['sector_bound_ms'])} in 32-byte sectors)"
+               if "sector_bound_ms" in rec else "")
+            + f"; one-element add_ {us(floor)}"
             + (f"; empty kernel of the same grid "
                f"{us(rec['empty_kernel_ms'])}" if "empty_kernel_ms" in rec
                else "")
@@ -2300,11 +2534,14 @@ def main(argv=None) -> None:
         launches["kv_bucketed_read"] = reb["launches"]["kv_bucketed_read"]
         run["rebalance_launches"] = reb["launches"]
         run["rebalance_gain"] = reb["gain"]
+        run["read_back_cost"] = reb["read_back_cost"]
     if 8 in phases:
         writes = partitioned_write_phase(reb)
         launches["kv_bucketed_write"] = \
             writes["launches"]["kv_bucketed_write"]
         run["partitioned_write_launches"] = writes["launches"]
+        run["partitioned_write_cost"] = writes["write_cost"]
+        run["partitioned_read_cost"] = writes["read_cost"]
     if 9 in phases:
         run["failover_launches"] = failover_phase()["launches"]
     if 11 in phases:

@@ -11,20 +11,29 @@ decision) or its whole dirty append (the key resolution and the
 within-batch rank), one launch each, on the inbox's tensors as they
 come.  ``bucketed_read_engine`` and ``bucketed_write_engine`` serve a
 flat batch resolved through the partition map (query i on chain
-``chains[i]`` at register ``slots[i]``); their store leaves need
-contiguous inner dimensions only, so one replica of a ``[C, n, ...]``
-cluster store (``x[:, -1]``) is read and written in place.  For tensors
-on the CPU the wrappers run the plain versions in ``ref.py``; for CUDA
-tensors they launch the kernels in ``csrc/kv_engine.cu`` or raise -
-there is no fallback.
+``chains[i]`` at register ``slots[i]``) with the Pallas kernels'
+contract; ``bucketed_read_resolve`` and ``bucketed_write_append`` launch
+the same two kernels in their ops mode: the whole of
+``ops.partitioned_read_batch`` (the map lookup of raw global keys and
+the read decision) or ``ops.partitioned_write_batch`` (the map lookup
+and the rank), one launch each.  Their store leaves need contiguous
+inner dimensions only, so one replica of a ``[C, n, ...]`` cluster store
+(``x[:, -1]``) is read and written in place.  For tensors on the CPU the
+wrappers run the plain versions in ``ref.py``; for CUDA tensors they
+launch the kernels in ``csrc/kv_engine.cu`` or raise - there is no
+fallback.
 
 The CUDA source is compiled at first use into a shared library with a
 plain C interface, loaded with ``ctypes`` (``repro_torch.kernels.build``:
 ``build/libkv_engine_<hash>.so`` beside this file).  The kernels move a
 value cell as one 16-byte word, so on CUDA they take ``W = 4`` (the
-paper's 128-bit value) and 16-byte aligned value leaves only.  An append
-stages its batch in one block's shared memory, so on CUDA a batch holds
-at most ``WRITE_MAX_BATCH`` lanes per node.
+paper's 128-bit value) and 16-byte aligned value leaves only.  A
+per-node append stages its batch in one block's shared memory, so on
+CUDA a batch holds at most ``WRITE_MAX_BATCH`` lanes per node; a
+bucketed append is one cooperative launch whose lanes sit in the shared
+memory of the blocks resident at once (8 bytes a lane: some 3.7 million
+lanes on an H100), sorted into buckets of 1,024 registers (at most
+8,192: a store of up to 8,388,608 registers); past either it raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name (both modes of a
 kernel under its name); only a launch of a CUDA kernel adds to it.
@@ -69,9 +78,17 @@ def _declare(lib) -> None:
     lib.kv_bucketed_read_launch.argtypes = (
         [p] * 5 + [i] * 4 + [ll] * 3 + [p] * 6)
     lib.kv_bucketed_read_launch.restype = i
+    lib.kv_bucketed_resolve_launch.argtypes = (
+        [p] * 6 + [i] * 10 + [ll] * 3 + [p] * 6)
+    lib.kv_bucketed_resolve_launch.restype = i
     lib.kv_bucketed_write_launch.argtypes = (
-        [p] * 9 + [i] * 4 + [ll] * 3 + [p] * 3)
+        [p] * 9 + [i] * 4 + [ll] * 3 + [p] * 4)
     lib.kv_bucketed_write_launch.restype = i
+    lib.kv_bucketed_append_launch.argtypes = (
+        [p] * 6 + [i] * 5 + [p] * 3 + [i] * 5 + [ll] * 3 + [p] * 4)
+    lib.kv_bucketed_append_launch.restype = i
+    lib.kv_bucketed_write_capacity.argtypes = [i, i, ll]
+    lib.kv_bucketed_write_capacity.restype = ll
 
 
 _LIBRARY = CudaLibrary(
@@ -321,7 +338,7 @@ def empty_kernel(blocks: int, threads: int, device="cuda") -> None:
 
 def _store_checks(values, seqs, pending, batch):
     """Checks of a bucketed call: store leaves with a free chain stride,
-    flat batch leaves ``(name, tensor, trailing shape)``."""
+    flat batch leaves ``(name, tensor, trailing shape[, dtype])``."""
     C, K, V, W = values.shape
     B = batch[0][1].shape[0]
     dev = values.device
@@ -329,9 +346,26 @@ def _store_checks(values, seqs, pending, batch):
                            ("seqs", seqs, (C, K, V)),
                            ("pending", pending, (C, K))):
         _check(name, x, shape, dev, free_lead=True)
-    for name, x, tail in batch:
-        _check(name, x, (B,) + tail, dev)
+    for name, x, tail, *dtype in batch:
+        _check(name, x, (B,) + tail, dev, dtype=dtype[0] if dtype
+               else torch.int32)
     return C, K, V, W, B, dev
+
+
+def _map_checks(cluster, pmap, dev) -> None:
+    _check("owner", pmap.owner, (cluster.num_buckets,), dev)
+    _check("base", pmap.base, (cluster.num_buckets,), dev)
+
+
+def _key_hash(cluster, pmap) -> tuple:
+    """The map columns and key hash a kernel places a global key with."""
+    return (pmap.owner.data_ptr(), pmap.base.data_ptr(), cluster.num_buckets,
+            cluster.n_chains, cluster.buckets_per_chain,
+            cluster.bucket_slots, cluster.num_global_keys)
+
+
+def _strides(values, seqs, pending) -> tuple:
+    return values.stride(0), seqs.stride(0), pending.stride(0)
 
 
 def bucketed_read_engine(values, seqs, pending, slots, chains):
@@ -361,12 +395,100 @@ def bucketed_read_engine(values, seqs, pending, slots, chains):
         rc = _lib().kv_bucketed_read_launch(
             values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
             slots.data_ptr(), chains.data_ptr(), C, K, V, B,
-            values.stride(0), seqs.stride(0), pending.stride(0),
+            *_strides(values, seqs, pending),
             cv.data_ptr(), cs.data_ptr(), lv.data_ptr(), ls.data_ptr(),
             pb.data_ptr(), _stream(dev))
     _raise_on(rc, "kv_bucketed_read")
     LAUNCHES["kv_bucketed_read"] += 1
     return cv, cs, lv, ls, pb
+
+
+def bucketed_read_resolve(values, seqs, pending, gkeys, cluster, pmap,
+                          is_tail: bool = False):
+    """``partitioned_read_batch`` in one launch (the bucketed read's ops
+    mode): each global key is placed through the map inside the kernel,
+    as ``cluster.key_to_chain``/``key_to_slot`` place it under ``pmap``.
+
+    Store leaves as for ``bucketed_read_engine``; ``gkeys [B]`` int32;
+    ``pmap``'s ``owner``/``base`` columns on the store's device.  Returns (reply_val [B, W],
+    reply_seq [B], decision [B], chains [B], slots [B]) int32: decision
+    0 for a clean register (reply: cell 0), 1 for a dirty one at the
+    tail (``is_tail``; reply: the latest cell), 2 for a dirty one
+    elsewhere (reply: cell 0), -1 with a zero reply for a key outside
+    the key space, which is parked on chain -1 with key 0's slot.
+    """
+    C, K, V, W, B, dev = _store_checks(values, seqs, pending,
+                                       (("gkeys", gkeys, ()),))
+    _map_checks(cluster, pmap, dev)
+    if dev.type == "cpu":
+        return ref.partitioned_read_ref(values, seqs, pending, gkeys,
+                                        cluster, pmap, is_tail)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_bucketed_read: unsupported device {dev}")
+    rv = torch.empty((B, W), dtype=torch.int32, device=dev)
+    _check_cells("kv_bucketed_read", W, (values, rv))
+    rs, dec, chains, slots = (torch.empty((B,), dtype=torch.int32,
+                                          device=dev) for _ in range(4))
+    with torch.cuda.device(dev):
+        rc = _lib().kv_bucketed_resolve_launch(
+            values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
+            gkeys.data_ptr(), *_key_hash(cluster, pmap),
+            int(bool(is_tail)), C, K, V, B,
+            *_strides(values, seqs, pending), rv.data_ptr(),
+            rs.data_ptr(), dec.data_ptr(), chains.data_ptr(),
+            slots.data_ptr(), _stream(dev))
+    _raise_on(rc, "kv_bucketed_read")
+    LAUNCHES["kv_bucketed_read"] += 1
+    return rv, rs, dec, chains, slots
+
+
+_CAPACITY: dict = {}
+
+
+def _check_capacity(dev, ops: bool, n_buckets: int, B: int,
+                    C: int, K: int) -> None:
+    """An append holds its lanes in the shared memory of the blocks
+    resident at once (one cooperative launch), and sorts them into
+    buckets of 1,024 registers, at most 8,192 of them."""
+    key = (dev, ops, n_buckets if ops else 0, C * K)
+    if key not in _CAPACITY:
+        with torch.cuda.device(dev):
+            _CAPACITY[key] = int(_lib().kv_bucketed_write_capacity(
+                int(ops), n_buckets, C * K))
+    if _CAPACITY[key] == 0:
+        raise ValueError(f"kv_bucketed_write: a store of {C * K} "
+                         "registers exceeds the 8,388,608 an append sorts")
+    if B > _CAPACITY[key]:
+        raise ValueError(f"kv_bucketed_write: a batch of {B} lanes exceeds "
+                         f"the {_CAPACITY[key]} one launch holds on {dev}")
+
+
+class _Scratch:
+    """An append's per-device scratch: the bucket counts (``[8192]``
+    int32, zero between calls: the kernel resets the ones it used) and the
+    entries a batch is sorted into (``[B, 2]`` int32), grown for a larger
+    batch and never cleared.  Calls on one device share it, so they must
+    run on one stream."""
+
+    def __init__(self, dev):
+        self.counts = torch.zeros(8192, dtype=torch.int32, device=dev)
+        self.entries = torch.empty((0, 2), dtype=torch.int32, device=dev)
+
+    def take(self, B: int):
+        if self.entries.shape[0] < B:
+            self.entries = torch.empty((max(B, 2 * self.entries.shape[0]),
+                                        2), dtype=torch.int32,
+                                       device=self.counts.device)
+        return self.counts.data_ptr(), self.entries.data_ptr()
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, B: int):
+    if dev not in _SCRATCH:
+        _SCRATCH[dev] = _Scratch(dev)
+    return _SCRATCH[dev].take(B)
 
 
 def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
@@ -394,17 +516,60 @@ def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
     if dev.type != "cuda":
         raise ValueError(f"kv_bucketed_write: unsupported device {dev}")
     _check_cells("kv_bucketed_write", W, (values, wvals))
-    # the first pass copies each write's pending count here, the second
-    # reads slots from it and counts into `pending`
-    snap = torch.empty((B,), dtype=torch.int32, device=dev)
+    _check_capacity(dev, False, 0, B, C, K)
     accepted = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().kv_bucketed_write_launch(
             values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
             slots.data_ptr(), chains.data_ptr(), wvals.data_ptr(),
             wseqs.data_ptr(), active.data_ptr(), rank.data_ptr(), C, K, V, B,
-            values.stride(0), seqs.stride(0), pending.stride(0),
-            snap.data_ptr(), accepted.data_ptr(), _stream(dev))
+            *_strides(values, seqs, pending), *_scratch(dev, B),
+            accepted.data_ptr(), _stream(dev))
+    _raise_on(rc, "kv_bucketed_write")
+    LAUNCHES["kv_bucketed_write"] += 1
+    return values, seqs, pending, accepted
+
+
+def bucketed_write_append(values, seqs, pending, gkeys, wvals, wseqs, active,
+                          cluster, pmap):
+    """``partitioned_write_batch`` in one launch (the bucketed append's
+    ops mode): the global keys are placed through the map and ranked
+    inside the kernel.
+
+    Store leaves as for the read (edited in place); ``gkeys``/``wseqs
+    [B]`` and ``wvals [B, W]`` int32, ``active [B]`` bool or int32
+    (nonzero is active); the map as for ``bucketed_read_resolve``.  As the
+    reference: a write whose key lies outside the key space is dropped;
+    an active write ranks among the earlier active writes with the same
+    ``(chain, slot)`` target, takes cell ``pending + 1 + rank`` with
+    ``pending`` read before any write lands, and is accepted iff that
+    cell is at most ``V - 1``.  Returns the store leaves and ``accepted
+    [B]`` bool.
+    """
+    W = values.shape[3]
+    active_dtype = (torch.int32 if active.dtype == torch.int32
+                    else torch.bool)
+    C, K, V, W, B, dev = _store_checks(
+        values, seqs, pending, (("gkeys", gkeys, ()), ("wvals", wvals, (W,)),
+                                ("wseqs", wseqs, ()),
+                                ("active", active, (), active_dtype)))
+    _map_checks(cluster, pmap, dev)
+    if dev.type == "cpu":
+        return ref.partitioned_write_ref(values, seqs, pending, gkeys, wvals,
+                                         wseqs, active, cluster, pmap)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_bucketed_write: unsupported device {dev}")
+    _check_cells("kv_bucketed_write", W, (values, wvals))
+    _check_capacity(dev, True, cluster.num_buckets, B, C, K)
+    accepted = torch.empty((B,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().kv_bucketed_append_launch(
+            values.data_ptr(), seqs.data_ptr(), pending.data_ptr(),
+            gkeys.data_ptr(), *_key_hash(cluster, pmap), wvals.data_ptr(),
+            wseqs.data_ptr(),
+            active.data_ptr(), int(active.dtype == torch.int32), C, K, V, B,
+            *_strides(values, seqs, pending), *_scratch(dev, B),
+            accepted.data_ptr(), _stream(dev))
     _raise_on(rc, "kv_bucketed_write")
     LAUNCHES["kv_bucketed_write"] += 1
     return values, seqs, pending, accepted

@@ -11,9 +11,12 @@ key resolution, the rank and the read decision run inside the kernel,
 on the inbox's tensors as they come.  On the CPU the same wrappers run
 the plain composition (``ref.cluster_read_decide_ref``,
 ``ref.cluster_write_append_ref``).  ``partitioned_read_batch`` and
-``partitioned_write_batch`` are the global-key entry points: they
-resolve a flat batch of global keys through a live ``PartitionMap`` and
-serve it on the bucketed kernels.
+``partitioned_write_batch`` are the global-key entry points: a flat
+batch of global keys under a live ``PartitionMap``, on CUDA one launch
+of a bucketed kernel's ops mode each (``kernel.bucketed_read_resolve``,
+``kernel.bucketed_write_append``: the map lookup, the read decision and
+the rank inside), on the CPU the plain compositions
+(``ref.partitioned_read_ref``, ``ref.partitioned_write_ref``).
 
 The node steps are held to the reference's jnp store, not to its Pallas
 kernels, and the two differ for a key outside ``[0, K)``: the Pallas
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.store import Store, batch_rank
+from repro_torch.core.store import Store
 from repro_torch.kernels.kv_engine import kernel as _k
 
 I32 = torch.int32
@@ -87,22 +90,10 @@ def craq_write_batch(store: Store, keys, wvals, wseqs, active):
     return Store(*[x[0] for x in new]), accepted[0]
 
 
-def _resolve(cluster, gkeys, pmap):
-    """(in_range, chains, slots) of a flat global-key batch under
-    ``pmap``: keys outside the global key space are parked on chain -1
-    (their slot is that of key 0, never used)."""
-    in_range = (gkeys >= 0) & (gkeys < cluster.num_global_keys)
-    safe = torch.where(in_range, gkeys, 0)
-    chains = torch.where(in_range, cluster.key_to_chain(safe, pmap),
-                         -1).to(I32)
-    slots = cluster.key_to_slot(safe, pmap).to(I32)
-    return in_range, chains, slots
-
-
 def partitioned_read_batch(cluster, store: Store, gkeys: torch.Tensor, pmap,
                            is_tail: bool = False):
     """NetCRAQ read decision for a flat batch of global keys under a live
-    partition map, in one kernel launch.
+    partition map, in one kernel launch (the map lookup inside).
 
     ``store`` leaves are ``[C, K, ...]`` (one replica per chain, such as
     the tail slice ``x[:, -1]`` of the cluster's stores, read in place);
@@ -111,39 +102,25 @@ def partitioned_read_batch(cluster, store: Store, gkeys: torch.Tensor, pmap,
     decision codes; a key outside the global key space is parked (chain
     -1) and answers decision -1 with a zero payload.
     """
-    in_range, chains, slots = _resolve(cluster, gkeys, pmap)
-    cv, cs, lv, ls, pend = _k.bucketed_read_engine(
-        store.values, store.seqs, store.pending, slots, chains)
-    clean = pend == 0
-    if is_tail:
-        decision = torch.where(clean, 0, 1)
-        reply_val = torch.where(clean[:, None], cv, lv)
-        reply_seq = torch.where(clean, cs, ls)
-    else:
-        decision = torch.where(clean, 0, 2)
-        reply_val, reply_seq = cv, cs
-    decision = torch.where(in_range, decision, -1).to(I32)
-    return reply_val, reply_seq, decision, chains, slots
+    return _k.bucketed_read_resolve(store.values, store.seqs, store.pending,
+                                    gkeys.to(I32).contiguous(), cluster,
+                                    pmap, is_tail=is_tail)
 
 
 def partitioned_write_batch(cluster, store: Store, gkeys, wvals, wseqs,
                             active, pmap):
     """Append a flat global-key write batch under a live partition map in
-    one kernel launch.  Two writes to one global key serialize (the rank
-    is taken per target ``(chain, slot)``); a write whose key lies outside
-    the global key space is dropped, never clamped onto a victim bucket.
-    The store's leaves (``[C, K, ...]``, as for the read) are edited in
-    place.  Returns (store, accepted [B] bool)."""
-    K = store.num_keys
-    in_range, chains, slots = _resolve(cluster, gkeys, pmap)
-    active = active.to(torch.bool) & in_range
-    rank = batch_rank((chains * K + slots)[None], active[None])[0]
-    values, seqs, pending, accepted = _k.bucketed_write_engine(
-        store.values, store.seqs, store.pending, slots, chains,
+    one kernel launch (the map lookup and the rank inside).  Two writes
+    to one global key serialize (the rank is taken per target ``(chain,
+    slot)``); a write whose key lies outside the global key space is
+    dropped, never clamped onto a victim bucket.  ``active`` is bool or
+    int32 (nonzero is active).  The store's leaves (``[C, K, ...]``, as
+    for the read) are edited in place.  Returns (store, accepted [B]
+    bool)."""
+    if active.dtype != torch.int32:
+        active = active.to(torch.bool)
+    values, seqs, pending, accepted = _k.bucketed_write_append(
+        store.values, store.seqs, store.pending, gkeys.to(I32).contiguous(),
         wvals.to(I32).contiguous(), wseqs.to(I32).contiguous(),
-        active.to(I32), rank,
-    )
-    return (
-        store._replace(values=values, seqs=seqs, pending=pending),
-        accepted.to(torch.bool),
-    )
+        active.contiguous(), cluster, pmap)
+    return store._replace(values=values, seqs=seqs, pending=pending), accepted

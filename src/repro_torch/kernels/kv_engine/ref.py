@@ -3,10 +3,13 @@
 The same functions as the CUDA kernels in ``csrc/kv_engine.cu``, written
 as direct torch gathers and a masked scatter (the writes are
 ``store.append_dirty`` with the kernels' contract: a key outside
-``[0, K)`` is never accepted).  The two ops-mode versions
+``[0, K)`` is never accepted).  The per-node ops-mode versions
 (``cluster_read_decide_ref``, ``cluster_write_append_ref``) compose
 those with the reference store's index rules, the read decision and the
-within-batch rank, as a node step reads and appends.  The kernel
+within-batch rank, as a node step reads and appends; the global-key
+ones (``partitioned_read_ref``, ``partitioned_write_ref``) with the
+partition map's placement of a global key, the decision and the rank,
+as the reference's ``partitioned_*_batch`` do.  The kernel
 wrappers take these for tensors on the CPU; ``chip_smoke.py`` holds each
 kernel against them on the card.  Layouts: ``values [N, K, V, W]``, ``seqs [N, K, V]``,
 ``pending [N, K]``, per-node batches ``[N, B]`` and flat (bucketed)
@@ -177,3 +180,55 @@ def bucketed_write_engine_ref(values, seqs, pending, slots, chains, wvals,
     accepted = _append(values, seqs, pending, chains, slots, wvals, wseqs,
                        live, order)
     return values, seqs, pending, accepted
+
+
+def place_keys_ref(gkeys, cluster, pmap):
+    """(in_range, chains, slots) of a flat global-key batch under
+    ``pmap``, as the reference's ``partitioned_*_batch`` place it: a key
+    outside the key space is parked on chain -1 with key 0's slot."""
+    in_range = (gkeys >= 0) & (gkeys < cluster.num_global_keys)
+    safe = torch.where(in_range, gkeys, 0)
+    chains = torch.where(in_range, cluster.key_to_chain(safe, pmap),
+                         -1).to(I32)
+    slots = cluster.key_to_slot(safe, pmap).to(I32)
+    return in_range, chains, slots
+
+
+def partitioned_read_ref(values, seqs, pending, gkeys, cluster, pmap,
+                         is_tail: bool = False):
+    """The global-key read: place each key, look it up with the flat
+    read, and take the NetCRAQ decision (0 clean, 1 dirty at the tail, 2
+    dirty elsewhere; -1 with a zero reply for a key outside the key
+    space).  Returns (reply_val, reply_seq, decision, chains, slots)."""
+    in_range, chains, slots = place_keys_ref(gkeys, cluster, pmap)
+    cv, cs, lv, ls, pend = bucketed_read_engine_ref(values, seqs, pending,
+                                                    slots, chains)
+    clean = pend == 0
+    if is_tail:
+        decision = torch.where(clean, 0, 1)
+        reply_val = torch.where(clean[:, None], cv, lv)
+        reply_seq = torch.where(clean, cs, ls)
+    else:
+        decision = torch.where(clean, 0, 2)
+        reply_val, reply_seq = cv, cs
+    decision = torch.where(in_range, decision, -1).to(I32)
+    return reply_val, reply_seq, decision, chains, slots
+
+
+def partitioned_write_ref(values, seqs, pending, gkeys, wvals, wseqs, active,
+                          cluster, pmap):
+    """The global-key append: place each key, drop the writes outside the
+    key space, rank each active write among the earlier ones with the
+    same int32 target ``chain * K + slot`` (the reference's
+    ``batch_rank`` key) and append at ``pending + 1 + rank`` where the
+    target is a register of the store.  Edits values/seqs/pending in
+    place and returns them with ``accepted [B]`` bool."""
+    C, K = pending.shape
+    in_range, chains, slots = place_keys_ref(gkeys, cluster, pmap)
+    active = active.to(torch.bool) & in_range
+    rank = store_lib.batch_rank((chains * K + slots)[None], active[None])[0]
+    live = (active & (chains >= 0) & (chains < C) & (slots >= 0)
+            & (slots < K))
+    accepted = _append(values, seqs, pending, chains, slots, wvals.to(I32),
+                       wseqs.to(I32), live, rank)
+    return values, seqs, pending, accepted.to(torch.bool)

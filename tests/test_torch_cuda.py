@@ -323,6 +323,130 @@ def test_cuda_bucketed_kernels_match_plain_versions(card, replica):
             assert torch.equal(a[:, :-1].cpu(), torch.from_numpy(orig[:, :-1]))
 
 
+def _global_cluster(C=6, K=2048, spare=512, bpc=3):
+    return t_types.ClusterConfig(
+        chain=t_types.ChainConfig(n_nodes=3, num_keys=K, num_versions=4),
+        n_chains=C, buckets_per_chain=bpc, spare_keys=spare)
+
+
+def _global_map(cl, device, base0=None):
+    """Bucket 0 moved to chain 1's spare region, or (``base0``) left on
+    chain 0 at ``base0``, past its end: its last keys' int32 targets then
+    name chain 1's first registers."""
+    owner = [cl.bucket_home(b)[0] for b in range(cl.num_buckets)]
+    base = [cl.bucket_home(b)[1] for b in range(cl.num_buckets)]
+    if base0 is None:
+        owner[0], base[0] = 1, cl.keys_in_use
+    pmap = t_types.PartitionMap.build(
+        owner, base, 1, n_chains=cl.n_chains, num_keys=cl.chain.num_keys,
+        bucket_slots=cl.bucket_slots, device=device)
+    if base0 is not None:   # past the end: no occupancy table to build
+        pmap = pmap._replace(base=pmap.base.clone().index_fill_(
+            0, torch.tensor([0], device=device), base0))
+    return pmap
+
+
+@pytest.mark.parametrize("case", ["mixed", "resident_plus", "one_register",
+                                  "off_store"])
+def test_cuda_global_key_ops_match_plain_versions(card, case):
+    """The ops modes of both bucketed kernels (``partitioned_*_batch`` in
+    one launch each) equal their plain versions on the CPU exactly, on
+    the tail slice of a [C, n, ...] store written in place (the other
+    replicas untouched): duplicates past the window, keys outside the key
+    space, inactive lanes; a batch of more lanes than the card holds
+    threads at once; every lane on one register; and a map that points
+    past a chain's end."""
+    cl = _global_cluster()
+    G = cl.num_global_keys
+    rng = np.random.default_rng(70 + len(case))
+    B = {"mixed": 5000, "resident_plus": 300_000, "one_register": 20_000,
+         "off_store": 5000}[case]
+    gkeys = rng.integers(0, G, B).astype(np.int32)
+    gkeys[: B // 8] = rng.integers(0, 64, B // 8)
+    odd = rng.random(B) < 0.02
+    gkeys[odd] = rng.choice(np.array([-1, -7, G, G + 5], np.int32),
+                            int(odd.sum()))
+    if case == "one_register":
+        gkeys[:] = 77
+    active = rng.random(B) < 0.8
+    C, n, K, V = cl.n_chains, cl.chain.n_nodes, cl.chain.num_keys, 4
+    full = [rng.integers(0, 1 << 20, (C, n, K, V, 4)).astype(np.int32),
+            rng.integers(-1, 100, (C, n, K, V)).astype(np.int32),
+            rng.integers(0, 2, (C, n, K)).astype(np.int32)]
+    wvals = rng.integers(0, 1 << 20, (B, 4)).astype(np.int32)
+    wseqs = rng.integers(0, 1 << 16, B).astype(np.int32)
+    out = {}
+    t_kernel.reset_launches()
+    for d in ("cpu", card):
+        t = lambda a: torch.tensor(a, device=d)    # a copy per device
+        store = [t(a) for a in full]
+        tail = [x[:, -1] for x in store]
+        pmap = _global_map(cl, d, cl.chain.num_keys - 100
+                           if case == "off_store" else None)
+        reads = [t_kernel.bucketed_read_resolve(*tail, t(gkeys), cl, pmap,
+                                                flag)
+                 for flag in (True, False)]
+        acc = t_kernel.bucketed_write_append(*tail, t(gkeys), t(wvals),
+                                             t(wseqs), t(active), cl,
+                                             pmap)[3]
+        after = t_kernel.bucketed_read_resolve(*tail, t(gkeys), cl, pmap,
+                                               True)
+        out[str(d)] = [*reads[0], *reads[1], acc, *after, *store]
+    torch.cuda.synchronize()
+    assert t_kernel.LAUNCHES["kv_bucketed_read"] == 3
+    assert t_kernel.LAUNCHES["kv_bucketed_write"] == 1
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b.cpu())
+    acc = out["cpu"][10]
+    assert 0 < int(acc.sum()) < int(active.sum())
+    for a, orig in zip(out[str(card)][-3:], full):
+        assert torch.equal(a[:, :-1].cpu(), torch.from_numpy(orig[:, :-1]))
+
+
+def test_cuda_global_key_ops_are_one_launch_each(card):
+    """``partitioned_read_batch`` and ``partitioned_write_batch`` are one
+    device activity a call, the bucketed kernels' own, nothing else
+    between the inputs and the outputs."""
+    cl = _global_cluster()
+    pmap = _global_map(cl, card)
+    rng = np.random.default_rng(80)
+    B = 4000
+    dev = lambda a: torch.tensor(a, device=card)
+    gkeys = dev(rng.integers(-2, cl.num_global_keys + 2, B).astype(np.int32))
+    wvals = dev(rng.integers(0, 1 << 20, (B, 4)).astype(np.int32))
+    wseqs = dev(np.arange(B, dtype=np.int32))
+    C, K = cl.n_chains, cl.chain.num_keys
+    shapes = ((C, K, 4, 4), (C, K, 4), (C, K), (C, K))
+    store = Store(*[torch.zeros(s, dtype=torch.int32, device=card)
+                    for s in shapes])
+    for active in (dev(np.ones(B, bool)), dev(np.ones(B, np.int32))):
+        t_ops.partitioned_write_batch(cl, store, gkeys, wvals, wseqs, active,
+                                      pmap)   # the scratch, once
+        names = _device_kernels(lambda: t_ops.partitioned_write_batch(
+            cl, store, gkeys, wvals, wseqs, active, pmap), 4)
+        assert len(names) in (3, 4), names
+        assert all("kv_bucketed_write_kernel" in n for n in names), names
+    for is_tail in (True, False):
+        names = _device_kernels(lambda: t_ops.partitioned_read_batch(
+            cl, store, gkeys, pmap, is_tail=is_tail), 4)
+        assert len(names) in (3, 4), names
+        assert all("kv_bucketed_read_kernel" in n for n in names), names
+
+
+def test_cuda_global_key_append_rejects_a_batch_past_its_capacity(card):
+    cl = _global_cluster()
+    pmap = _global_map(cl, card)
+    C, K = cl.n_chains, cl.chain.num_keys
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=card)
+    cap = t_kernel._lib().kv_bucketed_write_capacity(1, cl.num_buckets, C * K)
+    B = cap + 1
+    with pytest.raises(ValueError):
+        t_kernel.bucketed_write_append(
+            z(C, K, 4, 4), z(C, K, 4), z(C, K), z(B), z(B, 4), z(B),
+            torch.ones(B, dtype=torch.bool, device=card), cl, pmap)
+
+
 def test_cuda_rebalance_and_partitioned_ops_match_cpu(card):
     """A live bucket migration and a global-key read-back and write on
     CUDA equal the same on the CPU."""

@@ -591,6 +591,133 @@ def test_partitioned_ops_match_reference(which, is_tail):
     assert not tacc[8:11].any()
 
 
+def _global_batch(rng, case, G, B=24):
+    """(gkeys, active) of a global-key batch: keys outside the key space,
+    one key written past its window, or every lane on one key."""
+    gkeys = rng.integers(0, G, B).astype(np.int32)
+    active = rng.random(B) < 0.8
+    if case == "outside":
+        gkeys[[1, 4, 9, 15]] = [-1, -7, G, G + 5]
+    elif case == "window":
+        gkeys[::3] = 5                 # 8 writes of key 5 past V - 1 = 3
+        active[::3] = True
+    elif case == "one_key":
+        gkeys[:] = 3
+        active[:] = True
+    return gkeys, active
+
+
+@pytest.mark.parametrize("which", ["home", "migrated", "off_store"])
+@pytest.mark.parametrize("case", ["outside", "window", "one_key",
+                                  "negative_pending"])
+def test_partitioned_compositions_match_reference(which, case):
+    """The plain compositions of the global-key ops (what the wrappers run
+    on the CPU) equal the reference's ``partitioned_*_batch`` on the home
+    map, a migrated one and one whose bucket 0 runs past its chain's end
+    (slots 14..17 of 16: the int32 targets of its last two name chain 1's
+    first registers, so those writes rank with theirs and land nowhere),
+    for keys outside the key space, a key written past its window, every
+    lane on one key, and a store with negative pending counts (the exact
+    rank, however far it goes)."""
+    from repro.core.store import Store as JS
+    from repro_torch import convert
+    from repro_torch.core.types import PartitionMap as TMap
+
+    jcl, tcl = _cluster_pair()
+    jpm = dict(_maps(jcl)).get(which)
+    if which == "off_store":   # bucket 0 on chain 0 at slots 14..17
+        jpm = jcl.default_partition()._replace(
+            base=jnp.asarray([14, 4, 0, 4], jnp.int32))
+    tpm = convert.from_arrays(TMap, jpm, "cpu")
+    rng = np.random.default_rng(["outside", "window", "one_key",
+                                 "negative_pending"].index(case) + 7)
+    C, K, V = 2, 16, 4
+    lo = -6 if case == "negative_pending" else 0
+    values, seqs, _ = _store_arrays(rng, C, K, V, 4, 1)
+    pending = rng.integers(lo, 2, (C, K)).astype(np.int32)
+    gkeys, active = _global_batch(rng, case, jcl.num_global_keys)
+    if which == "off_store" and case != "one_key":
+        gkeys[:4] = [4, 6, 1, 3]   # slots 16, 17 (chain 0), 0, 1 (chain 1)
+    B = gkeys.size
+    wvals = rng.integers(0, 1 << 20, (B, 4)).astype(np.int32)
+    wseqs = np.arange(1, B + 1, dtype=np.int32)
+    js = JS(*map(jnp.asarray, (values, seqs, pending,
+                               np.ones((C, K), np.int32))))
+    jnew, jacc = j_ops.partitioned_write_batch(
+        jcl, js, jnp.asarray(gkeys), jnp.asarray(wvals), jnp.asarray(wseqs),
+        jnp.asarray(active.astype(np.int32)), jpm)
+    leaves = [_t(a) for a in (values, seqs, pending)]
+    got = t_ref.partitioned_write_ref(*leaves, _t(gkeys), _t(wvals),
+                                      _t(wseqs), _t(active), tcl, tpm)
+    _eq(got[3], jacc)
+    for g, f in zip(got[:3], ("values", "seqs", "pending")):
+        _eq(g, getattr(jnew, f))
+    if case == "window":
+        assert 0 < int(got[3].sum()) < int(active.sum())
+    for is_tail in (False, True):
+        exp = j_ops.partitioned_read_batch(jcl, jnew, jnp.asarray(gkeys),
+                                           jpm, is_tail=is_tail)
+        out = t_ref.partitioned_read_ref(*got[:3], _t(gkeys), tcl, tpm,
+                                         is_tail)
+        for g, e in zip(out, exp):
+            _eq(g, e)
+
+
+def test_partitioned_ops_take_int32_or_bool_active():
+    """``partitioned_write_batch`` takes an int32 active mask as the
+    reference does (nonzero is active) and gives what the bool mask
+    gives."""
+    jcl, tcl = _cluster_pair()
+    pmap = tcl.default_partition("cpu")
+    rng = np.random.default_rng(17)
+    gkeys, active = _global_batch(rng, "window", tcl.num_global_keys)
+    B = gkeys.size
+    wvals = _t(rng.integers(0, 1 << 20, (B, 4)).astype(np.int32))
+    wseqs = _t(np.arange(1, B + 1, dtype=np.int32))
+    out = []
+    for mask in (_t(active), _t(active.astype(np.int32) * 3)):
+        store = TStore(*[torch.zeros(s, dtype=torch.int32) for s in
+                         ((2, 16, 4, 4), (2, 16, 4), (2, 16), (2, 16))])
+        new, acc = t_ops.partitioned_write_batch(tcl, store, _t(gkeys),
+                                                 wvals, wseqs, mask, pmap)
+        out.append((*new[:3], acc))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert out[0][3].dtype == torch.bool
+
+
+@pytest.mark.parametrize("bad", ["owner_shape", "base_dtype", "gkeys_dtype",
+                                 "active_dtype", "owner_device"])
+def test_global_key_wrappers_reject_bad_inputs(bad):
+    """The ops-mode wrappers check the map columns and the batch before
+    any launch."""
+    _, tcl = _cluster_pair()
+    C, K, V, W, B = 2, 16, 4, 4, 6
+    leaves = [torch.zeros(s, dtype=torch.int32) for s in
+              ((C, K, V, W), (C, K, V), (C, K))]
+    pmap = tcl.default_partition("cpu")
+    gkeys = torch.zeros(B, dtype=torch.int32)
+    active = torch.ones(B, dtype=torch.bool)
+    if bad == "owner_shape":
+        pmap = pmap._replace(owner=pmap.owner[:3])
+    elif bad == "base_dtype":
+        pmap = pmap._replace(base=pmap.base.long())
+    elif bad == "gkeys_dtype":
+        gkeys = gkeys.long()
+    elif bad == "active_dtype":
+        active = active.long()
+    elif bad == "owner_device":
+        pmap = pmap._replace(owner=pmap.owner.to("meta"))
+    if bad != "active_dtype":   # the read takes no mask
+        with pytest.raises((TypeError, ValueError)):
+            t_kernel.bucketed_read_resolve(*leaves, gkeys, tcl, pmap)
+    with pytest.raises((TypeError, ValueError)):
+        t_kernel.bucketed_write_append(*leaves, gkeys,
+                                       torch.zeros((B, W), dtype=torch.int32),
+                                       torch.zeros(B, dtype=torch.int32),
+                                       active, tcl, pmap)
+
+
 def test_key_to_chain_answers_keys_outside_the_space_as_reference():
     """With a map, ``key_to_chain``/``key_to_slot`` gather a bucket table:
     for a key whose bucket lies outside it the reference's gather wraps a
