@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card, at full size.
 
-    python3 chip_smoke.py [--phases 12,13] [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py [--phases 12,13]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/kv_engine/
 csrc``, ``src/repro_torch/kernels/flash_attention/csrc`` and
@@ -104,10 +104,10 @@ source, all three at once), then:
 
 ``--phases 12,13`` runs the build of the kernels those phases use,
 phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7);
-the JSON record then lists the kernels of the phases that ran.  ``--src
-DIR`` measures the ``repro_torch`` under DIR instead of the one beside
-the script (the parent commit's, say, for ``--phases 7,8``: its entry
-points' cost per call beside this tree's, in one call).
+the JSON record then lists the kernels of the phases that ran.  The
+script measures the ``repro_torch`` under ``src/`` beside it: a copy of
+it placed in another checkout (a parent commit's, unpacked with ``git
+archive``) measures that checkout's package with these phases.
 
 Any failure raises (non-zero exit).  Without a card, or without the repo
 beside it, the script exits non-zero before printing any result.  The
@@ -127,17 +127,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-
-def package_dir(argv) -> pathlib.Path:
-    """``--src DIR``: measure the ``repro_torch`` under DIR (the src/ of
-    another checkout, say the parent commit's) with this script's phases;
-    by default the one beside the script."""
-    if "--src" in argv[:-1]:
-        return pathlib.Path(argv[argv.index("--src") + 1]).resolve()
-    return ROOT / "src"
-
-
-sys.path.insert(0, str(package_dir(sys.argv[1:])))
+sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -427,15 +417,22 @@ def per_call(what: str, make, calls: int = 5) -> dict:
     copies, fills) and their device time from the profiler, and the wall
     time between host clocks around ``calls`` calls and a synchronize.
     ``make(n)`` gives n zero-argument calls, each on inputs of its own
-    where a call edits them."""
+    where a call edits them.  A window counts only where the profiler
+    recorded every kv kernel launch in it (``kv_kernel.LAUNCHES``); after
+    three that did not, activities and device time are None."""
     for fn in make(2):   # warm-up: the build, the scratch
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a window of a long process may record nothing
+    for _ in range(3):   # a window of a long process may lose records
         counts: dict[str, int] = {}
+        before = sum(kv_kernel.LAUNCHES.values())
         dev_ms, _, n = device_time(make(calls), counts=counts)
-        if n:
+        launched = sum(kv_kernel.LAUNCHES.values()) - before
+        seen = sum(c for k, c in counts.items() if "kv_" in k)
+        if n and seen >= launched:   # every kv kernel launch recorded
             break
+    else:
+        n = 0
     fns = make(calls)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -443,13 +440,16 @@ def per_call(what: str, make, calls: int = 5) -> dict:
         fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) / calls * 1e6
-    rec = {"activities": n / calls,
-           "device_us": None if dev_ms is None else dev_ms * 1e3,
+    # a window that lost records measured nothing, not 0 or a part
+    rec = {"activities": n / calls if n else None,
+           "device_us": dev_ms * 1e3 if n else None,
            "wall_us": wall_us, "by_name": counts}
-    log(f"{what} ({smi()}): {rec['activities']:.2f} device activities a "
-        f"call, device time "
-        + ("not measured" if dev_ms is None else f"{dev_ms * 1e3:.2f} us")
-        + f" a call, wall {wall_us:.2f} us a call ({calls} calls); "
+    log(f"{what} ({smi()}): "
+        + (f"{n / calls:.2f} device activities a call, device time "
+           f"{dev_ms * 1e3:.2f} us a call" if n else
+           "device activities and device time not measured (the profiler "
+           f"recorded {seen} of the {launched} kv kernel launches)")
+        + f", wall {wall_us:.2f} us a call ({calls} calls); "
         f"activities {counts}")
     return rec
 
@@ -2459,9 +2459,6 @@ def parse_phases(argv) -> set:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phase numbers (default: all)")
-    ap.add_argument("--src", default=None,
-                    help="the src/ directory whose repro_torch to measure "
-                    "(default: the one beside this script)")
     args = ap.parse_args(argv)
     if args.phases is None:
         return set(ALL_PHASES)
@@ -2500,10 +2497,18 @@ def main(argv=None) -> None:
     floor = launch_floor_ms()
     card = smi()
     us = lambda ms: "n/a" if ms is None else f"{ms * 1e3:.2f} us"
+
+    def dev_us(rec, key):   # event time where the profiler saw nothing
+        if rec[f"{key}ms"] is None or rec.get(f"{key}device_measured",
+                                              True):
+            return us(rec[f"{key}ms"])
+        return f"not measured (event time {us(rec[f'{key}ms'])})"
+
     for name, rec in kernels.items():
         log(f"{name} ({card}): equals its plain version; device time per "
-            f"call {us(rec['ms'])} (plain {us(rec['plain_ms'])}, library "
-            f"{us(rec['library_ms'])}); event-timed call {us(rec['call_ms'])}"
+            f"call {dev_us(rec, '')} (plain {dev_us(rec, 'plain_')}, library "
+            f"{dev_us(rec, 'library_')}); event-timed call "
+            f"{us(rec['call_ms'])}"
             f" (plain {us(rec['plain_call_ms'])}, library "
             f"{us(rec['library_call_ms'])}); bound {us(rec['bound_ms'])} "
             f"by {rec['bound_by']}"

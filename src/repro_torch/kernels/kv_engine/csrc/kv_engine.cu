@@ -72,7 +72,9 @@
 // the append needs grid-wide barriers, as its note says.
 //
 // Every entry point returns cudaGetLastError() after the launch, so a
-// refused launch surfaces in the Python wrapper.
+// refused launch surfaces in the Python wrapper.  The bucketed append
+// returns kBatchTooLarge or kStoreTooLarge (negative, no cudaError) for a
+// batch or a store that one launch cannot hold, before it launches.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -555,6 +557,8 @@ constexpr int kCoopThreads = 512;
 constexpr int kBucketTargets = 1024;  // targets a bucket spans
 constexpr int kEntryCache = 2048;     // entries of a bucket ranked in smem
 constexpr int kMaxBuckets = 8192;     // so C * K <= 8,388,608
+constexpr int kBatchTooLarge = -1;    // no cooperative grid holds the lanes
+constexpr int kStoreTooLarge = -2;    // more than kMaxBuckets buckets
 constexpr int kNotOwn = 1 << 30;      // entry target flag: lands nowhere
 
 struct BucketedWrite {
@@ -849,7 +853,8 @@ inline size_t write_smem(size_t map_bytes, int n_buckets, int64_t chunk) {
 // resident at once with their shared memory (a cooperative launch may
 // have no more), but no more than a block per bucket or per kCoopThreads
 // lanes, whichever is more.
-// Returns 0, or an error where no grid holds a.B.
+// The one place that decides what an append holds: returns 0,
+// kBatchTooLarge where no grid holds a.B, or a CUDA error.
 template <bool OPS>
 int write_grid(BucketedWrite& a, size_t map_bytes, int& blocks,
                size_t& smem) {
@@ -883,7 +888,7 @@ int write_grid(BucketedWrite& a, size_t map_bytes, int& blocks,
     smem = bytes;
     return 0;
   }
-  return (int)cudaErrorInvalidValue;
+  return kBatchTooLarge;
 }
 
 template <bool OPS>
@@ -891,7 +896,7 @@ int write_bucketed(BucketedWrite a, void* stream) {
   if (a.B <= 0) return (int)cudaGetLastError();
   a.n_buckets =
       (int)(((int64_t)a.st.C * a.st.K + kBucketTargets - 1) / kBucketTargets);
-  if (a.n_buckets > kMaxBuckets) return (int)cudaErrorInvalidValue;
+  if (a.n_buckets > kMaxBuckets) return kStoreTooLarge;
   int blocks = 0;
   size_t smem = 0;
   const int rc = write_grid<OPS>(a, OPS ? map_smem_host(a.map) : 0, blocks,
@@ -1049,22 +1054,5 @@ extern "C" int kv_bucketed_append_launch(
   return write_bucketed<true>(a, stream);
 }
 
-// The most lanes one append may hold on this device: phase 0's lanes in
-// the shared memory of one block an SM (ops: beside a map of
-// map_buckets staged), for a store of n_targets = C * K registers; 0 for
-// a store of more than kMaxBuckets buckets.
-extern "C" long long kv_bucketed_write_capacity(int ops, int map_buckets,
-                                                long long n_targets) {
-  int dev = 0, sms = 0;
-  const long long nb = (n_targets + kBucketTargets - 1) / kBucketTargets;
-  if (nb > kMaxBuckets || cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
-    return 0;
-  }
-  KeyMap m{};
-  m.n_buckets = map_buckets;
-  const size_t fixed = (ops ? map_smem_host(m) : 0) + 2 * sizeof(int) * nb;
-  return (long long)sms *
-         (((size_t)kSharedPerBlock - 1024 - fixed) / (2 * sizeof(int)));
-}
+// The bucket counts the append's scratch holds (its wrapper sizes them).
+extern "C" int kv_bucketed_max_buckets() { return kMaxBuckets; }

@@ -87,8 +87,8 @@ def _declare(lib) -> None:
     lib.kv_bucketed_append_launch.argtypes = (
         [p] * 6 + [i] * 5 + [p] * 3 + [i] * 5 + [ll] * 3 + [p] * 4)
     lib.kv_bucketed_append_launch.restype = i
-    lib.kv_bucketed_write_capacity.argtypes = [i, i, ll]
-    lib.kv_bucketed_write_capacity.restype = ll
+    lib.kv_bucketed_max_buckets.argtypes = []
+    lib.kv_bucketed_max_buckets.restype = i
 
 
 _LIBRARY = CudaLibrary(
@@ -442,36 +442,32 @@ def bucketed_read_resolve(values, seqs, pending, gkeys, cluster, pmap,
     return rv, rs, dec, chains, slots
 
 
-_CAPACITY: dict = {}
+# What the bucketed append returns, before it launches, for a batch or a
+# store that one launch cannot hold (kv_engine.cu, write_grid).
+_BATCH_TOO_LARGE, _STORE_TOO_LARGE = -1, -2
 
 
-def _check_capacity(dev, ops: bool, n_buckets: int, B: int,
-                    C: int, K: int) -> None:
-    """An append holds its lanes in the shared memory of the blocks
-    resident at once (one cooperative launch), and sorts them into
-    buckets of 1,024 registers, at most 8,192 of them."""
-    key = (dev, ops, n_buckets if ops else 0, C * K)
-    if key not in _CAPACITY:
-        with torch.cuda.device(dev):
-            _CAPACITY[key] = int(_lib().kv_bucketed_write_capacity(
-                int(ops), n_buckets, C * K))
-    if _CAPACITY[key] == 0:
-        raise ValueError(f"kv_bucketed_write: a store of {C * K} "
-                         "registers exceeds the 8,388,608 an append sorts")
-    if B > _CAPACITY[key]:
+def _raise_on_append(rc: int, B: int, C: int, K: int, dev) -> None:
+    if rc == _BATCH_TOO_LARGE:
         raise ValueError(f"kv_bucketed_write: a batch of {B} lanes exceeds "
-                         f"the {_CAPACITY[key]} one launch holds on {dev}")
+                         f"what one cooperative launch holds on {dev}")
+    if rc == _STORE_TOO_LARGE:
+        raise ValueError(f"kv_bucketed_write: a store of {C * K} registers "
+                         "exceeds the 8,388,608 an append sorts")
+    _raise_on(rc, "kv_bucketed_write")
 
 
 class _Scratch:
-    """An append's per-device scratch: the bucket counts (``[8192]``
-    int32, zero between calls: the kernel resets the ones it used) and the
-    entries a batch is sorted into (``[B, 2]`` int32), grown for a larger
-    batch and never cleared.  Calls on one device share it, so they must
-    run on one stream."""
+    """An append's scratch on one stream: the bucket counts (int32, as many
+    as the library sorts into, zero between calls: the kernel resets the
+    ones it used) and the entries a batch is sorted into (``[B, 2]``
+    int32), grown for a larger batch and never cleared.  Each stream has
+    its own, so appends on two streams of a card never share it."""
 
     def __init__(self, dev):
-        self.counts = torch.zeros(8192, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            n = int(_lib().kv_bucketed_max_buckets())
+        self.counts = torch.zeros(n, dtype=torch.int32, device=dev)
         self.entries = torch.empty((0, 2), dtype=torch.int32, device=dev)
 
     def take(self, B: int):
@@ -486,9 +482,10 @@ _SCRATCH: dict = {}
 
 
 def _scratch(dev, B: int):
-    if dev not in _SCRATCH:
-        _SCRATCH[dev] = _Scratch(dev)
-    return _SCRATCH[dev].take(B)
+    key = (dev, _stream(dev))
+    if key not in _SCRATCH:
+        _SCRATCH[key] = _Scratch(dev)
+    return _SCRATCH[key].take(B)
 
 
 def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
@@ -516,7 +513,6 @@ def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
     if dev.type != "cuda":
         raise ValueError(f"kv_bucketed_write: unsupported device {dev}")
     _check_cells("kv_bucketed_write", W, (values, wvals))
-    _check_capacity(dev, False, 0, B, C, K)
     accepted = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().kv_bucketed_write_launch(
@@ -525,7 +521,7 @@ def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
             wseqs.data_ptr(), active.data_ptr(), rank.data_ptr(), C, K, V, B,
             *_strides(values, seqs, pending), *_scratch(dev, B),
             accepted.data_ptr(), _stream(dev))
-    _raise_on(rc, "kv_bucketed_write")
+    _raise_on_append(rc, B, C, K, dev)
     LAUNCHES["kv_bucketed_write"] += 1
     return values, seqs, pending, accepted
 
@@ -560,7 +556,6 @@ def bucketed_write_append(values, seqs, pending, gkeys, wvals, wseqs, active,
     if dev.type != "cuda":
         raise ValueError(f"kv_bucketed_write: unsupported device {dev}")
     _check_cells("kv_bucketed_write", W, (values, wvals))
-    _check_capacity(dev, True, cluster.num_buckets, B, C, K)
     accepted = torch.empty((B,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().kv_bucketed_append_launch(
@@ -570,6 +565,6 @@ def bucketed_write_append(values, seqs, pending, gkeys, wvals, wseqs, active,
             active.data_ptr(), int(active.dtype == torch.int32), C, K, V, B,
             *_strides(values, seqs, pending), *_scratch(dev, B),
             accepted.data_ptr(), _stream(dev))
-    _raise_on(rc, "kv_bucketed_write")
+    _raise_on_append(rc, B, C, K, dev)
     LAUNCHES["kv_bucketed_write"] += 1
     return values, seqs, pending, accepted

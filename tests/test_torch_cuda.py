@@ -5,6 +5,8 @@ runs where only PyTorch is installed; without a card every test skips:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -323,9 +325,9 @@ def test_cuda_bucketed_kernels_match_plain_versions(card, replica):
             assert torch.equal(a[:, :-1].cpu(), torch.from_numpy(orig[:, :-1]))
 
 
-def _global_cluster(C=6, K=2048, spare=512, bpc=3):
+def _global_cluster(C=6, K=2048, spare=512, bpc=3, V=4):
     return t_types.ClusterConfig(
-        chain=t_types.ChainConfig(n_nodes=3, num_keys=K, num_versions=4),
+        chain=t_types.ChainConfig(n_nodes=3, num_keys=K, num_versions=V),
         n_chains=C, buckets_per_chain=bpc, spare_keys=spare)
 
 
@@ -347,20 +349,23 @@ def _global_map(cl, device, base0=None):
 
 
 @pytest.mark.parametrize("case", ["mixed", "resident_plus", "one_register",
-                                  "off_store"])
+                                  "off_store", "negative_pending",
+                                  "five_versions"])
 def test_cuda_global_key_ops_match_plain_versions(card, case):
     """The ops modes of both bucketed kernels (``partitioned_*_batch`` in
     one launch each) equal their plain versions on the CPU exactly, on
     the tail slice of a [C, n, ...] store written in place (the other
     replicas untouched): duplicates past the window, keys outside the key
     space, inactive lanes; a batch of more lanes than the card holds
-    threads at once; every lane on one register; and a map that points
-    past a chain's end."""
-    cl = _global_cluster()
+    threads at once; every lane on one register; a map that points past
+    a chain's end; negative pending counts (the rank's rounds then run
+    past V - 1, and cells below 0 are accepted without landing); and a
+    store of V = 5 versions."""
+    V = 5 if case == "five_versions" else 4
+    cl = _global_cluster(V=V)
     G = cl.num_global_keys
     rng = np.random.default_rng(70 + len(case))
-    B = {"mixed": 5000, "resident_plus": 300_000, "one_register": 20_000,
-         "off_store": 5000}[case]
+    B = {"resident_plus": 300_000, "one_register": 20_000}.get(case, 5000)
     gkeys = rng.integers(0, G, B).astype(np.int32)
     gkeys[: B // 8] = rng.integers(0, 64, B // 8)
     odd = rng.random(B) < 0.02
@@ -369,10 +374,11 @@ def test_cuda_global_key_ops_match_plain_versions(card, case):
     if case == "one_register":
         gkeys[:] = 77
     active = rng.random(B) < 0.8
-    C, n, K, V = cl.n_chains, cl.chain.n_nodes, cl.chain.num_keys, 4
+    C, n, K = cl.n_chains, cl.chain.n_nodes, cl.chain.num_keys
+    low = -6 if case == "negative_pending" else 0
     full = [rng.integers(0, 1 << 20, (C, n, K, V, 4)).astype(np.int32),
             rng.integers(-1, 100, (C, n, K, V)).astype(np.int32),
-            rng.integers(0, 2, (C, n, K)).astype(np.int32)]
+            rng.integers(low, 2, (C, n, K)).astype(np.int32)]
     wvals = rng.integers(0, 1 << 20, (B, 4)).astype(np.int32)
     wseqs = rng.integers(0, 1 << 16, B).astype(np.int32)
     out = {}
@@ -435,16 +441,69 @@ def test_cuda_global_key_ops_are_one_launch_each(card):
 
 
 def test_cuda_global_key_append_rejects_a_batch_past_its_capacity(card):
+    """A batch with more lanes than the shared memory of the whole card
+    holds at 8 bytes a lane raises before anything launches."""
     cl = _global_cluster()
     pmap = _global_map(cl, card)
     C, K = cl.n_chains, cl.chain.num_keys
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=card)
-    cap = t_kernel._lib().kv_bucketed_write_capacity(1, cl.num_buckets, C * K)
-    B = cap + 1
-    with pytest.raises(ValueError):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    B = sms * 233472 // 8 + 1   # sm_90: 228 KiB of shared memory an SM
+    store = (z(C, K, 4, 4), z(C, K, 4), z(C, K))
+    t_kernel.reset_launches()
+    with pytest.raises(ValueError, match=f"a batch of {B} lanes"):
         t_kernel.bucketed_write_append(
-            z(C, K, 4, 4), z(C, K, 4), z(C, K), z(B), z(B, 4), z(B),
+            *store, z(B), z(B, 4), z(B),
             torch.ones(B, dtype=torch.bool, device=card), cl, pmap)
+    assert t_kernel.LAUNCHES["kv_bucketed_write"] == 0
+    assert not store[2].any()
+
+
+def test_cuda_global_key_appends_on_two_streams(card):
+    """Appends issued in turns on two streams of one card, without waiting
+    for each other, each equal their plain version: each stream has an
+    append scratch of its own."""
+    cl = _global_cluster()
+    pmap = {d: _global_map(cl, d) for d in ("cpu", card)}
+    G, C, K = cl.num_global_keys, cl.n_chains, cl.chain.num_keys
+    rng = np.random.default_rng(90)
+    B, rounds = 20_000, 3
+    batches, stores = [], []
+    for _ in range(2):
+        gkeys = rng.integers(-2, G + 2, B).astype(np.int32)
+        gkeys[: B // 4] = rng.integers(0, 64, B // 4)
+        batches.append((gkeys, rng.integers(0, 1 << 20, (B, 4)),
+                        rng.integers(0, 1 << 16, B), rng.random(B) < 0.8))
+        stores.append([np.zeros((C, K, 4, 4), np.int32),
+                       np.zeros((C, K, 4), np.int32),
+                       rng.integers(0, 2, (C, K)).astype(np.int32)])
+    out = {}
+    for d in ("cpu", card):
+        t = lambda a: torch.tensor(a, device=d)
+        st = [[t(a) for a in x] for x in stores]
+        bt = [[t(a).to(torch.int32) if a.dtype != bool else t(a)
+               for a in x] for x in batches]
+        streams = [torch.cuda.Stream(d) for _ in range(2)] if d == card \
+            else [None, None]
+        for s in streams:
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(d))
+        acc = []
+        for _ in range(rounds):
+            for i, s in enumerate(streams):
+                with (contextlib.nullcontext() if s is None
+                      else torch.cuda.stream(s)):
+                    acc.append(t_kernel.bucketed_write_append(
+                        *st[i], *bt[i], cl, pmap[d])[3])
+        if d == card:
+            torch.cuda.synchronize()
+            dev = st[0][0].device
+            assert all((dev, s.cuda_stream) in t_kernel._SCRATCH
+                       for s in streams)
+        out[str(d)] = acc + [x for s in st for x in s]
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert torch.equal(a, b.cpu())
+    assert 0 < int(out["cpu"][0].sum()) < B
 
 
 def test_cuda_rebalance_and_partitioned_ops_match_cpu(card):
