@@ -100,7 +100,22 @@ source, all three at once), then:
    path's (``impl="chunked"``) prefill logits and ``lm_forward`` scoring
    of 2 x 2000 tokens (48 launches of each) at full depth and, at 2
    layers, the CPU's plain versions; prints the same serving metrics and
-   the peak device memory.
+   the peak device memory;
+14. cross-chain transactions (``benchmarks/fig_txn_pipeline.py``'s
+   proportions) on phase 7's cluster: two mixes of 4,096
+   transactions (2 keys uniform, 4 keys zipf) through ``TxnWaveDriver``
+   into the in-network wave coordinator (16 slots of 4 keys per chain),
+   96 through the host ``TxnDriver`` in waves of 6; each run held, after
+   a drain, to free locks and wave slots, no drop or write NACK, one
+   result per transaction, an acyclic serial order, and every global key
+   equal to the serial replay of the committed subset in
+   ``committed_view`` and in a one-launch ``partitioned_read_batch``
+   read-back; one launch of each kv kernel per tick and no plain-version
+   call; the first 256 on CUDA and on the CPU (plain versions) with
+   identical results and state; prints commits, aborts, ticks, commits
+   per tick, admission rounds per commit, wall µs per wave tick, and the
+   device activities of a wave tick, of the wave-less tick and of the
+   coordinator stage.
 
 ``--phases 12,13`` runs the build of the kernels those phases use,
 phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7);
@@ -138,6 +153,8 @@ try:
     from repro_torch.core import chain as t_chain  # noqa: E402
     from repro_torch.core import store as store_lib  # noqa: E402
     from repro_torch.core import txn as txn_lib  # noqa: E402
+    from repro_torch.core.txn import (  # noqa: E402
+        TxnDriver, TxnWaveDriver, reference_execute, serial_order)
     from repro_torch.core.chain import ChainSim  # noqa: E402
     from repro_torch.core.coordinator import Coordinator  # noqa: E402
     from repro_torch.core.failure import (  # noqa: E402
@@ -149,7 +166,8 @@ try:
         ChainConfig, ClusterConfig, Msg, PartitionMap, tree_map,
         value_from_int)
     from repro_torch.core.workload import (  # noqa: E402
-        WorkloadConfig, _sample_keys, make_schedule, route_stream)
+        TxnWorkloadConfig, WorkloadConfig, _sample_keys, make_schedule,
+        make_txn_workload, route_stream)
     from repro_torch.kernels.kv_engine import kernel as kv_kernel  # noqa: E402
     from repro_torch.kernels.kv_engine import ops as kv_ops  # noqa: E402
     from repro_torch.kernels.kv_engine import ref as kv_ref  # noqa: E402
@@ -224,6 +242,30 @@ SSM_ARCH, SSM_PROMPT_LEN = "mamba2-1.3b", 2000
 # CPU (plain versions)
 REDUCED_SERVE = dict(n_layers=2, requests=2, prompt_len=256, steps=4)
 FA_ITERS = 10                      # timed calls per attention measurement
+# phase 14: cross-chain transactions at phase 7's cluster, in
+# benchmarks/fig_txn_pipeline.py's proportions (every transaction spans
+# chains, every key written, zipf_a 1.2), two mixes of 4,096, each on a
+# fresh engine with 16 coordinator slots of 4 participants per chain and
+# 2-tick drains between admission rounds; 96 of k2_uniform through the
+# host driver in waves of 6 on the same cluster without a wave table, as
+# fig_txn_pipeline runs it; the first 256 of k2_uniform on CUDA and on
+# the CPU.  Each chain's completion log holds 1,024 rows: one mix puts
+# about 512 (binomial, sd 21) on each chain's log.  The cluster keeps
+# phase 7's 4 versions: a committed write the version window cannot hold
+# would come back to its coordinator as a write NACK (a negative write
+# seq in its result) and leave the store short of the serial replay, and
+# both are checked; fig_txn_pipeline runs 8 versions on 64 registers.
+TXN_MIXES = {"k2_uniform": dict(keys_per_txn=2, key_skew="uniform", seed=0),
+             "k4_zipf": dict(keys_per_txn=4, key_skew="zipf", seed=1)}
+TXN_COMMON = dict(n_txns=4096, cross_chain_fraction=1.0, write_fraction=1.0,
+                  zipf_a=1.2)
+WAVE_DEPTH, WAVE_KEYS, WAVE_LOG, STEP_TICKS = 16, 4, 1024, 2
+TXN_REPLY_CAPACITY = 16384
+HOST_TXNS, HOST_WAVE, CPU_TXNS, PROFILED_TICKS = 96, 6, 256, 4
+KV_PLAIN = ("cluster_read_decide_ref", "cluster_read_engine_ref",
+            "cluster_write_append_ref", "cluster_write_engine_ref",
+            "partitioned_read_ref", "partitioned_write_ref",
+            "bucketed_read_engine_ref", "bucketed_write_engine_ref")
 
 
 def log(*args):
@@ -2419,6 +2461,304 @@ def f32_route_serving(device="cuda") -> dict:
     return {"launches": {"flash_attention_f32": launches}, "rel_err": rel}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: cross-chain transactions at full width (fig_txn_pipeline's
+# proportions at phase 7's cluster)
+# ---------------------------------------------------------------------------
+def txn_sim(cl: ClusterConfig, device, wave: bool = True) -> ChainSim:
+    return ChainSim(cl, inject_capacity=INJECT, route_capacity=ROUTE,
+                    reply_capacity=TXN_REPLY_CAPACITY,
+                    wave_depth=WAVE_DEPTH if wave else 0,
+                    wave_keys=WAVE_KEYS, wave_log_capacity=WAVE_LOG,
+                    device=device)
+
+
+def txn_mix(cl: ClusterConfig, name: str) -> list:
+    return make_txn_workload(cl, TxnWorkloadConfig(**TXN_COMMON,
+                                                   **TXN_MIXES[name]))
+
+
+def same_tree(a, b, what: str) -> None:
+    """Exact equality of two same-structured NamedTuples of tensors (the
+    second may live on another device)."""
+    if hasattr(a, "_fields"):
+        for f in a._fields:
+            same_tree(getattr(a, f), getattr(b, f), f"{what}.{f}")
+        return
+    require(torch.equal(a, b.to(a.device)), f"{what} differs")
+
+
+def check_txn_run(cl, co, sim, state, txns, results, what: str) -> dict:
+    """After a drain: locks, dirty versions, wave slots and the fabric
+    empty, nothing dropped or NACKed, one result per transaction, the
+    committed writes atomic and serializable, and every global key equal
+    to the serial replay of the committed subset, in ``committed_view``
+    and read back through ``partitioned_read_batch`` in one launch."""
+    m = state.metrics.asdict()
+    require(txn_lib.locks_all_free(state.locks), f"{what}: a lock leaked")
+    require(int(state.stores.pending.sum()) == 0,
+            f"{what}: dirty versions left after the drain")
+    require(Coordinator.waves_drained(state), f"{what}: a wave slot is busy")
+    require(sim.inflight(state) == 0, f"{what}: ops left in flight")
+    require(m["drops"] == 0, f"{what}: {m['drops']} drops")
+    require(m["write_nacks"] == 0,
+            f"{what}: {m['write_nacks']} write NACKs (the version window "
+            "overflowed: num_versions is below the in-flight write depth)")
+    by_id = {t.txn_id: t for t in txns}
+    require(len(results) == len(txns) and
+            sorted(r.txn_id for r in results) == sorted(by_id),
+            f"{what}: {len(results)} results for {len(txns)} transactions")
+    committed = {r.txn_id for r in results if r.committed}
+    for r in results:
+        if r.committed:
+            require(set(r.write_seqs) == {k for k, _ in
+                                          by_id[r.txn_id].writes},
+                    f"{what}: txn {r.txn_id} committed a part of its writes")
+            require(min(r.write_seqs.values(), default=0) >= 0,
+                    f"{what}: txn {r.txn_id} has a NACKed write (the version "
+                    "window is below the in-flight write depth)")
+    order = serial_order(results)       # raises on a precedence cycle
+    tail = [t for t in sorted(committed) if t not in set(order)]
+    expected = reference_execute([by_id[t] for t in order + tail])
+    G = cl.num_global_keys
+    dev = state.stores.values.device
+    exp_t = torch.tensor([expected.get(g, 0) for g in range(G)],
+                         dtype=torch.int32, device=dev)
+    view = txn_lib.committed_view(cl, state)
+    require(sorted(view) == list(range(G)),
+            f"{what}: committed_view does not cover the key space")
+    require(torch.equal(torch.tensor([view[g] for g in range(G)],
+                                     dtype=torch.int32, device=dev), exp_t),
+            f"{what}: committed_view differs from the serial replay")
+    before = kv_kernel.LAUNCHES["kv_bucketed_read"]
+    rv, dec = read_back(cl, state, co.partition_map())
+    require(kv_kernel.LAUNCHES["kv_bucketed_read"] - before ==
+            (1 if dev.type == "cuda" else 0),
+            f"{what}: the read-back was not one launch")
+    require(bool((dec == 0).all()), f"{what}: a read-back was not clean")
+    require(torch.equal(rv[:, 0], exp_t),
+            f"{what}: read-back differs from the serial replay")
+    return m
+
+
+def launch_check(launches: dict, ticks: int, plain: dict, what: str):
+    require(launches == {"kv_read": ticks, "kv_write": ticks,
+                         "kv_bucketed_read": 0, "kv_bucketed_write": 0},
+            f"{what}: launches {launches} over {ticks} ticks")
+    require(not any(plain.values()), f"{what}: plain-version calls {plain}")
+
+
+def wave_run(cl, txns, device, what: str):
+    """``txns`` through ``TxnWaveDriver`` on a fresh wave engine, the
+    launch counters zeroed just before the run and read just after; then
+    a drain of 4n ticks and the checks.  Returns the run's record."""
+    sim = txn_sim(cl, device)
+    co = Coordinator(cl, device=device)
+    drv = TxnWaveDriver(sim, co.txn_planner)
+    state = sim.init_state()
+    sync(device)
+    kv_kernel.reset_launches()
+    with PlainCalls(kv_ref, KV_PLAIN) as plain:
+        t0 = time.perf_counter()
+        state, results = drv.run(state, txns, step_ticks=STEP_TICKS)
+        sync(device)
+        wall = time.perf_counter() - t0
+    launches = dict(kv_kernel.LAUNCHES)
+    if torch.device(device).type == "cuda":
+        launch_check(launches, drv.last_ticks, plain.calls, what)
+    state = sim.drain(state, 4 * N_NODES)
+    m = check_txn_run(cl, co, sim, state, txns, results, what)
+    commits = sum(r.committed for r in results)
+    require(m["wave_commits"] == commits and
+            m["wave_commits"] + m["wave_aborts"] == len(txns),
+            f"{what}: wave counters {m['wave_commits']}/{m['wave_aborts']} "
+            f"for {commits} commits of {len(txns)}")
+    rec = {"txns": len(txns), "commits": commits,
+           "aborts": len(txns) - commits, "ticks": drv.last_ticks,
+           "rounds": drv.last_rounds,
+           "commits_per_tick": commits / drv.last_ticks,
+           "rounds_per_commit": drv.last_rounds / max(commits, 1),
+           "expired": sum(r.mode == "wave_expired" for r in results),
+           "lock_conflicts": m["lock_conflicts"],
+           "mean_occupancy": m["wave_occupancy"] / drv.last_ticks,
+           "wall_s": wall, "wall_us_per_tick": wall / drv.last_ticks * 1e6,
+           "launches": launches}
+    log(f"transactions {what} ({on_card(device)}): {len(txns)} txns, "
+        f"{commits} commits, {rec['aborts']} aborts ({rec['expired']} "
+        f"lease-expired), {drv.last_ticks} ticks, "
+        f"{rec['commits_per_tick']:.4f} commits/tick, {drv.last_rounds} "
+        f"admission rounds ({rec['rounds_per_commit']:.4f} per commit), "
+        f"mean occupancy {rec['mean_occupancy']:.2f} of "
+        f"{N_CHAINS * WAVE_DEPTH} slots, lock_conflicts "
+        f"{m['lock_conflicts']}; wall {wall:.3f} s "
+        f"({rec['wall_us_per_tick']:.1f} us per wave tick, admission "
+        f"included); launches {launches}; after a {4 * N_NODES}-tick "
+        f"drain: locks free, waves drained, 0 drops, 0 write NACKs, "
+        f"serializable, all {cl.num_global_keys} global keys == serial "
+        f"replay (committed_view and one-launch read-back)")
+    return rec
+
+
+def host_run(cl, txns, device="cuda") -> dict:
+    """fig_txn_pipeline's host baseline: ``TxnDriver`` one wave of 6 at a
+    time on the cluster without a wave table; its ticks are the run's and
+    the 4n-tick drain's, as fig_txn_pipeline counts them."""
+    sim = txn_sim(cl, device, wave=False)
+    co = Coordinator(cl, device=device)
+    drv = TxnDriver(sim, co.txn_planner)
+    state, results = sim.init_state(), []
+    sync(device)
+    kv_kernel.reset_launches()
+    with PlainCalls(kv_ref, KV_PLAIN) as plain:
+        t0 = time.perf_counter()
+        for i in range(0, len(txns), HOST_WAVE):
+            state, res = drv.run(state, txns[i:i + HOST_WAVE])
+            results += res
+        sync(device)
+        wall = time.perf_counter() - t0
+    ticks_run = int(state.t)
+    if torch.device(device).type == "cuda":
+        launch_check(dict(kv_kernel.LAUNCHES), ticks_run, plain.calls,
+                     "host driver")
+    state = sim.drain(state, 4 * N_NODES)
+    ticks = int(state.t)
+    check_txn_run(cl, co, sim, state, txns, results, "host driver")
+    commits = sum(r.committed for r in results)
+    rounds = 2 * ((len(txns) + HOST_WAVE - 1) // HOST_WAVE)
+    log(f"transactions host driver ({on_card(device)}): {len(txns)} txns "
+        f"of k2_uniform in waves of {HOST_WAVE}, {commits} commits, "
+        f"{ticks} ticks ({ticks_run} in the waves), "
+        f"{commits / ticks:.4f} commits/tick, {rounds} host barriers "
+        f"({rounds / max(commits, 1):.4f} per commit); wall {wall:.3f} s "
+        f"({wall / ticks_run * 1e6:.1f} us per tick)")
+    return {"txns": len(txns), "commits": commits, "ticks": ticks,
+            "commits_per_tick": commits / ticks, "wall_s": wall,
+            "wall_us_per_tick": wall / ticks_run * 1e6}
+
+
+def txn_tick_costs(cl, txns, device="cuda") -> dict:
+    """µs and device activities per tick of the wave engine with every
+    slot it can fill busy, beside the same cluster's wave-less tick; and
+    the coordinator stage's own activities and device time (its step and
+    both cluster routes, called alone on the inputs one tick gave them)."""
+    wave_sim, plain_sim = txn_sim(cl, device), txn_sim(cl, device, False)
+    drv = TxnWaveDriver(wave_sim, Coordinator(cl, device=device).txn_planner)
+    queue = [drv._plan(t) for t in txns[:N_CHAINS * WAVE_DEPTH * 2]]
+    out = {}
+    for name, sim in (("wave", wave_sim), ("wave-less", plain_sim)):
+        state = sim.init_state()
+        if sim.wave_depth:
+            state, n = drv._admit(state, queue,
+                                  state.wave.phase.cpu().numpy(), 0)
+        empty = sim.empty_injection()
+        state = sim.drain(state, 2)                   # warm-up
+        sync(device)
+        t0 = time.perf_counter()
+        state = sim.drain(state, 8)
+        sync(device)
+        us = (time.perf_counter() - t0) / 8 * 1e6
+        box = [state]
+
+        def one_tick():
+            box[0] = sim.tick(box[0], empty)
+        dev_ms, _, n_act = device_time([one_tick] * PROFILED_TICKS)
+        out[name] = {"us_per_tick": us,
+                     "activities_per_tick": (n_act / PROFILED_TICKS
+                                             if n_act else None),
+                     "device_us_per_tick": (dev_ms * 1e3
+                                            if dev_ms is not None else None)}
+    # the coordinator stage alone, on the inputs of one busy tick
+    state = wave_sim.init_state()
+    state, _ = drv._admit(state, [drv._plan(t) for t in txns[:256]],
+                          state.wave.phase.cpu().numpy(), 0)
+    state = wave_sim.drain(state, 1)
+    seen = []
+    route, step = t_chain.cluster_route, txn_lib.wave_coordinator_step
+
+    def keep(fn):
+        def wrapped(*a, **k):
+            seen.append((fn, a, k))
+            return fn(*a, **k)
+        return wrapped
+    t_chain.cluster_route = keep(route)
+    txn_lib.wave_coordinator_step = keep(step)
+    try:
+        wave_sim.tick(state, wave_sim.empty_injection())
+    finally:
+        t_chain.cluster_route, txn_lib.wave_coordinator_step = route, step
+    require(len(seen) == 3, f"coordinator stage calls {len(seen)}")
+    # the step reads its inputs only, so its replays see the same table
+    calls = [lambda fn=fn, a=a, k=k: fn(*a, **k) for fn, a, k in seen]
+    dev_ms, _, n_act = device_time(calls * PROFILED_TICKS)
+    stage = {"activities_per_tick": (n_act / PROFILED_TICKS
+                                     if n_act else None),
+             "device_us_per_tick": (dev_ms * 1e3 * len(calls)
+                                    if dev_ms is not None else None)}
+    out["coordinator_stage"] = stage
+    w, p = out["wave"], out["wave-less"]
+    fmt = lambda x, f=".2f": "not measured" if x is None else format(x, f)
+    log(f"transactions ({on_card(device)}): wave tick "
+        f"{w['us_per_tick']:.1f} us wall (a full table admitted before the "
+        f"timed ticks), {fmt(w['activities_per_tick'])} device "
+        f"activities and {fmt(w['device_us_per_tick'], '.1f')} us of device "
+        f"time a tick; the same cluster's wave-less tick "
+        f"{p['us_per_tick']:.1f} us, {fmt(p['activities_per_tick'])} "
+        f"activities, {fmt(p['device_us_per_tick'], '.1f')} us; the "
+        f"coordinator stage (step and both cluster routes) "
+        f"{fmt(stage['activities_per_tick'])} activities and "
+        f"{fmt(stage['device_us_per_tick'], '.1f')} us of device time a "
+        "tick")
+    return out
+
+
+def txn_cpu_equality(cl, txns, device="cuda") -> None:
+    """The first transactions of k2_uniform on CUDA (kernels) and on the
+    CPU (plain versions): identical results, stores, wave tables (the
+    completion log included), locks, metrics, reply logs and inboxes."""
+    out = {}
+    for dev in (device, "cpu"):
+        sim = txn_sim(cl, dev)
+        drv = TxnWaveDriver(sim, Coordinator(cl, device=dev).txn_planner)
+        t0 = time.perf_counter()
+        state, results = drv.run(sim.init_state(), txns,
+                                 step_ticks=STEP_TICKS)
+        sync(dev)
+        log(f"transactions ({on_card(dev)}): {len(txns)} txns of "
+            f"k2_uniform in {drv.last_ticks} ticks on {dev} in "
+            f"{time.perf_counter() - t0:.3f} s")
+        out[dev] = (state, results, drv.last_rounds)
+    require(out[device][1] == out["cpu"][1] and
+            out[device][2] == out["cpu"][2],
+            "transactions: CUDA and CPU results differ")
+    for name in ("stores", "wave", "locks", "metrics", "replies", "inbox",
+                 "t"):
+        same_tree(getattr(out["cpu"][0], name), getattr(out[device][0], name),
+                  f"transactions: CUDA vs CPU {name}")
+    log(f"transactions: CUDA run == CPU plain run over {len(txns)} txns "
+        "(results, stores, wave table and completion log, locks, metrics, "
+        "reply logs, inboxes)")
+
+
+def txn_phase() -> dict:
+    cl = cluster("netcraq", partitioned=True)
+    t0 = time.perf_counter()
+    mixes = {name: txn_mix(cl, name) for name in TXN_MIXES}
+    out = {}
+    for name, txns in mixes.items():
+        out[name] = wave_run(cl, txns, "cuda", name)
+    out["host"] = host_run(cl, mixes["k2_uniform"][:HOST_TXNS])
+    out["costs"] = txn_tick_costs(cl, mixes["k2_uniform"])
+    txn_cpu_equality(cl, mixes["k2_uniform"][:CPU_TXNS])
+    out["seconds"] = time.perf_counter() - t0
+    k2, host = out["k2_uniform"], out["host"]
+    log(f"transactions ({smi()}): k2_uniform wave "
+        f"{k2['commits_per_tick']:.4f} commits/tick against the host "
+        f"driver's {host['commits_per_tick']:.4f} "
+        f"({k2['commits_per_tick'] / host['commits_per_tick']:.2f}x); "
+        f"phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def on_card(device) -> str:
     """What a timing ran on: the card's name and power limit, or the
     host's CPU."""
@@ -2437,7 +2777,8 @@ def build_kernels(phases) -> None:
     (all three for a whole run)."""
     t0 = time.perf_counter()
     kernels = [(src, k) for src, k, uses in (
-        (KV_SRC, kv_kernel, range(2, 10)), (FA_SRC, fa_kernel, (10, 11)),
+        (KV_SRC, kv_kernel, (*range(2, 10), 14)),
+        (FA_SRC, fa_kernel, (10, 11)),
         (SSD_SRC, ssd_kernel, (12, 13))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
         builds = [pool.submit(k.build) for _, k in kernels]
@@ -2447,7 +2788,7 @@ def build_kernels(phases) -> None:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 14))
+ALL_PHASES = tuple(range(1, 15))
 
 
 def parse_phases(argv) -> set:
@@ -2557,6 +2898,12 @@ def main(argv=None) -> None:
     if 13 in phases:
         run["ssm_serving"] = serving_phase(SERVE_PATHS["ssm"])
         launches.update(run["ssm_serving"]["launches"])
+    if 14 in phases:
+        run["transactions"] = txn_phase()
+        if "netcraq" in run:
+            log(f"transactions: device activities per tick, phase 5's "
+                f"wave-less netcraq tick "
+                f"{run['netcraq']['device_activities_per_tick']:.2f}")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

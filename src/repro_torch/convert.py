@@ -1,8 +1,8 @@
 """Carry state and weights between the JAX package and the port.
 
-For the engine, what crosses over is state: a ``SimState``,
-message schedules, partition maps, role tables and the control plane's
-host state.  For the models it is a parameter tree: ``lm_params_from``
+For the engine, what crosses over is state: a ``SimState`` (its wave
+table included), message schedules, partition maps, role tables, the
+control plane's host state, and transactions and their results.  For the models it is a parameter tree: ``lm_params_from``
 builds the port's from the reference's ``init_lm`` pytree, and
 ``lm_params_to_numpy`` turns it back.  These functions take any NamedTuple-like object whose fields
 hold array-likes (the JAX package's pytrees after ``np.asarray``, or
@@ -25,7 +25,7 @@ from repro_torch.core.chain import SimState
 from repro_torch.core.coordinator import ChainMembership, Coordinator
 from repro_torch.core.metrics import Metrics, ReplyLog
 from repro_torch.core.store import Store
-from repro_torch.core.txn import LockTable
+from repro_torch.core.txn import LockTable, Txn, TxnResult, WaveState
 from repro_torch.core.types import (
     ChainConfig,
     ClusterConfig,
@@ -44,7 +44,10 @@ _NESTED = {
     "replies": ReplyLog,
     "roles": Roles,
     "pmap": PartitionMap,
+    "wave": WaveState,
 }
+# NamedTuple fields that hold a NamedTuple of their own
+_INNER = {WaveState: {"coord_in": Msg}}
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -56,13 +59,17 @@ def from_arrays(cls, obj, device="cuda"):
     """Build the port's NamedTuple ``cls`` from ``obj``'s same-named
     fields (array-likes), on ``device``."""
     dev = resolve_device(device)
-    return cls(**{f: _tensor(getattr(obj, f), dev) for f in cls._fields})
+    inner = _INNER.get(cls, {})
+    return cls(**{f: (from_arrays(inner[f], getattr(obj, f), dev)
+                      if f in inner else _tensor(getattr(obj, f), dev))
+                  for f in cls._fields})
 
 
 def state_from_arrays(state, device="cuda") -> SimState:
-    """A port ``SimState`` from the reference's ``SimState`` (its
-    ``wave``/``telemetry`` leaves, zero-size in the supported setting,
-    have no counterpart and are not read)."""
+    """A port ``SimState`` from the reference's ``SimState``, its wave
+    table with the nested ``coord_in`` Msg included (its ``telemetry``
+    leaves, zero-size in the supported setting, have no counterpart and
+    are not read)."""
     dev = resolve_device(device)
     parts = {f: from_arrays(cls, getattr(state, f), dev)
              for f, cls in _NESTED.items()}
@@ -76,6 +83,26 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def txns_from(txns) -> list[Txn]:
+    """The port's ``Txn``s with the fields of ``txns`` (the reference's)."""
+    return [Txn(txn_id=int(t.txn_id),
+                writes=tuple((int(k), int(v)) for k, v in t.writes),
+                reads=tuple(int(k) for k in t.reads), client=int(t.client))
+            for t in txns]
+
+
+def results_from(results) -> list[TxnResult]:
+    """The port's ``TxnResult``s with the fields of ``results`` (the
+    reference's)."""
+    return [TxnResult(txn_id=int(r.txn_id), committed=bool(r.committed),
+                      mode=r.mode, nacks=int(r.nacks),
+                      write_seqs={int(k): int(v)
+                                  for k, v in r.write_seqs.items()},
+                      read_values={int(k): int(v)
+                                   for k, v in r.read_values.items()})
+            for r in results]
 
 
 def cluster_from(cfg) -> ClusterConfig:

@@ -8,14 +8,18 @@ stages take a leading ``[C]`` axis, and the node step runs once over the
 flattened ``[C * n]`` nodes, so its store reads and dirty appends are one
 kernel launch each per tick.
 
-The tick's stages, in the reference's order: entry stamping and dead-
-node masking, stale-route admission, lease expiry and the head lock
-stage, the node step, the routing fabric (``segmented_route``, with
+The tick's stages, in the reference's order: with a wave table
+(``wave_depth > 0``) the in-network 2PC coordinator first, its sub-ops
+crossing chains through ``cluster_route``; then per chain entry stamping
+and dead-node masking, stale-route admission, lease expiry and the head
+lock stage, the node step, the routing fabric (``segmented_route``, with
 ``dense_route`` kept as its oracle) with exact packet/hop accounting,
-and the reply log.  The role table and the partition map are read, never
-written, by the tick.
+and the reply log; control replies addressed to a coordinator ride back
+through ``cluster_route`` into the wave table.  The role table and the
+partition map are read, never written, by the tick.  With
+``wave_depth == 0`` the wave leaves pass through the tick untouched.
 
-This slice supports ``telemetry=False, wave_depth=0`` only: the setting
+The telemetry plane is not ported: ``telemetry=False`` only, the setting
 the reference documents as bit-identical on the data path.
 
 State is updated in place where the reference donated it: callers follow
@@ -32,7 +36,7 @@ from repro_torch.core import store as store_lib
 from repro_torch.core import txn as txn_lib
 from repro_torch.core.metrics import Metrics, ReplyLog
 from repro_torch.core.store import Store
-from repro_torch.core.txn import LockTable
+from repro_torch.core.txn import LockTable, WaveState
 from repro_torch.core.types import (
     CLIENT_BASE,
     I32,
@@ -49,6 +53,7 @@ from repro_torch.core.types import (
     OP_WRITE,
     OP_WRITE_NACK,
     TO_CLIENT,
+    WAVE_BASE,
     ChainConfig,
     ClusterConfig,
     Msg,
@@ -66,8 +71,8 @@ NODE_STEPS: dict[str, Callable] = {
 
 
 class SimState(NamedTuple):
-    """The engine's state; the reference's zero-size ``wave`` and
-    ``telemetry`` leaves of the supported setting have no counterpart."""
+    """The engine's state; the reference's ``telemetry`` leaves (zero-size
+    in the supported setting) have no counterpart."""
 
     stores: Store        # [C, n, ...]
     inbox: Msg           # [C, n, c_route]
@@ -76,6 +81,7 @@ class SimState(NamedTuple):
     replies: ReplyLog    # [C, R]
     roles: Roles         # [C, n] (written only by the control plane)
     pmap: PartitionMap   # bucket->chain map (written only by the CP)
+    wave: WaveState      # [C, W] 2PC coordinator slots (W == 0: untouched)
     t: torch.Tensor      # [] int32 tick counter
 
 
@@ -321,6 +327,30 @@ def segmented_route(flat: Msg, alive: torch.Tensor, chain_pos: torch.Tensor,
     return routed, dropped, mcast_copies, mcast_hop_sum
 
 
+def cluster_route(flat: Msg, target: torch.Tensor, n_chains: int,
+                  cap: int):
+    """Cluster-level router for coordinator traffic: deliver each live
+    message of a flat ``[N]`` batch to the chain named by ``target``
+    (``[N]``; outside ``[0, n_chains)`` drops it).  One sort of ``(target
+    segment, index)`` puts each chain's deliveries contiguous and in flat
+    order.  Returns ``(routed [n_chains, cap] Msg, overflow [n_chains])``:
+    a chain's messages past ``cap`` are dropped and counted."""
+    N = flat.op.shape[0]
+    dev = flat.op.device
+    i64 = torch.int64
+    live = (flat.op != OP_NOP) & (target >= 0) & (target < n_chains)
+    seg = torch.where(live, target.long(), n_chains)
+    skey = torch.sort(seg * N + torch.arange(N, dtype=i64, device=dev)).values
+    order = skey % N
+    starts = torch.searchsorted(
+        skey, torch.arange(n_chains + 1, dtype=i64, device=dev) * N)
+    cnt = starts[1:] - starts[:-1]                               # [C]
+    lane = torch.arange(cap, dtype=i64, device=dev)[None, :]
+    gidx = order[(starts[:-1, None] + lane).clamp(0, max(N - 1, 0))]
+    routed = tree_map(lambda x: x[gidx], flat).mask(lane < cnt[:, None])
+    return routed, _i32((cnt - cap).clamp(min=0))
+
+
 def pack_lanes(msgs: list[Msg]) -> Msg:
     """Concatenate [C, n, w_k] message lanes along the lane axis (the
     fabric's flat-index FIFO order follows this layout)."""
@@ -344,14 +374,13 @@ class ChainSim:
         reply_capacity: int = 4096,
         fabric: str = "segmented",
         wave_depth: int = 0,
+        wave_keys: int = 4,
+        wave_log_capacity: int = 256,
+        wave_route_capacity: int | None = None,
         telemetry: bool = False,
         device="cuda",
     ):
         assert fabric in ("segmented", "dense"), fabric
-        if wave_depth:
-            raise NotImplementedError(
-                "the in-network wave coordinator is not ported yet "
-                "(wave_depth must be 0)")
         if telemetry:
             raise NotImplementedError(
                 "the telemetry plane is not ported yet (telemetry=False)")
@@ -362,6 +391,16 @@ class ChainSim:
         self.c_in = inject_capacity
         self.c_route = route_capacity
         self.reply_capacity = reply_capacity
+        # the in-network 2PC coordinator: W slots of KT participants per
+        # chain; a chain's slots have at most W * KT sub-ops out, one reply
+        # each, and the worst case sends every chain's to one chain
+        self.wave_depth = wave_depth
+        self.wave_keys = wave_keys
+        self.wave_log_capacity = wave_log_capacity
+        self.coord_capacity = max(wave_depth * wave_keys, 1)
+        self.wave_sub_capacity = (
+            wave_route_capacity if wave_route_capacity is not None
+            else max(self.C * wave_depth * wave_keys, 1))
         self.fabric = fabric
         self.device = resolve_device(device)
         self.node_step = NODE_STEPS[self.cfg.protocol]
@@ -378,6 +417,9 @@ class ChainSim:
             replies=ReplyLog.empty(self.reply_capacity, C, device=dev),
             roles=full_roles_table(n, C, device=dev),
             pmap=self.cluster.default_partition(device=dev),
+            wave=WaveState.empty(
+                self.wave_depth, self.wave_keys, self.wave_log_capacity,
+                self.coord_capacity, self.cfg.value_words, C, device=dev),
             t=torch.zeros((), dtype=I32, device=dev),
         )
 
@@ -389,11 +431,21 @@ class ChainSim:
     # -- one tick of every chain at once ----------------------------------
     def _chain_tick(self, stores: Store, inbox: Msg, locks: LockTable,
                     metrics: Metrics, replies: ReplyLog, injected: Msg,
-                    roles: Roles, pmap: PartitionMap, t: torch.Tensor):
+                    roles: Roles, pmap: PartitionMap, t: torch.Tensor,
+                    sub_in: Msg | None = None,
+                    wave_final: Msg | None = None):
         """The reference's per-chain tick with the chain axis written
         out: stores [C, n, ...], inbox [C, n, c_route], injected
         [C, n, c_in], roles [C, n].  Returns (stores', inbox', locks',
-        metrics', replies')."""
+        metrics', replies').
+
+        With a wave table two lanes more ride the tick: ``sub_in`` [C,
+        Xs], the coordinator sub-ops the cluster router delivered to each
+        chain (they enter at the live head like client transaction
+        traffic), and ``wave_final`` [C, W], each coordinator's final
+        client replies (they exit from the head).  The return then grows
+        ``ctrl_out`` [C, M]: the exits addressed back at a coordinator
+        (``client >= WAVE_BASE``), diverted from the reply log."""
         C, n, cfg = self.C, self.n, self.cfg
         dev = inbox.op.device
         dense = self.fabric == "dense"
@@ -413,7 +465,21 @@ class ChainSim:
         inj_live = injected.op != OP_NOP
         injected = injected._replace(extra=_i32(injected.extra + inj_live))
         n_injected = _i32(inj_live.sum(dim=(1, 2)))
-        full_inbox = pack_lanes([injected, inbox])
+        lanes = [injected, inbox]
+        if self.wave_depth:
+            # coordinator sub-ops enter at the live head, entry-stamped and
+            # leg-accounted like a client query
+            head = roles.head_pos[:, 0:1]                        # [C, 1]
+            sub_live = sub_in.op != OP_NOP
+            n_wave_in = _i32(sub_live.sum(dim=1))
+            sub_in = sub_in._replace(
+                entry=torch.where(sub_live, head, sub_in.entry),
+                extra=_i32(sub_in.extra + sub_live))
+            at_head = node_ids[None, :, None] == head[:, :, None]  # [C, n, 1]
+            lanes.append(tree_map(
+                lambda x: x[:, None].expand((C, n) + x.shape[1:]),
+                sub_in).mask(at_head.expand(C, n, sub_in.op.shape[1])))
+        full_inbox = pack_lanes(lanes)
         live_in = full_inbox.op != OP_NOP
 
         # Stale-route admission, before the lock stage or the store.
@@ -443,7 +509,17 @@ class ChainSim:
             lambda x: x.reshape((C, n) + x.shape[1:]), node_store)
         outbox = tree_map(
             lambda x: x.reshape((C, n) + x.shape[1:]), outbox)
-        outbox = pack_lanes([outbox, txn_out, stale_out])
+        out_lanes = [outbox, txn_out, stale_out]
+        if self.wave_depth:
+            # the coordinators' final client replies exit from the head
+            wf_live = wave_final.op != OP_NOP
+            wave_final = wave_final._replace(
+                src=torch.where(wf_live, head, wave_final.src))
+            out_lanes.append(tree_map(
+                lambda x: x[:, None].expand((C, n) + x.shape[1:]),
+                wave_final).mask(at_head.expand(C, n,
+                                                wave_final.op.shape[1])))
+        outbox = pack_lanes(out_lanes)
         # A dead node emits nothing.
         outbox = outbox.mask(alive_lane(outbox))
 
@@ -470,9 +546,19 @@ class ChainSim:
             + mcast_hop_sum + n_exit + n_injected)
         msgs = _i32(is_unicast.sum(dim=1) + mcast_copies + n_exit
                     + n_injected)
+        if self.wave_depth:
+            # the coordinator -> head leg of every wave sub-op
+            packets = packets + n_wave_in
+            msgs = msgs + n_wave_in
         msg_bytes = cfg.header_bytes + cfg.payload_bytes
 
         # ---------------- exits -> reply log ----------------
+        # exits addressed back at a coordinator are its 2PC control
+        # replies: diverted to the cluster control router, never logged
+        if self.wave_depth:
+            wave_bound = is_exit & (flat.client >= WAVE_BASE)
+            ctrl_out = flat.mask(wave_bound)
+            is_exit = is_exit & ~wave_bound
         exits = flat.mask(is_exit)
         is_nack = exits.op == OP_WRITE_NACK
         is_ctrl = (
@@ -534,7 +620,8 @@ class ChainSim:
             lease_expiries=metrics.lease_expiries + n_expired,
             conflict_heat=new_heat,
         )
-        return new_stores, routed, new_locks, new_metrics, new_replies
+        out = (new_stores, routed, new_locks, new_metrics, new_replies)
+        return out + (ctrl_out,) if self.wave_depth else out
 
     def _lift(self, injected: Msg) -> Msg:
         """Accept legacy single-chain [n, q] injections when C == 1."""
@@ -549,9 +636,42 @@ class ChainSim:
         queries addressed to their entry node.  The input state may be
         updated in place: rebind ``state = sim.tick(state, inj)``."""
         injected = tree_map(lambda x: x.to(self.device), self._lift(injected))
-        stores, inbox, locks, metrics, replies = self._chain_tick(
-            state.stores, state.inbox, state.locks, state.metrics,
-            state.replies, injected, state.roles, state.pmap, state.t)
+        args = (state.stores, state.inbox, state.locks, state.metrics,
+                state.replies, injected, state.roles, state.pmap, state.t)
+        if not self.wave_depth:
+            stores, inbox, locks, metrics, replies = self._chain_tick(*args)
+            wave = state.wave
+        else:
+            # ---- the in-network coordinator stage, before the chains:
+            # last tick's control replies in, this tick's sub-ops and final
+            # client replies out (slots past the lease force-abort)
+            C = self.C
+            wave, sub_out, sub_target, final_out, wstats = \
+                txn_lib.wave_coordinator_step(state.wave, state.t,
+                                              state.locks.lease_ticks)
+            # sub-ops cross chains to each key's owner
+            flat_sub = tree_map(
+                lambda x: x.reshape((-1,) + x.shape[2:]), sub_out)
+            sub_in, sub_drop = cluster_route(
+                flat_sub, sub_target.reshape(-1), C, self.wave_sub_capacity)
+            stores, inbox, locks, metrics, replies, ctrl_out = \
+                self._chain_tick(*args, sub_in, final_out)
+            # control replies ride back to their coordinator's chain:
+            # client = WAVE_BASE + chain * W + slot
+            flat_ctrl = tree_map(
+                lambda x: x.reshape((-1,) + x.shape[2:]), ctrl_out)
+            ctrl_tgt = torch.where(
+                flat_ctrl.op != OP_NOP,
+                torch.div(flat_ctrl.client - WAVE_BASE, self.wave_depth,
+                          rounding_mode="floor"), -1)
+            coord_in, ctrl_drop = cluster_route(
+                flat_ctrl, ctrl_tgt, C, self.coord_capacity)
+            wave = wave._replace(coord_in=coord_in)
+            metrics = metrics._replace(
+                drops=metrics.drops + sub_drop + ctrl_drop,
+                wave_commits=metrics.wave_commits + wstats[0],
+                wave_aborts=metrics.wave_aborts + wstats[1],
+                wave_occupancy=metrics.wave_occupancy + wstats[2])
         return SimState(
             stores=stores,
             inbox=inbox,
@@ -560,6 +680,7 @@ class ChainSim:
             replies=replies,
             roles=state.roles,
             pmap=state.pmap,
+            wave=wave,
             t=state.t + 1,
         )
 
@@ -594,6 +715,11 @@ class ChainSim:
         return state
 
     def inflight(self, state: SimState) -> int:
-        """Host-side count of ops still inside the engine (live inbox
-        slots)."""
-        return int((state.inbox.op != OP_NOP).sum())
+        """Host-side count of ops still inside the engine: live inbox
+        slots plus, with a wave table, occupied coordinator slots and
+        buffered control replies."""
+        n = int((state.inbox.op != OP_NOP).sum())
+        if self.wave_depth:
+            n += int((state.wave.phase != txn_lib.WAVE_FREE).sum())
+            n += int((state.wave.coord_in.op != OP_NOP).sum())
+        return n

@@ -41,10 +41,6 @@ from repro_torch.core.types import (
     tree_map,
 )
 
-_WAVES_NOT_PORTED = (
-    "the in-network wave coordinator and the transaction planner are not "
-    "ported yet (ROADMAP.md, queue 1 item 8)")
-
 
 @dataclasses.dataclass
 class ChainMembership:
@@ -120,6 +116,7 @@ class Coordinator:
             for _ in range(self.cluster.n_chains)
         ]
         self._recovery_log: list[dict] = []
+        self._txn_planner: Optional[txn_lib.TxnPlanner] = None
         # the authoritative partition state the published map comes from
         cl = self.cluster
         homes = [cl.bucket_home(b) for b in range(cl.num_buckets)]
@@ -165,12 +162,23 @@ class Coordinator:
 
     # -- transactions ---------------------------------------------------------
     @property
-    def txn_planner(self):
-        raise NotImplementedError(_WAVES_NOT_PORTED)
+    def txn_planner(self) -> txn_lib.TxnPlanner:
+        """The multi-key transaction planner over this control plane's
+        live map: it splits keys with the current placement and stamps
+        the current epoch into every sub-op (built once, on ``device``)."""
+        if self._txn_planner is None:
+            self._txn_planner = txn_lib.TxnPlanner(self.cluster,
+                                                   coordinator=self)
+        return self._txn_planner
 
     @staticmethod
     def waves_drained(state, chain_idx: Optional[int] = None) -> bool:
-        raise NotImplementedError(_WAVES_NOT_PORTED)
+        """True when every wave-table coordinator slot (on ``chain_idx``
+        or anywhere) is FREE; a wave-less engine is trivially drained."""
+        ph = state.wave.phase
+        if chain_idx is not None:
+            ph = ph[chain_idx]
+        return bool((ph == txn_lib.WAVE_FREE).all())
 
     @staticmethod
     def locks_drained(state, chain_idx: Optional[int] = None) -> bool:

@@ -113,6 +113,12 @@ class ReplyLog(NamedTuple):
             cursor=np.int32(cur.sum()),
         )
 
+    def total_landed(self) -> int:
+        """Host-side count of the replies logged so far: transfers only
+        the ``[C]`` cursor leaf, never the log body (the transaction
+        driver polls it every tick)."""
+        return sum(self.cursor.tolist())
+
     def append(self, exits, t_done, dense: bool = False) -> "ReplyLog":
         """Record exiting replies (a masked ``[C, M]`` Msg) into the log.
 

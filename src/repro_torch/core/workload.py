@@ -3,7 +3,10 @@
 ``make_schedule`` builds ``[T, C, n, q]`` injection lanes of client
 queries for keys owned by each lane's chain (writes at the head, reads
 spread over the nodes); ``route_stream`` packs a flat global-key stream
-into the same lanes through the partition map.
+into the same lanes through the partition map; ``make_txn_workload``
+draws multi-key transactions with numpy's ``default_rng``, as the
+reference does, so one configuration gives the reference's transactions
+exactly.
 
 Randomness comes from a ``torch.Generator`` seeded with
 ``WorkloadConfig.seed``, drawn on the CPU and then moved to the target
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import (
@@ -234,3 +238,80 @@ def route_stream(cluster: ClusterConfig, stream: Msg, queries_per_node: int,
         out_of_range=out_of_range.sum().to(I32),
         stale=n_stale.to(I32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Multi-key transactional workload (core/txn.py)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TxnWorkloadConfig:
+    """Knobs of the multi-key transaction generator: the share of
+    transactions whose keys span chains (the 2PC path; the rest keep
+    every key on one chain), the share of each transaction's keys it
+    writes (the rest are snapshot reads), and uniform or Zipf(``zipf_a``)
+    local keys."""
+
+    n_txns: int = 32
+    keys_per_txn: int = 2
+    cross_chain_fraction: float = 1.0
+    write_fraction: float = 1.0
+    key_skew: str = "uniform"
+    zipf_a: float = 1.2
+    seed: int = 0
+    txn_id_base: int = 1
+    client_base: int = 0
+
+
+def make_txn_workload(cfg: ChainConfig | ClusterConfig,
+                      twl: TxnWorkloadConfig) -> list:
+    """Transactions over the cluster's global key space, drawn exactly as
+    the reference draws them.  Cross-chain transactions take their keys
+    from distinct chains round-robin; single-chain ones pin every key to
+    one chain, rotating the chain per transaction.  Keys are distinct
+    within a transaction and values unique across the workload, so a
+    partly applied transaction shows."""
+    from repro_torch.core.txn import Txn
+
+    cluster = as_cluster(cfg)
+    # keys come from the in-use key space (spare regions carry none)
+    C, K = cluster.n_chains, cluster.keys_in_use
+    kpt = min(twl.keys_per_txn, cluster.num_global_keys)
+    rng = np.random.default_rng(twl.seed)
+    if twl.key_skew == "zipf":
+        w = np.arange(1, K + 1, dtype=np.float64) ** (-twl.zipf_a)
+        key_probs = w / w.sum()
+    elif twl.key_skew == "uniform":
+        key_probs = None
+    else:
+        raise AssertionError(twl.key_skew)
+    draw1 = lambda: int(rng.choice(K, p=key_probs))
+    draw_distinct = lambda m: rng.choice(K, size=m, replace=False,
+                                         p=key_probs)
+    txns = []
+    for i in range(twl.n_txns):
+        cross = (C > 1 and kpt > 1
+                 and rng.random() < twl.cross_chain_fraction)
+        if cross:
+            off = int(rng.integers(0, C))
+            chains = [(off + j) % C for j in range(kpt)]
+            rng.shuffle(chains)
+            gkeys, used = [], set()
+            for c in chains:
+                lk = draw1()
+                while (c, lk) in used:
+                    lk = (lk + 1) % K
+                used.add((c, lk))
+                gkeys.append(int(cluster.global_key(lk, c)))
+        else:
+            c = (twl.seed + i) % C
+            gkeys = [int(cluster.global_key(int(lk), c))
+                     for lk in draw_distinct(kpt)]
+        n_writes = (max(1, round(kpt * twl.write_fraction))
+                    if twl.write_fraction > 0 else 0)
+        tid = twl.txn_id_base + i
+        writes = tuple((gk, (tid << 8) | (j + 1))
+                       for j, gk in enumerate(gkeys[:n_writes]))
+        txns.append(Txn(txn_id=tid, writes=writes,
+                        reads=tuple(gkeys[n_writes:]),
+                        client=twl.client_base + i))
+    return txns

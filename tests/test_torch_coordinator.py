@@ -654,10 +654,14 @@ def test_host_put_get_and_lock_probes_match_reference():
 
 def test_wave_entry_points_and_device_default():
     co = Coordinator(_cluster(), device=CPU)
-    with pytest.raises(NotImplementedError, match="wave"):
-        co.txn_planner
-    with pytest.raises(NotImplementedError, match="wave"):
-        Coordinator.waves_drained(None)
+    planner = co.txn_planner
+    assert planner is co.txn_planner and planner.device.type == "cpu"
+    state = ChainSim(_cluster(), wave_depth=2, device=CPU).init_state()
+    assert Coordinator.waves_drained(state)
+    state.wave.phase[1, 0] = t_txn.WAVE_PREP
+    assert not Coordinator.waves_drained(state)
+    assert Coordinator.waves_drained(state, chain_idx=0)
+    assert Coordinator.waves_drained(_sim(_cluster()).init_state())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Coordinator(_cluster())

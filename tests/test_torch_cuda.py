@@ -265,6 +265,87 @@ def test_cuda_cluster_run_matches_cpu_run(card, protocol):
             assert torch.equal(a, b.cpu()), name
 
 
+def _assert_same(cpu, gpu, path):
+    """Exact equality of two same-structured NamedTuples of tensors."""
+    if hasattr(cpu, "_fields"):
+        for f in cpu._fields:
+            _assert_same(getattr(cpu, f), getattr(gpu, f), f"{path}.{f}")
+        return
+    assert torch.equal(cpu, gpu.cpu()), path
+
+
+def _txn_cluster():
+    return t_types.ClusterConfig(
+        chain=t_types.ChainConfig(n_nodes=4, num_keys=64, num_versions=8),
+        n_chains=2)
+
+
+def test_cuda_wave_run_matches_cpu_run(card):
+    """A small wave-table run on CUDA equals the same run on the CPU
+    (results, rounds, every state leaf, the wave table included), with
+    one kv_read and one kv_write launch per tick."""
+    from repro_torch.core.txn import TxnPlanner, TxnWaveDriver
+
+    cl = _txn_cluster()
+    txns = t_workload.make_txn_workload(cl, t_workload.TxnWorkloadConfig(
+        n_txns=24, keys_per_txn=3, write_fraction=0.7, key_skew="zipf",
+        seed=3))
+    out = {}
+    for d in ("cpu", card):
+        sim = ChainSim(cl, inject_capacity=16, route_capacity=96,
+                       wave_depth=4, wave_keys=3, wave_log_capacity=32,
+                       device=d)
+        drv = TxnWaveDriver(sim, TxnPlanner(cl, device=d))
+        t_kernel.reset_launches()
+        state, res = drv.run(sim.init_state(), txns)
+        out[str(d)] = (state, res, drv.last_ticks, dict(t_kernel.LAUNCHES))
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[1] == gpu[1] and cpu[2] == gpu[2]
+    assert any(r.committed for r in gpu[1])
+    _assert_same(cpu[0], gpu[0], "state")
+    assert gpu[3]["kv_read"] == gpu[3]["kv_write"] == gpu[2] > 0
+
+
+def test_cuda_txn_driver_matches_cpu(card):
+    """The host-driven 2PC on CUDA equals the CPU's, one kv launch of
+    each kind per tick."""
+    from repro_torch.core.txn import TxnDriver, TxnPlanner
+
+    cl = _txn_cluster()
+    txns = t_workload.make_txn_workload(cl, t_workload.TxnWorkloadConfig(
+        n_txns=12, keys_per_txn=2, cross_chain_fraction=0.7, seed=8))
+    out = {}
+    for d in ("cpu", card):
+        sim = ChainSim(cl, inject_capacity=16, route_capacity=96, device=d)
+        drv = TxnDriver(sim, TxnPlanner(cl, device=d))
+        state, results = sim.init_state(), []
+        t_kernel.reset_launches()
+        for i in range(0, len(txns), 4):
+            state, res = drv.run(state, txns[i:i + 4])
+            results += res
+        out[str(d)] = (state, results, dict(t_kernel.LAUNCHES))
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[1] == gpu[1]
+    assert {r.mode for r in gpu[1]} == {"2pc", "direct"}
+    _assert_same(cpu[0], gpu[0], "state")
+    ticks = int(gpu[0].t)
+    assert gpu[2]["kv_read"] == gpu[2]["kv_write"] == ticks > 0
+
+
+def test_cuda_total_landed_reads_only_the_cursor(card):
+    """The driver's per-tick poll touches the [C] cursor leaf and no
+    other: every other leaf of this log refuses any use."""
+    class Untouchable:
+        def __getattr__(self, name):
+            raise AssertionError(f"total_landed touched the log body ({name})")
+
+    from repro_torch.core.metrics import ReplyLog
+
+    cursor = torch.tensor([3, 4], dtype=torch.int32, device=card)
+    body = [Untouchable() for _ in ReplyLog._fields[:-1]]
+    assert ReplyLog(*body, cursor=cursor).total_landed() == 7
+
+
 def _flat(rng, C, K, B):
     """(slots, chains) with duplicates, parked chain -1 and slots outside
     [0, K)."""

@@ -1,7 +1,8 @@
 """Shared harness of the port's tick-parity tests: build the reference
 ``ChainSim(telemetry=False)`` and the port's ``ChainSim`` on the same
 configuration, feed both the same (JAX-built) injections tick by tick,
-and compare their states exactly."""
+and compare their states exactly (the wave table too, where the
+engines have one)."""
 import jax
 import numpy as np
 
@@ -49,7 +50,8 @@ def assert_tree_equal(exp, got, path: str) -> None:
 
 
 def assert_states_equal(jstate, tstate, where: str) -> None:
-    for f in COMPARED:
+    wave = ("wave",) if tstate.wave.phase.shape[1] > 0 else ()
+    for f in COMPARED + wave:
         assert_tree_equal(getattr(jstate, f), getattr(tstate, f),
                           f"{where}.{f}")
 
@@ -67,6 +69,32 @@ def run_pair(jsim, tsim, jstate, tstate, injections, drain_ticks: int,
         tstate = tsim.tick(tstate, tinj)
         assert_states_equal(jstate, tstate, f"{label}[tick {i}]")
     return jstate, tstate
+
+
+def check_serializable(cluster, state, txns, results) -> None:
+    """The serializability oracle of ``tests/helpers.py`` on a port
+    state after a drain: committed transactions applied whole, an acyclic
+    observed write order, its serial replay equal to every global key,
+    and the replicas converged.  ``txns`` and ``results`` are the port's.
+    """
+    import torch
+
+    from repro_torch.core.txn import (committed_view, reference_execute,
+                                      serial_order)
+
+    by_id = {t.txn_id: t for t in txns}
+    committed = {r.txn_id for r in results if r.committed}
+    for r in results:
+        if r.committed:
+            assert set(r.write_seqs) == {k for k, _ in by_id[r.txn_id].writes}
+    order = serial_order(results)
+    tail = [t for t in sorted(committed) if t not in set(order)]
+    expected = reference_execute([by_id[t] for t in order + tail])
+    view = committed_view(cluster, state)
+    for gk in range(cluster.num_global_keys):
+        assert view[gk] == expected.get(gk, 0), (gk, view[gk])
+    vals = state.stores.values[..., 0, 0]
+    assert torch.equal(vals, vals[:, -1:].expand_as(vals))
 
 
 def schedule_ticks(schedule):
