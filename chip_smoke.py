@@ -115,10 +115,32 @@ source, all three at once), then:
    identical results and state; prints commits, aborts, ticks, commits
    per tick, admission rounds per commit, wall µs per wave tick, and the
    device activities of a wave tick, of the wave-less tick and of the
-   coordinator stage.
+   coordinator stage;
+15. open-loop load (``benchmarks/fig_hockey.py``'s sweep at phase 7's
+   cluster with the default telemetry plane): ``ChainSim.run_openloop``
+   draws each tick's arrivals on the card (threefry, 4,096 candidate
+   lanes, twice the 2,048-op lane capacity; a backlog of 8,192) for
+   ``uniform_write`` and ``zipf_txn`` at 1/8 to 3/2 of capacity, 64
+   ticks and a 32-tick drain a point, each held to exact conservation
+   (offered = replies + shed + deferred + writes the version window
+   refused), no drop, an empty fabric, free locks (a 16-tick lease) and
+   the histogram's percentile buckets equal to the reply log's while the
+   log holds every reply; the write class's p50 rises up to the knee and
+   some point sheds; one kv_read and one kv_write launch per tick and no
+   plain call; then a headline run of >= 1,000,000 client ops whose log
+   overflows (percentiles from the histogram alone) and a one-launch
+   read-back of every global key; 8 ticks of ``zipf_txn`` at 3/2 of
+   capacity on CUDA and on the CPU with identical state, telemetry and
+   backlog; prints offered, delivered and shed per tick and p50/p99/p999
+   per class at every point, wall µs per tick, an open-loop tick's device
+   activities and busy share, phase 5's tick with the telemetry plane on
+   beside off, the host syncs of an open-loop window (none in
+   ``gen_tick``), and how many of 4 calls' records a short profiler
+   window keeps at the end of the run.
 
 ``--phases 12,13`` runs the build of the kernels those phases use,
-phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7);
+phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7;
+15 stands alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
 it placed in another checkout (a parent commit's, unpacked with ``git
@@ -139,6 +161,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -157,6 +180,7 @@ try:
         TxnDriver, TxnWaveDriver, reference_execute, serial_order)
     from repro_torch.core.chain import ChainSim  # noqa: E402
     from repro_torch.core.coordinator import Coordinator  # noqa: E402
+    from repro_torch.core import loadgen as loadgen_lib  # noqa: E402
     from repro_torch.core.failure import (  # noqa: E402
         FailureDetector, HedgedReadPolicy)
     from repro_torch.core.metrics import ReplyLog  # noqa: E402
@@ -177,6 +201,7 @@ try:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
     from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
     from repro_torch.models import api  # noqa: E402
+    from repro_torch.obs import tail_percentiles  # noqa: E402
     from repro_torch.models import transformer as TF  # noqa: E402
     from repro_torch.models.transformer import OptFlags  # noqa: E402
     from repro_torch.serve.engine import (  # noqa: E402
@@ -997,7 +1022,7 @@ def check_readback(state, protocol: str) -> int:
 def main_path(protocol: str, device="cuda") -> dict:
     cl = cluster(protocol)
     sim = ChainSim(cl, inject_capacity=INJECT, route_capacity=ROUTE,
-                   device=device)
+                   telemetry=False, device=device)
     sched = schedule(cl, WORKLOAD["ticks"], device)
     state = sim.init_state()
     offered = int((sched.op != OP_NOP).sum())
@@ -1038,7 +1063,7 @@ def cpu_equality(protocol: str) -> None:
     out = {}
     for dev in ("cuda", "cpu"):
         sim = ChainSim(cl, inject_capacity=INJECT, route_capacity=ROUTE,
-                       device=dev)
+                       telemetry=False, device=dev)
         sched = schedule(cl, REDUCED_TICKS, dev)
         t0 = time.perf_counter()
         out[dev] = sim.run(sim.init_state(), sched, extra_ticks=REDUCED_EXTRA)
@@ -2759,6 +2784,340 @@ def txn_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: open-loop load on phase 7's cluster (benchmarks/fig_hockey.py's
+# sweep, its lane, backlog and load ratios at full width)
+# ---------------------------------------------------------------------------
+# lane capacity C * n * c_in = 2,048 ops a tick; fig_hockey draws twice
+# that many candidate lanes and backlogs four times that many arrivals
+OL_CAPACITY = N_CHAINS * N_NODES * INJECT
+OL_WIDTH, OL_BACKLOG, OL_REPLY = 2 * OL_CAPACITY, 4 * OL_CAPACITY, 16384
+OL_SHARES = (0.125, 0.25, 0.5, 0.75, 1.0, 1.5)
+# two of fig_hockey's six scenarios; both gate on the write class, whose
+# lanes (the chain head's) saturate first
+OL_SCENARIOS = {
+    "uniform_write": dict(write_fraction=0.5),
+    "zipf_txn": dict(write_fraction=0.25, txn_fraction=0.25,
+                     key_skew="zipf", zipf_a=1.2),
+}
+OL_GATE = "write"
+OL_TICKS, OL_DRAIN = 64, 32
+# the two-shot client leaves the PREPAREs of the last generated tick (and,
+# under overload, PREPAREs admitted behind their own COMMIT) holding
+# locks; a lease shorter than the drain reclaims them
+OL_LEASE = 16
+# one run of >= 1,000,000 client ops; 8 x 16,384 reply-log rows overflow
+HEADLINE = dict(qps=float(OL_CAPACITY), write_fraction=0.1, ticks=512)
+HEADLINE_OPS = 1_000_000
+OL_CPU_TICKS, OL_PROFILED, OL_SYNC_TICKS = 8, 4, 4
+QS = (50.0, 99.0, 99.9)
+
+
+def ol_sim(device) -> ChainSim:
+    """Phase 7's cluster with the default telemetry plane."""
+    return ChainSim(cluster("netcraq", partitioned=True),
+                    inject_capacity=INJECT, route_capacity=ROUTE,
+                    reply_capacity=OL_REPLY, device=device)
+
+
+def ol_state(sim: ChainSim):
+    state = sim.init_state()
+    return state._replace(locks=txn_lib.set_lease(state.locks, OL_LEASE))
+
+
+def ol_gen(sim: ChainSim, qps: float, mix: dict, device):
+    return loadgen_lib.make_loadgen(sim.cluster, qps=qps,
+                                    backlog_capacity=OL_BACKLOG,
+                                    device=device, **mix)
+
+
+class Refusals:
+    """Counts, on the device, the writes a node's version window refused
+    (``cluster_write_batch``'s active lanes it did not accept): NetCRAQ
+    drops such a write without a reply, so it closes the conservation
+    identity offered = replies + shed + deferred + refused."""
+
+    def __init__(self, device):
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+
+    def __enter__(self):
+        self._orig = fn = kv_ops.cluster_write_batch
+
+        def counted(store, keys, wvals, wseqs, active, **kw):
+            store, accepted = fn(store, keys, wvals, wseqs, active, **kw)
+            self.count += (active.to(torch.bool) & ~accepted).sum()
+            return store, accepted
+        kv_ops.cluster_write_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        kv_ops.cluster_write_batch = self._orig
+
+
+def ol_run(sim: ChainSim, gen, ticks: int, device, what: str):
+    """One open-loop run from a fresh state and an empty backlog: the
+    launch counters zeroed just before and read just after; then exact
+    conservation, the drain, free locks and histogram/reply-log bucket
+    parity (while the log did not overflow).  Returns (state, gen,
+    record)."""
+    state, gen = ol_state(sim), loadgen_lib.reset(gen)
+    sync(device)
+    kv_kernel.reset_launches()
+    with PlainCalls(kv_ref, KV_PLAIN) as plain, Refusals(device) as ref:
+        t0 = time.perf_counter()
+        state, gen = sim.run_openloop(state, gen, ticks,
+                                      arrival_width=OL_WIDTH,
+                                      extra_ticks=OL_DRAIN)
+        sync(device)
+        wall = time.perf_counter() - t0
+    launches = dict(kv_kernel.LAUNCHES)
+    if torch.device(device).type == "cuda":
+        launch_check(launches, ticks + OL_DRAIN, plain.calls, what)
+    m = state.metrics.asdict()
+    deferred = int((gen.backlog.op != OP_NOP).sum())
+    delivered = int(state.replies.cursor.sum() + state.replies.lost.sum())
+    refused = int(ref.count)
+    require(m["offered"] == delivered + m["admission_drops"] + deferred
+            + refused,
+            f"{what}: offered {m['offered']} != replies {delivered} + shed "
+            f"{m['admission_drops']} + deferred {deferred} + refused "
+            f"{refused}")
+    require(m["drops"] == 0, f"{what}: {m['drops']} fabric drops")
+    require(sim.inflight(state) == 0, f"{what}: ops left in flight")
+    require(txn_lib.locks_all_free(state.locks),
+            f"{what}: a lock is held after the drain")
+    # raises where the histogram and an unbroken reply log disagree
+    pct, _, overflowed = tail_percentiles(state, None, qs=QS)
+    pct = {c: None if e is None else {q: r["ticks"] for q, r in e.items()}
+           for c, e in pct.items()}
+    rec = {"offered": m["offered"], "delivered": delivered,
+           "shed": m["admission_drops"], "deferred": deferred,
+           "refused": refused, "lease_expiries": m["lease_expiries"],
+           "log_overflowed": overflowed, "pct_ticks": pct,
+           "wall_us_per_tick": wall / (ticks + OL_DRAIN) * 1e6,
+           "launches": launches}
+    per = lambda k: rec[k] / ticks
+    tails = "; ".join(
+        f"{c} " + ("-" if e is None else "/".join(map(str, e.values())))
+        for c, e in pct.items())
+    source = ("histogram only (log overflowed)" if overflowed
+              else "histogram == reply log buckets")
+    log(f"open loop {what} ({on_card(device)}): per tick offered "
+        f"{per('offered'):.2f}, delivered {per('delivered'):.2f}, shed "
+        f"{per('shed'):.2f} ({deferred} deferred, {refused} refused by "
+        f"the version window, {m['lease_expiries']} lease expiries); "
+        f"ticks p50/p99/p999 {tails}; {source}; "
+        f"{rec['wall_us_per_tick']:.1f} us/tick wall over {ticks} + "
+        f"{OL_DRAIN} ticks; launches {launches}")
+    return state, gen, rec
+
+
+def ol_sweep(device="cuda") -> dict:
+    """fig_hockey's sweep: every scenario at every load share, each point
+    from a fresh state; the gate class's p50 rises monotonically up to
+    the knee (the first point that sheds), and some point sheds."""
+    sim = ol_sim(device)
+    out = {}
+    for name, mix in OL_SCENARIOS.items():
+        gen = ol_gen(sim, 1.0, mix, device)
+        curve = []
+        for share in OL_SHARES:
+            qps = share * OL_CAPACITY
+            gen = gen._replace(qps=torch.full((), qps, dtype=torch.float32,
+                                              device=device))
+            _, gen, rec = ol_run(sim, gen, OL_TICKS, device,
+                                 f"{name} at {share:g} of capacity")
+            curve.append({"qps": qps, "share": share, **rec})
+        knee = next((i for i, r in enumerate(curve) if r["shed"] > 0), None)
+        require(knee is not None, f"{name}: no point sheds")
+        p50 = [r["pct_ticks"][OL_GATE]["p50"] for r in curve[:knee + 1]]
+        require(all(a <= b for a, b in zip(p50, p50[1:])),
+                f"{name}: {OL_GATE} p50 not monotone up to the knee: {p50}")
+        out[name] = {"points": curve, "knee_qps": curve[knee]["qps"]}
+        log(f"open loop {name}: knee (first shed) at qps "
+            f"{curve[knee]['qps']:g} of capacity {OL_CAPACITY}; {OL_GATE} "
+            f"p50 up to it {p50}")
+    return out
+
+
+def ol_headline(device="cuda") -> dict:
+    """One run of >= 1,000,000 client ops whose reply log overflows, so
+    its percentiles come from the histogram alone; then every global
+    key read back through ``partitioned_read_batch`` in one launch."""
+    sim = ol_sim(device)
+    gen = ol_gen(sim, HEADLINE["qps"],
+                 dict(write_fraction=HEADLINE["write_fraction"]), device)
+    state, gen, rec = ol_run(sim, gen, HEADLINE["ticks"], device,
+                             "headline")
+    require(rec["offered"] >= HEADLINE_OPS,
+            f"headline offered only {rec['offered']} ops")
+    require(rec["log_overflowed"], "headline: the reply log did not overflow")
+    cl = sim.cluster
+    before = kv_kernel.LAUNCHES["kv_bucketed_read"]
+    rv, dec = read_back(cl, state, state.pmap)
+    require(kv_kernel.LAUNCHES["kv_bucketed_read"] - before ==
+            (1 if torch.device(device).type == "cuda" else 0),
+            "headline: the read-back was not one launch")
+    require(bool((dec == 0).all()), "headline: a read-back was not clean")
+    view = txn_lib.committed_view(cl, state)
+    view_t = torch.tensor([view[g] for g in range(cl.num_global_keys)],
+                          dtype=torch.int32, device=rv.device)
+    require(torch.equal(rv[:, 0], view_t),
+            "headline: read-back differs from committed_view")
+    wall_s = rec["wall_us_per_tick"] * (HEADLINE["ticks"] + OL_DRAIN) / 1e6
+    log(f"open loop headline ({smi()}): {rec['offered']:,} client ops in "
+        f"{wall_s:.2f} s ({rec['offered'] / wall_s:,.0f} offered ops/s "
+        f"wall), all {cl.num_global_keys} global keys read back in one "
+        "launch == committed_view")
+    return {**rec, "wall_s": wall_s}
+
+
+def ol_cpu_equality(device="cuda") -> None:
+    """``zipf_txn`` at 3/2 of capacity for a few ticks on CUDA and on the
+    CPU: identical stores, metrics, reply logs, telemetry leaves, locks,
+    inboxes and generator backlogs."""
+    out = {}
+    for dev in (device, "cpu"):
+        sim = ol_sim(dev)
+        gen = ol_gen(sim, 1.5 * OL_CAPACITY, OL_SCENARIOS["zipf_txn"], dev)
+        t0 = time.perf_counter()
+        out[dev] = sim.run_openloop(ol_state(sim), gen, OL_CPU_TICKS,
+                                    arrival_width=OL_WIDTH, extra_ticks=0)
+        sync(dev)
+        log(f"open loop ({on_card(dev)}): {OL_CPU_TICKS} ticks of zipf_txn "
+            f"at 1.5x capacity on {dev} in {time.perf_counter() - t0:.3f} s")
+    (cpu, cpu_gen), (gpu, gpu_gen) = out["cpu"], out[device]
+    for name in ("stores", "metrics", "replies", "telemetry", "locks",
+                 "inbox", "t"):
+        same_tree(getattr(cpu, name), getattr(gpu, name),
+                  f"open loop: CUDA vs CPU {name}")
+    same_tree(cpu_gen.backlog, gpu_gen.backlog, "open loop: CUDA vs CPU "
+              "backlog")
+    log(f"open loop: CUDA run == CPU plain run over {OL_CPU_TICKS} ticks "
+        f"(stores, metrics, reply logs, telemetry, locks, inboxes, "
+        f"backlog of {int((cpu_gen.backlog.op != OP_NOP).sum())})")
+
+
+def tick_cost(step, n: int) -> dict:
+    """Wall µs a step over ``n`` steps after one warm-up, then device
+    activities and busy µs a step over ``OL_PROFILED`` profiled steps,
+    and the device's idle share of the unprofiled step."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / n * 1e6
+    dev_ms, _, n_act = device_time([step] * OL_PROFILED)
+    busy = None if dev_ms is None else dev_ms * 1e3
+    # against the unprofiled wall time: the profiler slows the host
+    return {"us_per_tick": us,
+            "activities_per_tick": n_act / OL_PROFILED if n_act else None,
+            "device_busy_us_per_tick": busy,
+            "idle_share": None if busy is None else 1 - busy / us}
+
+
+def count_syncs(fn) -> int:
+    """Host syncs ``fn`` makes on the card, as the sync debug mode flags
+    them (each synchronizing CUDA call warns once)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def ol_costs(device="cuda") -> dict:
+    """An open-loop tick's wall time, device activities and busy share at
+    half of capacity; phase 5's tick with the telemetry plane on beside
+    it off; the host syncs inside an open-loop window and inside
+    ``gen_tick`` alone (which must make none)."""
+    fmt = lambda x, f=".2f": "not measured" if x is None else format(x, f)
+    sim = ol_sim(device)
+    gen = ol_gen(sim, 0.5 * OL_CAPACITY, OL_SCENARIOS["uniform_write"],
+                 device)
+    box = [ol_state(sim), gen]
+
+    def ol_step():
+        box[0], box[1] = sim.run_openloop(box[0], box[1], 1,
+                                          arrival_width=OL_WIDTH,
+                                          extra_ticks=0)
+    out = {"openloop": tick_cost(ol_step, 16)}
+    gen_box = [box[1]]
+
+    def gen_step():
+        _, gen_box[0], _, _ = loadgen_lib.gen_tick(
+            gen_box[0], sim.cluster, OL_WIDTH, INJECT, box[0].t)
+    out["gen_tick"] = tick_cost(gen_step, 16)
+    out["syncs_window"] = count_syncs(
+        lambda: [ol_step() for _ in range(OL_SYNC_TICKS)])
+    out["syncs_gen_tick"] = count_syncs(
+        lambda: [gen_step() for _ in range(OL_SYNC_TICKS)])
+    require(out["syncs_gen_tick"] == 0,
+            f"gen_tick synced the host {out['syncs_gen_tick']} times")
+    cl = cluster("netcraq")
+    sched = schedule(cl, WORKLOAD["ticks"], device)
+    for tel in (False, True):
+        psim = ChainSim(cl, inject_capacity=INJECT, route_capacity=ROUTE,
+                        telemetry=tel, device=device)
+        pbox, i = [psim.init_state()], [0]
+
+        def p5_step():
+            pbox[0] = psim.tick(pbox[0], tree_map(
+                lambda x: x[i[0] % WORKLOAD["ticks"]], sched))
+            i[0] += 1
+        out[f"phase5_telemetry_{tel}"] = tick_cost(p5_step,
+                                                    WORKLOAD["ticks"])
+    o, g = out["openloop"], out["gen_tick"]
+    log(f"open loop ({smi()}): a tick at 0.5 of capacity "
+        f"(uniform_write, generation included) {o['us_per_tick']:.1f} us "
+        f"wall, {fmt(o['activities_per_tick'])} device activities, device "
+        f"busy {fmt(o['device_busy_us_per_tick'], '.1f')} us (idle share "
+        f"{fmt(o['idle_share'], '.4f')}); gen_tick alone "
+        f"{g['us_per_tick']:.1f} us, {fmt(g['activities_per_tick'])} "
+        f"activities, {fmt(g['device_busy_us_per_tick'], '.1f')} us busy; "
+        f"host syncs in {OL_SYNC_TICKS} open-loop ticks "
+        f"{out['syncs_window']}, in {OL_SYNC_TICKS} gen_tick calls "
+        f"{out['syncs_gen_tick']}")
+    off, on = out["phase5_telemetry_False"], out["phase5_telemetry_True"]
+    log(f"phase 5's tick ({smi()}): telemetry=False {off['us_per_tick']:.1f}"
+        f" us wall, {fmt(off['activities_per_tick'])} device activities, "
+        f"{fmt(off['device_busy_us_per_tick'], '.1f')} us busy; "
+        f"telemetry=True {on['us_per_tick']:.1f} us, "
+        f"{fmt(on['activities_per_tick'])} activities, "
+        f"{fmt(on['device_busy_us_per_tick'], '.1f')} us busy")
+    return out
+
+
+def profiler_windows(n: int = 12) -> dict:
+    """How many of 4 one-kernel calls' device records each of ``n``
+    profiler windows keeps at this point of the process (the windows of a
+    few short calls that a long process loses; PERF.md section 7)."""
+    x = torch.zeros(1, device="cuda")
+    kept = [device_time([lambda: x.add_(1)] * 4)[2] for _ in range(n)]
+    out = {"process_s": time.perf_counter() - T_START, "kept_of_4": kept}
+    log(f"profiler windows at {out['process_s']:.0f} s into the process: "
+        f"records kept of 4 per window {kept}")
+    return out
+
+
+def openloop_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {"sweep": ol_sweep(), "headline": ol_headline()}
+    ol_cpu_equality()
+    out["costs"] = ol_costs()
+    out["profiler_windows"] = profiler_windows()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"open loop: phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
 def on_card(device) -> str:
     """What a timing ran on: the card's name and power limit, or the
     host's CPU."""
@@ -2777,7 +3136,7 @@ def build_kernels(phases) -> None:
     (all three for a whole run)."""
     t0 = time.perf_counter()
     kernels = [(src, k) for src, k, uses in (
-        (KV_SRC, kv_kernel, (*range(2, 10), 14)),
+        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15)),
         (FA_SRC, fa_kernel, (10, 11)),
         (SSD_SRC, ssd_kernel, (12, 13))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
@@ -2788,7 +3147,7 @@ def build_kernels(phases) -> None:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 15))
+ALL_PHASES = tuple(range(1, 16))
 
 
 def parse_phases(argv) -> set:
@@ -2814,12 +3173,15 @@ def parse_phases(argv) -> set:
     return phases
 
 
+T_START = time.perf_counter()
+
+
 def main(argv=None) -> None:
     phases = parse_phases(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device - this script measures the "
                  "port on a GPU and has no CPU mode")
-    t_start = time.perf_counter()
+    t_start = T_START
     build_kernels(phases)
     log(smi())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2904,6 +3266,8 @@ def main(argv=None) -> None:
             log(f"transactions: device activities per tick, phase 5's "
                 f"wave-less netcraq tick "
                 f"{run['netcraq']['device_activities_per_tick']:.2f}")
+    if 15 in phases:
+        run["openloop"] = openloop_phase()
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

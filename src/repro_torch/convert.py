@@ -1,7 +1,8 @@
 """Carry state and weights between the JAX package and the port.
 
 For the engine, what crosses over is state: a ``SimState`` (its wave
-table included), message schedules, partition maps, role tables, the
+table and telemetry plane included), an open-loop generator
+(``loadgen_from``), message schedules, partition maps, role tables, the
 control plane's host state, and transactions and their results.  For the models it is a parameter tree: ``lm_params_from``
 builds the port's from the reference's ``init_lm`` pytree, and
 ``lm_params_to_numpy`` turns it back.  These functions take any NamedTuple-like object whose fields
@@ -23,8 +24,10 @@ from torch import nn
 
 from repro_torch.core.chain import SimState
 from repro_torch.core.coordinator import ChainMembership, Coordinator
+from repro_torch.core.loadgen import LoadGenState
 from repro_torch.core.metrics import Metrics, ReplyLog
 from repro_torch.core.store import Store
+from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.txn import LockTable, Txn, TxnResult, WaveState
 from repro_torch.core.types import (
     ChainConfig,
@@ -45,9 +48,10 @@ _NESTED = {
     "roles": Roles,
     "pmap": PartitionMap,
     "wave": WaveState,
+    "telemetry": Telemetry,
 }
 # NamedTuple fields that hold a NamedTuple of their own
-_INNER = {WaveState: {"coord_in": Msg}}
+_INNER = {WaveState: {"coord_in": Msg}, LoadGenState: {"backlog": Msg}}
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -66,14 +70,25 @@ def from_arrays(cls, obj, device="cuda"):
 
 
 def state_from_arrays(state, device="cuda") -> SimState:
-    """A port ``SimState`` from the reference's ``SimState``, its wave
-    table with the nested ``coord_in`` Msg included (its ``telemetry``
-    leaves, zero-size in the supported setting, have no counterpart and
-    are not read)."""
+    """A port ``SimState`` from the reference's ``SimState``: every
+    leaf, the wave table with its nested ``coord_in`` Msg and the
+    telemetry plane (zero-size leaves when it is off) included."""
     dev = resolve_device(device)
     parts = {f: from_arrays(cls, getattr(state, f), dev)
              for f, cls in _NESTED.items()}
     return SimState(**parts, t=_tensor(state.t, dev))
+
+
+def telemetry_from(tel, device="cuda") -> Telemetry:
+    """The port's ``Telemetry`` from the reference's (``SimState.
+    telemetry``, [C]-leading leaves)."""
+    return from_arrays(Telemetry, tel, device)
+
+
+def loadgen_from(gen, device="cuda") -> LoadGenState:
+    """The port's ``LoadGenState`` from the reference's, its backlog
+    ``Msg`` included."""
+    return from_arrays(LoadGenState, gen, device)
 
 
 def to_numpy(tree):

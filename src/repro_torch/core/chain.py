@@ -19,8 +19,17 @@ through ``cluster_route`` into the wave table.  The role table and the
 partition map are read, never written, by the tick.  With
 ``wave_depth == 0`` the wave leaves pass through the tick untouched.
 
-The telemetry plane is not ported: ``telemetry=False`` only, the setting
-the reference documents as bit-identical on the data path.
+With ``telemetry=True`` (the default, as in the reference) the tick also
+updates ``SimState.telemetry`` (``core/telemetry.py``): the exit-latency
+histogram over the exit batch the reply log appends, the sampled hop
+traces over the arrival batch before admission, and one flight-recorder
+row per chain per tick.  ``telemetry=False`` keeps those leaves zero-size
+and every other leaf bit-identical to the ``True`` run.
+
+``run_openloop`` feeds the tick from the device-side load generator
+(``core/loadgen.py``): each tick's arrivals are drawn on the device,
+admitted against lane capacity with a backlog, and counted in
+``Metrics.offered``/``admission_drops``, with no host sync in the loop.
 
 State is updated in place where the reference donated it: callers follow
 ``state = sim.tick(state, inj)`` and never reuse the state they passed.
@@ -32,10 +41,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import craq, netchain
+from repro_torch.core import loadgen as loadgen_lib
+from repro_torch.core import telemetry as telemetry_lib
 from repro_torch.core import store as store_lib
 from repro_torch.core import txn as txn_lib
 from repro_torch.core.metrics import Metrics, ReplyLog
 from repro_torch.core.store import Store
+from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.txn import LockTable, WaveState
 from repro_torch.core.types import (
     CLIENT_BASE,
@@ -71,8 +83,7 @@ NODE_STEPS: dict[str, Callable] = {
 
 
 class SimState(NamedTuple):
-    """The engine's state; the reference's ``telemetry`` leaves (zero-size
-    in the supported setting) have no counterpart."""
+    """The engine's state, field for field the reference's."""
 
     stores: Store        # [C, n, ...]
     inbox: Msg           # [C, n, c_route]
@@ -82,6 +93,7 @@ class SimState(NamedTuple):
     roles: Roles         # [C, n] (written only by the control plane)
     pmap: PartitionMap   # bucket->chain map (written only by the CP)
     wave: WaveState      # [C, W] 2PC coordinator slots (W == 0: untouched)
+    telemetry: Telemetry  # [C] telemetry plane (zero-size when off)
     t: torch.Tensor      # [] int32 tick counter
 
 
@@ -377,13 +389,14 @@ class ChainSim:
         wave_keys: int = 4,
         wave_log_capacity: int = 256,
         wave_route_capacity: int | None = None,
-        telemetry: bool = False,
+        telemetry: bool = True,
+        hist_buckets: int = telemetry_lib.DEFAULT_HIST_BUCKETS,
+        ring_window: int = 64,
+        trace_slots: int = 16,
+        trace_hops: int = 32,
         device="cuda",
     ):
         assert fabric in ("segmented", "dense"), fabric
-        if telemetry:
-            raise NotImplementedError(
-                "the telemetry plane is not ported yet (telemetry=False)")
         self.cluster = as_cluster(cfg)
         self.cfg = self.cluster.chain
         self.C = self.cluster.n_chains
@@ -401,6 +414,15 @@ class ChainSim:
         self.wave_sub_capacity = (
             wave_route_capacity if wave_route_capacity is not None
             else max(self.C * wave_depth * wave_keys, 1))
+        # the telemetry plane: off, every leaf is zero-size
+        self.telemetry = bool(telemetry)
+        if self.telemetry:
+            assert hist_buckets >= 2 and ring_window >= 1
+            assert trace_slots >= 1 and trace_hops >= 1
+        self.hist_buckets = hist_buckets if self.telemetry else 0
+        self.ring_window = ring_window if self.telemetry else 0
+        self.trace_slots = trace_slots if self.telemetry else 0
+        self.trace_hops = trace_hops if self.telemetry else 0
         self.fabric = fabric
         self.device = resolve_device(device)
         self.node_step = NODE_STEPS[self.cfg.protocol]
@@ -420,6 +442,9 @@ class ChainSim:
             wave=WaveState.empty(
                 self.wave_depth, self.wave_keys, self.wave_log_capacity,
                 self.coord_capacity, self.cfg.value_words, C, device=dev),
+            telemetry=Telemetry.empty(
+                self.hist_buckets, self.ring_window, self.trace_slots,
+                self.trace_hops, C, device=dev),
             t=torch.zeros((), dtype=I32, device=dev),
         )
 
@@ -433,7 +458,8 @@ class ChainSim:
                     metrics: Metrics, replies: ReplyLog, injected: Msg,
                     roles: Roles, pmap: PartitionMap, t: torch.Tensor,
                     sub_in: Msg | None = None,
-                    wave_final: Msg | None = None):
+                    wave_final: Msg | None = None,
+                    tel: Telemetry | None = None):
         """The reference's per-chain tick with the chain axis written
         out: stores [C, n, ...], inbox [C, n, c_route], injected
         [C, n, c_in], roles [C, n].  Returns (stores', inbox', locks',
@@ -445,7 +471,12 @@ class ChainSim:
         traffic), and ``wave_final`` [C, W], each coordinator's final
         client replies (they exit from the head).  The return then grows
         ``ctrl_out`` [C, M]: the exits addressed back at a coordinator
-        (``client >= WAVE_BASE``), diverted from the reply log."""
+        (``client >= WAVE_BASE``), diverted from the reply log.
+
+        With the telemetry plane on, ``tel`` rides the tick and comes
+        back last: the latency histogram takes the exit batch the reply
+        log appends, the traces the arrival batch before admission (the
+        ring row is written in ``tick``)."""
         C, n, cfg = self.C, self.n, self.cfg
         dev = inbox.op.device
         dense = self.fabric == "dense"
@@ -569,6 +600,12 @@ class ChainSim:
         )
         new_replies = replies.append(exits, t + 1, dense=dense)
 
+        if self.telemetry:
+            tel = tel._replace(lat_hist=telemetry_lib.record_latency(
+                tel.lat_hist, exits.op, exits.seq, t + 1 - exits.t_inject))
+            tel = telemetry_lib.record_trace(tel, flat_in.op, flat_in.qid,
+                                             node_of_in, t)
+
         # Per-bucket conflict heat: every PREPARE the lock stage denied,
         # counted on the bucket owning the contended slot (padding column
         # for denied keys on free slots).
@@ -621,7 +658,9 @@ class ChainSim:
             conflict_heat=new_heat,
         )
         out = (new_stores, routed, new_locks, new_metrics, new_replies)
-        return out + (ctrl_out,) if self.wave_depth else out
+        if self.wave_depth:
+            out += (ctrl_out,)
+        return out + (tel,) if self.telemetry else out
 
     def _lift(self, injected: Msg) -> Msg:
         """Accept legacy single-chain [n, q] injections when C == 1."""
@@ -638,8 +677,10 @@ class ChainSim:
         injected = tree_map(lambda x: x.to(self.device), self._lift(injected))
         args = (state.stores, state.inbox, state.locks, state.metrics,
                 state.replies, injected, state.roles, state.pmap, state.t)
+        tel = state.telemetry if self.telemetry else None
         if not self.wave_depth:
-            stores, inbox, locks, metrics, replies = self._chain_tick(*args)
+            outs = self._chain_tick(*args, tel=tel)
+            stores, inbox, locks, metrics, replies = outs[:5]
             wave = state.wave
         else:
             # ---- the in-network coordinator stage, before the chains:
@@ -654,8 +695,8 @@ class ChainSim:
                 lambda x: x.reshape((-1,) + x.shape[2:]), sub_out)
             sub_in, sub_drop = cluster_route(
                 flat_sub, sub_target.reshape(-1), C, self.wave_sub_capacity)
-            stores, inbox, locks, metrics, replies, ctrl_out = \
-                self._chain_tick(*args, sub_in, final_out)
+            outs = self._chain_tick(*args, sub_in, final_out, tel=tel)
+            stores, inbox, locks, metrics, replies, ctrl_out = outs[:6]
             # control replies ride back to their coordinator's chain:
             # client = WAVE_BASE + chain * W + slot
             flat_ctrl = tree_map(
@@ -672,6 +713,20 @@ class ChainSim:
                 wave_commits=metrics.wave_commits + wstats[0],
                 wave_aborts=metrics.wave_aborts + wstats[1],
                 wave_occupancy=metrics.wave_occupancy + wstats[2])
+        tel = state.telemetry
+        if self.telemetry:
+            # one flight-recorder row per chain: this tick's counter deltas
+            # and the end-of-tick gauges of the routed inbox
+            live = (inbox.op != OP_NOP).sum(dim=2)               # [C, n]
+            delta = lambda f: getattr(metrics, f) - getattr(state.metrics, f)
+            occupancy = (wstats[2] if self.wave_depth
+                         else torch.zeros_like(state.metrics.drops))
+            row = torch.stack([_i32(x) for x in (
+                state.t.expand(self.C), live.sum(dim=1),
+                live.amax(dim=1), delta("drops"), delta("lock_conflicts"),
+                occupancy, delta("replies"), delta("stale_routes"),
+            )], dim=1)
+            tel = telemetry_lib.record_ring(outs[-1], row)
         return SimState(
             stores=stores,
             inbox=inbox,
@@ -681,6 +736,7 @@ class ChainSim:
             roles=state.roles,
             pmap=state.pmap,
             wave=wave,
+            telemetry=tel,
             t=state.t + 1,
         )
 
@@ -704,6 +760,12 @@ class ChainSim:
         schedule = tree_map(lambda x: x.to(self.device), schedule)
         for i in range(schedule.op.shape[0]):
             state = self.tick(state, tree_map(lambda x: x[i], schedule))
+        return self._drain_after(state, extra_ticks, assert_drained)
+
+    def _drain_after(self, state: SimState, extra_ticks: int,
+                     assert_drained: bool) -> SimState:
+        """Drain ``extra_ticks``; with ``assert_drained``, raise if any op
+        is still in flight afterwards."""
         if extra_ticks:
             state = self.drain(state, extra_ticks)
         if assert_drained:
@@ -713,6 +775,33 @@ class ChainSim:
                 f"{extra_ticks} drain - size the drain window up or the "
                 "run's throughput/latency accounting is short")
         return state
+
+    def run_openloop(self, state: SimState, gen, ticks: int,
+                     arrival_width: int | None = None,
+                     extra_ticks: int = 16,
+                     assert_drained: bool = False):
+        """Open-loop run: ``ticks`` ticks of device-side arrival
+        generation (``loadgen.gen_tick``) and tick, then an
+        ``extra_ticks`` drain.  Arrivals beyond lane capacity defer into
+        the generator's backlog and are shed, counted in
+        ``Metrics.admission_drops``, only past its capacity.  The loop
+        reads nothing back to the host.
+
+        ``arrival_width`` is the fresh-candidate lane count per tick
+        (default ``C * n * c_in``); the same width again carries the
+        follow-up COMMITs.  Returns ``(state, gen)``: rebind both (the
+        state is updated in place, as ``tick``'s)."""
+        if arrival_width is None:
+            arrival_width = self.C * self.n * self.c_in
+        gen = tree_map(lambda x: x.to(self.device), gen)
+        for _ in range(ticks):
+            inj, gen, offered, shed = loadgen_lib.gen_tick(
+                gen, self.cluster, arrival_width, self.c_in, state.t)
+            state = state._replace(metrics=state.metrics._replace(
+                offered=state.metrics.offered + offered,
+                admission_drops=state.metrics.admission_drops + shed))
+            state = self.tick(state, inj)
+        return self._drain_after(state, extra_ticks, assert_drained), gen
 
     def inflight(self, state: SimState) -> int:
         """Host-side count of ops still inside the engine: live inbox

@@ -72,6 +72,28 @@ class Metrics(NamedTuple):
             out[k] = [int(x) for x in a.tolist()]
         return out
 
+    def heat_per_bucket(self) -> list:
+        """Cluster-wide per-bucket conflict heat (a [G] host list): the
+        [C, G] leaf summed over chains, each chain counting NACKs only on
+        the buckets it owns.  The leaves may be tensors or numpy arrays
+        (``obs.TelemetryHub`` keeps numpy copies)."""
+        heat = self.conflict_heat
+        if isinstance(heat, torch.Tensor):
+            heat = heat.cpu().numpy()
+        return [int(x) for x in np.atleast_2d(heat).sum(axis=0)]
+
+    def heat_ewma(self, prev: "list | None", alpha: float) -> list:
+        """One EWMA step over ``heat_per_bucket()``: ``new[b] = (1 -
+        alpha) * prev[b] + alpha * heat[b]``, from zeros when ``prev`` is
+        None.  Call it on interval metrics (the difference of two
+        snapshots), as ``obs.TelemetryHub`` does; under constant interval
+        heat ``h`` the fixpoint is ``h``."""
+        cur = self.heat_per_bucket()
+        if prev is None:
+            prev = [0.0] * len(cur)
+        assert len(prev) == len(cur), (len(prev), len(cur))
+        return [(1.0 - alpha) * p + alpha * c for p, c in zip(prev, cur)]
+
 
 class ReplyLog(NamedTuple):
     """Fixed-capacity per-chain record of replies that exited to clients."""

@@ -88,6 +88,17 @@ def last_writes(target: torch.Tensor) -> torch.Tensor:
     return last
 
 
+def last_in_table(target: torch.Tensor, size: int) -> torch.Tensor:
+    """``last_writes`` for a flat target whose values lie in ``[0,
+    size)``, with a table of ``size`` positions small enough to fill: one
+    scatter-max of each entry's position, where ``last_writes`` sorts."""
+    pos = torch.arange(target.numel(), device=target.device)
+    latest = torch.full((size,), -1, dtype=torch.int64,
+                        device=target.device)
+    latest.scatter_reduce_(0, target, pos, reduce="amax")
+    return latest[target] == pos
+
+
 def _rows(keys: torch.Tensor) -> torch.Tensor:
     """[N, 1] node index matching a [N, B] key batch."""
     return torch.arange(keys.shape[0], device=keys.device)[:, None]
@@ -240,12 +251,16 @@ def commit(store: Store, keys, values, seqs, active):
     ack_seq = ack_seq[:, :K]
 
     # The entry whose seq equals the per-key max supplies the value;
-    # non-winners go to the padding row and are sliced off.
+    # non-winners go to the padding row and are sliced off.  Two raw keys
+    # of one register (-1 and K - 1) can tie as its winners: the later
+    # stays, as in the reference's serial scatter.
     seq0 = store.seqs[:, :, 0]
     is_winner = (
         active & (seqs == take(ack_seq, keys)) & (seqs > take(seq0, keys))
     )
     safe = torch.where(is_winner & in_range, k_drop, K)
+    last = last_in_table((rows * (K + 1) + safe).reshape(-1), N * (K + 1))
+    safe = torch.where(last.reshape(safe.shape), safe, K)
     new_cell0 = torch.cat(
         [store.values[:, :, 0, :],
          torch.zeros((N, 1, W), dtype=I32, device=dev)], dim=1)
@@ -305,6 +320,8 @@ def overwrite_clean(store: Store, keys, values, seqs, active):
     win = newer & in_range & (seqs == take(best[:, :K], keys))
     n_i = rows.expand_as(keys)[win]
     k_i = dst[win]
-    store.values[n_i, k_i, 0] = values[win].to(I32)
-    store.seqs[n_i, k_i, 0] = seqs[win].to(I32)
+    # tied winners of one register (raw keys -1 and K - 1): the later stays
+    last = last_writes(n_i * K + k_i)
+    store.values[n_i[last], k_i[last], 0] = values[win][last].to(I32)
+    store.seqs[n_i[last], k_i[last], 0] = seqs[win][last].to(I32)
     return store

@@ -147,7 +147,9 @@ def _scatter_drop(buf: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     ``idx`` [C, M] with K as the drop sentinel (a padding column)."""
     C, K = buf.shape
     out = torch.cat([buf, buf.new_zeros((C, 1))], dim=1)
-    val = torch.as_tensor(val, dtype=buf.dtype, device=buf.device)
+    # a Python scalar is filled on the device: copying it in would sync
+    val = (val.to(buf.dtype) if isinstance(val, torch.Tensor)
+           else torch.full((), val, dtype=buf.dtype, device=buf.device))
     out.scatter_(1, idx, torch.broadcast_to(val, idx.shape).contiguous())
     return out[:, :K]
 

@@ -57,6 +57,35 @@ def is_txn_op(op):
     return (op == OP_PREPARE) | (op == OP_COMMIT) | (op == OP_ABORT)
 
 
+# Latency op classes of the telemetry plane (``core/telemetry.py``): each
+# reply that exits to a client lands in one row of the latency histogram.
+# The device (the histogram inside the tick) and the host (``obs.hub``'s
+# exact reply-log cross-check) classify through the same function.
+OPCLASS_READ = 0   # OP_READ_REPLY
+OPCLASS_WRITE = 1  # OP_WRITE_REPLY
+OPCLASS_TXN = 2    # OP_TXN_REPLY with seq >= 0, OP_PREPARE_ACK
+OPCLASS_NACK = 3   # WRITE/STALE/PREPARE NACKs, OP_TXN_REPLY with seq < 0
+N_OPCLASS = 4
+OPCLASS_NAMES = ("read", "write", "txn", "nack")
+
+
+def reply_op_class(op, seq):
+    """Latency class of an exiting reply, -1 for anything else (NOP
+    padding, chain-internal ops).  Takes torch tensors or numpy arrays
+    and returns int32 of the same kind.  ``OP_TXN_REPLY`` splits on its
+    seq: a commit carries the write seq (>= 0), an abort -1."""
+    xp = torch if isinstance(op, torch.Tensor) else np
+    is_txn_reply = op == OP_TXN_REPLY
+    cls = xp.where(op == OP_READ_REPLY, OPCLASS_READ, -1)
+    cls = xp.where(op == OP_WRITE_REPLY, OPCLASS_WRITE, cls)
+    cls = xp.where((is_txn_reply & (seq >= 0)) | (op == OP_PREPARE_ACK),
+                   OPCLASS_TXN, cls)
+    cls = xp.where((op == OP_WRITE_NACK) | (op == OP_STALE_NACK)
+                   | (op == OP_PREPARE_NACK) | (is_txn_reply & (seq < 0)),
+                   OPCLASS_NACK, cls)
+    return cls.to(I32) if xp is torch else np.asarray(cls, np.int32)
+
+
 # Value payload width: 128-bit VALUE field == 4 x 32-bit words.
 VALUE_WORDS = 4
 # src ids >= CLIENT_BASE denote clients; below are chain node positions.

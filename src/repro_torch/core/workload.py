@@ -145,8 +145,11 @@ def localize_stream(cluster: ClusterConfig, stream: Msg, pmap=None):
     owner = torch.where(live, cluster.key_to_chain(gkey, pmap),
                         cluster.n_chains).to(I32)
     local = cluster.key_to_slot(gkey, pmap)
-    epoch = torch.as_tensor(0 if pmap is None else pmap.epoch, dtype=I32,
-                            device=stream.op.device)
+    # made on the device: a host scalar copied in would sync the host
+    # (the open-loop generator calls this every tick)
+    epoch = (torch.zeros((), dtype=I32, device=stream.op.device)
+             if pmap is None else torch.as_tensor(
+                 pmap.epoch, dtype=I32, device=stream.op.device))
     localized = stream._replace(
         key=torch.where(live, local, 0).to(I32),
         ver=torch.where(live, epoch, stream.ver).to(I32),

@@ -264,9 +264,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_unported_settings_raise():
-    """The telemetry plane is not ported yet; the wave table is."""
+    """No setting of the tick is left unported: the telemetry plane is
+    accepted, on by default with the reference's sizes, and so is the
+    wave table."""
+    import inspect
+
+    from repro.core.chain import ChainSim as JSim
+
     cl = t_types.ClusterConfig(chain=t_types.ChainConfig(num_keys=16))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        TSim(cl, telemetry=True, device=CPU)
-    sim = TSim(cl, wave_depth=2, device=CPU)
+    names = ("telemetry", "hist_buckets", "ring_window", "trace_slots",
+             "trace_hops")
+    defaults = lambda cls: {k: v.default for k, v in inspect.signature(
+        cls.__init__).parameters.items() if k in names}
+    assert defaults(TSim) == defaults(JSim) == {
+        "telemetry": True, "hist_buckets": 16, "ring_window": 64,
+        "trace_slots": 16, "trace_hops": 32}
+    tel = TSim(cl, device=CPU).init_state().telemetry
+    assert tel.lat_hist.shape == (1, 4, 16) and tel.ring.shape == (1, 64, 8)
+    assert tel.trace_node.shape == (1, 16, 32)
+    sim = TSim(cl, telemetry=True, wave_depth=2, device=CPU)
     assert sim.init_state().wave.phase.shape == (1, 2)

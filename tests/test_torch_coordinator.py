@@ -55,7 +55,8 @@ from repro_torch.core.workload import route_stream  # noqa: E402
 from torch_parity import assert_tree_equal  # noqa: E402
 
 CPU = "cpu"
-SIM_KW = dict(inject_capacity=4, route_capacity=64, reply_capacity=1024)
+SIM_KW = dict(inject_capacity=4, route_capacity=64, reply_capacity=1024,
+              telemetry=False)
 Q, TICKS = 40, 30
 # the reference router, compiled once for the test's shapes (its eager
 # form dispatches op by op and takes about a second a tick)
@@ -72,7 +73,7 @@ def engines():
     per chain.  (reference cluster, reference sim, port cluster)."""
     jcl = JCluster(chain=JChain(n_nodes=3, num_keys=24, num_versions=6),
                    n_chains=4, buckets_per_chain=4, spare_keys=8)
-    return jcl, JSim(jcl, telemetry=False, **SIM_KW), convert.cluster_from(jcl)
+    return jcl, JSim(jcl, **SIM_KW), convert.cluster_from(jcl)
 
 
 def _stream(jcl, seed):

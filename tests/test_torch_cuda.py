@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, a
-small cluster run, a live rebalance and reduced serving runs (dense and
-SSM) on CUDA against the same runs on the CPU.  Imports no JAX, so it
+small cluster run, a live rebalance, an open-loop run, the threefry
+draws, tied store winners and reduced serving runs (dense and SSM) on
+CUDA against the same runs on the CPU.  Imports no JAX, so it
 runs where only PyTorch is installed; without a card every test skips:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -869,3 +870,82 @@ def test_cuda_ssm_serving_matches_cpu(card):
         exp = got["cpu"]
         assert float((got[str(card)] - exp).abs().max()
                      / exp.abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the open-loop slice: tied store winners, the threefry draws, run_openloop
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("fn_name", ["commit", "overwrite_clean"])
+def test_cuda_tied_store_winners_match_cpu(card, fn_name):
+    """Raw keys -1 and K - 1 tie as one register's winners (equal seqs)
+    thousands of times a row: CUDA keeps the later write, as the CPU's
+    serial scatter and the reference do."""
+    from repro_torch.core import store as t_store
+
+    rng = np.random.default_rng(90)
+    N, K, V, W, B = 32, 4096, 4, 4, 2000
+    seqs0 = np.zeros((N, K, V), np.int32)
+    seqs0[..., 1:] = -1
+    arrays = (rng.integers(0, 1 << 20, (N, K, V, W)).astype(np.int32), seqs0,
+              np.zeros((N, K), np.int32), np.ones((N, K), np.int32))
+    keys = rng.choice(np.array([-1, K - 1, 0, 7], np.int32), (N, B))
+    seqs = rng.integers(1, 4, (N, B)).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, (N, B, W)).astype(np.int32)
+    active = rng.random((N, B)) < 0.9
+    out = {}
+    for d in ("cpu", card):
+        t = lambda a: torch.tensor(a, device=d)
+        store = Store(*map(t, arrays))
+        out[str(d)] = getattr(t_store, fn_name)(
+            store, t(keys), t(vals), t(seqs), t(active))
+    _assert_same(out["cpu"], out[str(card)], fn_name)
+
+
+def test_cuda_threefry_draws_match_cpu(card):
+    """Keys, folds, splits, uniform floats, integers and one tick's
+    generator draws on the card equal the CPU's bit for bit."""
+    from repro_torch.core import loadgen, prng
+
+    out = {}
+    for d in ("cpu", card):
+        key = prng.fold_in(prng.PRNGKey(-7, device=d), 123_456)
+        gen = loadgen.make_loadgen(_txn_cluster(), qps=300.0,
+                                   write_fraction=0.3, txn_fraction=0.2,
+                                   key_skew="zipf", device=d)
+        t = torch.tensor(5, dtype=torch.int32, device=d)
+        out[str(d)] = (prng.split(key, 5), prng.uniform(key, (4096,)),
+                       prng.randint(key, (4096,), 1, 1 << 20),
+                       loadgen.draw_tick(gen, 512, 4, t),
+                       loadgen.followup_commits(gen, 512, 4, t))
+    for i, (a, b) in enumerate(zip(out["cpu"], out[str(card)])):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b.cpu()), i
+        else:
+            _assert_same(a, b, f"draw {i}")
+    assert int((out["cpu"][3].op != 0).sum()) > 0
+
+
+def test_cuda_openloop_run_matches_cpu(card):
+    """An overloaded open-loop run (zipf with transactions) on CUDA
+    equals the CPU's: every state leaf, the telemetry plane included, and
+    the backlog; one kv_read and one kv_write launch a tick."""
+    from repro_torch.core import loadgen
+
+    cl = _txn_cluster()
+    out = {}
+    for d in ("cpu", card):
+        sim = ChainSim(cl, inject_capacity=4, route_capacity=96,
+                       reply_capacity=2048, device=d)
+        gen = loadgen.make_loadgen(cl, qps=48.0, write_fraction=0.25,
+                                   txn_fraction=0.25, key_skew="zipf",
+                                   backlog_capacity=64, device=d)
+        t_kernel.reset_launches()
+        state, gen = sim.run_openloop(sim.init_state(), gen, 24,
+                                      arrival_width=64, extra_ticks=8)
+        out[str(d)] = (state, gen, dict(t_kernel.LAUNCHES))
+    cpu, gpu = out["cpu"], out[str(card)]
+    _assert_same(cpu[0], gpu[0], "state")
+    _assert_same(cpu[1], gpu[1], "gen")
+    assert int(gpu[0].metrics.admission_drops.sum()) > 0
+    assert int(gpu[0].telemetry.lat_hist.sum()) > 0
+    assert gpu[2]["kv_read"] == gpu[2]["kv_write"] == 32

@@ -1,6 +1,8 @@
 """Parity of the PyTorch port's types, store and reply log with the JAX
 package, on seeded numpy inputs.  Every leaf is int32 (bool for flags),
 so every comparison is exact equality."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -339,3 +341,71 @@ def test_metrics_total_and_asdict_match_reference():
     z = t_metrics.Metrics.zeros(C, G, device=CPU)
     assert all(int(v.sum()) == 0 for v in z)
     assert z.conflict_heat.shape == (C, G)
+
+
+@contextlib.contextmanager
+def _first_write_wins():
+    """Make ``tensor[i, j, ...] = v`` with repeated index tuples keep the
+    FIRST write, one of the orders a CUDA scatter may pick (the CPU's
+    serial one keeps the last): the port must not lean on either."""
+    orig = torch.Tensor.__setitem__
+
+    def setitem(self, idx, val):
+        if (isinstance(idx, tuple) and isinstance(val, torch.Tensor)
+                and any(isinstance(i, torch.Tensor) for i in idx)
+                and all(isinstance(i, (int, torch.Tensor)) for i in idx)):
+            parts = torch.broadcast_tensors(*[torch.as_tensor(i)
+                                              for i in idx])
+            tail = self.shape[len(idx):]
+            vals = val.expand(parts[0].shape + tail).reshape((-1,) + tail)
+            rev = torch.arange(vals.shape[0] - 1, -1, -1)
+            return orig(self, tuple(p.reshape(-1)[rev] for p in parts),
+                        vals[rev])
+        return orig(self, idx, val)
+
+    torch.Tensor.__setitem__ = setitem
+    try:
+        yield
+    finally:
+        torch.Tensor.__setitem__ = orig
+
+
+_TIED = {}
+
+
+def _tied_reference(fn_name):
+    if fn_name not in _TIED:
+        _TIED[fn_name] = jax.jit(jax.vmap(getattr(j_store, fn_name)))
+    return _TIED[fn_name]
+
+
+@pytest.mark.parametrize("fn_name", ["commit", "overwrite_clean"])
+@pytest.mark.parametrize("order", ["serial", "first_write_wins"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tied_winners_keep_the_later_write(fn_name, order, seed):
+    """Raw keys -1 and K - 1 name one register, so two writes of one batch
+    can tie as its winners (equal seqs): the later stays, as in the
+    reference's serial scatter, whatever order the scatter applies."""
+    rng = np.random.default_rng(40 + seed)
+    N, K, V, W, B = 3, 8, 4, 4, 24
+    arrs = list(_random_store(rng, N, K, V, W, max_pending=0))
+    arrs[1][:, :, 0] = 0                      # every seq below is newer
+    js, ts = _stores(arrs)
+    keys = rng.choice(np.array([-1, K - 1, 0, 2], np.int32), (N, B))
+    keys[:, :2] = [-1, K - 1]                 # at least one tie a row
+    seqs = rng.integers(1, 3, (N, B)).astype(np.int32)
+    seqs[:, :2] = 9
+    vals = rng.integers(0, 1 << 20, (N, B, W)).astype(np.int32)
+    active = rng.random((N, B)) < 0.8
+    active[:, :2] = True
+    jout = _tied_reference(fn_name)(
+        js, jnp.asarray(keys), jnp.asarray(vals), jnp.asarray(seqs),
+        jnp.asarray(active))
+    assert int(jout.values[0, K - 1, 0, 0]) == vals[0, 1, 0]
+    ctx = (_first_write_wins() if order == "first_write_wins"
+           else contextlib.nullcontext())
+    with ctx:
+        tout = getattr(t_store, fn_name)(ts, _t(keys), _t(vals), _t(seqs),
+                                         _t(active))
+    for f in j_store.Store._fields:
+        _eq(getattr(tout, f), getattr(jout, f))

@@ -167,7 +167,8 @@ def test_cluster_route_matches_reference(seed, C, N, cap):
 # ---------------------------------------------------------------------------
 # parity: the host driver against the reference's, wave by wave
 # ---------------------------------------------------------------------------
-SIM_KW = dict(inject_capacity=16, route_capacity=96, reply_capacity=512)
+SIM_KW = dict(inject_capacity=16, route_capacity=96, reply_capacity=512,
+              telemetry=False)
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +184,7 @@ def engines():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_workload, "route_stream", jax.jit(
             j_workload.route_stream, static_argnums=(0, 2)))
-        yield (jcl, JSim(jcl, telemetry=False, **SIM_KW),
+        yield (jcl, JSim(jcl, **SIM_KW),
                convert.cluster_from(jcl))
 
 
@@ -234,7 +235,7 @@ def test_txn_planner_under_a_live_map_matches_reference(engines):
                    n_chains=2, buckets_per_chain=2, spare_keys=4)
     tcl = convert.cluster_from(jcl)
     jco, tco = JCoordinator(jcl), Coordinator(tcl, device=CPU)
-    jsim = JSim(jcl, telemetry=False, **SIM_KW)
+    jsim = JSim(jcl, **SIM_KW)
     tsim = ChainSim(tcl, device=CPU, **SIM_KW)
     # bucket 0 (global keys 0 and 2) moves from chain 0 to chain 1
     jstate = jco.rebalance(jsim.init_state(), 0, 1)

@@ -61,7 +61,8 @@ from torch_parity import (  # noqa: E402
 CPU = "cpu"
 SIM_KW = dict(inject_capacity=16, route_capacity=96, reply_capacity=512,
               wave_depth=PROP_MAX_TXNS_PER_WAVE,
-              wave_keys=PROP_MAX_KEYS_PER_TXN, wave_log_capacity=64)
+              wave_keys=PROP_MAX_KEYS_PER_TXN, wave_log_capacity=64,
+              telemetry=False)
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +72,7 @@ def engines():
     (reference cluster, reference sim, port cluster)."""
     jcl = JCluster(chain=JChain(n_nodes=3, num_keys=4, num_versions=8),
                    n_chains=2)
-    return jcl, JSim(jcl, telemetry=False, **SIM_KW), convert.cluster_from(jcl)
+    return jcl, JSim(jcl, **SIM_KW), convert.cluster_from(jcl)
 
 
 def _tsim(engines, **kw):
@@ -365,7 +366,7 @@ def test_init_state_wave_leaves_match_reference(engines, depth):
     they are)."""
     jcl = engines[0]
     kw = {**SIM_KW, "wave_depth": depth}
-    jstate = JSim(jcl, telemetry=False, **kw).init_state()
+    jstate = JSim(jcl, **kw).init_state()
     tsim = _tsim(engines, wave_depth=depth)
     tstate = tsim.init_state()
     assert_tree_equal(jax.device_get(jstate.wave), tstate.wave, "wave")

@@ -1,10 +1,11 @@
 """Shared harness of the port's tick-parity tests: build the reference
-``ChainSim(telemetry=False)`` and the port's ``ChainSim`` on the same
-configuration, feed both the same (JAX-built) injections tick by tick,
-and compare their states exactly (the wave table too, where the
-engines have one)."""
+``ChainSim`` and the port's on the same configuration (the telemetry
+plane off unless asked for), feed both the same (JAX-built) injections
+tick by tick, and compare their states exactly (the wave table and the
+telemetry leaves too)."""
 import jax
 import numpy as np
+import torch
 
 from repro.core import types as j_types
 from repro.core.chain import ChainSim as JSim
@@ -13,21 +14,31 @@ from repro_torch.core import types as t_types
 from repro_torch.core.chain import ChainSim as TSim
 from repro_torch.core.types import Msg as TMsg
 
+# One intra-op thread: the suite runs several test workers on one host,
+# and the port's many small CPU ops under torch's default OpenMP pool
+# oversubscribe its cores (a port test took 65 s so, 8 s with one thread,
+# beside a running suite).  Every worker imports this module when it
+# collects the port's tests.
+torch.set_num_threads(1)
+
 CPU = "cpu"
-COMPARED = ("stores", "inbox", "locks", "metrics", "replies", "t")
+COMPARED = ("stores", "inbox", "locks", "metrics", "replies", "telemetry",
+            "t")
 
 
 def make_pair(protocol: str, fabric: str, *, C=2, n=4, K=64, V=6, c_in=8,
-              c_route=32, reply_capacity=256):
-    """(reference cluster, reference sim, port sim) on one configuration."""
+              c_route=32, reply_capacity=256, telemetry=False):
+    """(reference cluster, reference sim, port sim) on one configuration,
+    both with ``telemetry`` (off, zero-size leaves, unless asked)."""
     chain = dict(n_nodes=n, num_keys=K, num_versions=V, protocol=protocol)
     jcl = j_types.ClusterConfig(chain=j_types.ChainConfig(**chain),
                                 n_chains=C)
     tcl = t_types.ClusterConfig(chain=t_types.ChainConfig(**chain),
                                 n_chains=C)
     kw = dict(inject_capacity=c_in, route_capacity=c_route,
-              reply_capacity=reply_capacity, fabric=fabric)
-    return jcl, JSim(jcl, telemetry=False, **kw), TSim(tcl, device=CPU, **kw)
+              reply_capacity=reply_capacity, fabric=fabric,
+              telemetry=telemetry)
+    return jcl, JSim(jcl, **kw), TSim(tcl, device=CPU, **kw)
 
 
 def assert_tree_equal(exp, got, path: str) -> None:
