@@ -136,11 +136,29 @@ source, all three at once), then:
    activities and busy share, phase 5's tick with the telemetry plane on
    beside off, the host syncs of an open-loop window (none in
    ``gen_tick``), and how many of 4 calls' records a short profiler
-   window keeps at the end of the run.
+   window keeps at the end of the run;
+16. the declarative chaos suite (``benchmarks/fig_chaos.py``'s
+   proportions at phase 7's cluster): ``run_scenario`` drives open-loop
+   segments of the txn_mix mix under zipf at 3/32 of lane capacity (192
+   ops a tick, 4,096 candidate lanes, a backlog of 8,192, abandonment
+   0.10, a 16-tick lease) through ``none``, a ``failure_storm`` of node 1
+   on all 8 chains, a ``migration_wave`` and ``stale_clients``; each is
+   held to stores == the serial reference, 0 leaked locks, converged
+   live replicas and an empty fabric, and every global key is read back
+   through one ``partitioned_read_batch`` launch and held to the oracle;
+   the moves must meet the stale-route gate; the storm, whose failures
+   strand dirty versions as the reference's do, is held to every check
+   but the drain of those versions and to where they may lie
+   (``stranded_versions``); its delivered rate before, during and after;
+   then the lease arm (LEASE_OFF leaks more at 128 ticks than at 64,
+   none reclaimed; a 16-tick lease drains to 0); one kv_read and one
+   kv_write launch a tick, no plain call, no host sync in a segment; and
+   a four-kind scenario on 2 x 4 x 1,024 registers on CUDA and on the
+   CPU with identical state, report and backlog.
 
 ``--phases 12,13`` runs the build of the kernels those phases use,
 phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7;
-15 stands alone);
+15 and 16 stand alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
 it placed in another checkout (a parent commit's, unpacked with ``git
@@ -174,6 +192,8 @@ import torch.nn.functional as F  # noqa: E402
 try:
     from repro_torch.configs.base import get_config  # noqa: E402
     from repro_torch.core import chain as t_chain  # noqa: E402
+    from repro_torch.core import chaos as chaos_lib  # noqa: E402
+    from repro_torch.core import prng  # noqa: E402
     from repro_torch.core import store as store_lib  # noqa: E402
     from repro_torch.core import txn as txn_lib  # noqa: E402
     from repro_torch.core.txn import (  # noqa: E402
@@ -186,7 +206,8 @@ try:
     from repro_torch.core.metrics import ReplyLog  # noqa: E402
     from repro_torch.core.store import Store, batch_rank, init_store  # noqa: E402
     from repro_torch.core.types import (  # noqa: E402
-        CLIENT_BASE, NOWHERE, OP_NOP, OP_READ, OP_WRITE, OP_WRITE_REPLY,
+        CLIENT_BASE, LEASE_OFF, NOWHERE, OP_NOP, OP_READ, OP_WRITE,
+        OP_WRITE_REPLY,
         ChainConfig, ClusterConfig, Msg, PartitionMap, tree_map,
         value_from_int)
     from repro_torch.core.workload import (  # noqa: E402
@@ -1087,34 +1108,34 @@ def cpu_equality(protocol: str) -> None:
 # ---------------------------------------------------------------------------
 def rebalance_stream(cl: ClusterConfig, ticks: int, per_tick: int,
                      device) -> Msg:
-    """fig_rebalance's [T, Q] global-key client stream, drawn with a
-    seeded torch.Generator: ``hot_fraction`` of the queries hit a zipf
-    tenant whose keys all live on chain 0 (g = rank * C), the rest are
-    uniform; ``write_fraction`` of them are writes."""
+    """fig_rebalance's [T, Q] global-key client stream, drawn as it draws
+    it (threefry, ``split(PRNGKey(seed), 5)`` into hot, rank, background,
+    write and value keys) on ``device``: ``hot_fraction`` of the queries
+    hit a zipf tenant whose keys all live on chain 0 (g = rank * C), the
+    rest are uniform; ``write_fraction`` of them are writes."""
     T, Q, C = ticks, per_tick, cl.n_chains
-    gen = torch.Generator(device="cpu").manual_seed(REBALANCE["seed"])
+    k_hot, k_rank, k_bg, k_w, k_v = prng.split(
+        prng.PRNGKey(REBALANCE["seed"], device), 5)
     wl = WorkloadConfig(key_skew="zipf", zipf_a=REBALANCE["zipf_a"])
-    hot_keys = _sample_keys(gen, (T, Q), cl.keys_in_use, wl) * C
-    bg = torch.randint(0, cl.num_global_keys, (T, Q), generator=gen,
-                       dtype=torch.int32)
-    is_hot = torch.rand((T, Q), generator=gen) < REBALANCE["hot_fraction"]
-    is_write = torch.rand((T, Q), generator=gen) < REBALANCE["write_fraction"]
-    vals = torch.randint(1, 1 << 20, (T, Q), generator=gen,
-                         dtype=torch.int32)
-    qid = torch.arange(T * Q, dtype=torch.int32).reshape(T, Q)
-    base = Msg.empty((T, Q), WORDS, device="cpu")
-    value = torch.zeros((T, Q, WORDS), dtype=torch.int32)
+    hot_keys = _sample_keys(k_rank, (T, Q), cl.keys_in_use, wl) * C
+    bg = prng.randint(k_bg, (T, Q), 0, cl.num_global_keys)
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=device)
+    is_hot = prng.uniform(k_hot, (T, Q)) < f32(REBALANCE["hot_fraction"])
+    is_write = prng.uniform(k_w, (T, Q)) < f32(REBALANCE["write_fraction"])
+    vals = prng.randint(k_v, (T, Q), 1, 1 << 20)
+    qid = torch.arange(T * Q, dtype=torch.int32, device=device).reshape(T, Q)
+    base = Msg.empty((T, Q), WORDS, device=device)
+    value = torch.zeros((T, Q, WORDS), dtype=torch.int32, device=device)
     value[..., 0] = torch.where(is_write, vals, 0)
-    stream = base._replace(
+    return base._replace(
         op=torch.where(is_write, OP_WRITE, OP_READ).to(torch.int32),
         key=torch.where(is_hot, hot_keys, bg).to(torch.int32),
         value=value,
         src=CLIENT_BASE + qid % 512,
         client=CLIENT_BASE + qid % 512,
         qid=qid,
-        t_inject=torch.arange(T, dtype=torch.int32)[:, None].expand(
-            T, Q).contiguous())
-    return tree_map(lambda x: x.to(device), stream)
+        t_inject=torch.arange(T, dtype=torch.int32, device=device)[
+            :, None].expand(T, Q).contiguous())
 
 
 def hottest_buckets(cl: ClusterConfig, stream: Msg, upto: int, k: int = 2):
@@ -3118,6 +3139,322 @@ def openloop_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the declarative chaos suite on phase 7's cluster
+# (benchmarks/fig_chaos.py's proportions at full width)
+# ---------------------------------------------------------------------------
+# fig_chaos offers 6 ops a tick on 64 lanes (2 chains x 4 nodes x 8): 3/32
+# of lane capacity, here 192 of 2,048; its segments, horizon, lease and
+# abandonment; the txn_mix mix under zipf for the disturbances
+CH_SEG, CH_TICKS, CH_LEASE, CH_ABANDON = 8, 96, 16, 0.10
+CH_QPS = 3 / 32 * OL_CAPACITY
+CH_WIDTH, CH_BACKLOG, CH_REPLY, CH_SEED = OL_WIDTH, OL_BACKLOG, 32768, 11
+CH_MIX = dict(write_fraction=0.25, txn_fraction=0.25, key_skew="zipf",
+              zipf_a=1.2, abandon_fraction=CH_ABANDON)
+# fig_chaos's wave (0, 1), (3, 0) moves chain 0's first bucket to chain 1
+# and chain 1's second bucket to chain 0 (2 buckets a chain there); its
+# stale-client move (1, 1) takes chain 0's second bucket to chain 1
+CH_WAVE = [(0, 1), (BUCKETS_PER_CHAIN + 1, 0)]
+CH_STALE = (1, 1)
+# a storm never drains its stranded dirty versions (``stranded_versions``):
+# 8 segments outlive the fabric and the 16-tick lease
+CH_STORM_DRAIN = 8
+# the lease arm: fig_chaos's lease_rows, uniform keys
+CH_HORIZONS, CH_LEASE_MIX = (64, 128), dict(
+    write_fraction=0.25, txn_fraction=0.25, abandon_fraction=0.25)
+# CUDA against the CPU: a reduced cluster and one scenario of all four
+# event kinds
+CH_REDUCED = dict(num_keys=1024, spare_keys=128, n_chains=2, ticks=48)
+
+
+def chaos_sim(cl, device) -> ChainSim:
+    return ChainSim(cl, inject_capacity=INJECT, route_capacity=ROUTE,
+                    reply_capacity=CH_REPLY, device=device)
+
+
+def chaos_gen(cl, device, qps=None, mix=None):
+    return loadgen_lib.make_loadgen(cl, qps=CH_QPS if qps is None else qps,
+                                    seed=CH_SEED,
+                                    backlog_capacity=CH_BACKLOG,
+                                    device=device, **(mix or CH_MIX))
+
+
+def chaos_scenarios(cl) -> list:
+    return [chaos_lib.none_scenario(CH_TICKS, CH_SEG),
+            chaos_lib.failure_storm(cl.n_chains, CH_TICKS, CH_SEG, node=1),
+            chaos_lib.migration_wave(CH_WAVE, CH_TICKS, CH_SEG),
+            chaos_lib.stale_clients(*CH_STALE, CH_TICKS, CH_SEG)]
+
+
+def mixed_scenario(cl, ticks: int):
+    """fail, migrate (chain 1's second bucket onto chain 0, the failed
+    node included), lease and recover, one each."""
+    E = chaos_lib.ChaosEvent
+    return chaos_lib.ChaosScenario("mixed", (
+        E(tick=CH_SEG, kind="fail", chain=0, node=1),
+        E(tick=2 * CH_SEG, kind="migrate", bucket=cl.buckets_per_chain + 1,
+          dst_chain=0),
+        E(tick=3 * CH_SEG, kind="lease", lease_ticks=CH_LEASE - 4),
+        E(tick=4 * CH_SEG, kind="recover", chain=0, node=1, position=1),
+    ), ticks, CH_SEG)
+
+
+def stranded_versions(sim, state, co, what: str) -> dict:
+    """The failure storm against the two drain invariants the reference's
+    failure handling cannot meet under load (ROADMAP section 3; both
+    faults pinned in ``tests/test_torch_chaos.py``): a write or ACK in
+    flight to a node when it fails is dropped, and the recovery copy
+    races ACKs still addressed to the predecessor.  Each leaves a dirty
+    version on the failed node's predecessor or the spliced node, with a
+    stale slot 0 where the ACK was lost.  Requires that these are the
+    only departures: every node past the failed position is clean, and
+    every live replica whose slot 0 differs from the tail's holds a
+    dirty version of that key (CRAQ serves a dirty key from the tail).
+    Returns the counts."""
+    st = state.stores
+    fail_pos = 1
+    require(int(st.pending[:, fail_pos + 1:].abs().sum()) == 0,
+            f"{what}: a dirty version past the failed position")
+    vals = st.values[:, :, :, 0, 0]
+    tails = torch.tensor([m.tail for m in co.chains], device=vals.device)
+    tail_vals = vals[torch.arange(vals.shape[0], device=vals.device), tails]
+    live = torch.zeros(vals.shape[:2], dtype=torch.bool, device=vals.device)
+    for c, m in enumerate(co.chains):
+        live[c, m.node_ids] = True
+    diverged = live[..., None] & (vals != tail_vals[:, None])
+    dirty = st.pending != 0
+    require(not bool((diverged & ~dirty).any()),
+            f"{what}: a clean replica diverged from the tail")
+    out = {"dirty_versions": int(dirty.sum()),
+           "diverged_slots": int(diverged.sum()),
+           "dirty_on_predecessor": int(dirty[:, fail_pos - 1].sum()),
+           "dirty_on_spliced_node": int(dirty[:, fail_pos].sum())}
+    log(f"{what}: {out['dirty_versions']} dirty versions stranded "
+        f"({out['dirty_on_predecessor']} on node {fail_pos - 1}, "
+        f"{out['dirty_on_spliced_node']} on the spliced node {fail_pos}), "
+        f"{out['diverged_slots']} slot-0 copies behind the tail, all on "
+        "dirty keys; nodes past the failed position clean")
+    return out
+
+
+def chaos_run(sim, gen, scenario, device, *, lease=None, check=True,
+              storm=False, width=None):
+    """One scenario through ``run_scenario`` from a fresh state, the
+    launch counters zeroed just before and read just after; with
+    ``check``, then every global key read back in one launch on the tail
+    replica and held to the oracle.  ``storm`` runs the scenario without
+    ``run_scenario``'s checks and holds it to all of them but the two the
+    reference's failure handling breaks under load
+    (``stranded_versions``).  Returns (state, gen, record)."""
+    lease = CH_LEASE if lease is None else lease
+    width = CH_WIDTH if width is None else width
+    gen0 = tree_map(lambda x: x.clone(), gen)
+    co = Coordinator(sim.cluster, device=device)
+    sync(device)
+    kv_kernel.reset_launches()
+    with PlainCalls(kv_ref, KV_PLAIN) as plain:
+        t0 = time.perf_counter()
+        state, gen, rep = chaos_lib.run_scenario(
+            sim, gen, scenario, coordinator=co, lease_ticks=lease,
+            arrival_width=width, check=check and not storm,
+            drain_segments=CH_STORM_DRAIN if storm else 24)
+        sync(device)
+        wall = time.perf_counter() - t0
+    launches = dict(kv_kernel.LAUNCHES)
+    ticks = int(state.t)
+    what = f"chaos {scenario.name}"
+    if torch.device(device).type == "cuda":
+        launch_check(launches, ticks, plain.calls, what)
+    m = rep["metrics"]
+    total = scenario.total_ticks + rep["extra_ticks"]
+    if storm:
+        require(rep["leaked_locks"] == 0, f"{what}: leaked locks")
+        require(sim.inflight(state) == 0, f"{what}: ops left in flight")
+        rep["serial_keys"] = chaos_lib.check_serial_reference(
+            sim, state, gen0, width, total)
+    rec = {"seconds": wall, "ticks": ticks, "extra_ticks": rep["extra_ticks"],
+           "drained": rep["drained"],
+           "serial_keys": rep["serial_keys"], "leaked_locks":
+           rep["leaked_locks"], "lease_expiries": m["lease_expiries"],
+           "stale_routes": m["stale_routes"], "offered": m["offered"],
+           "shed": m["admission_drops"], "txn_commits": m["txn_commits"],
+           "wall_us_per_tick": wall / ticks * 1e6, "launches": launches,
+           "samples": rep["samples"]}
+    if storm:
+        rec["stranded"] = stranded_versions(sim, state, co, what)
+    if check:
+        cl = sim.cluster
+        require(sim.inflight(state) == 0, f"{what}: ops left in flight")
+        before = kv_kernel.LAUNCHES["kv_bucketed_read"]
+        rv, dec = read_back(cl, state, state.pmap)
+        require(kv_kernel.LAUNCHES["kv_bucketed_read"] - before ==
+                (1 if torch.device(device).type == "cuda" else 0),
+                f"{what}: the read-back was not one launch")
+        require(bool((dec == 0).all()), f"{what}: a read-back was not clean")
+        gk, val = chaos_lib.serial_reference_tensors(sim, state, gen0, width,
+                                                     total)
+        want = torch.zeros(cl.num_global_keys, dtype=torch.int32,
+                           device=rv.device)
+        want[gk.to(rv.device)] = val.to(rv.device)
+        require(torch.equal(rv[:, 0], want),
+                f"{what}: the read-back differs from the serial reference "
+                f"at {int((rv[:, 0] != want).sum())} keys")
+        rec["read_back_keys"] = cl.num_global_keys
+    log(f"chaos {scenario.name} ({on_card(device)}): {wall:.2f} s, "
+        f"{ticks} ticks ({scenario.total_ticks} offered + "
+        f"{rep['extra_ticks']} settle + drain), drained {rep['drained']}, "
+        f"serial keys {rep['serial_keys']}, leaked {rep['leaked_locks']}, "
+        f"lease expiries {m['lease_expiries']}, stale routes "
+        f"{m['stale_routes']}, offered {m['offered']}, shed "
+        f"{m['admission_drops']}, txn commits {m['txn_commits']}; "
+        f"{rec['wall_us_per_tick']:.1f} us wall per open-loop tick; "
+        f"launches {launches}")
+    return state, gen, rec
+
+
+def storm_recovery(rec, scenario) -> dict:
+    """fig_chaos's storm_recovery_rows: the delivered rate per segment
+    before, during and after the storm, from the boundary samples (the
+    settle ticks included), and after / before."""
+    fail_at, recover_at = scenario.events[0].tick, scenario.events[-1].tick
+    rates = {"before": [], "during": [], "after": []}
+    s = rec["samples"]
+    for a, b in zip(s, s[1:]):
+        dt = b["t"] - a["t"]
+        if dt <= 0:
+            continue
+        r = (b["replies"] - a["replies"]) / dt
+        if b["t"] <= fail_at:
+            rates["before"].append(r)
+        elif a["t"] >= recover_at:
+            rates["after"].append(r)
+        else:
+            rates["during"].append(r)
+    mean = lambda xs: sum(xs) / len(xs) if xs else 0.0
+    out = {k: mean(v) for k, v in rates.items()}
+    out["recovery_fraction"] = (out["after"] / out["before"]
+                                if out["before"] else None)
+    return out
+
+
+def chaos_disturbances(device="cuda") -> dict:
+    """The four disturbances under the full drain invariants, the moves
+    meeting the stale-route gate, the storm's recovery, and one segment's
+    host syncs (none)."""
+    cl = cluster("netcraq", partitioned=True)
+    sim = chaos_sim(cl, device)
+    out = {}
+    for scenario in chaos_scenarios(cl):
+        _, _, rec = chaos_run(sim, chaos_gen(cl, device), scenario, device,
+                              storm=scenario.name == "failure_storm")
+        require(rec["leaked_locks"] == 0 and rec["serial_keys"] > 0,
+                f"chaos {scenario.name}: leaked or checked nothing")
+        if scenario.name in ("migration_wave", "stale_clients"):
+            require(rec["stale_routes"] > 0,
+                    f"chaos {scenario.name}: no stale route")
+        if scenario.name == "failure_storm":
+            rec["recovery"] = storm_recovery(rec, scenario)
+            r = rec["recovery"]
+            log(f"chaos failure_storm ({on_card(device)}): replies per tick "
+                f"{r['before']:.2f} before, {r['during']:.2f} during, "
+                f"{r['after']:.2f} after; recovery fraction "
+                f"{r['recovery_fraction']}")
+        rec.pop("samples")
+        out[scenario.name] = rec
+    state = ol_state(sim)
+    gen = chaos_gen(cl, device)
+    state, gen = sim.run_openloop(state, gen, CH_SEG, arrival_width=CH_WIDTH,
+                                  extra_ticks=0)
+    box = [state, gen]
+
+    def segment():
+        box[0], box[1] = sim.run_openloop(box[0], box[1], CH_SEG,
+                                          arrival_width=CH_WIDTH,
+                                          extra_ticks=0)
+    out["segment_syncs"] = count_syncs(segment)
+    require(out["segment_syncs"] == 0,
+            f"a chaos segment synced the host {out['segment_syncs']} times")
+    log(f"chaos: host syncs in one {CH_SEG}-tick open-loop segment "
+        f"{out['segment_syncs']}")
+    return out
+
+
+def chaos_lease_arm(device="cuda") -> dict:
+    """fig_chaos's lease arm: under LEASE_OFF the abandoned locks leak
+    and the leak grows with the horizon, nothing reclaimed; lease 16 at
+    the longer horizon drains to 0, reclaiming at least the shorter
+    horizon's leak."""
+    cl = cluster("netcraq", partitioned=True)
+    sim = chaos_sim(cl, device)
+    leak = {}
+    for h in CH_HORIZONS:
+        _, _, rec = chaos_run(sim, chaos_gen(cl, device, mix=CH_LEASE_MIX),
+                              chaos_lib.none_scenario(h, CH_SEG), device,
+                              lease=LEASE_OFF, check=False)
+        require(rec["lease_expiries"] == 0,
+                f"lease off at {h} ticks reclaimed {rec['lease_expiries']}")
+        leak[h] = rec["leaked_locks"]
+    h0, h1 = CH_HORIZONS
+    require(0 < leak[h0] < leak[h1],
+            f"the LEASE_OFF leak did not grow with the horizon: {leak}")
+    _, _, fin = chaos_run(sim, chaos_gen(cl, device, mix=CH_LEASE_MIX),
+                          chaos_lib.none_scenario(h1, CH_SEG), device)
+    require(fin["leaked_locks"] == 0 and fin["lease_expiries"] >= leak[h0],
+            f"lease {CH_LEASE}: leaked {fin['leaked_locks']}, reclaimed "
+            f"{fin['lease_expiries']} of the {leak[h0]} stranded at {h0}")
+    fin.pop("samples")
+    log(f"chaos lease arm ({on_card(device)}): LEASE_OFF leaks {leak} locks "
+        f"(horizon: leak), 0 reclaimed; lease {CH_LEASE} at {h1} ticks: 0 "
+        f"leaked, {fin['lease_expiries']} reclaimed")
+    return {"leak_off": leak, "lease_16": fin}
+
+
+def chaos_cpu_equality(device="cuda") -> None:
+    """One scenario of all four event kinds on a reduced cluster (2
+    chains x 4 nodes x 1,024 registers), on CUDA and on the CPU:
+    identical state, report and backlog.  Its failure strands dirty
+    versions as the storm's does, so it is held as the storm is."""
+    r = CH_REDUCED
+    cl = ClusterConfig(
+        chain=ChainConfig(n_nodes=N_NODES, num_keys=r["num_keys"],
+                          num_versions=VERSIONS, value_words=WORDS),
+        n_chains=r["n_chains"], buckets_per_chain=BUCKETS_PER_CHAIN,
+        spare_keys=r["spare_keys"])
+    cap = r["n_chains"] * N_NODES * INJECT
+    qps, width = 3 / 32 * cap, 2 * cap
+    out = {}
+    for dev in (device, "cpu"):
+        sim = chaos_sim(cl, dev)
+        state, gen, rec = chaos_run(sim, chaos_gen(cl, dev, qps),
+                                    mixed_scenario(cl, r["ticks"]), dev,
+                                    storm=True, width=width)
+        out[dev] = (state, gen, rec)
+    (cpu, cpu_gen, cpu_rec), (gpu, gpu_gen, gpu_rec) = out["cpu"], out[device]
+    for name in cpu._fields:
+        same_tree(getattr(cpu, name), getattr(gpu, name),
+                  f"chaos: CUDA vs CPU {name}")
+    same_tree(cpu_gen.backlog, gpu_gen.backlog, "chaos: CUDA vs CPU backlog")
+    for k in ("ticks", "extra_ticks", "serial_keys", "leaked_locks",
+              "lease_expiries", "stale_routes", "offered", "samples"):
+        require(cpu_rec[k] == gpu_rec[k],
+                f"chaos: CUDA vs CPU report {k}: {gpu_rec[k]} != {cpu_rec[k]}")
+    require(gpu_rec["stale_routes"] > 0 and gpu_rec["extra_ticks"] > 0,
+            "chaos: the mixed scenario moved nothing")
+    log(f"chaos: CUDA run == CPU plain run of the four-kind scenario "
+        f"({r['n_chains']} x {N_NODES} x {r['num_keys']}, {gpu_rec['ticks']} "
+        f"ticks: state, report, backlog)")
+
+
+def chaos_phase() -> dict:
+    t0 = time.perf_counter()
+    out = {"disturbances": chaos_disturbances(),
+           "lease": chaos_lease_arm()}
+    chaos_cpu_equality()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"chaos: phase 16 took {out['seconds']:.1f} s ({smi()})")
+    return out
+
+
 def on_card(device) -> str:
     """What a timing ran on: the card's name and power limit, or the
     host's CPU."""
@@ -3136,7 +3473,7 @@ def build_kernels(phases) -> None:
     (all three for a whole run)."""
     t0 = time.perf_counter()
     kernels = [(src, k) for src, k, uses in (
-        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15)),
+        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16)),
         (FA_SRC, fa_kernel, (10, 11)),
         (SSD_SRC, ssd_kernel, (12, 13))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
@@ -3147,7 +3484,7 @@ def build_kernels(phases) -> None:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 16))
+ALL_PHASES = tuple(range(1, 17))
 
 
 def parse_phases(argv) -> set:
@@ -3268,6 +3605,8 @@ def main(argv=None) -> None:
                 f"{run['netcraq']['device_activities_per_tick']:.2f}")
     if 15 in phases:
         run["openloop"] = openloop_phase()
+    if 16 in phases:
+        run["chaos"] = chaos_phase()
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

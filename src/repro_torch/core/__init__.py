@@ -1,6 +1,6 @@
 """Engine of the port: types, store, node steps, lock stage, metrics,
-the cluster tick, workload lanes, the telemetry plane, the threefry PRNG
-and the open-loop load generator."""
+the cluster tick, workload lanes, the telemetry plane, the threefry PRNG,
+the open-loop load generator and the declarative chaos suite."""
 from repro_torch.core.types import (  # noqa: F401
     N_OPCLASS,
     OPCLASS_NAMES,
@@ -24,3 +24,12 @@ from repro_torch.core.loadgen import (  # noqa: F401
     zipf_cdf,
 )
 from repro_torch.core.chain import ChainSim, SimState  # noqa: F401
+from repro_torch.core.chaos import (  # noqa: F401
+    ChaosEvent,
+    ChaosScenario,
+    failure_storm,
+    migration_wave,
+    none_scenario,
+    run_scenario,
+    stale_clients,
+)

@@ -100,12 +100,9 @@ def held_locks(locks: LockTable) -> int:
     return int((locks.holder != -1).sum())
 
 
-def committed_view(cluster: ClusterConfig, state, node: int = -1) -> dict:
-    """{global_key: committed value word 0} read from every chain's store
-    at physical slot ``node`` (default: the tail slot).  Call after a
-    drain, when all replicas agree.  The inverse goes through the state's
-    live ``PartitionMap`` (``ClusterConfig.global_key``), so a rebalanced
-    bucket reads from wherever it lives now; free regions are skipped."""
+def committed_values(cluster: ClusterConfig, state, node: int = -1):
+    """``committed_view`` as tensors on the state's device: (global keys,
+    committed value word 0) of every occupied slot."""
     vals = state.stores.values[:, node, :, 0, 0]            # [C, K]
     C, K = vals.shape
     dev = vals.device
@@ -113,15 +110,30 @@ def committed_view(cluster: ClusterConfig, state, node: int = -1) -> dict:
     slots = torch.arange(K, device=dev).repeat(C)
     gks = cluster.global_key(slots, chains, state.pmap)
     keep = gks >= 0
-    return dict(zip(gks[keep].tolist(), vals.reshape(-1)[keep].tolist()))
+    return gks[keep], vals.reshape(-1)[keep]
+
+
+def committed_view(cluster: ClusterConfig, state, node: int = -1) -> dict:
+    """{global_key: committed value word 0} read from every chain's store
+    at physical slot ``node`` (default: the tail slot).  Call after a
+    drain, when all replicas agree.  The inverse goes through the state's
+    live ``PartitionMap`` (``ClusterConfig.global_key``), so a rebalanced
+    bucket reads from wherever it lives now; free regions are skipped."""
+    gks, vals = committed_values(cluster, state, node)
+    return dict(zip(gks.tolist(), vals.tolist()))
 
 
 def set_lease(locks: LockTable, lease_ticks) -> LockTable:
-    """Swap the lease length on every chain of a live lock table."""
-    new = torch.as_tensor(lease_ticks, dtype=I32,
-                          device=locks.lease_ticks.device)
-    return locks._replace(
-        lease_ticks=torch.broadcast_to(new, locks.lease_ticks.shape).clone())
+    """Swap the lease length on every chain of a live lock table: a
+    fill on the table's device (an int is not copied in from the host,
+    so the edit makes no host sync)."""
+    old = locks.lease_ticks
+    if isinstance(lease_ticks, torch.Tensor):
+        new = torch.broadcast_to(lease_ticks.to(old.device, I32),
+                                 old.shape).clone()
+    else:
+        new = torch.full_like(old, int(lease_ticks))
+    return locks._replace(lease_ticks=new)
 
 
 def lease_expiry_stage(locks: LockTable, t):
@@ -222,7 +234,8 @@ def head_txn_stage(locks: LockTable, roles: Roles, stores: Store,
     new_val = torch.zeros((C, K + 1, W), dtype=I32, device=dev)
     new_val[rows, com_key] = flat.value
     has_new = torch.zeros((C, K + 1), dtype=torch.bool, device=dev)
-    has_new[rows, com_key] = True
+    # a device tensor of True: a Python True is copied in from the host
+    has_new[rows, com_key] = torch.ones_like(com_key, dtype=torch.bool)
     snap_val = torch.where(has_new[rows, k][..., None], new_val[rows, k],
                            v_latest)
 

@@ -8,11 +8,16 @@ draws multi-key transactions with numpy's ``default_rng``, as the
 reference does, so one configuration gives the reference's transactions
 exactly.
 
-Randomness comes from a ``torch.Generator`` seeded with
-``WorkloadConfig.seed``, drawn on the CPU and then moved to the target
-device, so one seed gives the same schedule on every device.  The draws
-differ from ``jax.random``'s; tests that compare the two engines feed
-both the JAX-built schedule (see ``repro_torch.convert``).
+Schedules draw with the port's threefry (``core/prng.py``), from
+``PRNGKey(WorkloadConfig.seed)`` split into key, op and value keys in the
+reference's order, on the target device: threefry is integer arithmetic,
+so every device gives the reference's bits.  Uniform schedules equal the
+reference's bit for bit.  Zipf keys come from the inverse of a float32
+CDF built on the host in the order XLA's CPU backend computes the
+reference's (``zipf_cdf_f32``); only its powers are float64 rounded to
+float32, where XLA evaluates its own float32 ``pow``.  A zipf key can
+differ only where the uniform draw falls between the two CDFs at a key
+boundary.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.types import (
     CLIENT_BASE,
     I32,
@@ -50,21 +56,74 @@ class WorkloadConfig:
     seed: int = 0
 
 
-def _sample_keys(gen: torch.Generator, shape, num_keys: int,
+def _prefix_rows(x: np.ndarray) -> np.ndarray:
+    """Inclusive float32 prefix sums along the last axis, left to
+    right."""
+    out = np.empty_like(x)
+    acc = np.zeros(x.shape[:-1], np.float32)
+    for j in range(x.shape[-1]):
+        acc = (acc + x[..., j]).astype(np.float32)
+        out[..., j] = acc
+    return out
+
+
+def _xla_sum(x: np.ndarray, window: int = 32) -> np.float32:
+    """A float32 sum in XLA's CPU order: windows of 32 summed left to
+    right, over zeros padded half before and half after, level by level
+    until one window is left."""
+    while x.shape[0] > window:
+        n = x.shape[0]
+        m = -(-n // window)
+        pad = m * window - n
+        padded = np.zeros(m * window, np.float32)
+        padded[pad // 2: pad // 2 + n] = x
+        x = _prefix_rows(padded.reshape(m, window))[:, -1].copy()
+    return _prefix_rows(x[None])[0, -1]
+
+
+def _xla_cumsum(x: np.ndarray, base: int = 16) -> np.ndarray:
+    """A float32 inclusive cumsum in XLA's CPU order: blocks of 16 summed
+    left to right, each block offset by the scan (the same, recursively)
+    of the blocks before it."""
+    n = x.shape[0]
+    if n <= base:
+        return _prefix_rows(x[None])[0]
+    m = -(-n // base)
+    padded = np.zeros(m * base, np.float32)
+    padded[:n] = x
+    rows = _prefix_rows(padded.reshape(m, base))
+    ends = _xla_cumsum(rows[:, -1].copy(), base)
+    before = np.concatenate([np.zeros(1, np.float32), ends[:-1]])
+    return (rows + before[:, None]).astype(np.float32).reshape(-1)[:n]
+
+
+def zipf_cdf_f32(num_keys: int, zipf_a: float) -> np.ndarray:
+    """The reference's float32 zipf CDF over ``num_keys`` ranks:
+    ``ranks ** -a``, divided by their sum, then cumsum, each in float32
+    and summed in XLA's CPU order.  The powers are float64 (of the
+    float32 exponent) rounded to float32."""
+    exponent = np.float64(np.float32(-zipf_a))
+    w = (np.arange(1, num_keys + 1, dtype=np.float64) ** exponent).astype(
+        np.float32)
+    return _xla_cumsum((w / _xla_sum(w)).astype(np.float32))
+
+
+def _sample_keys(key: torch.Tensor, shape, num_keys: int,
                  cfg: WorkloadConfig) -> torch.Tensor:
+    """int32 keys in ``[0, num_keys)`` from a threefry ``key``: uniform
+    by ``randint``, zipf by the inverse CDF (left side, clipped)."""
     if cfg.key_skew == "uniform":
-        return torch.randint(0, num_keys, shape, generator=gen, dtype=I32)
-    # Zipf via inverse CDF on a table over the key space.
-    ranks = torch.arange(1, num_keys + 1, dtype=torch.float32)
-    probs = ranks ** (-cfg.zipf_a)
-    cdf = torch.cumsum(probs / probs.sum(), dim=0)
-    u = torch.rand(shape, generator=gen)
-    return torch.searchsorted(cdf, u).clamp(0, num_keys - 1).to(I32)
+        return prng.randint(key, shape, 0, num_keys)
+    cdf = torch.from_numpy(zipf_cdf_f32(num_keys, cfg.zipf_a)).to(key.device)
+    u = prng.uniform(key, shape)
+    return torch.searchsorted(cdf, u.contiguous(), side="left").clamp(
+        0, num_keys - 1).to(I32)
 
 
 def make_schedule(cfg: ChainConfig | ClusterConfig, wl: WorkloadConfig,
                   device="cuda") -> Msg:
-    """Build an injection schedule of client queries.
+    """Build an injection schedule of client queries, drawn as the
+    reference draws it, on ``device``.
 
     ``ClusterConfig`` -> ``[T, C, n, q]`` (lane (c, node, slot) carries a
     key owned by chain c); ``ChainConfig`` -> legacy ``[T, n, q]``.
@@ -75,14 +134,15 @@ def make_schedule(cfg: ChainConfig | ClusterConfig, wl: WorkloadConfig,
     chain_cfg = cluster.chain
     T, C, n, q = wl.ticks, cluster.n_chains, chain_cfg.n_nodes, \
         wl.queries_per_tick
-    gen = torch.Generator(device="cpu").manual_seed(wl.seed)
+    k_key, k_op, k_val = prng.split(prng.PRNGKey(wl.seed, dev), 3)
 
     shape = (T, C, n, q)
-    keys = _sample_keys(gen, shape, cluster.keys_in_use, wl)
-    is_write = torch.rand(shape, generator=gen) < wl.write_fraction
-    vals = torch.randint(1, 1 << 20, shape, generator=gen, dtype=I32)
+    keys = _sample_keys(k_key, shape, cluster.keys_in_use, wl)
+    is_write = prng.uniform(k_op, shape) < torch.full(
+        (), wl.write_fraction, dtype=torch.float32, device=dev)
+    vals = prng.randint(k_val, shape, 1, 1 << 20)
 
-    node_idx = torch.arange(n, dtype=I32)[None, None, :, None]
+    node_idx = torch.arange(n, dtype=I32, device=dev)[None, None, :, None]
     if wl.entry_node is None:
         active_reads = ~is_write
     else:
@@ -92,18 +152,19 @@ def make_schedule(cfg: ChainConfig | ClusterConfig, wl: WorkloadConfig,
 
     op = torch.where(active, torch.where(is_write, OP_WRITE, OP_READ),
                      OP_NOP).to(I32)
-    value = torch.zeros(shape + (chain_cfg.value_words,), dtype=I32)
+    value = torch.zeros(shape + (chain_cfg.value_words,), dtype=I32,
+                        device=dev)
     value[..., 0] = torch.where(is_write & active, vals, 0)
 
     # Query ids unique across the whole cluster.
-    tick_idx = torch.arange(T, dtype=I32)[:, None, None, None]
-    chain_idx = torch.arange(C, dtype=I32)[None, :, None, None]
+    tick_idx = torch.arange(T, dtype=I32, device=dev)[:, None, None, None]
+    chain_idx = torch.arange(C, dtype=I32, device=dev)[None, :, None, None]
     qid = (
         (tick_idx * C + chain_idx) * (n * q)
         + node_idx * q
-        + torch.arange(q, dtype=I32)[None, None, None, :]
+        + torch.arange(q, dtype=I32, device=dev)[None, None, None, :]
     )
-    z = torch.zeros(shape, dtype=I32)
+    z = torch.zeros(shape, dtype=I32, device=dev)
     client = torch.where(active, CLIENT_BASE + qid % 1024, 0).to(I32)
     sched = Msg(
         op=op,
@@ -121,7 +182,7 @@ def make_schedule(cfg: ChainConfig | ClusterConfig, wl: WorkloadConfig,
     )
     if squeeze:
         sched = tree_map(lambda x: x[:, 0], sched)
-    return tree_map(lambda x: x.contiguous().to(dev), sched)
+    return tree_map(lambda x: x.contiguous(), sched)
 
 
 class RoutedStream(NamedTuple):

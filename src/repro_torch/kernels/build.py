@@ -35,6 +35,15 @@ def nvcc() -> str:
                        "CUDA toolkit to build")
 
 
+_LIBRARIES: list = []   # every CudaLibrary made, in order
+
+
+def loaded_libraries() -> int:
+    """How many kernel libraries this process has loaded: what the port
+    builds at run time, so a run that adds none built nothing new."""
+    return sum(lib._lib is not None for lib in _LIBRARIES)
+
+
 class CudaLibrary:
     """One kernel package's shared library: ``build()`` compiles it if
     needed and returns its path; ``lib()`` loads it once and lets
@@ -48,6 +57,7 @@ class CudaLibrary:
         self._declare = declare
         self._lib = None
         self._lock = threading.Lock()
+        _LIBRARIES.append(self)
 
     def build(self) -> pathlib.Path:
         src = self.src.read_bytes()

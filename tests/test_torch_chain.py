@@ -1,7 +1,7 @@
 """The port's NetCRAQ cluster tick against the reference ``ChainSim``.
 
 Both engines get the same JAX-built schedule (the port's own
-``make_schedule`` draws from a ``torch.Generator``, whose bits differ)
+``make_schedule`` draws the same bits: ``tests/test_torch_workload.py``)
 and are compared exactly after every tick: stores, inbox, lock table,
 metrics and reply log.  Also here: the workload router, the hygiene
 rules of the port (no JAX, no ``repro`` imports; CUDA by default).

@@ -949,3 +949,86 @@ def test_cuda_openloop_run_matches_cpu(card):
     assert int(gpu[0].metrics.admission_drops.sum()) > 0
     assert int(gpu[0].telemetry.lat_hist.sum()) > 0
     assert gpu[2]["kv_read"] == gpu[2]["kv_write"] == 32
+
+
+def test_cuda_zipf_schedule_matches_cpu(card):
+    """A zipf ``make_schedule`` drawn on the card (threefry and the
+    searchsorted there, the CDF from the host) equals the CPU's."""
+    cl = t_types.ClusterConfig(
+        chain=t_types.ChainConfig(n_nodes=4, num_keys=65536, num_versions=4),
+        n_chains=8, buckets_per_chain=14, spare_keys=8192)
+    wl = t_workload.WorkloadConfig(ticks=4, queries_per_tick=32,
+                                   write_fraction=0.25, key_skew="zipf",
+                                   seed=5)
+    cpu = t_workload.make_schedule(cl, wl, device="cpu")
+    gpu = t_workload.make_schedule(cl, wl, device=card)
+    assert gpu.op.device.type == "cuda"
+    _assert_same(cpu, gpu, "schedule")
+    assert int(cpu.key.max()) > 0
+
+
+def _chaos_cluster():
+    return t_types.ClusterConfig(
+        chain=t_types.ChainConfig(n_nodes=3, num_keys=6, num_versions=6),
+        n_chains=2, buckets_per_chain=2, spare_keys=2)
+
+
+def test_cuda_chaos_scenario_matches_cpu(card):
+    """``tests/test_torch_chaos.py``'s four-kind scenario (fail, migrate,
+    lease, recover) on CUDA and on the CPU: identical state, backlog and
+    report, every drain invariant held on both; one kv_read and one
+    kv_write launch a tick on the card."""
+    from repro_torch.core import chaos, loadgen
+
+    E = chaos.ChaosEvent
+    scen = chaos.ChaosScenario("mixed", (
+        E(tick=8, kind="fail", chain=0, node=1),
+        E(tick=16, kind="migrate", bucket=2, dst_chain=0),
+        E(tick=24, kind="lease", lease_ticks=12),
+        E(tick=32, kind="recover", chain=0, node=1, position=1)), 48, 8)
+    cl = _chaos_cluster()
+    out = {}
+    for d in ("cpu", card):
+        sim = ChainSim(cl, inject_capacity=8, route_capacity=128,
+                       reply_capacity=8192, device=d)
+        gen = loadgen.make_loadgen(cl, qps=4.0, seed=3, backlog_capacity=64,
+                                   write_fraction=0.3, txn_fraction=0.2,
+                                   abandon_fraction=0.25, device=d)
+        t_kernel.reset_launches()
+        state, gen, rep = chaos.run_scenario(sim, gen, scen, lease_ticks=8)
+        out[str(d)] = (state, gen, rep, dict(t_kernel.LAUNCHES))
+    cpu, gpu = out["cpu"], out[str(card)]
+    _assert_same(cpu[0], gpu[0], "state")
+    _assert_same(cpu[1].backlog, gpu[1].backlog, "backlog")
+    for k in ("samples", "metrics", "leaked_locks", "extra_ticks", "drained",
+              "serial_keys"):
+        assert cpu[2][k] == gpu[2][k], k
+    ticks = int(gpu[0].t)
+    assert gpu[3]["kv_read"] == gpu[3]["kv_write"] == ticks
+    assert gpu[2]["metrics"]["stale_routes"] > 0
+
+
+def test_cuda_set_lease_and_a_segment_make_no_host_sync(card):
+    """``set_lease`` is a fill on the card, and an open-loop segment with
+    transactions, a lease and abandoning clients syncs the host nowhere
+    (the sync debug mode raises at any synchronizing call)."""
+    from repro_torch.core import loadgen, txn
+
+    cl = _chaos_cluster()
+    sim = ChainSim(cl, inject_capacity=8, route_capacity=128,
+                   reply_capacity=8192, device=card)
+    gen = loadgen.make_loadgen(cl, qps=4.0, seed=3, backlog_capacity=64,
+                               write_fraction=0.3, txn_fraction=0.2,
+                               abandon_fraction=0.25, device=card)
+    state, gen = sim.run_openloop(sim.init_state(), gen, 2, arrival_width=48,
+                                  extra_ticks=0)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = state._replace(locks=txn.set_lease(state.locks, 7))
+        state, gen = sim.run_openloop(state, gen, 8, arrival_width=48,
+                                      extra_ticks=0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state.locks.lease_ticks[0]) == 7
+    assert int(state.t) == 10
