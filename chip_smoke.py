@@ -154,11 +154,36 @@ source, all three at once), then:
    none reclaimed; a 16-tick lease drains to 0); one kv_read and one
    kv_write launch a tick, no plain call, no host sync in a segment; and
    a four-kind scenario on 2 x 4 x 1,024 registers on CUDA and on the
-   CPU with identical state, report and backlog.
+   CPU with identical state, report and backlog;
+17. ``ChainDist`` and the kv_cache protocols on torch.distributed, one
+   chain node per rank, every rank on this card over gloo (the exchanges
+   staged through host memory; with several cards rank ``r`` takes card
+   ``r % count``), at phase 3's node size (65,536 registers
+   of 4 words and 4 versions a rank, 256 inbox lanes): (a) one NetCRAQ
+   chain of 4 ranks, 32 ticks of client traffic (32 ops a node a tick,
+   a quarter writes sent to the head, uniform keys) and a 16-tick
+   drain, held to replies == offered, an empty fabric, no dirty
+   version, every acknowledged write read back on all 4 replicas, and
+   one ``kv_read`` and one ``kv_write`` launch a rank a step with no
+   plain call; wall µs a step (median, p99, slowest rank) and a replayed
+   split between the node step, the exchanges, the replicated lock
+   stage, the packing and the compactions; with a card for each of the
+   4 ranks, (a) and (d) again over NCCL, one rank a card, with the same
+   checks; (b) two chains of 4
+   ranks with the telemetry plane, node 1 of chain 1 failed through the
+   control plane's role table and PREPARE/COMMIT traffic at chain 0's
+   head: the same checks per chain, only its own ops answered, nothing
+   stored on the dead rank, free locks, every transaction granted and
+   committed, each rank's histogram == its replies; (c) (b)'s first 8
+   steps on the CPU ranks (plain versions) == the CUDA ranks', every
+   output; (d) the kv_cache protocols at
+   ``benchmarks/replication_dryrun.py``'s shapes (Qwen2.5-3B's cache at
+   batch 32, bf16) over 4 ranks, held to the reference test's relations,
+   with ms a step and the bytes a rank sends a step.
 
 ``--phases 12,13`` runs the build of the kernels those phases use,
 phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7;
-15 and 16 stand alone);
+15, 16 and 17 stand alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
 it placed in another checkout (a parent commit's, unpacked with ``git
@@ -192,13 +217,14 @@ import torch.nn.functional as F  # noqa: E402
 try:
     from repro_torch.configs.base import get_config  # noqa: E402
     from repro_torch.core import chain as t_chain  # noqa: E402
+    from repro_torch.core import collectives  # noqa: E402
     from repro_torch.core import chaos as chaos_lib  # noqa: E402
     from repro_torch.core import prng  # noqa: E402
     from repro_torch.core import store as store_lib  # noqa: E402
     from repro_torch.core import txn as txn_lib  # noqa: E402
     from repro_torch.core.txn import (  # noqa: E402
         TxnDriver, TxnWaveDriver, reference_execute, serial_order)
-    from repro_torch.core.chain import ChainSim  # noqa: E402
+    from repro_torch.core.chain import ChainDist, ChainSim  # noqa: E402
     from repro_torch.core.coordinator import Coordinator  # noqa: E402
     from repro_torch.core import loadgen as loadgen_lib  # noqa: E402
     from repro_torch.core.failure import (  # noqa: E402
@@ -206,10 +232,10 @@ try:
     from repro_torch.core.metrics import ReplyLog  # noqa: E402
     from repro_torch.core.store import Store, batch_rank, init_store  # noqa: E402
     from repro_torch.core.types import (  # noqa: E402
-        CLIENT_BASE, LEASE_OFF, NOWHERE, OP_NOP, OP_READ, OP_WRITE,
-        OP_WRITE_REPLY,
-        ChainConfig, ClusterConfig, Msg, PartitionMap, tree_map,
-        value_from_int)
+        CLIENT_BASE, LEASE_OFF, NOWHERE, OP_COMMIT, OP_NOP, OP_PREPARE,
+        OP_PREPARE_ACK, OP_READ, OP_TXN_REPLY, OP_WRITE, OP_WRITE_REPLY,
+        ChainConfig, ClusterConfig, Msg, PartitionMap, Roles,
+        is_txn_op, reply_op_class, tree_map, value_from_int)
     from repro_torch.core.workload import (  # noqa: E402
         TxnWorkloadConfig, WorkloadConfig, _sample_keys, make_schedule,
         make_txn_workload, route_stream)
@@ -225,6 +251,7 @@ try:
     from repro_torch.obs import tail_percentiles  # noqa: E402
     from repro_torch.models import transformer as TF  # noqa: E402
     from repro_torch.models.transformer import OptFlags  # noqa: E402
+    from repro_torch.serve import kv_cache as KV  # noqa: E402
     from repro_torch.serve.engine import (  # noqa: E402
         Request, ServingEngine, build_decode_step)
 except ImportError as exc:  # run outside a checkout of the repo
@@ -3455,6 +3482,513 @@ def chaos_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: ChainDist and the kv_cache protocols on torch.distributed, one
+# chain node per rank, every rank on this card.  The workers run in the
+# spawned ranks, which import this script without running ``main``.
+# ---------------------------------------------------------------------------
+# phase 3's node size: 65,536 registers of 4 words and 4 versions, about
+# 5 MiB of store a rank; 256 inbox lanes a node, the last 96 kept for each
+# tick's client ops (checked: carried traffic never reaches them)
+DIST_BACKEND, DIST_TIMEOUT = "gloo", 180
+DIST_BATCH, DIST_CLIENT_LANES = 256, 96
+DIST_OPS, DIST_WRITE_FRACTION = 32, 0.25    # client ops a node a tick
+DIST_TICKS, DIST_DRAIN = 32, 16             # (a): one chain of 4 ranks
+GROUPED_TICKS, GROUPED_DRAIN = 16, 16       # (b): 2 chains of 4 ranks
+GROUPED_DEAD = (1, 1)                       # (chain, node) failed in (b)
+TXN_PER_TICK, TXN_COMMIT_AFTER = 4, 2       # PREPAREs at chain 0's head
+CPU_STEPS = 8                               # (c): CUDA against the CPU
+REPLAY_ITERS = 10
+# (d): benchmarks/replication_dryrun.py's shapes: Qwen2.5-3B's cache (36
+# layers, 2 KV heads of 128) at batch 32 in bf16, a one-token page [L, B,
+# 1, KV, D] for the appends and a 128-token window for the reads
+KV_LAYERS, KV_HEADS, KV_DIM, KV_BATCH, KV_WINDOW = 36, 2, 128, 32, 128
+KV_STEPS = 5
+
+
+def dist_cluster(n_chains: int) -> ClusterConfig:
+    return ClusterConfig(chain=ChainConfig(
+        n_nodes=N_NODES, num_keys=NUM_KEYS, num_versions=VERSIONS,
+        value_words=WORDS, protocol="netcraq"), n_chains=n_chains)
+
+
+def dist_traffic(seed: int, C: int, ticks: int, drain: int, *,
+                 dead=None, txn: bool = False) -> dict:
+    """Client traffic as numpy lanes ``[ticks + drain, C, n, B]``: each
+    live node issues ``DIST_OPS`` ops a tick for ``ticks`` ticks, writes
+    (a quarter) sent to the chain's head and reads served where they are
+    issued, with qid ``counter * C + chain``; with ``txn``,
+    ``TXN_PER_TICK`` PREPAREs on distinct keys at chain 0's head each tick
+    and their COMMITs ``TXN_COMMIT_AFTER`` ticks later.  Reads take
+    uniform keys; writes take distinct keys outside the transactions'
+    (a write the version window refuses is dropped without a reply, and
+    replies == offered needs none refused).  Client ops take the last
+    ``DIST_CLIENT_LANES`` lanes of a node's batch."""
+    rng = np.random.default_rng(seed)
+    txn_keys = ticks * TXN_PER_TICK if txn else 0
+    write_keys = [iter(rng.permutation(np.arange(txn_keys, NUM_KEYS)))
+                  for _ in range(C)]
+    T, B, n = ticks + drain, DIST_BATCH, N_NODES
+    shape = (T, C, n, B)
+    f = {name: np.zeros(shape, np.int32) for name in Msg._fields}
+    f["value"] = np.zeros(shape + (WORDS,), np.int32)
+    for name in ("seq", "qid", "dst"):
+        f[name][:] = -1
+    fill = np.full((T, C, n), B - DIST_CLIENT_LANES)
+    counter = 0
+
+    def put(t, c, node, op, key, value, seq=-1, client=0):
+        nonlocal counter
+        at = (t, c, node, fill[t, c, node])
+        require(at[-1] < B, "dist_traffic: more client ops than lanes")
+        fill[t, c, node] += 1
+        f["op"][at], f["key"][at], f["seq"][at] = op, key, seq
+        f["value"][at] = value
+        f["src"][at] = f["client"][at] = CLIENT_BASE + client
+        f["dst"][at], f["t_inject"][at] = node, t
+        f["qid"][at] = counter * C + c
+        counter += 1
+
+    for t in range(ticks):
+        for c in range(C):
+            for p in range(n):
+                if (c, p) == dead:
+                    continue
+                writes = rng.random(DIST_OPS) < DIST_WRITE_FRACTION
+                keys = rng.integers(0, NUM_KEYS, DIST_OPS)
+                vals = rng.integers(0, 1 << 30, (DIST_OPS, WORDS))
+                for w, k, v in zip(writes, keys, vals):
+                    put(t, c, 0 if w else p, OP_WRITE if w else OP_READ,
+                        next(write_keys[c]) if w else k, v,
+                        client=int(rng.integers(0, 1 << 16)))
+        if txn:
+            for j in range(TXN_PER_TICK):
+                key, tid = t * TXN_PER_TICK + j, 1000 + t * TXN_PER_TICK + j
+                put(t, 0, 0, OP_PREPARE, key, 0, seq=tid, client=tid)
+                put(t + TXN_COMMIT_AFTER, 0, 0, OP_COMMIT, key,
+                    rng.integers(0, 1 << 30, WORDS), seq=tid, client=tid)
+    return f
+
+
+def sync_on(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def host_copy(tree) -> dict:
+    return {f: getattr(tree, f).cpu().clone() for f in tree._fields}
+
+
+def dist_run(d: ChainDist, traffic: dict, roles: Roles, *,
+             telemetry: bool = False, record: int = 0,
+             sample: int = 0) -> dict:
+    """``traffic`` through ``d.make_step(DIST_BATCH)`` after one warm-up
+    step on a scratch state, with the launch counters zeroed just before
+    and read just after and the plain versions counted; each step timed
+    from its client ops to a synchronisation after it.  Returns the final
+    state, every step's replies (on the device), the step times, the
+    bytes sent, the merged inbox of step ``sample`` and the outputs of the
+    first ``record`` steps on the host."""
+    dev, B = d.device, DIST_BATCH
+    pmap = d.default_pmap()
+    step = d.make_step(B, telemetry=telemetry)
+    tel_arg = lambda tel: (tel,) if telemetry else ()
+    T = traffic["op"].shape[0]
+    injs = [d.shard(Msg(**{k: torch.from_numpy(v[t] if d.grouped else
+                                               v[t, 0])
+                           for k, v in traffic.items()})) for t in range(T)]
+    empty = Msg.empty(d.lead + (B,), WORDS, device=dev)
+    step(d.init_state(), empty, roles, pmap, d.init_locks(),
+         *tel_arg(d.init_telemetry() if telemetry else None))
+    stores, locks, inbox = d.init_state(), d.init_locks(), empty
+    tel = d.init_telemetry() if telemetry else None
+    replies, times, recs, merged = [], [], [], None
+    collide = torch.zeros((), dtype=torch.bool, device=dev)
+    sync_on(dev)
+    kv_kernel.reset_launches()
+    collectives.reset_bytes()
+    with PlainCalls(kv_ref, KV_PLAIN) as plain:
+        for t, inj in enumerate(injs):
+            t0 = time.perf_counter()
+            live = inj.op != OP_NOP
+            collide |= (live & (inbox.op != OP_NOP)).any()
+            inbox = tree_map(lambda a, b: torch.where(
+                live.reshape(live.shape + (1,) * (a.dim() - live.dim())),
+                b, a), inbox, inj)
+            if t == sample:
+                merged = tree_map(torch.clone, inbox)
+            out = step(stores, inbox, roles, pmap, locks, *tel_arg(tel))
+            stores, inbox, rep, locks = out[:4]
+            tel = out[4] if telemetry else None
+            sync_on(dev)
+            times.append(time.perf_counter() - t0)
+            replies.append(rep)
+            if t < record:
+                recs.append([host_copy(x) for x in out])
+    launches = dict(kv_kernel.LAUNCHES)
+    sent = dict(collectives.BYTES_SENT)
+    require(not bool(collide), "ChainDist: client lanes collided with "
+            "carried traffic (load over the batch)")
+    return dict(stores=stores, inbox=inbox, locks=locks, tel=tel,
+                replies=Msg.concat(replies, dim=len(d.lead)), times=times,
+                launches=launches, plain=dict(plain.calls), bytes=sent,
+                records=recs, merged=merged, steps=T)
+
+
+def dist_checks(d: ChainDist, run: dict, traffic: dict, roles: Roles,
+                what: str) -> dict:
+    """A run's checks on this rank, each over its chain group: replies ==
+    offered, only this chain's ops answered, an empty fabric, no dirty
+    version, free locks, the launch counts and no plain-version call;
+    every acknowledged write (and committed transaction) read back from
+    a live replica's clean cell, and nothing stored on a dead one."""
+    g, dev, K = d.group, d.device, d.cfg.num_keys
+    rep = run["replies"]
+    live = rep.op != OP_NOP
+    c = d.chain
+    offered = int((traffic["op"][:, c] != OP_NOP).sum())
+    total = int(collectives.psum(live.sum().reshape(1), g))
+    require(total == offered,
+            f"{what}: chain {c} replied {total} of {offered} offered ops")
+    require(bool((rep.qid[live] % d.C == c).all()),
+            f"{what}: rank {d.rank} answered another chain's op")
+    require(not bool((run["inbox"].op != OP_NOP).any()),
+            f"{what}: rank {d.rank} left traffic in flight")
+    st = run["stores"]
+    require(int(st.pending.abs().sum()) == 0,
+            f"{what}: rank {d.rank} left dirty versions")
+    require(bool((run["locks"].holder == -1).all()),
+            f"{what}: rank {d.rank} holds locks after the drain")
+    steps = run["steps"]
+    require(run["launches"] == {"kv_read": steps, "kv_write": steps,
+                                "kv_bucketed_read": 0,
+                                "kv_bucketed_write": 0},
+            f"{what}: rank {d.rank} launches {run['launches']} over "
+            f"{steps} steps")
+    require(not any(run["plain"].values()),
+            f"{what}: rank {d.rank} plain-version calls {run['plain']}")
+    # the tail's newest acknowledged write per key, broadcast to its chain
+    acked = live & ((rep.op == OP_WRITE_REPLY)
+                    | ((rep.op == OP_TXN_REPLY) & (rep.seq >= 0)))
+    key, seq = rep.key[acked].long(), rep.seq[acked]
+    newest = torch.full((K,), -1, dtype=torch.int32, device=dev)
+    newest.scatter_reduce_(0, key, seq, reduce="amax")
+    won = newest[key] == seq
+    val0 = torch.zeros(K, dtype=torch.int32, device=dev)
+    val0[key[won]] = rep.value[acked][won][:, 0]
+    table = collectives.broadcast_from(torch.stack([newest, val0]), g.n - 1,
+                                       g)
+    keys = torch.nonzero(table[0] >= 0).flatten()
+    flat = lambda x: x.reshape((K,) + x.shape[len(d.lead) + 1:])
+    seqs, values = flat(st.seqs), flat(st.values)
+    if bool(roles.alive.all()):
+        require(torch.equal(seqs[keys, 0], table[0, keys])
+                and torch.equal(values[keys, 0, 0], table[1, keys]),
+                f"{what}: rank {d.rank} lost an acknowledged write")
+    else:
+        fresh = d.init_state()
+        require(all(torch.equal(a, b) for a, b in zip(st, fresh))
+                and not bool(live.any()),
+                f"{what}: the dead rank {d.rank} stored or answered")
+    return dict(offered=offered, replies=total, keys=int(keys.numel()))
+
+
+def slowest(d: ChainDist, xs) -> np.ndarray:
+    """Each entry of ``xs`` (this rank's numbers), the largest over the
+    chain group's ranks."""
+    t = torch.tensor(xs, dtype=torch.float64, device=d.device)
+    return collectives.all_gather_tiled(
+        t.reshape(1, -1), d.group).cpu().numpy().max(axis=0)
+
+
+def replay_split(d: ChainDist, stores, roles: Roles, inbox: Msg) -> dict:
+    """Where a step's time goes, replayed on this rank on a step's merged
+    inbox: the node step (a copy of the store each time; on a card one
+    ``kv_read`` and one ``kv_write`` launch), on every rank at once as
+    in a step and then one rank at a time (the others wait); the step's
+    three exchanges at their sizes (the lock stage's ``all_gather`` of
+    ``B + 1`` packed lanes, the next-hop ``ppermute`` and the fabric's
+    ``all_gather`` of ``4 B``); the replicated head lock stage on the
+    chain's gathered batch; the packing and unpacking around the three
+    exchanges; and the two compactions (``3 B`` lanes to the replies,
+    ``5 B`` to the next inbox).  Medians over ``REPLAY_ITERS``, the
+    slowest rank's, every rank at once."""
+    dev, B, k, n = d.device, DIST_BATCH, len(d.lead), d.n
+    local = lambda tree: tree_map(
+        lambda x: x.reshape((1,) + x.shape[k:]), tree)
+    my_roles, store, inb = local(roles), local(stores), local(inbox)
+    width = len(Msg._fields) - 1 + WORDS
+    feed = torch.zeros((B + 1, width), dtype=torch.int32, device=dev)
+    fab = torch.zeros((4 * B, width), dtype=torch.int32, device=dev)
+    cand = is_txn_op(inb.op) & (inb.src >= CLIENT_BASE)
+    txn_all = tree_map(lambda x: x[None], d.gather(inb.mask(cand)))
+    roles_all = tree_map(lambda x: x.reshape(1, n), d.gather(roles))
+    bstore = tree_map(lambda x: x[:, None].expand((1, n) + x.shape[1:]),
+                      store)
+    wide = lambda m: Msg.concat([inb] * m, dim=1)
+    replies_in, inbox_in = wide(3), wide(5)
+    packed = collectives.pack_msg(inb)
+    packed_n = packed.repeat(n, 1)
+
+    def timed(fn) -> float:
+        sync_on(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync_on(dev)
+        return time.perf_counter() - t0
+
+    def node_step() -> float:
+        s = tree_map(torch.clone, store)
+        return timed(lambda: d.node_step(d.cfg, s, my_roles, inb))
+
+    def exchanges():
+        collectives.all_gather_tiled(feed, d.group)
+        collectives.ppermute_next(fab, d.group)
+        collectives.all_gather_tiled(fab, d.group)
+
+    def packing():
+        for _ in range(3):
+            collectives.pack_msg(inb)
+        collectives.unpack_msg(packed_n, (1, n * B))
+        collectives.unpack_msg(packed, (1, B))
+        collectives.unpack_msg(packed_n, (1, n * B))
+
+    def compaction():
+        ChainDist._compact(replies_in, B)
+        ChainDist._compact(inbox_in, B)
+
+    parts = {"node_step": [], "exchange": [], "lock_stage": [],
+             "packing": [], "compaction": []}
+    for _ in range(REPLAY_ITERS):
+        parts["node_step"].append(node_step())
+        parts["exchange"].append(timed(exchanges))
+        parts["lock_stage"].append(timed(lambda: txn_lib.head_txn_stage(
+            d.init_locks(), roles_all, bstore, txn_all)))
+        parts["packing"].append(timed(packing))
+        parts["compaction"].append(timed(compaction))
+    alone_t = []
+    for r in range(d.n):
+        torch.distributed.barrier(group=d.group.pg)
+        if d.pos == r:
+            alone_t = [node_step() for _ in range(REPLAY_ITERS)]
+    torch.distributed.barrier(group=d.group.pg)
+    us = slowest(d, [np.median(x) * 1e6 for x in
+                     (*parts.values(), alone_t)])
+    out = {f"{name}_us": float(u) for name, u in zip(parts, us)}
+    out["node_step_alone_us"] = float(us[-1])
+    return out
+
+
+def kv_cache_steps(rank: int, world: int, dev) -> dict:
+    """(d): the kv_cache protocols at replication_dryrun's shapes, held to
+    tests/test_chain_dist.py's relations (node i > 0 keeps node i - 1's
+    page, the tail's seq reaches everyone, reads fetch the tail's window,
+    the tail ends with the head's page), then timed: ms a step (median of
+    ``KV_STEPS``, slowest rank) and the bytes a rank sends a step."""
+    g = collectives.chain_group(world)
+    n = g.n
+    page_shape = (KV_LAYERS, KV_BATCH, 1, KV_HEADS, KV_DIM)
+    win_shape = (KV_LAYERS, KV_BATCH, KV_WINDOW, KV_HEADS, KV_DIM)
+
+    def seeded(shape, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    page = lambda r: seeded(page_shape, 100 + r)
+    own, win = page(rank), seeded(win_shape, 200 + rank)
+    seq = torch.full((1,), 10 + rank, dtype=torch.int32, device=dev)
+    _, replica, ack = KV.netcraq_append(own, seq, group=g)
+    require(torch.equal(replica, page(rank - 1) if rank else own)
+            and int(ack) == 10 + n - 1,
+            f"kv_cache: netcraq_append on rank {rank}")
+    fetched = KV.netchain_read(win, group=g)
+    require(torch.equal(fetched, seeded(win_shape, 200 + n - 1)),
+            f"kv_cache: netchain_read on rank {rank}")
+    committed, ack2 = KV.netchain_append(own, seq, group=g)
+    require(torch.equal(committed, page(0) if rank == n - 1 else own)
+            and int(ack2) == 10 + n - 1,
+            f"kv_cache: netchain_append on rank {rank}")
+    protocols = {
+        "netcraq": lambda: KV.netcraq_append(own, seq, group=g),
+        "netchain": lambda: (KV.netchain_read(win, group=g),
+                             KV.netchain_append(own, seq, group=g))}
+    out = {}
+    for name, fn in protocols.items():
+        collectives.reset_bytes()
+        fn()
+        sent = sum(collectives.BYTES_SENT.values())
+        times = []
+        for _ in range(KV_STEPS):
+            sync_on(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync_on(dev)
+            times.append(time.perf_counter() - t0)
+        out[name] = dict(bytes=sent, ms=np.median(times) * 1e3)
+    ms = collectives.all_gather_tiled(torch.tensor(
+        [[out["netcraq"]["ms"], out["netchain"]["ms"]]],
+        dtype=torch.float64, device=dev), g).cpu().numpy().max(axis=0)
+    out["netcraq"]["slowest_ms"], out["netchain"]["slowest_ms"] = ms
+    return out
+
+
+def dist_chain_worker(rank: int, world: int, dev) -> dict:
+    """(a) one NetCRAQ chain of ``world`` ranks under client traffic and
+    a drain, then (d) the kv_cache protocols on the same ranks."""
+    d = ChainDist(dist_cluster(1), rank=rank, world=world, device=dev)
+    traffic = dist_traffic(17, 1, DIST_TICKS, DIST_DRAIN)
+    roles = d.full_roles()
+    run = dist_run(d, traffic, roles, sample=DIST_TICKS // 2)
+    checks = dist_checks(d, run, traffic, roles, "ChainDist (a)")
+    times = slowest(d, run["times"]) * 1e6
+    split = replay_split(d, run["stores"], roles, run["merged"])
+    return dict(checks=checks, launches=run["launches"], steps=run["steps"],
+                step_us=times, split=split, bytes=run["bytes"],
+                kv=kv_cache_steps(rank, world, dev))
+
+
+def dist_grouped_worker(rank: int, world: int, dev) -> dict:
+    """(b) two NetCRAQ chains of 4 ranks with the telemetry plane, node 1
+    of chain 1 failed through the control plane's role table and
+    transactions at chain 0's head; (c) its first ``CPU_STEPS`` steps on
+    the CPU (the plain versions) against the card's, every output."""
+    cl = dist_cluster(2)
+    co = Coordinator(cl, device="cpu")
+    co.fail_node(*GROUPED_DEAD)
+    traffic = dist_traffic(18, 2, GROUPED_TICKS, GROUPED_DRAIN,
+                           dead=GROUPED_DEAD, txn=True)
+    d = ChainDist(cl, rank=rank, world=world, group_axis=True, device=dev)
+    roles = d.shard(co.roles_table())
+    run = dist_run(d, traffic, roles, telemetry=True, record=CPU_STEPS)
+    checks = dist_checks(d, run, traffic, roles, "ChainDist (b)")
+    rep, tel = run["replies"], run["tel"]
+    seen = int((reply_op_class(rep.op, rep.seq) >= 0).sum())
+    require(int(tel.lat_hist.sum()) == seen
+            and int(tel.ring_cursor) == run["steps"],
+            f"ChainDist (b): rank {rank} histogram holds "
+            f"{int(tel.lat_hist.sum())} of {seen} replies")
+    txn = torch.stack([(rep.op == OP_PREPARE_ACK).sum(),
+                       ((rep.op == OP_TXN_REPLY) & (rep.seq >= 0)).sum()])
+    txn = collectives.psum(txn, d.group).tolist()
+    want = GROUPED_TICKS * TXN_PER_TICK if d.chain == 0 else 0
+    require(txn == [want, want], f"ChainDist (b): chain {d.chain} granted "
+            f"and committed {txn} of {want} transactions")
+    times = slowest(d, run["times"][CPU_STEPS:]) * 1e6
+
+    cpu = ChainDist(cl, rank=rank, world=world, group_axis=True,
+                    device="cpu")
+    first = {k: v[:CPU_STEPS] for k, v in traffic.items()}
+    plain = dist_run(cpu, first, cpu.shard(co.roles_table()),
+                     telemetry=True, record=CPU_STEPS)
+    for t, (g_out, c_out) in enumerate(zip(run["records"],
+                                           plain["records"])):
+        for i, (gt, ct) in enumerate(zip(g_out, c_out)):
+            for f, x in gt.items():
+                require(torch.equal(x, ct[f]),
+                        f"ChainDist (c): rank {rank} step {t} output {i} "
+                        f"{f}: CUDA != CPU")
+    return dict(checks=checks, launches=run["launches"], steps=run["steps"],
+                step_us=times, bytes=run["bytes"], txn=txn,
+                hist=int(tel.lat_hist.sum()), compared=CPU_STEPS)
+
+
+def chain_report(a: list, card: str, how: str) -> dict:
+    """(a)'s lines and numbers from its ranks' results."""
+    r0 = a[0]
+    us, split = r0["step_us"], r0["split"]
+    log(f"ChainDist (a) ({card}; {how}): 1 chain x {N_NODES} ranks x "
+        f"{NUM_KEYS} registers, {r0['steps']} steps ({DIST_TICKS} of "
+        f"traffic, {DIST_DRAIN} of drain), offered "
+        f"{r0['checks']['offered']} = replies {r0['checks']['replies']}, "
+        f"{r0['checks']['keys']} acknowledged keys read back on all "
+        f"{N_NODES} replicas; launches per rank "
+        f"{[x['launches'] for x in a]}, no plain call")
+    log(f"ChainDist (a) ({card}; {how}): wall us per step (slowest rank) "
+        f"median {np.median(us):.1f}, p99 {np.percentile(us, 99):.1f}, max "
+        f"{us.max():.1f}; replayed: node step {split['node_step_us']:.1f} "
+        f"us on every rank at once, {split['node_step_alone_us']:.1f} us "
+        f"one rank at a time, the three exchanges "
+        f"{split['exchange_us']:.1f} us, the lock stage "
+        f"{split['lock_stage_us']:.1f} us, packing "
+        f"{split['packing_us']:.1f} us, the two compactions "
+        f"{split['compaction_us']:.1f} us; bytes sent per rank per step "
+        f"{[round(sum(x['bytes'].values()) / x['steps']) for x in a]}")
+    return dict(step_us_median=float(np.median(us)),
+                step_us_p99=float(np.percentile(us, 99)), split=split,
+                launches=[x["launches"] for x in a],
+                chain_bytes_per_step=[sum(x["bytes"].values()) / x["steps"]
+                                      for x in a])
+
+
+def dist_phase(device="cuda") -> dict:
+    """Phase 17: (a) and (d) on 4 ranks, (b) and (c) on 8, rank ``r`` on
+    card ``r % device_count`` (all on one card when there is one),
+    ``DIST_BACKEND`` between them; with a card for each of (a)'s ranks,
+    (a) and (d) again over NCCL, one rank a card."""
+    t0 = time.perf_counter()
+    card = on_card(device)
+    cards = torch.cuda.device_count() if torch.device(
+        device).type == "cuda" else 0
+    where = (f"every rank on one device ({device}); the ranks exchange "
+             "through host memory (pinned staging copies)" if cards <= 1
+             else f"rank r on cuda:(r % {cards}); the ranks exchange "
+             "through host memory (pinned staging copies)")
+    log(f"distributed ({card}): backend {DIST_BACKEND}, one chain node a "
+        f"rank, {where}")
+    a = collectives.spawn_ranks(dist_chain_worker, N_NODES,
+                                backend=DIST_BACKEND, device=device,
+                                timeout=DIST_TIMEOUT)
+    res = dict(backend=DIST_BACKEND, cards=max(cards, 1),
+               **chain_report(a, card, f"{DIST_BACKEND}, {where}"))
+    kv = {p: dict(bytes=[x["kv"][p]["bytes"] for x in a],
+                  ms=a[0]["kv"][p]["slowest_ms"])
+          for p in ("netcraq", "netchain")}
+    for p, rec in kv.items():
+        log(f"kv_cache {p} ({card}; {DIST_BACKEND}): {KV_LAYERS} layers x "
+            f"batch {KV_BATCH} x {KV_HEADS} x {KV_DIM} bf16, page 1 token, "
+            f"window {KV_WINDOW}: {rec['ms']:.3f} ms per step (slowest "
+            f"rank), bytes sent per rank per step {rec['bytes']}")
+    if cards >= N_NODES:
+        nccl = collectives.spawn_ranks(dist_chain_worker, N_NODES,
+                                       backend="nccl", device=device,
+                                       timeout=DIST_TIMEOUT)
+        res["nccl"] = chain_report(nccl, card,
+                                   "nccl, one rank a card, no staging")
+        res["nccl"]["kv_cache"] = {
+            p: dict(bytes=[x["kv"][p]["bytes"] for x in nccl],
+                    ms=nccl[0]["kv"][p]["slowest_ms"])
+            for p in ("netcraq", "netchain")}
+        for p, rec in res["nccl"]["kv_cache"].items():
+            log(f"kv_cache {p} ({card}; nccl, one rank a card): "
+                f"{rec['ms']:.3f} ms per step (slowest rank), bytes sent "
+                f"per rank per step {rec['bytes']}")
+    b = collectives.spawn_ranks(dist_grouped_worker, 2 * N_NODES,
+                                backend=DIST_BACKEND, device=device,
+                                timeout=DIST_TIMEOUT)
+    us_b = np.maximum(b[0]["step_us"], b[N_NODES]["step_us"])
+    log(f"ChainDist (b) ({card}): 2 chains x {N_NODES} ranks, telemetry "
+        f"on, node {GROUPED_DEAD[1]} of chain {GROUPED_DEAD[0]} dead, "
+        f"{b[0]['steps']} steps; offered = replies per chain "
+        f"{[b[c * N_NODES]['checks']['replies'] for c in range(2)]}; "
+        f"transactions granted and committed per chain "
+        f"{[b[c * N_NODES]['txn'] for c in range(2)]}; histogram counts "
+        f"per rank {[x['hist'] for x in b]}; launches per rank "
+        f"{[x['launches']['kv_read'] for x in b]} kv_read, "
+        f"{[x['launches']['kv_write'] for x in b]} kv_write; wall us per "
+        f"step after the recorded steps median {np.median(us_b):.1f}, p99 "
+        f"{np.percentile(us_b, 99):.1f}")
+    log(f"ChainDist (c) ({card}): the first {CPU_STEPS} steps of (b) on "
+        f"CUDA ranks == CPU ranks (plain versions), every output, all 8 "
+        "ranks")
+    seconds = time.perf_counter() - t0
+    log(f"distributed: phase 17 took {seconds:.1f} s ({card})")
+    res["launches"] += [x["launches"] for x in b]
+    return dict(res, kv_cache=kv,
+                grouped_step_us_median=float(np.median(us_b)),
+                seconds=seconds)
+
+
 def on_card(device) -> str:
     """What a timing ran on: the card's name and power limit, or the
     host's CPU."""
@@ -3473,7 +4007,7 @@ def build_kernels(phases) -> None:
     (all three for a whole run)."""
     t0 = time.perf_counter()
     kernels = [(src, k) for src, k, uses in (
-        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16)),
+        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16, 17)),
         (FA_SRC, fa_kernel, (10, 11)),
         (SSD_SRC, ssd_kernel, (12, 13))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
@@ -3484,7 +4018,7 @@ def build_kernels(phases) -> None:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 17))
+ALL_PHASES = tuple(range(1, 18))
 
 
 def parse_phases(argv) -> set:
@@ -3607,6 +4141,8 @@ def main(argv=None) -> None:
         run["openloop"] = openloop_phase()
     if 16 in phases:
         run["chaos"] = chaos_phase()
+    if 17 in phases:
+        run["distributed"] = dist_phase()
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

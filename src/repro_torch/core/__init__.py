@@ -1,6 +1,7 @@
 """Engine of the port: types, store, node steps, lock stage, metrics,
 the cluster tick, workload lanes, the telemetry plane, the threefry PRNG,
-the open-loop load generator and the declarative chaos suite."""
+the open-loop load generator, the declarative chaos suite, and
+``ChainDist`` (one chain node per rank) with its collectives."""
 from repro_torch.core.types import (  # noqa: F401
     N_OPCLASS,
     OPCLASS_NAMES,
@@ -23,7 +24,7 @@ from repro_torch.core.loadgen import (  # noqa: F401
     materialize_stream,
     zipf_cdf,
 )
-from repro_torch.core.chain import ChainSim, SimState  # noqa: F401
+from repro_torch.core.chain import ChainDist, ChainSim, SimState  # noqa: F401
 from repro_torch.core.chaos import (  # noqa: F401
     ChaosEvent,
     ChaosScenario,

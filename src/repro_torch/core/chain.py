@@ -1,5 +1,6 @@
 """The cluster engine ``ChainSim`` - the port of ``repro/core/chain.py``'s
-main path.
+main path - and ``ChainDist``, the reference's production engine, with
+one chain node per rank on torch.distributed (see its docstring).
 
 A cluster of C chains of n nodes advances one tick at a time.  The
 reference vmaps a per-chain tick over C and a per-node step over n; here
@@ -40,6 +41,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.core import craq, netchain
 from repro_torch.core import loadgen as loadgen_lib
 from repro_torch.core import telemetry as telemetry_lib
@@ -72,6 +74,7 @@ from repro_torch.core.types import (
     PartitionMap,
     Roles,
     as_cluster,
+    is_txn_op,
     resolve_device,
     tree_map,
 )
@@ -812,3 +815,285 @@ class ChainSim:
             n += int((state.wave.phase != txn_lib.WAVE_FREE).sum())
             n += int((state.wave.coord_in.op != OP_NOP).sum())
         return n
+
+
+# ---------------------------------------------------------------------------
+# Distributed engine: one chain node per rank (torch.distributed)
+# ---------------------------------------------------------------------------
+_ROLE_INTS = ("my_pos", "head_pos", "tail_pos", "n_nodes", "next_pos",
+              "prev_pos", "chain_pos")
+
+
+def _pack_roles(roles: Roles, width: int) -> torch.Tensor:
+    """A ``[1]``-leaf role row as one int32 ``[1, width]`` row (the
+    booleans as 0/1, zero padding on the right)."""
+    row = torch.stack([_i32(getattr(roles, f)[0]) for f in Roles._fields])
+    return torch.cat([row, row.new_zeros(width - row.shape[0])])[None]
+
+
+def _unpack_roles(rows: torch.Tensor) -> Roles:
+    """``[m, width]`` packed rows back to a ``Roles`` of ``[m]`` leaves."""
+    cols = {f: rows[:, i] for i, f in enumerate(Roles._fields)}
+    return Roles(**{f: (cols[f] if f in _ROLE_INTS else cols[f] != 0)
+                    for f in Roles._fields})
+
+
+class ChainDist:
+    """One chain node per rank: the port of the reference's production
+    engine (``ChainDist`` under ``shard_map``), on ``torch.distributed``.
+
+    Rank ``r`` holds node ``r % n`` of chain group ``r // n``
+    (``core/collectives.py``).  With ``group_axis=True`` the world is
+    one cluster of C chains side by side (``world == C * n``, rank ``r``
+    on chain ``r // n``); ungrouped, a single chain (C == 1) of
+    ``world == n`` ranks.  The exchanges name only the chain group, so
+    chains exchange nothing.
+
+    ``make_step(B)`` returns the step on this rank's local shards with
+    the reference's contract: ``step(stores, inbox, roles, pmap, locks[,
+    tel]) -> (stores', inbox', replies, locks'[, tel'])``, every per-node
+    leaf with a leading ``[1]`` (``[1, 1]`` grouped), the partition map
+    with this chain's ``[1, K]`` slot rows and the lock shard ``[1, K]``.
+    A step runs the reference's stages in order: mask to the alive set
+    and entry stamping; stale-route admission; the head lock stage,
+    replicated: every rank re-derives the same lock transition from the
+    gathered transaction batch and role row (one ``all_gather``) and
+    keeps its own row; the node step (on a card one ``kv_read`` and,
+    NetCRAQ, one ``kv_write`` launch); write-forward traffic one hop
+    toward the tail (``ppermute_next``); dirty-read fetches and the
+    ACK multicast through one masked ``all_gather``; each lane set
+    compacted to ``B`` (a stable sort, truncating silently past ``B``,
+    as the reference's).  Every exchange moves one packed int32 tensor.
+    The stores and the telemetry histogram are edited in place: rebind
+    the returned ones.  ``shard``/``local_pmap`` cut a global view to
+    this rank's shards; ``gather``/``gather_rows`` put
+    the global ``[n, ...]`` (``[C, n, ...]``) or ``[C, ...]`` view
+    together on every rank.
+    """
+
+    def __init__(self, cfg: ChainConfig | ClusterConfig, *, rank: int,
+                 world: int, group_axis: bool = False, device=None):
+        self.cluster = as_cluster(cfg)
+        self.cfg = self.cluster.chain
+        self.n = self.cfg.n_nodes
+        self.C = self.cluster.n_chains
+        self.grouped = bool(group_axis)
+        if self.grouped:
+            assert world == self.C * self.n, (
+                f"a grouped ChainDist of {self.C} chains of {self.n} nodes "
+                f"needs {self.C * self.n} ranks, not {world}")
+        else:
+            assert self.C == 1, (
+                "multi-chain ChainDist needs group_axis=True")
+            assert world == self.n, (
+                f"an ungrouped ChainDist of {self.n} nodes needs {self.n} "
+                f"ranks, not {world}")
+        assert 0 <= rank < world
+        self.rank, self.world = rank, world
+        self.group = coll.chain_group(self.n)
+        assert self.group.ranks[self.group.pos] == rank, (
+            f"rank {rank} is not this process's rank")
+        self.pos = self.group.pos
+        self.chain = self.group.index if self.grouped else 0
+        self.lead = (1, 1) if self.grouped else (1,)
+        self.device = resolve_device(
+            device if device is not None
+            else coll.rank_device(rank, "cuda"))
+        self.node_step = NODE_STEPS[self.cfg.protocol]
+
+    # -- global views <-> this rank's shards ------------------------------
+    def shard(self, tree):
+        """This rank's shard of a per-node tree (``[n, ...]`` leaves, or
+        ``[C, n, ...]`` grouped), on the engine's device."""
+        if self.grouped:
+            cut = lambda x: x[self.chain:self.chain + 1,
+                              self.pos:self.pos + 1]
+        else:
+            cut = lambda x: x[self.pos:self.pos + 1]
+        return tree_map(lambda x: cut(x).to(self.device), tree)
+
+    def local_pmap(self, pmap: PartitionMap) -> PartitionMap:
+        """A global partition map with this chain's ``[1, K]`` slot rows."""
+        dev = self.device
+        row = lambda x: x[self.chain:self.chain + 1].to(dev)
+        return PartitionMap(
+            owner=pmap.owner.to(dev), base=pmap.base.to(dev),
+            epoch=pmap.epoch.to(dev), slot_bucket=row(pmap.slot_bucket),
+            slot_epoch=row(pmap.slot_epoch))
+
+    def gather(self, tree):
+        """The global per-node view of local shards, on every rank (a
+        collective: every rank of the world calls it)."""
+        if self.grouped:
+            grp = coll.world_group()
+            shape = lambda x: (self.C, self.n) + x.shape[2:]
+        else:
+            grp = self.group
+            shape = lambda x: (self.n,) + x.shape[1:]
+        return tree_map(
+            lambda x: coll.all_gather_tiled(x.reshape(
+                (1,) + x.shape[len(self.lead):]), grp).reshape(shape(x)),
+            tree)
+
+    def gather_rows(self, tree):
+        """The global ``[C, ...]`` view of per-chain rows (the lock shard),
+        taken from each chain's position 0, on every rank."""
+        if not self.grouped:
+            return tree
+        grp = coll.world_group()
+        return tree_map(
+            lambda x: coll.all_gather_tiled(x, grp)[::self.n], tree)
+
+    # -- state ------------------------------------------------------------
+    def init_state(self) -> Store:
+        """This rank's node store: ``[1, K, ...]`` (``[1, 1, K, ...]``
+        grouped)."""
+        return store_lib.init_store(self.cfg, self.lead, device=self.device)
+
+    def init_locks(self) -> LockTable:
+        """This chain's all-free ``[1, K]`` lock shard."""
+        return txn_lib.init_locks(self.cfg, 1, device=self.device)
+
+    def full_roles(self) -> Roles:
+        """This rank's row of the all-slots-live role table.  Cut the
+        control plane's ``Coordinator.roles_table()`` with ``shard`` to
+        run under edited membership."""
+        dev = self.device
+        if self.grouped:
+            return self.shard(full_roles_table(self.n, self.C, device=dev))
+        return self.shard(Roles.from_membership(self.n, range(self.n),
+                                                device=dev))
+
+    def default_pmap(self) -> PartitionMap:
+        """The epoch-0 partition map with this chain's slot rows."""
+        return self.local_pmap(self.cluster.default_partition(
+            device=self.device))
+
+    def init_telemetry(
+        self, hist_buckets: int = telemetry_lib.DEFAULT_HIST_BUCKETS
+    ) -> Telemetry:
+        """This rank's telemetry shard for ``make_step(...,
+        telemetry=True)``: its exit-latency histogram ``[1, OPCLASS,
+        BKT]`` and its step clock in the ``ring_cursor`` lane; the ring
+        and trace leaves are zero-size, as the reference's."""
+        z = lambda *s: torch.zeros(self.lead + s, dtype=I32,
+                                   device=self.device)
+        return Telemetry(
+            lat_hist=z(telemetry_lib.N_OPCLASS, hist_buckets),
+            ring=z(0, telemetry_lib.N_RING_FIELDS),
+            ring_cursor=z(),
+            trace_qid=z(0),
+            trace_node=z(0, 0),
+            trace_tick=z(0, 0),
+            trace_op=z(0, 0),
+            trace_len=z(0),
+        )
+
+    @staticmethod
+    def _compact(msg: Msg, cap: int) -> Msg:
+        """Keep live lanes first (stable), truncate to ``cap`` lanes."""
+        order = torch.sort((msg.op == OP_NOP).to(torch.uint8), dim=1,
+                           stable=True).indices[:, :cap]
+        return _gather_msg(msg, order)
+
+    # -- the step ---------------------------------------------------------
+    def make_step(self, batch_per_node: int, telemetry: bool = False):
+        cfg, n, grp, B = self.cfg, self.n, self.group, batch_per_node
+        node_step = self.node_step
+        k = len(self.lead)
+        unshard = lambda x: x.reshape((1,) + x.shape[k:])
+        reshard = lambda x: x.reshape(self.lead + x.shape[1:])
+
+        def step(stores: Store, inbox: Msg, roles: Roles,
+                 pmap: PartitionMap, locks: LockTable, tel=None):
+            my_roles: Roles = tree_map(unshard, roles)             # [1]
+            my_pos = my_roles.my_pos
+            local_store: Store = tree_map(unshard, stores)         # [1, K..]
+            local_in: Msg = tree_map(unshard, inbox)               # [1, B]
+            alive = my_roles.alive[:, None]
+            # a dead rank receives nothing and processes nothing
+            local_in = local_in.mask(alive.expand_as(local_in.op))
+            local_in = craq.stamp_entry(local_in, my_pos[:, None])
+
+            # stale-route admission against this chain's slot rows
+            local_in, stale_out, _ = stale_route_admission(
+                local_in, pmap.slot_epoch, pmap.slot_bucket, my_pos)
+
+            # ---- head lock stage, replicated: the chain's transaction
+            # candidates and role rows gathered in one exchange; every
+            # rank derives the same transition and keeps its own row
+            cand = (is_txn_op(local_in.op)
+                    & (local_in.src >= CLIENT_BASE))               # [1, B]
+            feed = coll.pack_msg(local_in.mask(cand))              # [B, w]
+            lanes = B + 1
+            gathered = coll.all_gather_tiled(
+                torch.cat([feed, _pack_roles(my_roles, feed.shape[1])]),
+                grp).reshape(n, lanes, -1)
+            txn_all = coll.unpack_msg(
+                gathered[:, :B].reshape(n * B, -1), (1, n, B))
+            roles_all = tree_map(lambda x: x[None],
+                                 _unpack_roles(gathered[:, B]))    # [1, n]
+            # only the head row's replies read the store: the local
+            # store, expanded (not copied) over the chain's n rows
+            bstore = tree_map(
+                lambda x: x[:, None].expand((1, n) + x.shape[1:]),
+                local_store)
+            new_locks, passed_all, rep_all, _ = txn_lib.head_txn_stage(
+                locks, roles_all, bstore, txn_all)
+            mine = my_pos.long()
+            passed_me = tree_map(lambda x: x[:, mine][:, 0], passed_all)
+            rep_me = tree_map(lambda x: x[:, mine][:, 0], rep_all)
+            local_in = tree_map(
+                lambda a, b: torch.where(
+                    cand.reshape(cand.shape + (1,) * (a.dim() - 2)), b, a),
+                local_in, passed_me)
+
+            new_store, outbox = node_step(cfg, local_store, my_roles,
+                                          local_in)
+            # ... and emits nothing
+            outbox = outbox.mask(alive.expand_as(outbox.op))
+
+            # ---- next-hop traffic: one hop toward the tail (only for the
+            # physical ring neighbour; a skip over a dead rank rides the
+            # fabric below).  Position 0 receives ppermute's zeros.
+            M = outbox.op.shape[1]
+            to_next = outbox.mask(outbox.dst == my_pos[:, None] + 1)
+            from_prev = coll.unpack_msg(
+                coll.ppermute_next(coll.pack_msg(to_next), grp), (1, M))
+
+            # ---- fabric traffic: dirty-read fetches + multicast ACKs
+            fabric = outbox.mask(
+                (outbox.dst == MULTICAST)
+                | ((outbox.dst >= 0) & (outbox.dst != my_pos[:, None] + 1)))
+            all_fab = coll.unpack_msg(
+                coll.all_gather_tiled(coll.pack_msg(fabric), grp),
+                (1, n * M))
+            take = ((all_fab.dst == my_pos[:, None])
+                    | ((all_fab.dst == MULTICAST)
+                       & (all_fab.src != my_pos[:, None]))) & alive
+            from_fabric = all_fab.mask(take)
+
+            replies = self._compact(Msg.concat([
+                outbox.mask(outbox.dst == TO_CLIENT), stale_out, rep_me,
+            ], dim=1), B)
+            next_inbox = self._compact(
+                Msg.concat([from_prev, from_fabric], dim=1), B)
+            out = [tree_map(reshard, new_store),
+                   tree_map(reshard, next_inbox),
+                   tree_map(reshard, replies),
+                   new_locks]
+            if telemetry:
+                # this rank's own reply batch into its histogram; the
+                # ring_cursor lane is the rank's step clock, so ticks in
+                # flight = clock + 1 - t_inject
+                my_tel: Telemetry = tree_map(unshard, tel)
+                clock = my_tel.ring_cursor                           # [1]
+                my_tel = my_tel._replace(
+                    lat_hist=telemetry_lib.record_latency(
+                        my_tel.lat_hist, replies.op, replies.seq,
+                        clock[:, None] + 1 - replies.t_inject),
+                    ring_cursor=_i32(clock + 1))
+                out.append(tree_map(reshard, my_tel))
+            return tuple(out)
+
+        return step

@@ -4,12 +4,16 @@ Each kernel package keeps one ``csrc/<name>.cu`` with a plain C interface.
 At first use it is compiled with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into ``build/lib<name>_<tag>.so`` beside
 ``csrc/``, where ``<tag>`` hashes the source and the flags, so an edited
-source is rebuilt; the library is then loaded once per process.  Nothing
-here runs at import: the CPU tests import every kernel module.
+source is rebuilt; the library is then loaded once per process.  A
+build holds an exclusive ``flock`` on ``build/<name>.lock``, so ranks
+started at once build a library once and load it (the kernel frees the
+lock if its holder dies).  Nothing here runs at import: the CPU tests
+import every kernel module.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -67,16 +71,20 @@ class CudaLibrary:
         if out.exists():
             return out
         self.build_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {self.src.name} "
-                               f"({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        with open(self.build_dir / f"{self.name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if out.exists():            # another process built it meanwhile
+                return out
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=self.build_dir)
+            os.close(fd)
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.src)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed on {self.src.name} "
+                                   f"({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
         return out
 
     def lib(self) -> ctypes.CDLL:

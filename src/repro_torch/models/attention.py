@@ -84,7 +84,8 @@ def attn_decode(p, x, cache, t: int, cfg: ArchConfig, *,
     if seq_parallel:
         raise NotImplementedError(
             "attn_decode(seq_parallel=True) shards the cache over a device "
-            "mesh; it comes with the torch.distributed slice")
+            "mesh (the reference's GSPMD sharding); it comes with the port "
+            "of distributed/ (ROADMAP queue 1 item 5)")
     h, kv_h, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.cdtype()
     B = x.shape[0]

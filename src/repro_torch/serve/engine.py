@@ -9,8 +9,9 @@ records when each request was submitted and done.  It serves every
 family ``transformer`` has ported (dense, SSM) with no logic of its own
 per family: the cache is whatever the model's prefill returns and its
 decode updates.  It runs on one device (``device``, CUDA unless the
-caller asks for the CPU) under ``torch.inference_mode()``.  The multi-replica cache protocols of the
-reference's ``serve/kv_cache.py`` come with the torch.distributed slice.
+caller asks for the CPU) under ``torch.inference_mode()``.  The multi-replica cache protocols
+(NetCRAQ and NetChain over a chain group of ranks) are in
+``serve/kv_cache.py``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, a
 small cluster run, a live rebalance, an open-loop run, the threefry
-draws, tied store winners and reduced serving runs (dense and SSM) on
-CUDA against the same runs on the CPU.  Imports no JAX, so it
+draws, tied store winners, reduced serving runs (dense and SSM), and
+``ChainDist`` and the kv_cache protocols on CUDA ranks, on CUDA against
+the same runs on the CPU.  Imports no JAX, so it
 runs where only PyTorch is installed; without a card every test skips:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -1032,3 +1033,112 @@ def test_cuda_set_lease_and_a_segment_make_no_host_sync(card):
         torch.cuda.set_sync_debug_mode(0)
     assert int(state.locks.lease_ticks[0]) == 7
     assert int(state.t) == 10
+
+
+# ---------------------------------------------------------------------------
+# ChainDist and the kv_cache protocols on CUDA ranks (torch.distributed
+# over gloo, every rank on this card; the workers import no JAX)
+# ---------------------------------------------------------------------------
+def _dist_spec():
+    """A small grouped NetCRAQ run: 2 x 4 ranks, telemetry on, a failed
+    node, a moved bucket, transactions and keys -1 and K."""
+    import torch_dist_worker as W
+
+    spec = dict(protocol="netcraq", n=4, C=2, K=32, V=4, buckets=3, spare=8,
+                B=32, grouped=True, telemetry=True, fails=[(1, 1)],
+                moves=[(0, 1)])
+    roles, pmap = W.control_plane_inputs(spec)
+    inj = W.client_injections(
+        5, ticks=18, inject_ticks=10, C=2, n=4, B=32, q=4, K=32,
+        versions=(0, 1), txn=W.txn_script(0, 0, (9, 17), other_node=2))
+    return dict(spec, roles=roles, pmap=pmap, inj=inj)
+
+
+def test_cuda_chain_dist_ranks_equal_cpu_ranks(card):
+    """Every output of every step of a grouped ChainDist run on 8 CUDA
+    ranks equals the same run on the CPU (plain versions), and each rank
+    launches one kv_read and one kv_write a step."""
+    import torch_dist_worker as W
+    from repro_torch.core import collectives as coll
+
+    res = coll.spawn_ranks(W.cuda_vs_cpu, 8, device="cuda", timeout=120,
+                           args=(_dist_spec(),))
+    for r, out in enumerate(res):
+        assert out["diff"] is None, (r, out["diff"])
+        steps = out["steps"]
+        assert out["launches"]["kv_read"] == out["launches"]["kv_write"] \
+            == steps, (r, out["launches"])
+
+
+def test_cuda_kv_cache_ranks_equal_cpu_ranks(card):
+    """The kv_cache protocols on 4 CUDA ranks give the CPU ranks' pages,
+    acks and byte counts, bf16 and float32."""
+    import torch_dist_worker as W
+    from repro_torch.core import collectives as coll
+
+    rng = np.random.default_rng(2)
+    bf16 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16).view(torch.int16).numpy()
+    data = {"bf16": dict(k=bf16(4, 3, 4, 1, 2, 16), v=bf16(4, 3, 4, 1, 2, 16),
+                         seq=np.arange(4, dtype=np.int32).reshape(4, 1) + 5,
+                         failed=rng.integers(0, 2, (4, 3)).astype(bool)),
+            "f32": dict(k=rng.standard_normal((4, 8)).astype(np.float32),
+                        v=rng.standard_normal((4, 8)).astype(np.float32),
+                        seq=np.arange(4, dtype=np.int32).reshape(4, 1),
+                        failed=np.zeros((4, 8), bool))}
+    res = coll.spawn_ranks(W.kv_cuda_vs_cpu, 4, device="cuda", args=(data,))
+    for r, out in enumerate(res):
+        assert out["diff"] is None, (r, out["diff"])
+
+
+def test_nccl_ranks_one_card_each_equal_gloo_cpu_ranks(card):
+    """The NCCL path of ``core/collectives.py`` (CUDA tensors handed to
+    the backend as they are, no host staging): an ungrouped NetCRAQ
+    ``ChainDist`` with the telemetry plane, a dead node and transactions,
+    and each collective, on 4 ranks, one card each, over NCCL, equal to
+    the same on 4 gloo CPU ranks (a float32 sum within 4 eps of the sum
+    of magnitudes: the backends add in their own orders); each NCCL rank
+    launches one kv_read and one kv_write a step.  NCCL refuses two
+    ranks on one card, so this needs 4 cards."""
+    import torch_dist_worker as W
+    from repro_torch.core import collectives as coll
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: NCCL takes one card a rank")
+    spec = dict(protocol="netcraq", n=4, C=1, K=32, V=4, B=32,
+                grouped=False, telemetry=True, fails=[(0, 1)], moves=[])
+    roles, pmap = W.control_plane_inputs(spec)
+    inj = W.client_injections(
+        7, ticks=18, inject_ticks=10, C=1, n=4, B=32, q=4, K=32,
+        versions=(0, 1), txn=W.txn_script(0, 0, (3, 5), other_node=2))
+    spec = dict(spec, roles=roles, pmap=pmap,
+                inj={f: v[:, 0] for f, v in inj.items()})
+    rng = np.random.default_rng(4)
+    data = {"int32": rng.integers(-(1 << 30), 1 << 30, (4, 3, 5)).astype(
+                np.int32),
+            "float32": rng.standard_normal((4, 4, 2)).astype(np.float32),
+            "bfloat16": torch.from_numpy(rng.standard_normal((4, 6)).astype(
+                np.float32)).to(torch.bfloat16).view(torch.int16).numpy()}
+    nccl = coll.spawn_ranks(W.backend_run, 4, backend="nccl", device="cuda",
+                            timeout=120, args=(spec, data))
+    gloo = coll.spawn_ranks(W.backend_run, 4, backend="gloo", device="cpu",
+                            timeout=120, args=(spec, data))
+    exact = np.abs(data["float32"]).sum(axis=0)
+    for r, (got, exp) in enumerate(zip(nccl, gloo)):
+        steps = len(exp["chain"])
+        assert got["launches"]["kv_read"] == got["launches"]["kv_write"] \
+            == steps, (r, got["launches"])
+        for t, (g, e) in enumerate(zip(got["chain"], exp["chain"])):
+            for k in e:
+                assert np.array_equal(g[k], e[k]), (r, t, k)
+        assert got["coll"]["layout"] == exp["coll"]["layout"]
+        assert got["coll"]["bytes"] == exp["coll"]["bytes"]
+        for dtype in data:
+            for op, e in exp["coll"][dtype].items():
+                g = got["coll"][dtype][op]
+                if op == "psum" and dtype == "float32":
+                    bound = 4 * np.finfo(np.float32).eps * exact
+                    assert (np.abs(g - data[dtype].sum(axis=0,
+                            dtype=np.float64)) <= bound).all(), r
+                    continue
+                assert np.array_equal(g, e), (r, dtype, op)
