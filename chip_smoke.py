@@ -66,7 +66,10 @@ source, all three at once), then:
    [8, 2, 2048, 128], causal), a ragged tile edge (S = SK = 200) and
    S > SK, the f32 route at float32 (same GQA group) and S < SK; the
    SDPA yardstick is timed beside each route, and the f32 kernel on the
-   bf16 serving shape (the design the tensor-core route replaced);
+   bf16 serving shape (the design the tensor-core route replaced); then
+   phase 18's prefill shapes on the tensor-core route, checked and timed
+   the same way (Granite-MoE: q [8, 24, 2048, 64], k/v [8, 8, 2048, 64];
+   Llama-4-Scout: q [8, 40, 2048, 128], k/v [8, 8, 2048, 128]);
 11. the serving path at full width (``examples/kv_serving.py``'s run):
    the coordination store keeps model version and serving epoch, and
    ``ServingEngine`` serves Qwen2.5-3B (36 layers, random weights from a
@@ -179,11 +182,37 @@ source, all three at once), then:
    output; (d) the kv_cache protocols at
    ``benchmarks/replication_dryrun.py``'s shapes (Qwen2.5-3B's cache at
    batch 32, bf16) over 4 ranks, held to the reference test's relations,
-   with ms a step and the bytes a rank sends a step.
+   with ms a step and the bytes a rank sends a step;
+18. the MoE family on phase 11's serving run: Granite-MoE-3B-A800M at
+   full width and depth (32 layers, 40 experts padded to 48, top-8,
+   random weights from a seed; 16 requests of 2048-token prompts, 32 new
+   tokens, 2 waves) and Llama-4-Scout-17B-16E at full width with its
+   depth cut to 2 of 48 layers (one card holds 2; 8 requests, 16 new
+   tokens), every attention launch on the tensor-core route (64 and 2)
+   and no plain call, with phase 11's holds on the outputs, determinism,
+   the manual greedy loop and the version bump; routing is held with no
+   hook in the model: (a) the blocks driven from here layer by layer on
+   the first wave, each layer fed one hidden state through the kernel
+   path and the plain path, the block outputs equal on the tokens whose
+   routing agrees and every differing decision at a top-k gap below
+   2**-8, the routing recomputed on the CPU from the same input differing
+   only below 1e-5; (b) the whole model in float32 compute, kernel path
+   (the f32 route) against the plain path, within 1e-4; (c) 2 layers in
+   float32 compute on CUDA against the CPU, within 1e-4; bf16 whole-model
+   logits printed beside the decisions the two runs flip; prints the
+   serving metrics, the MoE stages' device time, and each layer's dropped
+   share of (token, slot) pairs;
+19. the examples' torch twins (``examples/quickstart_torch.py``,
+   ``fault_tolerance_torch.py``, ``kv_serving_torch.py``) on the card,
+   their default device, and with ``--device cpu``: the same lines but for
+   wall-clock numbers; the two chain examples launch the kv kernels on the
+   card and call no plain version.
 
-``--phases 12,13`` runs the build of the kernels those phases use,
-phase 1 and the named phases only (4 and 5 bring 3 along, 8 brings 7;
-15, 16 and 17 stand alone);
+A kernel's ``launches`` in the record add up over the main paths that
+ran it (phases 11 and 18 for the attention kernel), each counted from
+zero just before its run.  ``--phases 12,13`` runs the build of the
+kernels those phases use, phase 1 and the named phases only (4 and 5
+bring 3 along, 8 brings 7; 15-19 stand alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
 it placed in another checkout (a parent commit's, unpacked with ``git
@@ -199,8 +228,11 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -248,6 +280,9 @@ try:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
     from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
     from repro_torch.models import api  # noqa: E402
+    from repro_torch.models import attention as attn_lib  # noqa: E402
+    from repro_torch.models import layers as layers_lib  # noqa: E402
+    from repro_torch.models import moe as moe_lib  # noqa: E402
     from repro_torch.obs import tail_percentiles  # noqa: E402
     from repro_torch.models import transformer as TF  # noqa: E402
     from repro_torch.models.transformer import OptFlags  # noqa: E402
@@ -315,6 +350,29 @@ SSM_ARCH, SSM_PROMPT_LEN = "mamba2-1.3b", 2000
 # CPU (plain versions)
 REDUCED_SERVE = dict(n_layers=2, requests=2, prompt_len=256, steps=4)
 FA_ITERS = 10                      # timed calls per attention measurement
+# phase 18: the MoE family on the same serving run.  Granite-MoE-3B-A800M
+# at full width and depth (32 layers, 40 experts padded to 48, top-8, in
+# routing groups of 512 tokens); Llama-4-Scout-17B-16E at full width and 2
+# of its 48 layers (16 experts top-1 and a shared expert: about 2.2 B
+# parameters a layer, so all 48 would be some 105 B, 210 GB in bf16, past
+# one 80 GB card), 8 requests of 2048-token prompts, 16 new tokens each.
+MOE_ARCH, SCOUT_ARCH = "granite-moe-3b-a800m", "llama4-scout-17b-a16e"
+SCOUT_LAYERS, SCOUT_REQUESTS, SCOUT_MAX_NEW = 2, 8, 16
+# Top-k routing is discontinuous, so routing is held decision by decision:
+# a (token, slot) whose expert differs between two runs on inputs that
+# differ by rounding must sit where its probabilities lie closer than the
+# rounding can move them: 2**-8, bf16's unit roundoff (the MoE inputs are
+# bf16, and a probability is below 1) between the kernel and plain paths;
+# 1e-5 between the card and the CPU on the same input (the router is
+# float32 on both, summed in another order).
+BF16_GAP_TOL, F32_GAP_TOL = 2.0 ** -8, 1e-5
+# the gaps of the decisions that differ are counted between these edges
+GAP_EDGES = (1e-7, 1e-6, 1e-5, 1e-4, 1e-3, BF16_GAP_TOL)
+# a block's output on the tokens whose routing agrees, kernel against plain
+# path (one attention call in bf16: phase 10's tolerance), and the float32
+# logits of a whole model or of 2 layers on the card against the CPU (the
+# f32 route's serving tolerance)
+MOE_LAYER_TOL, F32_TOL = 2e-2, 1e-4
 # phase 14: cross-chain transactions at phase 7's cluster, in
 # benchmarks/fig_txn_pipeline.py's proportions (every transaction spans
 # chains, every key written, zipf_a 1.2), two mixes of 4,096, each on a
@@ -1810,14 +1868,21 @@ def check_flash_attention() -> dict:
     cfg = get_config(SERVE_ARCH)
     HQ, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16, f32 = torch.bfloat16, torch.float32
+    heads = {name: (c.n_heads, c.n_kv_heads, c.head_dim)
+             for name, c in moe_configs().items()}
     cases = [("serving", SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2, "mma"),
              ("float32", 2, PROMPT_LEN, PROMPT_LEN, f32, 2e-5, "f32"),
              ("ragged", SLOTS, 200, 200, bf16, 2e-2, "mma"),
              ("s_lt_sk", 2, 200, 700, f32, 2e-5, "f32"),
              ("s_gt_sk", 2, 700, 200, bf16, 2e-2, "mma")]
+    # phase 18's prefill shapes: one MoE layer's attention of a wave
+    cases += [(name, SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2, "mma")
+              for name in heads]
     gen = torch.Generator(device="cuda").manual_seed(13)
     errs = {"mma": {}, "f32": {}}
     for name, B, S, SK, dtype, tol, want in cases:
+        HQ, HKV, D = heads.get(name, (cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim))
         q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
         fa_kernel.reset_launches()
         got = fa_kernel.flash_attention(q, k, v)
@@ -1837,6 +1902,7 @@ def check_flash_attention() -> dict:
             f"{D}], k/v [{B}, {HKV}, {SK}, {D}] {str(dtype)[6:]}: max abs "
             f"err {err:.3g} (tolerance {tol})")
         del q, k, v, got, exp
+    HQ, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def record(q, k, v, peak):
         nbytes, flop = attention_bound(q, k)
@@ -1885,6 +1951,26 @@ def check_flash_attention() -> dict:
     out["flash_attention"]["replaced_design_ms"] = old_ms
     log(f"flash_attention at the serving shape on the design this route "
         f"replaced (the f32 kernel, bf16 inputs): {old_ms} ms per call")
+    del serving, single, padded
+    # phase 18's shapes on the tensor-core route, timed as the serving one
+    shapes = {}
+    for name, (hq, hkv, d) in heads.items():
+        qkv = attention_inputs(gen, SLOTS, hq, hkv, PROMPT_LEN, PROMPT_LEN,
+                               d, bf16)
+        rec = measure({name: dict(record(*qkv, BF16_FLOP_PER_S),
+                                  max_abs_err=errs["mma"][name])})[name]
+        nbytes, flop = attention_bound(*qkv[:2])
+        rec["tflop_per_s"] = flop / rec["ms"] / 1e9
+        shapes[name] = rec
+        log(f"flash_attention at {name}'s prefill q {list(qkv[0].shape)} "
+            f"k/v {list(qkv[1].shape)} bf16 ({smi()}): {flop / 1e9:.1f} "
+            f"GFLOP, {nbytes / 1e6:.1f} MB; {rec['ms']:.4f} ms per call = "
+            f"{rec['tflop_per_s']:.1f} TFLOP/s; plain version "
+            f"{rec['plain_ms']:.4f} ms; SDPA {rec['library_ms']:.4f} ms; "
+            f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} at the "
+            f"bf16 tensor-core peak")
+        del qkv
+    out["flash_attention"]["moe_shapes"] = shapes
     return out
 
 
@@ -2123,6 +2209,9 @@ class ServePath:
     score: bool            # also hold lm_forward (scoring) to the plain path
     kernel_tag: str        # in the device names of the kernel's launches
     paired: str | None = None
+    n_layers: int | None = None    # a depth cut (None: the config's)
+    requests: int = N_REQUESTS
+    max_new: int = MAX_NEW
 
 
 SERVE_PATHS = {
@@ -2135,7 +2224,30 @@ SERVE_PATHS = {
                      ssd_kernel, "ssd_scan", None, ssd_ref,
                      ("ssd_chunked", "ssd_scan_with_final_ref"), OptFlags(),
                      chunked_ssd, True, "ssd_", paired="ssd_cb"),
+    "moe": ServePath(18, MOE_ARCH, PROMPT_LEN, CACHE_LEN, fa_kernel,
+                     "flash_attention", "flash_attention_mma", fa_ref,
+                     ("flash_attention_ref", "attention_ref"),
+                     OptFlags(attn_impl="pallas"), naive_attention, False,
+                     "flash_"),
+    "scout": ServePath(18, SCOUT_ARCH, PROMPT_LEN, CACHE_LEN, fa_kernel,
+                       "flash_attention", "flash_attention_mma", fa_ref,
+                       ("flash_attention_ref", "attention_ref"),
+                       OptFlags(attn_impl="pallas"), naive_attention, False,
+                       "flash_", n_layers=SCOUT_LAYERS,
+                       requests=SCOUT_REQUESTS, max_new=SCOUT_MAX_NEW),
 }
+
+
+def path_config(path: ServePath):
+    cfg = get_config(path.arch)
+    return (cfg if path.n_layers is None
+            else dataclasses.replace(cfg, n_layers=path.n_layers))
+
+
+def moe_configs() -> dict:
+    """Phase 18's two models, Scout at its depth cut."""
+    return {"granite": path_config(SERVE_PATHS["moe"]),
+            "scout": path_config(SERVE_PATHS["scout"])}
 
 
 def memory_gib(device, peak: bool = False) -> str:
@@ -2228,7 +2340,17 @@ def describe(cfg) -> str:
         return (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
                 f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv "
                 f"{cfg.ssm_conv}")
-    return f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}"
+    out = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff "
+           f"{cfg.d_ff}")
+    if cfg.family == "moe":
+        out += (f", {cfg.n_experts} experts (padded to "
+                f"{cfg.n_experts_padded}) top-{cfg.top_k}"
+                + (" and a shared expert" if cfg.shared_expert else "")
+                + f", routing groups of up to {cfg.moe_group_tokens} tokens, "
+                f"capacity factor {cfg.capacity_factor}; "
+                f"{cfg.param_count(True) / 1e9:.3f} B active of "
+                f"{cfg.param_count() / 1e9:.3f} B without embeddings")
+    return out
 
 
 def serving_phase(path: ServePath, device="cuda") -> dict:
@@ -2239,9 +2361,10 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     determinism, a manual greedy loop, the plain path (and for scoring
     models lm_forward on both) and, at 2 layers, the CPU's plain
     versions."""
-    cfg = get_config(path.arch)
+    cfg = path_config(path)
     kernel, key, flags = path.kernel, path.key, path.flags
     name = f"serving {cfg.name}"
+    n_req, max_new = path.requests, path.max_new
     coord = Coordinator(ChainConfig(n_nodes=4, num_keys=64), device=device)
     store = Store(*[x[0] for x in init_store(coord.cfg, device=device)])
     store = coord.put_host(store, MODEL_VERSION_KEY, 1)
@@ -2259,7 +2382,10 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
                         flags=flags, device=device)
     sync(device)
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"{name} at full width: {n_params / 1e9:.3f} B params "
+    cut = ("" if path.n_layers is None else
+           f" (depth cut to {cfg.n_layers} of "
+           f"{get_config(path.arch).n_layers} layers: one card)")
+    log(f"{name} at full width{cut}: {n_params / 1e9:.3f} B params "
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, {describe(cfg)}, "
         f"vocab {cfg.vocab_padded}); weights made and cast in "
         f"{time.perf_counter() - t0:.1f} s; device memory "
@@ -2270,7 +2396,7 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     rng = np.random.default_rng(SERVE_SEED)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab,
                                                path.prompt_len),
-                    max_new=MAX_NEW) for i in range(N_REQUESTS)]
+                    max_new=max_new) for i in range(n_req)]
     sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2280,10 +2406,10 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
         done = eng.run(reqs, prompt_len=path.prompt_len)
         wall = time.perf_counter() - t0
     launches = kernel.LAUNCHES[key]
-    n_waves = -(-N_REQUESTS // SLOTS)
-    require(len(done) == N_REQUESTS, f"{name}: {len(done)} requests done")
+    n_waves = -(-n_req // SLOTS)
+    require(len(done) == n_req, f"{name}: {len(done)} requests done")
     for r in done:
-        require(r.output is not None and len(r.output) == MAX_NEW and
+        require(r.output is not None and len(r.output) == max_new and
                 int(r.output.min()) >= 0 and
                 int(r.output.max()) < cfg.vocab_padded,
                 f"{name}: request {r.rid} output {r.output}")
@@ -2309,7 +2435,7 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
                       / max(w["decode_steps"], 1),
                       "prompt_tokens_per_s": w["requests"] * path.prompt_len
                       / w["prefill_ms"] * 1e3,
-                      "tokens_per_s": w["requests"] * MAX_NEW / ms * 1e3})
+                      "tokens_per_s": w["requests"] * max_new / ms * 1e3})
     card = on_card(device)
     for i, w in enumerate(waves):
         log(f"{name} wave {i} ({card}): {w['requests']} requests, prefill "
@@ -2317,7 +2443,7 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             f"prompt tokens/s), decode {w['decode_ms_per_token']:.3f} ms per "
             f"token, {w['tokens_per_s']:.2f} generated tokens/s")
     peak = memory_gib(device, peak=True)
-    log(f"{name} ({card}): {N_REQUESTS} requests in {wall:.3f} s, latency "
+    log(f"{name} ({card}): {n_req} requests in {wall:.3f} s, latency "
         f"p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms; "
         f"{key} launches {launches} ({path.route or 'one'} route; all "
         f"launches {kernel.LAUNCHES}), plain calls {plain.calls}; "
@@ -2327,7 +2453,7 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     # on the float32 parameters gives the engine's
     prompt = reqs[0].prompt
     r1, r2 = (eng.run([Request(rid=100 + i, prompt=prompt,
-                               max_new=MAX_NEW)],
+                               max_new=max_new)],
                       prompt_len=path.prompt_len)[0] for i in range(2))
     require(np.array_equal(r1.output, r2.output),
             f"{name}: the same prompt served twice differs")
@@ -2337,7 +2463,7 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
         logits, cache = api.prefill_fn(cfg)(eng.params, batch,
                                             path.cache_len, flags)
         toks = [int(torch.argmax(logits[:, -1], -1)[0])]
-        for _ in range(MAX_NEW - 1):
+        for _ in range(max_new - 1):
             tok = torch.tensor([[toks[-1]]], dtype=torch.int32,
                                device=device)
             logits, cache = api.decode_fn(cfg)(eng.params, cache, tok, flags)
@@ -2390,11 +2516,23 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
                 f"version ({plain.calls})")
     plain_err = rel_err(lk, ln)
     agree = float((lk.argmax(-1) == ln.argmax(-1)).float().sum())
-    require(plain_err <= 5e-2, f"{name}: kernel-path prefill logits differ "
-            f"from the plain path's by {plain_err} of their max magnitude")
-    log(f"{name}: first-wave prefill logits, kernel vs plain path: max "
-        f"diff {plain_err:.4g} of the max magnitude; first tokens agree on "
-        f"{agree:.0f} of {SLOTS}")
+    if cfg.family == "moe":
+        # bf16 whole-model logits are printed, not held: routing is held
+        # decision by decision, layer by layer, and in float32 compute
+        out["moe"] = moe_checks(eng, first, path, lk, device)
+        log(f"{name}: first-wave prefill logits in bf16 (not held), kernel "
+            f"vs plain path: max diff {plain_err:.4g} of the max magnitude, "
+            f"with {out['moe']['chain_flips']} of "
+            f"{out['moe']['decisions']} (token, slot) decisions flipped "
+            f"between the two runs; first tokens agree on {agree:.0f} of "
+            f"{SLOTS}")
+    else:
+        require(plain_err <= 5e-2, f"{name}: kernel-path prefill logits "
+                f"differ from the plain path's by {plain_err} of their max "
+                f"magnitude")
+        log(f"{name}: first-wave prefill logits, kernel vs plain path: max "
+            f"diff {plain_err:.4g} of the max magnitude; first tokens agree "
+            f"on {agree:.0f} of {SLOTS}")
     out["score_rel"] = None
     if path.score:
         out["score_rel"] = rel_err(hk, hn)
@@ -2430,13 +2568,286 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             "reduced_cpu": reduced}
 
 
+def block_halves(layer_p, x, cfg, positions, impl: str):
+    """A MoE block of the model driven from here: ``h`` after the
+    attention half (prefill attention ``impl``), the MoE layer's input
+    ``rmsnorm(h)`` and the block's output, through the model's own
+    functions."""
+    h = x + attn_lib.attn_apply(
+        layer_p["attn"], layers_lib.rmsnorm(layer_p["ln1"], x), cfg,
+        positions=positions, impl=impl)
+    return (layers_lib.rmsnorm(layer_p["ln2"], h),
+            TF._mlp(layer_p, h, cfg))
+
+
+def routing_of(router, inner, cfg) -> "moe_lib.Routing":
+    """The MoE layer's routing of ``inner [B, S, d]``, grouped as the
+    layer groups it (``router``: the layer's ``{"router": {"w"}}``)."""
+    B, S, d = inner.shape
+    G = moe_lib.n_groups_for(B * S, cfg)
+    return moe_lib.moe_route(router, inner.reshape(G, -1, d), cfg)
+
+
+def routing_diff(a, b, tol: float, what: str) -> dict:
+    """Decisions of two routings of one token batch.  A token whose
+    experts differ (``topi``, slot by slot) must have, in ``a``'s
+    probabilities, a gap below ``tol`` between two neighbours of its
+    top k + 1 from the first slot that differs on; a slot whose expert
+    agrees may differ in ``keep`` only in a group that holds such a token
+    (the capacity ranks behind it shift).  Returns the counts and the
+    largest such gap."""
+    k = a.topi.shape[-1]
+    differs = a.topi != b.topi                                 # [G, T, k]
+    tokens = differs.any(-1)
+    probs = torch.sort(a.gate, dim=-1, descending=True).values[..., : k + 1]
+    gaps = probs[..., :-1] - probs[..., 1:]                    # [G, T, k]
+    first = torch.where(differs, torch.arange(k, device=differs.device),
+                        k).amin(-1, keepdim=True)
+    at = torch.where(torch.arange(k, device=differs.device) >= first, gaps,
+                     float("inf")).amin(-1)                    # [G, T]
+    flip_gaps = at[tokens]
+    worst = float(flip_gaps.max()) if flip_gaps.numel() else 0.0
+    require(worst < tol, f"{what}: {int(tokens.sum())} tokens route "
+            f"differently, one with a top-k gap {worst} >= {tol}")
+    keep_only = (a.keep != b.keep) & ~differs
+    stray = keep_only & ~tokens.any(-1, keepdim=True)[..., None]
+    require(not bool(stray.any()), f"{what}: {int(stray.sum())} kept/"
+            f"dropped differences in groups where no token routes "
+            f"differently")
+    hist = np.histogram(flip_gaps.cpu().numpy(),
+                        bins=(0.0, *GAP_EDGES, np.inf))[0]
+    return {"tokens": int(tokens.sum()), "slots": int(differs.sum()),
+            "keep_only": int(keep_only.sum()), "max_gap": worst,
+            "gap_counts": hist.tolist(),
+            "gaps": sorted(float(g) for g in flip_gaps.cpu())[:8]}
+
+
+def float32_whole_model(eng: ServingEngine, first, path: ServePath,
+                        device="cuda") -> dict:
+    """(b): the whole model in float32 compute, kernel path (the f32 route)
+    against the plain path, through ``lm_forward`` on the first wave.
+    Top-k routing stays discontinuous in float32: at 2**17 decisions a
+    layer some lie closer than float32 rounding, and with the capacity
+    ranks a decision that differs moves the tokens after it in its group,
+    and through attention the later tokens of its row.  So both paths also
+    run as whole models driven from here (each layer on its own hidden
+    state, the same functions, the drive equal to ``lm_forward``): at the
+    first layer where their routing differs, every differing decision must
+    sit at a top-k gap below ``F32_GAP_TOL``, and the final hidden states
+    are held to ``F32_TOL`` at every position no differing decision can
+    reach (before the first in its group and in its row).  The
+    last-position logits are printed."""
+    cfg = dataclasses.replace(eng.cfg, compute_dtype="float32")
+    w = TF.compute_params(eng.params, cfg)
+    name = f"serving {cfg.name} float32"
+    tokens = first["tokens"]
+    B, S = tokens.shape
+    positions = TF._positions(B, S, tokens.device)
+    kernel_flags = OptFlags(flash_kernel=True)
+    with torch.inference_mode():
+        fa_kernel.reset_launches()
+        with PlainCalls(path.plain_module, path.plain_names) as plain:
+            hk = TF.lm_forward(w, cfg, tokens, flags=kernel_flags)
+        launches = dict(fa_kernel.LAUNCHES)
+        require(launches["flash_attention_f32"] == cfg.n_layers and
+                launches["flash_attention"] == cfg.n_layers and
+                sum(plain.calls.values()) == 0,
+                f"{name}: launches {launches}, plain calls {plain.calls}; "
+                f"want {cfg.n_layers} on the f32 route")
+        hp = TF.lm_forward(w, cfg, tokens, flags=OptFlags())
+        # the two whole models driven layer by layer
+        x = layers_lib.embed(w["embed"], tokens, compute_dtype=cfg.cdtype())
+        xk = xp = x
+        reached = torch.zeros((B, S), dtype=torch.bool, device=x.device)
+        first_diff, per_layer = None, []
+        for i, lp in enumerate(w["layers"]):
+            router = {"router": lp["moe"]["router"]}
+            inner_k, xk = block_halves(lp, xk, cfg, positions, "pallas")
+            inner_p, xp = block_halves(lp, xp, cfg, positions, "naive")
+            rk, rp = (routing_of(router, v, cfg) for v in (inner_k, inner_p))
+            differs = ((rk.topi != rp.topi) | (rk.keep != rp.keep)).any(-1)
+            per_layer.append(int(differs.sum()))
+            if not per_layer[-1]:
+                continue
+            d = routing_diff(rk, rp, F32_GAP_TOL if first_diff is None
+                             else float("inf"), f"{name} layer {i}")
+            if first_diff is None:
+                first_diff = dict(layer=i, **d)
+            T = differs.shape[1]
+            at = torch.arange(T, device=x.device)
+            first = torch.where(differs, at, T).amin(-1, keepdim=True)
+            reached |= (at >= first).reshape(B, S)
+        reached = torch.cummax(reached.int(), dim=1).values.bool()
+        drive = [layers_lib.rmsnorm(w["final_norm"], v) for v in (xk, xp)]
+        logits = [TF._logits(w, cfg, v[:, -1:]) for v in (xk, xp)]
+    drive_err = max(rel_err(drive[0], hk), rel_err(drive[1], hp))
+    require(drive_err <= 1e-6, f"{name}: the drive differs from lm_forward "
+            f"by {drive_err}")
+    held = ~reached
+    n_held = int(held.sum())
+    require(n_held > 0, f"{name}: every position is reached by a routing "
+            f"difference ({per_layer})")
+    err = rel_err(hk[held], hp[held])
+    require(err <= F32_TOL, f"{name}: kernel-path hidden states differ from "
+            f"the plain path's by {err} at the {n_held} positions no routing "
+            f"difference reaches")
+    last = rel_err(*logits)
+    where = ("none" if first_diff is None else
+             f"layer {first_diff['layer']}, its largest top-k gap "
+             f"{first_diff['max_gap']:.3g}")
+    log(f"{name} (b) whole model through lm_forward on {B} x {S} tokens "
+        f"({on_card(device)}): {cfg.n_layers} launches on the f32 route; "
+        f"tokens routed differently per layer between the two runs "
+        f"{per_layer}; the first such layer: {where} (tolerance "
+        f"{F32_GAP_TOL}); final hidden states at the {n_held} of "
+        f"{B * S} positions no difference reaches (the first "
+        f"{held.sum(1).tolist()} of each row): kernel vs plain {err:.3g} of "
+        f"the max magnitude (tolerance {F32_TOL}); last-position logits "
+        f"(not held) {last:.3g}; the drive vs lm_forward {drive_err:.3g}")
+    return {"f32_rel_err": err, "f32_positions_held": n_held,
+            "f32_last_logits_rel": last, "f32_flips_by_layer": per_layer,
+            "f32_first_diff": first_diff}
+
+
+def moe_checks(eng: ServingEngine, first, path: ServePath, lk,
+               device="cuda") -> dict:
+    """The MoE path's own checks at full width, with no hook in the
+    model: (a) the blocks driven from here layer by layer on the first
+    wave's prompts, each layer fed one hidden state through the kernel
+    path and the plain path: the block's output agrees on the tokens whose
+    routing agrees, and every decision that differs sits at a gap below
+    ``BF16_GAP_TOL``; the routing of the kernel path's MoE input is
+    recomputed on the CPU and differs from the card's only below
+    ``F32_GAP_TOL``.  Beside it the two paths run as whole models (each
+    layer on its own hidden state): their flipped decisions are counted for
+    the bf16 logits, which are printed, not held.  (b) The whole model in
+    float32 compute (``float32_whole_model``).  Then the MoE stages'
+    device time at layer 0's shape, and each layer's dropped share."""
+    cfg, w = eng.cfg, eng.weights
+    name = f"serving {cfg.name}"
+    tokens = first["tokens"]
+    B, S = tokens.shape
+    positions = TF._positions(B, S, tokens.device)
+    card = on_card(device)
+    out = {"layers": [], "decisions": 0, "chain_flips": 0}
+    with torch.inference_mode():
+        x = layers_lib.embed(w["embed"], tokens, compute_dtype=cfg.cdtype())
+        hk = hp = x
+        for i, lp in enumerate(w["layers"]):
+            router = {"router": lp["moe"]["router"]}
+            inner_k, out_k = block_halves(lp, hk, cfg, positions, "pallas")
+            inner_p, out_p = block_halves(lp, hk, cfg, positions, "naive")
+            rk, rp = (routing_of(router, v, cfg) for v in (inner_k, inner_p))
+            same = routing_diff(rk, rp, BF16_GAP_TOL,
+                                f"{name} layer {i}, kernel vs plain path")
+            cpu_router = {"router": {"w": router["router"]["w"].cpu()}}
+            rc = routing_of(cpu_router, inner_k.cpu(), cfg)
+            host = routing_diff(rk._replace(**{
+                f: getattr(rk, f).cpu() for f in ("gate", "topv", "topi",
+                                                   "pos", "keep")}), rc,
+                F32_GAP_TOL, f"{name} layer {i}, card vs CPU")
+            agree = ((rk.topi == rp.topi) & (rk.keep == rp.keep)).all(-1)
+            agree = agree.reshape(B, S)
+            err = rel_err(out_k[agree], out_p[agree])
+            require(err <= MOE_LAYER_TOL, f"{name} layer {i}: kernel vs "
+                    f"plain block output {err} > {MOE_LAYER_TOL} on the "
+                    f"tokens whose routing agrees")
+            # the plain path as a whole model: its own hidden state
+            inner_own, hp = block_halves(lp, hp, cfg, positions, "naive")
+            chain = routing_diff(rk, routing_of(router, inner_own, cfg),
+                                 float("inf"), f"{name} layer {i} chains")
+            out["decisions"] += rk.topi.numel()
+            out["chain_flips"] += chain["slots"]
+            out["layers"].append({
+                "dropped": 1.0 - float(rk.keep.float().mean()),
+                "kernel_vs_plain": same, "card_vs_cpu": host,
+                "block_rel_err": err, "tokens_compared": int(agree.sum()),
+                "chain_flips": chain["slots"]})
+            if i == 0:
+                inner0 = inner_k
+            hk = out_k
+        chain_logits = TF._logits(w, cfg, hk[:, -1:])
+    drive_err = rel_err(chain_logits, lk)
+    lay = out["layers"]
+    counts = [tuple(x["kernel_vs_plain"][f] for f in ("tokens", "slots",
+                                                       "keep_only"))
+              for x in lay]
+    log(f"{name} (a) layer by layer on {B} x {S} tokens ({card}): kernel vs "
+        f"plain path on one input per layer, (tokens, slots, keep-only) that "
+        f"route differently {counts}, "
+        f"largest top-k gap at such a token "
+        f"{max(x['kernel_vs_plain']['max_gap'] for x in lay):.3g} (tolerance "
+        f"{BF16_GAP_TOL:.4g}); block output on the tokens that agree, "
+        f"largest rel diff {max(x['block_rel_err'] for x in lay):.3g} "
+        f"(tolerance {MOE_LAYER_TOL}); card vs CPU routing of the same "
+        f"input, differing tokens {[x['card_vs_cpu']['tokens'] for x in lay]}"
+        f", largest gap {max(x['card_vs_cpu']['max_gap'] for x in lay):.3g} "
+        f"(tolerance {F32_GAP_TOL}); the drive's last-position logits vs the "
+        f"engine's prefill {drive_err:.3g}")
+    edges = ", ".join(f"{e:.3g}" for e in GAP_EDGES)
+    for what in ("kernel_vs_plain", "card_vs_cpu"):
+        counts = np.sum([x[what]["gap_counts"] for x in lay], axis=0)
+        log(f"{name}: top-k gaps of every token routed differently, "
+            f"{what.replace('_', ' ')}, all layers, counted between the "
+            f"edges (0, {edges}, inf): {counts.tolist()}")
+    for i, x in enumerate(lay):
+        if x["kernel_vs_plain"]["tokens"] or x["card_vs_cpu"]["tokens"]:
+            log(f"{name} layer {i}: the smallest gaps at the tokens routed "
+                f"differently, kernel vs plain "
+                f"{[f'{g:.3g}' for g in x['kernel_vs_plain']['gaps']]}, "
+                f"card vs CPU "
+                f"{[f'{g:.3g}' for g in x['card_vs_cpu']['gaps']]}")
+    out["drive_rel_err"] = drive_err
+    out["dropped_by_layer"] = [round(x["dropped"], 4) for x in lay]
+    log(f"{name}: dropped share of (token, slot) pairs per layer (the "
+        f"capacity rule, first wave) {out['dropped_by_layer']}; flipped "
+        f"decisions between the two whole-model runs per layer "
+        f"{[x['chain_flips'] for x in lay]}")
+
+    out.update(float32_whole_model(eng, first, path, device))
+    require(drive_err <= 1e-6, f"{name}: the drive's logits differ from "
+            f"the engine's prefill by {drive_err}")
+
+    if torch.device(device).type != "cuda":
+        return out
+    # the MoE stages' device time at layer 0's shape
+    p0 = w["layers"][0]["moe"]
+    with torch.inference_mode():
+        xg = inner0.reshape(moe_lib.n_groups_for(B * S, cfg), -1, cfg.d_model)
+        r = moe_lib.moe_route(p0, xg, cfg)
+        xe, comb = moe_lib.moe_dispatch(r, xg, cfg)
+        ye = moe_lib.moe_experts(p0, xe, cfg)
+        stages = {
+            "route": lambda: moe_lib.moe_route(p0, xg, cfg),
+            "dispatch": lambda: moe_lib.moe_dispatch(r, xg, cfg),
+            "experts": lambda: moe_lib.moe_experts(p0, xe, cfg),
+            "combine": lambda: moe_lib.moe_combine(comb, ye, cfg),
+            "moe_apply": lambda: moe_lib.moe_apply(p0, inner0, cfg)}
+        ms = {}
+        for stage, fn in stages.items():
+            time_calls([fn] * 2)
+            ms[stage] = device_time([fn] * 3)[0]
+    out["stage_ms"] = ms
+    log(f"{name}: layer 0's MoE stages at the wave's prefill shape ({card}), "
+        f"device ms a call {ms}; times {cfg.n_layers} layers "
+        + ", ".join(f"{k} {v * cfg.n_layers:.3f} ms" for k, v in ms.items()
+                    if v is not None))
+    return out
+
+
 def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
     """The path at full width and 2 layers: prefill and teacher-forced
     decode steps on CUDA (the kernel) and on the CPU (the plain versions)
     from the same weights; logits within 2e-2 of their largest magnitude
-    (bf16 rounded in another order on each device)."""
+    (bf16 rounded in another order on each device).  The MoE family runs
+    in float32 compute, held to ``F32_TOL``: in bf16 a routing decision
+    near a tie may go either way on the two devices."""
     cfg = dataclasses.replace(get_config(path.arch),
                               n_layers=REDUCED_SERVE["n_layers"])
+    tol = 2e-2
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        tol = F32_TOL
     gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 1)
     weights = {device: TF.compute_params(api.init_params(cfg, gen, device),
                                          cfg)}
@@ -2467,15 +2878,17 @@ def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
                plain.calls[path.plain_names[0]] // cfg.n_layers)
         require(got == want, f"serving {cfg.name} reduced on {dev}: "
                 f"(launches, plain calls per layer) {got}, want {want}")
-        log(f"serving {cfg.name} reduced ({on_card(dev)}): {cfg.n_layers} "
-            f"layers, {B} x {S} prompt + {REDUCED_SERVE['steps']} decode "
-            f"steps in {time.perf_counter() - t0:.3f} s")
+        log(f"serving {cfg.name} reduced ({on_card(dev)}, "
+            f"{cfg.compute_dtype}): {cfg.n_layers} layers, {B} x {S} prompt "
+            f"+ {REDUCED_SERVE['steps']} decode steps in "
+            f"{time.perf_counter() - t0:.3f} s")
     errs = [rel_err(c, p) for c, p in zip(logits[device], logits["cpu"])]
-    require(max(errs) <= 2e-2, f"serving {cfg.name} reduced: CUDA logits "
+    require(max(errs) <= tol, f"serving {cfg.name} reduced: CUDA logits "
             f"differ from the CPU's by {errs} of their max magnitude")
-    log(f"serving {cfg.name} reduced: CUDA (kernel) vs CPU (plain) logits, "
-        f"relative max diff per step {[f'{e:.3g}' for e in errs]}")
-    return {"rel_errs": errs}
+    log(f"serving {cfg.name} reduced: CUDA (kernel) vs CPU (plain) logits "
+        f"in {cfg.compute_dtype} compute, relative max diff per step "
+        f"{[f'{e:.3g}' for e in errs]} (tolerance {tol})")
+    return {"rel_errs": errs, "compute_dtype": cfg.compute_dtype}
 
 
 def f32_route_serving(device="cuda") -> dict:
@@ -3989,6 +4402,70 @@ def dist_phase(device="cuda") -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the examples' torch twins on the card and on the CPU
+# ---------------------------------------------------------------------------
+EXAMPLES = ("quickstart", "fault_tolerance", "kv_serving")
+# a wall-clock number (seconds, milliseconds, tokens per second): the only
+# numbers of an example's output that may differ between two runs
+WALL_CLOCK = re.compile(r"[\d,]+(\.\d+)?(?=(s|ms| tok/s)\b)")
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """(stdout lines, seconds, kernel launches, plain kv calls) of
+    ``examples/<name>_torch.py``'s ``main(argv)``."""
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kv_kernel.reset_launches()
+    fa_kernel.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with PlainCalls(kv_ref, KV_PLAIN) as plain, \
+            contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in {**kv_kernel.LAUNCHES,
+                                   **fa_kernel.LAUNCHES}.items() if v}
+    return (buf.getvalue().splitlines(), secs, launches,
+            sum(plain.calls.values()))
+
+
+def examples_phase() -> dict:
+    """Each twin's ``main()`` on the card (its default device) and with
+    ``--device cpu``: the same lines but for wall-clock numbers; on the
+    card the chain examples launch the kv kernels each tick and call no
+    plain version, and on the CPU nothing launches."""
+    out = {}
+    card = smi()
+    for name in EXAMPLES:
+        got, secs, launches, plain = run_example(name, [])
+        exp, cpu_secs, cpu_launches, _ = run_example(name,
+                                                     ["--device", "cpu"])
+        masked = [[WALL_CLOCK.sub("<wall>", x) for x in lines]
+                  for lines in (got, exp)]
+        require(masked[0] == masked[1] and len(got) > 3,
+                f"example {name}: the card's lines differ from the CPU's "
+                f"beyond wall-clock numbers:\n{got}\n{exp}")
+        require(not cpu_launches, f"example {name} on the CPU launched "
+                f"{cpu_launches}")
+        if name != "kv_serving":    # the chain engine ticks on the card
+            require(launches.get("kv_read", 0) > 0 and
+                    launches.get("kv_write", 0) > 0 and plain == 0,
+                    f"example {name} on the card: launches {launches}, "
+                    f"plain kv calls {plain}")
+        for line in got:
+            if line.strip():
+                log(f"example {name} ({card}): {line}")
+        log(f"example {name}: card run {secs:.2f} s, CPU run {cpu_secs:.2f} "
+            f"s; the lines equal but for wall-clock numbers; launches on "
+            f"the card {launches or 'none'}, plain kv calls {plain}")
+        out[name] = {"seconds": secs, "cpu_seconds": cpu_secs,
+                     "launches": launches, "lines": len(got)}
+    return out
+
+
 def on_card(device) -> str:
     """What a timing ran on: the card's name and power limit, or the
     host's CPU."""
@@ -4007,8 +4484,8 @@ def build_kernels(phases) -> None:
     (all three for a whole run)."""
     t0 = time.perf_counter()
     kernels = [(src, k) for src, k, uses in (
-        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16, 17)),
-        (FA_SRC, fa_kernel, (10, 11)),
+        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16, 17, 19)),
+        (FA_SRC, fa_kernel, (10, 11, 18)),
         (SSD_SRC, ssd_kernel, (12, 13))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
         builds = [pool.submit(k.build) for _, k in kernels]
@@ -4018,7 +4495,7 @@ def build_kernels(phases) -> None:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 18))
+ALL_PHASES = tuple(range(1, 20))
 
 
 def parse_phases(argv) -> set:
@@ -4143,6 +4620,20 @@ def main(argv=None) -> None:
         run["chaos"] = chaos_phase()
     if 17 in phases:
         run["distributed"] = dist_phase()
+    if 18 in phases:
+        for key in ("moe", "scout"):
+            t0 = time.perf_counter()
+            rec = run[f"{key}_serving"] = serving_phase(SERVE_PATHS[key])
+            # a kernel's launches add up over the main paths that ran it,
+            # each counted from zero
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            log(f"{key}_serving: phase 18's run took "
+                f"{time.perf_counter() - t0:.1f} s")
+    if 19 in phases:
+        t0 = time.perf_counter()
+        run["examples"] = examples_phase()
+        log(f"examples: phase 19's run took {time.perf_counter() - t0:.1f} s")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -5,9 +5,9 @@ Every architecture of the port is a ``repro_torch/configs/<id>.py``
 exporting ``CONFIG`` with the hyperparameters the reference gives it;
 ``reduced()`` derives the CPU smoke-test variant (same family and
 topology, tiny widths).  ``cdtype()``/``pdtype()`` return torch dtypes.
-The port serves the dense decoders and the SSM family (mamba2) so far:
-the other architecture ids raise ``NotImplementedError`` naming the
-slice that brings them.
+The port serves the dense decoders, the MoE family (granite, llama4
+scout) and the SSM family (mamba2) so far: the other architecture ids
+raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
@@ -92,11 +92,47 @@ class ArchConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    @property
+    def n_experts_padded(self) -> int:
+        return self.n_experts + self.expert_pad
+
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
+
+    # -- parameter counting (excludes embeddings) --------------------------
+    def param_count(self, active_only: bool = False) -> int:
+        d, f = self.d_model, self.d_ff
+        if self.family == "ssm":  # attention-free: no head_dim defined
+            return self.n_layers * self._mamba_params()
+        hd = self.head_dim
+        att = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        if self.family == "hybrid":
+            shared = att + 3 * d * f
+            return self.n_layers * self._mamba_params() + shared
+        mlp3 = 3 * d * f
+        if self.family == "moe" and self.n_experts:
+            e = self.top_k if active_only else self.n_experts
+            moe = e * mlp3 + d * self.n_experts
+            if self.shared_expert:
+                moe += mlp3
+            per_layer = att + moe
+        elif self.family == "encdec":
+            return (self.enc_layers * (att + 2 * d * f)
+                    + self.dec_layers * (2 * att + 2 * d * f))
+        else:
+            per_layer = att + mlp3
+        return self.n_layers * per_layer
+
+    def _mamba_params(self) -> int:
+        d, di = self.d_model, self.d_inner
+        n, h = self.ssm_state, self.ssm_heads
+        in_proj = d * (2 * di + 2 * n + h)
+        conv = self.ssm_conv * (di + 2 * n)
+        return in_proj + di * d + conv + 3 * h
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family & topology, tiny widths."""
@@ -132,14 +168,14 @@ _MODULES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "llama3.2-3b": "llama3_2_3b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
 }
 
 # The reference's other architectures, and the slice of the port that
 # brings each (ROADMAP, queue 1, item 14).
 _LATER = {
-    "zamba2-2.7b": "the hybrid slice, after the SSM slice",
-    "llama4-scout-17b-a16e": "the MoE slice",
-    "granite-moe-3b-a800m": "the MoE slice",
+    "zamba2-2.7b": "the hybrid slice, after the MoE slice",
     "internvl2-26b": "the VLM slice",
     "whisper-base": "the encoder-decoder slice",
 }
@@ -150,7 +186,7 @@ ARCH_IDS = list(_MODULES) + list(_LATER)
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id in _LATER:
         raise NotImplementedError(
-            f"{arch_id}: the port serves the dense and SSM decoders so far; "
-            f"{_LATER[arch_id]} brings it")
+            f"{arch_id}: the port serves the dense, MoE and SSM decoders "
+            f"so far; {_LATER[arch_id]} brings it")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG

@@ -1,15 +1,15 @@
-"""Model API of the port (the reference's ``models/api.py``), dense and
-SSM families:
+"""Model API of the port (the reference's ``models/api.py``), dense, MoE
+and SSM families:
 
   init_params(cfg, gen, device)                -> params
   prefill_fn(cfg)(params, batch, cache_len)    -> (logits, cache)
   decode_fn(cfg)(params, cache, token)         -> (logits, cache')
   init_decode_cache(cfg, batch, cache_len)     -> cache
 
-For the SSM family ``cache_len`` is not read: its decode state is O(1)
-in the sequence.  The encoder-decoder family raises
-``NotImplementedError`` here; the other families not yet ported (moe,
-hybrid) raise in ``transformer``.
+The MoE family's cache is the dense ``{"kv", "t"}`` cache.  For the SSM
+family ``cache_len`` is not read: its decode state is O(1) in the
+sequence.  The encoder-decoder family raises ``NotImplementedError``
+here; the hybrid family, not yet ported, raises in ``transformer``.
 """
 from __future__ import annotations
 

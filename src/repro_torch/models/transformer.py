@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, dense and SSM families (the port's copy of
-those paths of ``repro/models/transformer.py``).
+"""Decoder-only LM assembly, dense, MoE and SSM families (the port's copy
+of those paths of ``repro/models/transformer.py``).
 
 The reference stacks its layer parameters on a leading ``[L, ...]`` axis
 and scans over them; here the layers are an ``nn.ModuleList`` of
@@ -7,12 +7,13 @@ and scans over them; here the layers are an ``nn.ModuleList`` of
 and layouts are the reference's, so ``repro_torch.convert`` moves a
 parameter tree across key by key.  The caches keep the reference's
 stacked layouts: dense ``{"kv": (k [L, B, T, KV, D], v [L, B, T, KV,
-D]), "t": int}``, SSM ``{"ssm": {"conv": [L, B, K-1, Ch], "ssm": [L, B,
-H, N, P]}, "t": int}``; decode updates them in place.  The SSM mixer
-runs its SSD core on the ssd_scan kernel when the activations are on a
-card (``mamba2.py``'s docstring).  The other families (moe, hybrid,
-encdec) and the VLM stub frontend raise ``NotImplementedError``: later
-slices bring them.
+D]), "t": int}`` (the MoE family's too), SSM ``{"ssm": {"conv": [L, B,
+K-1, Ch], "ssm": [L, B, H, N, P]}, "t": int}``; decode updates them in
+place.  A MoE block is the dense block with ``moe.moe_apply`` in place of
+the SwiGLU MLP.  The SSM mixer runs its SSD core on the ssd_scan kernel
+when the activations are on a card (``mamba2.py``'s docstring).  The
+other families (hybrid, encdec) and the VLM stub frontend raise
+``NotImplementedError``: later slices bring them.
 """
 from __future__ import annotations
 
@@ -27,10 +28,12 @@ from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 
 # the leaves whose every use casts them to the compute dtype first
-# (dense weights and biases, the embedding table); norm scales are read
-# in float32 and are not among them
+# (dense weights and biases, the embedding table, and every leaf under
+# "experts"); norm scales, and the MoE router's "w" (its logits are
+# float32), are read in float32 and are not among them
 _COMPUTE_LEAVES = ("w", "b", "table")
 
 
@@ -57,7 +60,7 @@ class OptFlags:
 BASELINE_FLAGS = OptFlags()
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -80,12 +83,16 @@ def _block_init(gen, cfg: ArchConfig, device):
             "ln": L.rmsnorm_init(cfg.d_model, dt, device),
             "mamba": M.mamba_init(gen, cfg, device),
         })
-    return nn.ModuleDict({
+    block = {
         "ln1": L.rmsnorm_init(cfg.d_model, dt, device),
         "attn": A.attn_init(gen, cfg, device),
         "ln2": L.rmsnorm_init(cfg.d_model, dt, device),
-        "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, device),
-    })
+    }
+    if cfg.family == "moe":
+        block["moe"] = MOE.moe_init(gen, cfg, device)
+    else:
+        block["mlp"] = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, device)
+    return nn.ModuleDict(block)
 
 
 def init_lm(cfg: ArchConfig, gen: torch.Generator, device="cuda"):
@@ -107,37 +114,41 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator, device="cuda"):
     return params
 
 
-def _map_params(params, fn):
-    """A new parameter tree of the same structure with ``fn(name,
-    tensor)`` in place of every leaf (``name`` is the leaf's key)."""
+def _map_params(params, fn, path=()):
+    """A new parameter tree of the same structure with ``fn(path,
+    tensor)`` in place of every leaf (``path`` is the tuple of keys down
+    to the leaf, the layer index left out)."""
     if isinstance(params, nn.ParameterDict):
         return nn.ParameterDict({
-            k: nn.Parameter(fn(k, p.data), requires_grad=False)
+            k: nn.Parameter(fn(path + (k,), p.data), requires_grad=False)
             for k, p in params.items()})
     if isinstance(params, L.ParamTree):
         return L.ParamTree({
-            k: (_map_params(v, fn) if isinstance(v, nn.Module)
-                else fn(k, v.data))
+            k: (_map_params(v, fn, path + (k,)) if isinstance(v, nn.Module)
+                else fn(path + (k,), v.data))
             for k, v in params.items()})
     if isinstance(params, nn.ModuleList):
-        return nn.ModuleList([_map_params(m, fn) for m in params])
-    return nn.ModuleDict({k: _map_params(m, fn) for k, m in params.items()})
+        return nn.ModuleList([_map_params(m, fn, path) for m in params])
+    return nn.ModuleDict({k: _map_params(m, fn, path + (k,))
+                          for k, m in params.items()})
 
 
 def compute_params(params, cfg: ArchConfig, device=None):
     """The parameters as the forward pass reads them: the dense weights,
-    biases and the embedding table cast once to the compute dtype, norm
-    scales and the mixer's conv, decay, skip and dt-bias leaves as they
-    are (the reference casts them at each use), all on ``device``
+    biases, the embedding table and the expert weights cast once to the
+    compute dtype, norm scales, the MoE router and the mixer's conv,
+    decay, skip and dt-bias leaves as they are (the reference casts them
+    at each use), all on ``device``
     (default: where they are).  Every use of a cast leaf casts it first anyway, and a cast is
     deterministic, so the outputs are bit for bit those of ``params``;
     what changes is that a step reads bf16 weights instead of converting
     float32 ones on every call."""
     cd = cfg.cdtype()
 
-    def cast(name, x):
-        return x.to(device=device or x.device,
-                    dtype=cd if name in _COMPUTE_LEAVES else x.dtype)
+    def cast(path, x):
+        low = "router" not in path and (path[-1] in _COMPUTE_LEAVES
+                                        or "experts" in path)
+        return x.to(device=device or x.device, dtype=cd if low else x.dtype)
 
     return _map_params(params, cast)
 
@@ -170,7 +181,11 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _mlp(layer_p, h, cfg: ArchConfig):
+    """The block's second half: the SwiGLU MLP, or for the MoE family the
+    experts, on ``rmsnorm(h)``, added to ``h``."""
     inner = L.rmsnorm(layer_p["ln2"], h)
+    if cfg.family == "moe":
+        return h + MOE.moe_apply(layer_p["moe"], inner, cfg)
     return h + L.swiglu(layer_p["mlp"], inner, compute_dtype=cfg.cdtype())
 
 

@@ -1142,3 +1142,134 @@ def test_nccl_ranks_one_card_each_equal_gloo_cpu_ranks(card):
                             dtype=np.float64)) <= bound).all(), r
                     continue
                 assert np.array_equal(g, e), (r, dtype, op)
+
+
+# ---------------------------------------------------------------------------
+# the MoE slice: the layer at Granite's full width, reduced serving, the
+# examples' twins and the CUDA default
+# ---------------------------------------------------------------------------
+def test_cuda_moe_layer_matches_cpu_at_full_width(card):
+    """One routing group of 512 tokens through Granite-MoE's full-width
+    MoE layer (d 1536, 40 experts padded to 48, top-8) in float32 compute:
+    the card's routing decisions equal the CPU's and its output is within
+    1e-5 of the largest magnitude.  The tokens share a direction, as a
+    model's hidden states do, so the router favours some experts and the
+    capacity drops (token, slot)s."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              compute_dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    p = moe.moe_init(gen, cfg, "cpu")
+    x = (torch.randn((1, 512, cfg.d_model), generator=gen)
+         + torch.randn((cfg.d_model,), generator=gen))
+    routes, outs = {}, {}
+    for d in ("cpu", card):
+        pd = p.to(d)
+        with torch.inference_mode():
+            routes[str(d)] = moe.moe_route(pd, x.to(d), cfg)
+            outs[str(d)] = moe.moe_apply(pd, x.to(d), cfg).cpu()
+    exp, got = routes["cpu"], routes[str(card)]
+    assert exp.cap == got.cap
+    for f in ("topi", "pos", "keep"):
+        assert torch.equal(getattr(exp, f), getattr(got, f).cpu()), f
+    assert 0 < int((~exp.keep).sum())          # the capacity drops some
+    assert float((outs[str(card)] - outs["cpu"]).abs().max()
+                 / outs["cpu"].abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "llama4-scout-17b-a16e"])
+def test_cuda_moe_serving_matches_cpu(card, arch):
+    """A reduced MoE model served on CUDA through the kernel gives the
+    CPU's tokens and prefill logits (float32 compute, where the two differ
+    only in summation order)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.models.transformer import OptFlags
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=2,
+                              compute_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, 40) for _ in range(3)]
+    out, logits = {}, {}
+    for d in ("cpu", card):
+        eng = ServingEngine(cfg, params, slots=2, cache_len=64,
+                            flags=OptFlags(attn_impl="pallas"), device=d)
+        fa_kernel.reset_launches()
+        done = eng.run([Request(rid=i, prompt=p, max_new=6)
+                        for i, p in enumerate(prompts)], prompt_len=40)
+        out[str(d)] = np.stack([r.output for r in done])
+        launches = fa_kernel.LAUNCHES["flash_attention"]
+        assert launches == (0 if d == "cpu" else 2 * cfg.n_layers)
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                                   device=d)
+            logits[str(d)] = api.prefill_fn(cfg)(
+                eng.weights, {"tokens": toks}, 64,
+                OptFlags(attn_impl="pallas"))[0].cpu()
+    np.testing.assert_array_equal(out["cpu"], out[str(card)])
+    exp = logits["cpu"]
+    assert float((logits[str(card)] - exp).abs().max()
+                 / exp.abs().max()) < 1e-4
+
+
+def _example(name):
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "examples"
+            / f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["quickstart", "fault_tolerance",
+                                  "kv_serving"])
+def test_cuda_examples_match_cpu(card, name, capsys):
+    """Each twin prints the same lines on the card (``--device cuda``)
+    and on the CPU, wall-clock numbers aside; on the card the chain
+    examples tick through the kv kernels."""
+    import re
+
+    wall = re.compile(r"[\d,]+(\.\d+)?(?=(s|ms| tok/s)\b)")
+    lines = {}
+    for d in ("cuda", "cpu"):
+        t_kernel.reset_launches()
+        capsys.readouterr()
+        _example(name).main(["--device", d])
+        lines[d] = [wall.sub("<wall>", x)
+                    for x in capsys.readouterr().out.splitlines()]
+        if d == "cuda" and name != "kv_serving":
+            assert t_kernel.LAUNCHES["kv_read"] > 0
+            assert t_kernel.LAUNCHES["kv_write"] > 0
+    assert lines["cuda"] == lines["cpu"] and len(lines["cpu"]) > 3
+
+
+def test_cuda_is_the_default_device(card, capsys):
+    """With a card, the entry points and the twins run on it unless asked
+    for the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(),
+                              n_layers=1)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    assert {p.device.type for p in params.parameters()} == {"cuda"}
+    cache = api.init_decode_cache(cfg, 2, 8)
+    assert cache["kv"][0].device.type == "cuda"
+    t_kernel.reset_launches()
+    _example("quickstart").main([])
+    assert t_kernel.LAUNCHES["kv_read"] > 0
+    assert "LEADER={7}" in capsys.readouterr().out

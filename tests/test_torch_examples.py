@@ -1,0 +1,62 @@
+"""The examples' torch twins against the JAX examples, on the CPU.
+
+Each twin's ``main(["--device", "cpu"])`` and its JAX example's
+``main()`` run in this process and print the same lines: every tick,
+packet and reply count, stored value, suspected-node list, epoch and
+recovery log equal.  Only wall-clock numbers may differ: a number
+followed by ``s``, ``ms`` or `` tok/s`` (``WALL_CLOCK``), which only
+kv_serving prints (its serving time, rate and latency percentiles).
+With no ``--device`` a twin runs on CUDA, and with no card it raises.
+"""
+import importlib.util
+import pathlib
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch_parity  # noqa: E402,F401  (one intra-op thread a worker)
+
+EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples"
+# a wall-clock number: seconds, milliseconds or tokens per second
+WALL_CLOCK = re.compile(r"[\d,]+(\.\d+)?(?=(s|ms| tok/s)\b)")
+# how many wall-clock numbers each example prints
+WALL_NUMBERS = {"quickstart": 0, "fault_tolerance": 0, "kv_serving": 4}
+
+
+def _module(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lines(capsys, run) -> list[str]:
+    capsys.readouterr()
+    run()
+    return capsys.readouterr().out.splitlines()
+
+
+@pytest.mark.parametrize("name", list(WALL_NUMBERS))
+def test_twin_prints_the_jax_examples_lines(name, capsys):
+    exp = _lines(capsys, _module(name).main)
+    got = _lines(capsys, lambda: _module(f"{name}_torch").main(
+        ["--device", "cpu"]))
+    assert len(got) == len(exp) and len(exp) > 3
+    masked = []
+    for g, e in zip(got, exp):
+        (gm, gn), (em, en) = (WALL_CLOCK.subn("<wall>", x) for x in (g, e))
+        assert gn == en, (g, e)
+        masked.append(gn)
+        assert gm == em, (g, e)
+    assert sum(masked) == WALL_NUMBERS[name]
+
+
+@pytest.mark.parametrize("name", list(WALL_NUMBERS))
+def test_twin_defaults_to_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default does not raise")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _module(f"{name}_torch").main([])

@@ -71,7 +71,7 @@ def _pair(tree):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_match_reference(arch):
     jcfg = j_get_config(arch)
-    if jcfg.family not in ("dense", "ssm"):     # the ported families
+    if jcfg.family not in ("dense", "moe", "ssm"):   # the ported families
         with pytest.raises(NotImplementedError):
             get_config(arch)
         return
@@ -84,6 +84,9 @@ def test_configs_match_reference(arch):
         else:
             assert (t.head_dim, t.vocab_padded) == (j.head_dim,
                                                     j.vocab_padded)
+        assert t.n_experts_padded == j.n_experts_padded
+        for active in (False, True):
+            assert t.param_count(active) == j.param_count(active)
     assert tcfg.cdtype() == torch.bfloat16
     assert tcfg.pdtype() == torch.float32
 
@@ -370,7 +373,7 @@ def test_prefill_and_decode_step_builders():
     assert tok.shape == (2, 1)
     assert cache["t"] == 8 + 4
     with pytest.raises(NotImplementedError):
-        api.init_params(dataclasses.replace(cfg, family="moe"),
+        api.init_params(dataclasses.replace(cfg, family="hybrid"),
                         torch.Generator(), CPU)
 
 
