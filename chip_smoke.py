@@ -67,9 +67,13 @@ source, all three at once), then:
    S > SK, the f32 route at float32 (same GQA group) and S < SK; the
    SDPA yardstick is timed beside each route, and the f32 kernel on the
    bf16 serving shape (the design the tensor-core route replaced); then
-   phase 18's prefill shapes on the tensor-core route, checked and timed
-   the same way (Granite-MoE: q [8, 24, 2048, 64], k/v [8, 8, 2048, 64];
-   Llama-4-Scout: q [8, 40, 2048, 128], k/v [8, 8, 2048, 128]);
+   the prefill shapes of phases 18 and 20 on the tensor-core route,
+   checked and timed the same way (Granite-MoE: q [8, 24, 2048, 64], k/v
+   [8, 8, 2048, 64]; Llama-4-Scout: q [8, 40, 2048, 128], k/v [8, 8,
+   2048, 128]; Zamba2: q, k and v [8, 32, 2048, 80], a head dim below the
+   kernel's width of 128, read with TMA's zero fill, and the f32 kernel
+   timed there too, the route that head dim took before), and head dims
+   80 (ragged, S != SK both ways), 32 and 72 on that route;
 11. the serving path at full width (``examples/kv_serving.py``'s run):
    the coordination store keeps model version and serving epoch, and
    ``ServingEngine`` serves Qwen2.5-3B (36 layers, random weights from a
@@ -94,7 +98,8 @@ source, all three at once), then:
    prints the per-call time, each kernel's share of it, and the bounds
    by bytes and by operations at the bf16 and the 3xTF32 rates; then
    ``chunk_cb`` (the first kernel alone) against ``ref.chunk_cb`` and a
-   batched ``torch.matmul``;
+   batched ``torch.matmul``; then Zamba2's layer of phase 20 (x [8, 2048,
+   80, 64] bf16, state 64), held and timed the same way;
 13. the same serving run as phase 11 on Mamba2-1.3B (48 layers, random
    weights from a seed; 16 requests of 2000-token prompts, 32 new tokens
    each, 2 waves of 8) with every SSD core of prefill on the kernels;
@@ -206,13 +211,32 @@ source, all three at once), then:
    ``fault_tolerance_torch.py``, ``kv_serving_torch.py``) on the card,
    their default device, and with ``--device cpu``: the same lines but for
    wall-clock numbers; the two chain examples launch the kv kernels on the
-   card and call no plain version.
+   card and call no plain version;
+20. the hybrid family on phase 11's serving run: Zamba2-2.7B at full
+   width and depth (54 SSM layers in 9 groups of 6, each group followed
+   by the one shared attention block of 32 heads of 80; random weights
+   from a seed; 16 requests of 2048-token prompts, 32 new tokens, 2
+   waves), held to 18 attention launches all on the tensor-core route,
+   108 of each kernel of the ssd pair and no plain call, with phase 11's
+   holds on the outputs, determinism, the manual greedy loop and the
+   version bump; the whole model in float32 compute at full depth on 2
+   prompts, the kernel path (the f32 attention route, the ssd pair)
+   against the plain path (naive attention, ``impl="chunked"``): prefill
+   logits and ``lm_forward`` scoring within 1e-4 of their largest
+   magnitude, and over 4 greedy decode steps the tokens equal wherever
+   the plain path's top two lie more than 1e-3 of that magnitude apart;
+   one group (6 layers) in float32 compute on CUDA against the CPU,
+   within 1e-4 and equal tokens; the bf16 whole-model logits and scoring,
+   kernel vs plain path, printed; prints the serving metrics and the
+   prefill's device split (attention, the ssd pair, matrix products, the
+   rest).
 
 A kernel's ``launches`` in the record add up over the main paths that
-ran it (phases 11 and 18 for the attention kernel), each counted from
-zero just before its run.  ``--phases 12,13`` runs the build of the
-kernels those phases use, phase 1 and the named phases only (4 and 5
-bring 3 along, 8 brings 7; 15-19 stand alone);
+ran it (phases 11, 18 and 20 for the attention kernel, 13 and 20 for the
+ssd pair), each counted from zero just before its run.  ``--phases
+12,13`` runs the build of the kernels those phases use, phase 1 and the
+named phases only (4 and 5 bring 3 along, 8 brings 7; 15-20 stand
+alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
 it placed in another checkout (a parent commit's, unpacked with ``git
@@ -225,6 +249,7 @@ second-to-last line is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -373,6 +398,15 @@ GAP_EDGES = (1e-7, 1e-6, 1e-5, 1e-4, 1e-3, BF16_GAP_TOL)
 # logits of a whole model or of 2 layers on the card against the CPU (the
 # f32 route's serving tolerance)
 MOE_LAYER_TOL, F32_TOL = 2e-2, 1e-4
+# phase 20: the hybrid family on the same serving run, Zamba2-2.7B at full
+# width and depth (54 SSM layers, the shared attention block after every
+# 6: 9 applications; 32 heads of 80); the whole model in float32 compute
+# on 2 of the first wave's prompts, kernel path against the plain path,
+# for its prefill, its scoring and 4 greedy decode steps, whose argmax is
+# held wherever the plain path's top two lie more than HYBRID_GAP of the
+# logits' largest magnitude apart
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_F32_PROMPTS, HYBRID_STEPS, HYBRID_GAP = 2, 4, 1e-3
 # phase 14: cross-chain transactions at phase 7's cluster, in
 # benchmarks/fig_txn_pipeline.py's proportions (every transaction spans
 # chains, every key written, zipf_a 1.2), two mixes of 4,096, each on a
@@ -1855,6 +1889,27 @@ def attention_bound(q, k, causal: bool = True):
     return nbytes, 4 * D * B * HQ * pairs
 
 
+def f32_route_ms(q, k, v) -> float:
+    """Device ms a call of the f32 kernel on bf16 inputs of these shapes,
+    read through views whose rows are not 16-byte aligned (which the
+    tensor-core route does not take): the design that route replaced."""
+    D = q.shape[3]
+    padded = [torch.empty(x.shape[:3] + (D + 1,), dtype=x.dtype,
+                          device="cuda")[..., :D] for x in (q, k, v)]
+    for dst, src in zip(padded, (q, k, v)):
+        dst.copy_(src)
+    require(fa_kernel.route(*padded) == "f32",
+            "a misaligned bf16 view should take the f32 route")
+    time_calls([lambda: fa_kernel.flash_attention(*padded)] * 2)
+    # a call is one launch: its time is the mean over the records the
+    # profiler kept (a window late in a long run may drop one)
+    counts: dict[str, int] = {}
+    kernels = device_time([lambda: fa_kernel.flash_attention(*padded)] * 3,
+                          counts=counts)[1]
+    return (sum(us / counts[k] for k, us in kernels.items()) / 1e3
+            if kernels else None)
+
+
 def check_flash_attention() -> dict:
     """Both routes of the kernel against its plain version on the card:
     the tensor-core route at the serving shape (one layer's prefill of
@@ -1864,25 +1919,39 @@ def check_flash_attention() -> dict:
     bound: the tensor-core route at the serving shape, the f32 route at
     its float32 case.  The design the tensor-core route replaced (the f32
     kernel, which a misaligned bf16 view still takes) is timed at the
-    serving shape too."""
+    serving shape too.  Then the prefill shapes of phases 18 and 20 on the
+    tensor-core route, checked and timed the same way; Zamba2's head dim
+    80, below the kernel's width of 128, also ragged, with S != SK both
+    ways, and the head dims 32 and 72, and the f32 kernel timed at its
+    prefill shape (the route it took before)."""
     cfg = get_config(SERVE_ARCH)
     HQ, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16, f32 = torch.bfloat16, torch.float32
     heads = {name: (c.n_heads, c.n_kv_heads, c.head_dim)
-             for name, c in moe_configs().items()}
+             for name, c in prefill_configs().items()}
+    zamba = heads["zamba2"]
     cases = [("serving", SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2, "mma"),
              ("float32", 2, PROMPT_LEN, PROMPT_LEN, f32, 2e-5, "f32"),
              ("ragged", SLOTS, 200, 200, bf16, 2e-2, "mma"),
              ("s_lt_sk", 2, 200, 700, f32, 2e-5, "f32"),
              ("s_gt_sk", 2, 700, 200, bf16, 2e-2, "mma")]
-    # phase 18's prefill shapes: one MoE layer's attention of a wave
+    # phases 18 and 20's prefill shapes: one layer's attention of a wave
     cases += [(name, SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2, "mma")
               for name in heads]
+    # head dims below the tensor-core kernel's width, read with zero fill
+    extra = {"d80_ragged": zamba, "d80_s_gt_sk": zamba,
+             "d80_s_lt_sk": zamba, "d32": (8, 2, 32), "d72": (8, 8, 72)}
+    cases += [("d80_ragged", SLOTS, 200, 200, bf16, 2e-2, "mma"),
+              ("d80_s_gt_sk", 2, 700, 200, bf16, 2e-2, "mma"),
+              ("d80_s_lt_sk", 2, 200, 700, bf16, 2e-2, "mma"),
+              ("d32", 2, 1000, 1000, bf16, 2e-2, "mma"),
+              ("d72", 2, 1000, 1000, bf16, 2e-2, "mma")]
+    heads_of = {**heads, **extra}
     gen = torch.Generator(device="cuda").manual_seed(13)
     errs = {"mma": {}, "f32": {}}
     for name, B, S, SK, dtype, tol, want in cases:
-        HQ, HKV, D = heads.get(name, (cfg.n_heads, cfg.n_kv_heads,
-                                      cfg.head_dim))
+        HQ, HKV, D = heads_of.get(name, (cfg.n_heads, cfg.n_kv_heads,
+                                         cfg.head_dim))
         q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
         fa_kernel.reset_launches()
         got = fa_kernel.flash_attention(q, k, v)
@@ -1891,6 +1960,8 @@ def check_flash_attention() -> dict:
         require(fa_kernel.LAUNCHES[f"flash_attention_{want}"] == 1,
                 f"flash_attention {name}: took the wrong route "
                 f"{fa_kernel.LAUNCHES}, want {want}")
+        require(got.stride() == q.stride(), f"flash_attention {name}: "
+                f"output strides {got.stride()}, q's {q.stride()}")
         err = float((got.float() - exp.float()).abs().max())
         require(bool(torch.isfinite(got).all()),
                 f"flash_attention {name}: non-finite output")
@@ -1939,20 +2010,13 @@ def check_flash_attention() -> dict:
             f"{rec['bound_by']} at the {peak} peak")
     # the replaced design: a bf16 view whose rows are not 16-byte aligned
     # takes the f32 kernel
-    padded = [torch.empty(x.shape[:3] + (D + 1,), dtype=bf16,
-                          device="cuda")[..., :D] for x in serving]
-    for dst, src in zip(padded, serving):
-        dst.copy_(src)
-    require(fa_kernel.route(*padded) == "f32",
-            "a misaligned bf16 view should take the f32 route")
-    time_calls([lambda: fa_kernel.flash_attention(*padded)] * 2)
-    old_ms, _, _ = device_time([lambda: fa_kernel.flash_attention(*padded)]
-                               * 3)
+    old_ms = f32_route_ms(*serving)
     out["flash_attention"]["replaced_design_ms"] = old_ms
     log(f"flash_attention at the serving shape on the design this route "
         f"replaced (the f32 kernel, bf16 inputs): {old_ms} ms per call")
-    del serving, single, padded
-    # phase 18's shapes on the tensor-core route, timed as the serving one
+    del serving, single
+    # phases 18 and 20's shapes on the tensor-core route, timed as the
+    # serving one; Zamba2's also on the f32 kernel, its route before
     shapes = {}
     for name, (hq, hkv, d) in heads.items():
         qkv = attention_inputs(gen, SLOTS, hq, hkv, PROMPT_LEN, PROMPT_LEN,
@@ -1961,6 +2025,8 @@ def check_flash_attention() -> dict:
                                   max_abs_err=errs["mma"][name])})[name]
         nbytes, flop = attention_bound(*qkv[:2])
         rec["tflop_per_s"] = flop / rec["ms"] / 1e9
+        if name == "zamba2":
+            rec["f32_route_ms"] = f32_route_ms(*qkv)
         shapes[name] = rec
         log(f"flash_attention at {name}'s prefill q {list(qkv[0].shape)} "
             f"k/v {list(qkv[1].shape)} bf16 ({smi()}): {flop / 1e9:.1f} "
@@ -1968,9 +2034,12 @@ def check_flash_attention() -> dict:
             f"{rec['tflop_per_s']:.1f} TFLOP/s; plain version "
             f"{rec['plain_ms']:.4f} ms; SDPA {rec['library_ms']:.4f} ms; "
             f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} at the "
-            f"bf16 tensor-core peak")
+            f"bf16 tensor-core peak"
+            + (f"; the f32 kernel (its route before head dim {d} took the "
+               f"tensor cores) {rec['f32_route_ms']} ms"
+               if "f32_route_ms" in rec else ""))
         del qkv
-    out["flash_attention"]["moe_shapes"] = shapes
+    out["flash_attention"]["prefill_shapes"] = shapes
     return out
 
 
@@ -2031,19 +2100,26 @@ def check_ssd_scan() -> dict:
     magnitude, the final state within 1e-5 of its own; ``chunk_cb`` alone
     against ``ref.chunk_cb`` at the prefill shape.  Then times both beside
     their plain versions at the prefill shape; no single PyTorch call
-    computes the scan, one ``torch.matmul`` computes C B^T per chunk."""
+    computes the scan, one ``torch.matmul`` computes C B^T per chunk.
+    Zamba2's layer of phase 20 (x [8, 2048, 80, 64], state 64) is held
+    and timed the same way."""
     cfg = get_config(SSM_ARCH)
     H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    zcfg = get_config(HYBRID_ARCH)
+    zamba = (zcfg.ssm_heads, zcfg.ssm_headdim, zcfg.ssm_state)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("prefill", SLOTS, SSM_PROMPT_LEN, 64, bf16, 1e-2),
              ("float32", 2, SSM_PROMPT_LEN, 64, f32, 1e-5),
              ("L2048", 2, 2048, 64, bf16, 1e-2),
              ("short", SLOTS, 40, 64, bf16, 1e-2),
              ("chunk16", 2, 500, 16, f32, 1e-5),
-             ("chunk32", 2, 500, 32, bf16, 1e-2)]
+             ("chunk32", 2, 500, 32, bf16, 1e-2),
+             ("zamba2", SLOTS, PROMPT_LEN, 64, bf16, 1e-2)]
     gen = torch.Generator(device="cuda").manual_seed(17)
     errs = {}
     for name, Bz, L, chunk, dtype, tol in cases:
+        H, P, N = zamba if name == "zamba2" else (
+            cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
         x, dt, A, Bm, Cm, D = ssd_inputs(gen, Bz, L, H, P, N, dtype)
         ssd_kernel.reset_launches()
         y, h = ssd_kernel.ssd_scan_heads(x, dt, A, Bm, Cm, D, chunk=chunk,
@@ -2069,6 +2145,7 @@ def check_ssd_scan() -> dict:
             f"of its max; tolerance {tol}), h_final {err_h:.3g} "
             f"({rel_h:.3g}; tolerance 1e-5)")
         del x, dt, A, Bm, Cm, D, y, h, ey, eh
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     x, dt, A, Bm, Cm, D = ssd_inputs(gen, SLOTS, SSM_PROMPT_LEN, H, P, N,
                                      bf16)
     g = ssd_kernel.chunk_cb(Bm, Cm)
@@ -2133,6 +2210,28 @@ def check_ssd_scan() -> dict:
         f"{cb['library_ms'] * 1e3:.2f} us), {cb_ops / 1e9:.3f} GFLOP, "
         f"{cb_bytes / 1e6:.1f} MB; bound {cb['bound_ms'] * 1e3:.2f} us by "
         f"{cb['bound_by']}")
+    del x, dt, A, Bm, Cm, D, padded
+    # Zamba2's layer of phase 20, the pair timed as at the prefill shape
+    zx = ssd_inputs(gen, SLOTS, PROMPT_LEN, *zamba, bf16)
+    nbytes, flop, _ = ssd_bound(zx[0], zx[3])
+    rec = measure({"zamba2": dict(
+        max_abs_err=errs["zamba2"]["y"],
+        calls=lambda n: [lambda: ssd_kernel.ssd_scan_heads(
+            *zx, h_final=True)] * n,
+        plain=lambda n: [lambda: ssd_ops.ssd(
+            *zx, impl="chunked", return_state=True)] * n,
+        library=None, bound_bytes=nbytes, bound_flop=flop,
+        iters=FA_ITERS)})["zamba2"]
+    zsplit = {("ssd_cb" if "ssd_cb_kernel" in k else "ssd_scan" if
+               "ssd_scan_kernel" in k else k[:40]): us
+              for k, us in rec["device_kernels_us"].items()}
+    out["ssd_scan"]["zamba2_shape"] = rec
+    log(f"ssd_scan at Zamba2's prefill x {list(zx[0].shape)} bf16, N "
+        f"{zamba[2]} ({smi()}): {rec['ms'] * 1e3:.2f} us per call (plain "
+        f"{rec['plain_ms'] * 1e3:.2f} us), per kernel of the pair "
+        + ", ".join(f"{k} {us:.2f} us" for k, us in zsplit.items())
+        + f"; {flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']}")
     return out
 
 
@@ -2164,6 +2263,16 @@ class PlainCalls:
 
 
 @contextlib.contextmanager
+def plain_calls(pairs):
+    """``PlainCalls`` over several ``(module, names)`` pairs at once; yields
+    one view of all their counts by name."""
+    with contextlib.ExitStack() as stack:
+        yield collections.ChainMap(*(
+            stack.enter_context(PlainCalls(module, names)).calls
+            for module, names in pairs))
+
+
+@contextlib.contextmanager
 def naive_attention():
     """The dense model's plain path: prefill attention on the naive
     softmax."""
@@ -2187,54 +2296,96 @@ def chunked_ssd():
         ssd_kernel.ssd_scan_heads = kernel_route
 
 
+@contextlib.contextmanager
+def naive_attention_chunked_ssd():
+    """The hybrid model's plain path: prefill attention on the naive
+    softmax, the SSD core on ``impl="chunked"``."""
+    with chunked_ssd():
+        yield OptFlags(attn_impl="naive")
+
+
+@dataclasses.dataclass(frozen=True)
+class PathKernel:
+    """A kernel a serving path's prefill launches: its wrapper module and
+    counter (``kernel.LAUNCHES[key]``; every launch also under ``route``
+    where the kernel has routes), its launches in one prefill or scoring
+    pass of a config (``per_pass(cfg)``), the plain version the CPU calls
+    in place of its launches (None: none of its own), and the part of the
+    prefill's device time its launches make (device kernel names that hold
+    ``tag``)."""
+    kernel: object
+    key: str
+    route: str | None
+    per_pass: object
+    cpu_plain: str | None
+    part: str
+    tag: str
+
+
+def every_layer(cfg) -> int:
+    return cfg.n_layers
+
+
+def every_group(cfg) -> int:
+    """The hybrid's shared attention: once after each group of
+    ``shared_attn_every`` SSM layers."""
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+ATTENTION = PathKernel(fa_kernel, "flash_attention", "flash_attention_mma",
+                       every_layer, "flash_attention_ref", "attention",
+                       "flash_")
+SSD_PAIR = (PathKernel(ssd_kernel, "ssd_scan", None, every_layer,
+                       "ssd_chunked", "ssd pair", "ssd_"),
+            PathKernel(ssd_kernel, "ssd_cb", None, every_layer, None,
+                       "ssd pair", "ssd_"))
+FA_PLAIN = (fa_ref, ("flash_attention_ref", "attention_ref"))
+SSD_PLAIN = (ssd_ref, ("ssd_chunked", "ssd_scan_with_final_ref"))
+
+
 @dataclasses.dataclass(frozen=True)
 class ServePath:
-    """One serving path: the model, its prompts, the kernel its prefill
-    launches (``kernel.LAUNCHES[key]``; every one of them also under
-    ``route`` where the kernel has routes, and once more under ``paired``
-    where a second kernel runs before it), that kernel's plain versions
-    (the first is the one the CPU runs per layer) and the plain path the
-    kernel path is held to at full depth."""
+    """One serving path: the model, its prompts, the kernels its prefill
+    launches, their plain versions (``(module, names)`` pairs) and the
+    plain path the kernel path is held to at full depth."""
     phase: int
     arch: str
     prompt_len: int
     cache_len: int
-    kernel: object
-    key: str
-    route: str | None
-    plain_module: object
-    plain_names: tuple
+    kernels: tuple         # PathKernel, ...
+    plain: tuple
     flags: OptFlags
     plain_path: object
     score: bool            # also hold lm_forward (scoring) to the plain path
-    kernel_tag: str        # in the device names of the kernel's launches
-    paired: str | None = None
+    # the bf16 prefill logits (and scoring), kernel vs plain path, within
+    # this share of their max magnitude (None: printed, not held)
+    bf16_tol: float | None = 5e-2
     n_layers: int | None = None    # a depth cut (None: the config's)
     requests: int = N_REQUESTS
     max_new: int = MAX_NEW
 
 
 SERVE_PATHS = {
-    "dense": ServePath(11, SERVE_ARCH, PROMPT_LEN, CACHE_LEN, fa_kernel,
-                       "flash_attention", "flash_attention_mma", fa_ref,
-                       ("flash_attention_ref", "attention_ref"),
-                       OptFlags(attn_impl="pallas"), naive_attention, False,
-                       "flash_"),
-    "ssm": ServePath(13, SSM_ARCH, SSM_PROMPT_LEN, SSM_PROMPT_LEN,
-                     ssd_kernel, "ssd_scan", None, ssd_ref,
-                     ("ssd_chunked", "ssd_scan_with_final_ref"), OptFlags(),
-                     chunked_ssd, True, "ssd_", paired="ssd_cb"),
-    "moe": ServePath(18, MOE_ARCH, PROMPT_LEN, CACHE_LEN, fa_kernel,
-                     "flash_attention", "flash_attention_mma", fa_ref,
-                     ("flash_attention_ref", "attention_ref"),
-                     OptFlags(attn_impl="pallas"), naive_attention, False,
-                     "flash_"),
-    "scout": ServePath(18, SCOUT_ARCH, PROMPT_LEN, CACHE_LEN, fa_kernel,
-                       "flash_attention", "flash_attention_mma", fa_ref,
-                       ("flash_attention_ref", "attention_ref"),
-                       OptFlags(attn_impl="pallas"), naive_attention, False,
-                       "flash_", n_layers=SCOUT_LAYERS,
+    "dense": ServePath(11, SERVE_ARCH, PROMPT_LEN, CACHE_LEN, (ATTENTION,),
+                       (FA_PLAIN,), OptFlags(attn_impl="pallas"),
+                       naive_attention, False),
+    "ssm": ServePath(13, SSM_ARCH, SSM_PROMPT_LEN, SSM_PROMPT_LEN, SSD_PAIR,
+                     (SSD_PLAIN,), OptFlags(), chunked_ssd, True),
+    "moe": ServePath(18, MOE_ARCH, PROMPT_LEN, CACHE_LEN, (ATTENTION,),
+                     (FA_PLAIN,), OptFlags(attn_impl="pallas"),
+                     naive_attention, False),
+    "scout": ServePath(18, SCOUT_ARCH, PROMPT_LEN, CACHE_LEN, (ATTENTION,),
+                       (FA_PLAIN,), OptFlags(attn_impl="pallas"),
+                       naive_attention, False, n_layers=SCOUT_LAYERS,
                        requests=SCOUT_REQUESTS, max_new=SCOUT_MAX_NEW),
+    # the bf16 logits of 54 layers are printed, not held: phases 10 and 12
+    # hold the bf16 kernels at this model's shapes, and the float32 run at
+    # full depth holds the algorithm (hybrid_float32)
+    "hybrid": ServePath(20, HYBRID_ARCH, PROMPT_LEN, CACHE_LEN,
+                        (dataclasses.replace(ATTENTION, per_pass=every_group),
+                         *SSD_PAIR),
+                        (FA_PLAIN, SSD_PLAIN), OptFlags(attn_impl="pallas"),
+                        naive_attention_chunked_ssd, True, bf16_tol=None),
 }
 
 
@@ -2244,10 +2395,41 @@ def path_config(path: ServePath):
             else dataclasses.replace(cfg, n_layers=path.n_layers))
 
 
-def moe_configs() -> dict:
-    """Phase 18's two models, Scout at its depth cut."""
+def prefill_configs() -> dict:
+    """The models of phases 18 and 20 whose prefill shapes phases 10 and
+    12 check, Scout at its depth cut."""
     return {"granite": path_config(SERVE_PATHS["moe"]),
-            "scout": path_config(SERVE_PATHS["scout"])}
+            "scout": path_config(SERVE_PATHS["scout"]),
+            "zamba2": path_config(SERVE_PATHS["hybrid"])}
+
+
+def reset_path(path: ServePath) -> None:
+    for module in {id(k.kernel): k.kernel for k in path.kernels}.values():
+        module.reset_launches()
+
+
+def path_launches(path: ServePath) -> dict:
+    """Every counter of the path's kernels, as they stand."""
+    out = {}
+    for k in path.kernels:
+        out.update(k.kernel.LAUNCHES)
+    return out
+
+
+def check_launches(path: ServePath, cfg, passes: int, what: str,
+                   route_of=None) -> dict:
+    """Each kernel of the path launched ``per_pass(cfg) * passes`` times,
+    every launch on its route (``route_of``: a kernel key's route in place
+    of the path's own).  Returns the counts by key."""
+    got = path_launches(path)
+    for k in path.kernels:
+        want = k.per_pass(cfg) * passes
+        route = (route_of or {}).get(k.key, k.route)
+        require(got[k.key] == want and (route is None or got[route] == want),
+                f"{what}: {got[k.key]} {k.key} launches, want {want}"
+                + ("" if route is None else f" all on {route}")
+                + f" (all launches {got})")
+    return {k.key: got[k.key] for k in path.kernels}
 
 
 def memory_gib(device, peak: bool = False) -> str:
@@ -2303,11 +2485,11 @@ def decode_busy_share(eng: ServingEngine, batch, flags: OptFlags,
 
 
 def prefill_split(eng: ServingEngine, batch, flags: OptFlags,
-                  kernel_tag: str) -> dict:
+                  parts: dict) -> dict:
     """Wall time of one warm prefill of ``batch`` and where its device
-    time goes (torch.profiler): the path's kernel (device kernels whose
-    name holds ``kernel_tag``), matrix products (cuBLAS/cuBLASLt, CUTLASS)
-    and everything else."""
+    time goes (torch.profiler): each of the path's kernels (``parts``:
+    part name -> a tag its device kernels' names hold), matrix products
+    (cuBLAS/cuBLASLt, CUTLASS) and everything else."""
     def step():
         return api.prefill_fn(eng.cfg)(eng.weights, batch, eng.cache_len,
                                        flags)
@@ -2322,11 +2504,12 @@ def prefill_split(eng: ServingEngine, batch, flags: OptFlags,
             return {"wall_ms": wall_ms, "device_ms": None}
         dev_ms, kernels, count = device_time([step])
     gemm_tags = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
-    split = {"kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {**dict.fromkeys(parts, 0.0), "matmul": 0.0, "other": 0.0}
     for name, us in kernels.items():
         low = name.lower()
-        part = ("kernel" if kernel_tag in name else "matmul"
-                if any(t in low for t in gemm_tags) else "other")
+        part = next((p for p, tag in parts.items() if tag in name),
+                    "matmul" if any(t in low for t in gemm_tags)
+                    else "other")
         split[part] += us / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
@@ -2336,12 +2519,16 @@ def prefill_split(eng: ServingEngine, batch, flags: OptFlags,
 
 
 def describe(cfg) -> str:
+    ssm = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+           f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}")
     if cfg.family == "ssm":
-        return (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
-                f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv "
-                f"{cfg.ssm_conv}")
+        return ssm
     out = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff "
            f"{cfg.d_ff}")
+    if cfg.family == "hybrid":
+        return (f"{ssm}; the shared attention block after every "
+                f"{cfg.shared_attn_every} SSM layers ({every_group(cfg)} "
+                f"applications): {out}")
     if cfg.family == "moe":
         out += (f", {cfg.n_experts} experts (padded to "
                 f"{cfg.n_experts_padded}) top-{cfg.top_k}"
@@ -2362,7 +2549,7 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     models lm_forward on both) and, at 2 layers, the CPU's plain
     versions."""
     cfg = path_config(path)
-    kernel, key, flags = path.kernel, path.key, path.flags
+    flags = path.flags
     name = f"serving {cfg.name}"
     n_req, max_new = path.requests, path.max_new
     coord = Coordinator(ChainConfig(n_nodes=4, num_keys=64), device=device)
@@ -2400,12 +2587,11 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     sync(device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launches()
-    with PlainCalls(path.plain_module, path.plain_names) as plain:
+    reset_path(path)
+    with plain_calls(path.plain) as plain:
         t0 = time.perf_counter()
         done = eng.run(reqs, prompt_len=path.prompt_len)
         wall = time.perf_counter() - t0
-    launches = kernel.LAUNCHES[key]
     n_waves = -(-n_req // SLOTS)
     require(len(done) == n_req, f"{name}: {len(done)} requests done")
     for r in done:
@@ -2413,20 +2599,11 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
                 int(r.output.min()) >= 0 and
                 int(r.output.max()) < cfg.vocab_padded,
                 f"{name}: request {r.rid} output {r.output}")
-    require(launches == cfg.n_layers * n_waves,
-            f"{name}: {launches} {key} launches, want {cfg.n_layers} x "
-            f"{n_waves}")
-    if path.route is not None:
-        require(kernel.LAUNCHES[path.route] == launches,
-                f"{name}: not every launch took the {path.route} route "
-                f"({kernel.LAUNCHES})")
-    if path.paired is not None:
-        require(kernel.LAUNCHES[path.paired] == launches,
-                f"{name}: {kernel.LAUNCHES[path.paired]} {path.paired} "
-                f"launches, want one per {key} launch ({launches})")
-    require(sum(plain.calls.values()) == 0,
+    launches = check_launches(path, cfg, n_waves, name)
+    all_launches = path_launches(path)
+    require(sum(plain.values()) == 0,
             f"{name}: plain versions called on the kernel path "
-            f"{plain.calls}")
+            f"{dict(plain)}")
     lat = eng.latencies_ms
     waves = []
     for w in eng.waves:
@@ -2445,9 +2622,10 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     peak = memory_gib(device, peak=True)
     log(f"{name} ({card}): {n_req} requests in {wall:.3f} s, latency "
         f"p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms; "
-        f"{key} launches {launches} ({path.route or 'one'} route; all "
-        f"launches {kernel.LAUNCHES}), plain calls {plain.calls}; "
-        f"peak device memory {peak} GiB")
+        f"launches {launches} (routes: every launch on "
+        f"{[k.route or k.key for k in path.kernels]}; all counters "
+        f"{all_launches}), plain calls {dict(plain)}; peak device memory "
+        f"{peak} GiB")
 
     # the same prompt twice gives the same tokens; a manual greedy loop
     # on the float32 parameters gives the engine's
@@ -2489,31 +2667,27 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     scored = first["tokens"][:2]
     out = {}
     with torch.inference_mode():
-        kernel.reset_launches()
+        reset_path(path)
         lk = api.prefill_fn(cfg)(eng.weights, first, path.cache_len,
                                  flags)[0]
         out["score_launches"] = None
         if path.score:
-            kernel.reset_launches()
+            reset_path(path)
             hk = TF.lm_forward(eng.weights, cfg, scored, flags=flags)
-            out["score_launches"] = kernel.LAUNCHES[key]
-            require(out["score_launches"] == cfg.n_layers and
-                    (path.paired is None or
-                     kernel.LAUNCHES[path.paired] == cfg.n_layers),
-                    f"{name}: scoring launched {kernel.LAUNCHES}, want "
-                    f"{cfg.n_layers} of {key}"
-                    + ("" if path.paired is None else f" and {path.paired}"))
+            out["score_launches"] = check_launches(path, cfg, 1,
+                                                   f"{name} scoring")
         with path.plain_path() as plain_flags, \
-                PlainCalls(path.plain_module, path.plain_names) as plain:
-            kernel.reset_launches()
+                plain_calls(path.plain) as plain:
+            reset_path(path)
             ln = api.prefill_fn(cfg)(eng.weights, first, path.cache_len,
                                      plain_flags)[0]
             hn = (TF.lm_forward(eng.weights, cfg, scored, flags=plain_flags)
                   if path.score else None)
-        require(sum(kernel.LAUNCHES.values()) == 0 and
-                sum(plain.calls.values()) > 0,
-                f"{name}: the plain path launched {key} or called no plain "
-                f"version ({plain.calls})")
+        require(sum(path_launches(path).values()) == 0 and
+                sum(plain.values()) > 0,
+                f"{name}: the plain path launched a kernel "
+                f"({path_launches(path)}) or called no plain version "
+                f"({dict(plain)})")
     plain_err = rel_err(lk, ln)
     agree = float((lk.argmax(-1) == ln.argmax(-1)).float().sum())
     if cfg.family == "moe":
@@ -2527,23 +2701,30 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             f"between the two runs; first tokens agree on {agree:.0f} of "
             f"{SLOTS}")
     else:
-        require(plain_err <= 5e-2, f"{name}: kernel-path prefill logits "
-                f"differ from the plain path's by {plain_err} of their max "
-                f"magnitude")
+        tol = path.bf16_tol
+        require(tol is None or plain_err <= tol, f"{name}: kernel-path "
+                f"prefill logits differ from the plain path's by "
+                f"{plain_err} of their max magnitude")
+        held = "printed, not held" if tol is None else f"tolerance {tol}"
         log(f"{name}: first-wave prefill logits, kernel vs plain path: max "
-            f"diff {plain_err:.4g} of the max magnitude; first tokens agree "
-            f"on {agree:.0f} of {SLOTS}")
+            f"diff {plain_err:.4g} of the max magnitude ({held}); first "
+            f"tokens agree on {agree:.0f} of {SLOTS}")
     out["score_rel"] = None
     if path.score:
         out["score_rel"] = rel_err(hk, hn)
-        require(out["score_rel"] <= 5e-2, f"{name}: kernel-path lm_forward "
-                f"differs from the plain path's by {out['score_rel']}")
+        require(path.bf16_tol is None or out["score_rel"] <= path.bf16_tol,
+                f"{name}: kernel-path lm_forward differs from the plain "
+                f"path's by {out['score_rel']}")
         log(f"{name}: lm_forward scoring {tuple(scored.shape)} tokens "
-            f"through {out['score_launches']} {key} launches, kernel vs "
-            f"plain path: max diff {out['score_rel']:.4g} of the max "
-            f"magnitude")
+            f"through launches {out['score_launches']}, kernel vs plain "
+            f"path: max diff {out['score_rel']:.4g} of the max magnitude ("
+            + ("printed, not held" if path.bf16_tol is None
+               else f"tolerance {path.bf16_tol}") + ")")
         del hk, hn
-    pre = prefill_split(eng, first, flags, path.kernel_tag)
+    if cfg.family == "hybrid":
+        out["float32"] = hybrid_float32(eng, first, path, device)
+    pre = prefill_split(eng, first, flags,
+                        {k.part: k.tag for k in path.kernels})
     log(f"{name} warm prefill of {SLOTS} x {path.prompt_len} tokens "
         f"({card}): {pre['wall_ms']:.3f} ms wall, device {pre['device_ms']}"
         f" ms (busy share {pre.get('busy_share')}); device ms by part "
@@ -2558,8 +2739,7 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
     reduced = serving_cpu_equality(path, device)
-    paired = {} if path.paired is None else {path.paired: launches}
-    return {"launches": {key: launches, **paired}, "waves": waves,
+    return {"launches": launches, "waves": waves,
             "latency_p50_ms": percentile(lat, 50),
             "latency_p99_ms": percentile(lat, 99), "wall_s": wall,
             "peak_gib": peak, "kernel_vs_plain_rel": plain_err,
@@ -2646,13 +2826,13 @@ def float32_whole_model(eng: ServingEngine, first, path: ServePath,
     kernel_flags = OptFlags(flash_kernel=True)
     with torch.inference_mode():
         fa_kernel.reset_launches()
-        with PlainCalls(path.plain_module, path.plain_names) as plain:
+        with plain_calls(path.plain) as plain:
             hk = TF.lm_forward(w, cfg, tokens, flags=kernel_flags)
         launches = dict(fa_kernel.LAUNCHES)
         require(launches["flash_attention_f32"] == cfg.n_layers and
                 launches["flash_attention"] == cfg.n_layers and
-                sum(plain.calls.values()) == 0,
-                f"{name}: launches {launches}, plain calls {plain.calls}; "
+                sum(plain.values()) == 0,
+                f"{name}: launches {launches}, plain calls {dict(plain)}; "
                 f"want {cfg.n_layers} on the f32 route")
         hp = TF.lm_forward(w, cfg, tokens, flags=OptFlags())
         # the two whole models driven layer by layer
@@ -2836,16 +3016,21 @@ def moe_checks(eng: ServingEngine, first, path: ServePath, lk,
 
 
 def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
-    """The path at full width and 2 layers: prefill and teacher-forced
-    decode steps on CUDA (the kernel) and on the CPU (the plain versions)
-    from the same weights; logits within 2e-2 of their largest magnitude
-    (bf16 rounded in another order on each device).  The MoE family runs
-    in float32 compute, held to ``F32_TOL``: in bf16 a routing decision
-    near a tie may go either way on the two devices."""
-    cfg = dataclasses.replace(get_config(path.arch),
-                              n_layers=REDUCED_SERVE["n_layers"])
+    """The path at full width and 2 layers (the hybrid: one group, its
+    ``shared_attn_every`` SSM layers and the shared block): prefill and
+    teacher-forced decode steps on CUDA (the kernels) and on the CPU (the
+    plain versions) from the same weights; logits within 2e-2 of their
+    largest magnitude (bf16 rounded in another order on each device).  The
+    MoE and hybrid families run in float32 compute, held to ``F32_TOL``
+    and to equal greedy tokens at every step: in bf16 a routing decision
+    near a tie may go either way on the two devices, and the hybrid's
+    float32 run holds its algorithm."""
+    base = get_config(path.arch)
+    n_layers = (base.shared_attn_every if base.family == "hybrid"
+                else REDUCED_SERVE["n_layers"])
+    cfg = dataclasses.replace(base, n_layers=n_layers)
     tol = 2e-2
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "hybrid"):
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
         tol = F32_TOL
     gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 1)
@@ -2858,9 +3043,8 @@ def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
     logits, forced = {}, None
     for dev in ("cpu", device):
         t0 = time.perf_counter()
-        path.kernel.reset_launches()
-        with PlainCalls(path.plain_module, path.plain_names) as plain, \
-                torch.inference_mode():
+        reset_path(path)
+        with plain_calls(path.plain) as plain, torch.inference_mode():
             lg, cache = api.prefill_fn(cfg)(
                 weights[dev], {"tokens": torch.as_tensor(
                     toks, dtype=torch.int32, device=dev)}, S + 8, path.flags)
@@ -2873,11 +3057,23 @@ def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
                                                path.flags)
                 out.append(lg)
         logits[dev] = [x.cpu() for x in out]
-        want = (0, 1) if dev == "cpu" else (cfg.n_layers, 0)
-        got = (path.kernel.LAUNCHES[path.key],
-               plain.calls[path.plain_names[0]] // cfg.n_layers)
-        require(got == want, f"serving {cfg.name} reduced on {dev}: "
-                f"(launches, plain calls per layer) {got}, want {want}")
+        what = f"serving {cfg.name} reduced on {dev}"
+        if dev == "cpu":
+            got = path_launches(path)
+            require(sum(got.values()) == 0, f"{what}: launches {got}")
+            for k in path.kernels:
+                if k.cpu_plain is not None:
+                    require(plain[k.cpu_plain] // k.per_pass(cfg) == 1,
+                            f"{what}: {plain[k.cpu_plain]} calls of "
+                            f"{k.cpu_plain}, want one per {k.key} launch "
+                            f"({k.per_pass(cfg)})")
+        else:
+            # float32 compute takes the f32 attention route
+            f32 = {"flash_attention": "flash_attention_f32"}
+            check_launches(path, cfg, 1, what,
+                           f32 if cfg.compute_dtype == "float32" else None)
+            require(sum(plain.values()) == 0,
+                    f"{what}: plain calls {dict(plain)}")
         log(f"serving {cfg.name} reduced ({on_card(dev)}, "
             f"{cfg.compute_dtype}): {cfg.n_layers} layers, {B} x {S} prompt "
             f"+ {REDUCED_SERVE['steps']} decode steps in "
@@ -2885,10 +3081,96 @@ def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
     errs = [rel_err(c, p) for c, p in zip(logits[device], logits["cpu"])]
     require(max(errs) <= tol, f"serving {cfg.name} reduced: CUDA logits "
             f"differ from the CPU's by {errs} of their max magnitude")
+    same = [bool(torch.equal(c[:, -1].argmax(-1), p[:, -1].argmax(-1)))
+            for c, p in zip(logits[device], logits["cpu"])]
+    require(cfg.compute_dtype != "float32" or all(same),
+            f"serving {cfg.name} reduced: greedy tokens differ between CUDA "
+            f"and the CPU at steps {[i for i, x in enumerate(same) if not x]}")
     log(f"serving {cfg.name} reduced: CUDA (kernel) vs CPU (plain) logits "
         f"in {cfg.compute_dtype} compute, relative max diff per step "
-        f"{[f'{e:.3g}' for e in errs]} (tolerance {tol})")
-    return {"rel_errs": errs, "compute_dtype": cfg.compute_dtype}
+        f"{[f'{e:.3g}' for e in errs]} (tolerance {tol}); greedy tokens "
+        f"equal at every step: {all(same)}")
+    return {"rel_errs": errs, "compute_dtype": cfg.compute_dtype,
+            "n_layers": cfg.n_layers, "tokens_equal": all(same)}
+
+
+def hybrid_float32(eng: ServingEngine, first, path: ServePath,
+                   device="cuda") -> dict:
+    """The hybrid's whole model at full depth in float32 compute, on
+    ``HYBRID_F32_PROMPTS`` of the first wave's prompts: the kernel path
+    (the f32 attention route and the ssd pair) against the plain path
+    (naive attention, ``impl="chunked"``).  Prefill logits and
+    ``lm_forward`` scoring within ``F32_TOL`` of their largest magnitude;
+    then ``HYBRID_STEPS`` decode steps on both from their own caches, each
+    fed the plain path's greedy token, the argmax of every step equal
+    wherever the plain path's top two lie more than ``HYBRID_GAP`` of the
+    logits' largest magnitude apart (the positions closer than that are
+    counted and printed)."""
+    cfg = dataclasses.replace(eng.cfg, compute_dtype="float32")
+    w = TF.compute_params(eng.params, cfg)        # float32: no copy
+    name = f"serving {cfg.name} float32"
+    tokens = first["tokens"][:HYBRID_F32_PROMPTS]
+    runs = {}
+    with torch.inference_mode():
+        for which in ("plain", "kernel"):
+            ctx = (path.plain_path() if which == "plain"
+                   else contextlib.nullcontext(path.flags))
+            with ctx as flags, plain_calls(path.plain) as plain:
+                reset_path(path)
+                lg, cache = api.prefill_fn(cfg)(w, {"tokens": tokens},
+                                                path.cache_len, flags)
+                hidden = TF.lm_forward(w, cfg, tokens, flags=flags)
+                launches = path_launches(path)
+                if which == "kernel":
+                    check_launches(path, cfg, 2, f"{name} kernel path",
+                                   {"flash_attention": "flash_attention_f32"})
+                    require(sum(plain.values()) == 0, f"{name}: plain calls "
+                            f"{dict(plain)} on the kernel path")
+                else:
+                    require(sum(launches.values()) == 0 and
+                            sum(plain.values()) > 0,
+                            f"{name} plain path: launches {launches}, plain "
+                            f"calls {dict(plain)}")
+            runs[which] = {"logits": [lg], "hidden": hidden,
+                           "cache": cache, "launches": launches}
+        for _ in range(HYBRID_STEPS):
+            tok = torch.argmax(runs["plain"]["logits"][-1][:, -1], -1)
+            for run in runs.values():
+                lg, run["cache"] = api.decode_fn(cfg)(
+                    w, run["cache"], tok.to(torch.int32)[:, None], path.flags)
+                run["logits"].append(lg)
+    kern, plain = runs["kernel"], runs["plain"]
+    prefill_rel = rel_err(kern["logits"][0], plain["logits"][0])
+    score_rel = rel_err(kern["hidden"], plain["hidden"])
+    decode_rels = [rel_err(a, b) for a, b in zip(kern["logits"][1:],
+                                                  plain["logits"][1:])]
+    compared = close = 0
+    for a, b in zip(kern["logits"], plain["logits"]):
+        a, b = a[:, -1].float().cpu(), b[:, -1].float().cpu()
+        top2 = torch.topk(b, 2, dim=-1).values
+        wide = (top2[:, 0] - top2[:, 1]) > HYBRID_GAP * b.abs().max()
+        differ = a.argmax(-1) != b.argmax(-1)
+        require(not bool((differ & wide).any()),
+                f"{name}: greedy tokens differ where the plain path's top "
+                f"two lie more than {HYBRID_GAP} of the max magnitude apart")
+        compared += int(wide.sum())
+        close += int((~wide).sum())
+    require(prefill_rel <= F32_TOL and score_rel <= F32_TOL,
+            f"{name}: kernel-path prefill logits {prefill_rel} or scoring "
+            f"{score_rel} differ from the plain path's by more than "
+            f"{F32_TOL} of their max magnitude")
+    log(f"{name} whole model, {cfg.n_layers} layers, on "
+        f"{tuple(tokens.shape)} tokens ({on_card(device)}): kernel path "
+        f"(launches {kern['launches']}) vs plain path: prefill logits "
+        f"{prefill_rel:.3g}, lm_forward scoring {score_rel:.3g} of the max "
+        f"magnitude (tolerance {F32_TOL}); {HYBRID_STEPS} decode steps on "
+        f"the plain path's greedy tokens, logits {[f'{e:.3g}' for e in decode_rels]} "
+        f"(printed); greedy tokens equal at all {compared} positions whose "
+        f"top two lie more than {HYBRID_GAP} of the max magnitude apart, "
+        f"{close} positions closer than that (not held)")
+    return {"prefill_rel": prefill_rel, "score_rel": score_rel,
+            "decode_rels": decode_rels, "tokens_compared": compared,
+            "tokens_near_tie": close}
 
 
 def f32_route_serving(device="cuda") -> dict:
@@ -4485,8 +4767,8 @@ def build_kernels(phases) -> None:
     t0 = time.perf_counter()
     kernels = [(src, k) for src, k, uses in (
         (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16, 17, 19)),
-        (FA_SRC, fa_kernel, (10, 11, 18)),
-        (SSD_SRC, ssd_kernel, (12, 13))) if set(uses) & phases]
+        (FA_SRC, fa_kernel, (10, 11, 18, 20)),
+        (SSD_SRC, ssd_kernel, (12, 13, 20))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
         builds = [pool.submit(k.build) for _, k in kernels]
         for b in builds:
@@ -4495,7 +4777,7 @@ def build_kernels(phases) -> None:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 20))
+ALL_PHASES = tuple(range(1, 21))
 
 
 def parse_phases(argv) -> set:
@@ -4572,6 +4854,12 @@ def main(argv=None) -> None:
             + f"; device kernels {rec.get('device_kernels_us')}")
 
     run, launches = {}, {}
+
+    def add_launches(counts: dict) -> None:
+        """A kernel's launches add up over the main paths that ran it,
+        each counted from zero."""
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
     if 3 in phases:
         craq_run = main_path("netcraq")
         launches.update(craq_run["launches"])
@@ -4607,7 +4895,7 @@ def main(argv=None) -> None:
         launches.update(run["serving_f32_route"]["launches"])
     if 13 in phases:
         run["ssm_serving"] = serving_phase(SERVE_PATHS["ssm"])
-        launches.update(run["ssm_serving"]["launches"])
+        add_launches(run["ssm_serving"]["launches"])
     if 14 in phases:
         run["transactions"] = txn_phase()
         if "netcraq" in run:
@@ -4624,16 +4912,19 @@ def main(argv=None) -> None:
         for key in ("moe", "scout"):
             t0 = time.perf_counter()
             rec = run[f"{key}_serving"] = serving_phase(SERVE_PATHS[key])
-            # a kernel's launches add up over the main paths that ran it,
-            # each counted from zero
-            for k, n in rec["launches"].items():
-                launches[k] = launches.get(k, 0) + n
+            add_launches(rec["launches"])
             log(f"{key}_serving: phase 18's run took "
                 f"{time.perf_counter() - t0:.1f} s")
     if 19 in phases:
         t0 = time.perf_counter()
         run["examples"] = examples_phase()
         log(f"examples: phase 19's run took {time.perf_counter() - t0:.1f} s")
+    if 20 in phases:
+        t0 = time.perf_counter()
+        run["hybrid_serving"] = serving_phase(SERVE_PATHS["hybrid"])
+        add_launches(run["hybrid_serving"]["launches"])
+        log(f"hybrid_serving: phase 20's run took "
+            f"{time.perf_counter() - t0:.1f} s")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

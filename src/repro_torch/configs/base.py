@@ -6,8 +6,9 @@ exporting ``CONFIG`` with the hyperparameters the reference gives it;
 ``reduced()`` derives the CPU smoke-test variant (same family and
 topology, tiny widths).  ``cdtype()``/``pdtype()`` return torch dtypes.
 The port serves the dense decoders, the MoE family (granite, llama4
-scout) and the SSM family (mamba2) so far: the other architecture ids
-raise ``NotImplementedError`` naming the slice that brings them.
+scout), the SSM family (mamba2) and the hybrid (zamba2) so far: the other
+architecture ids raise ``NotImplementedError`` naming the slice that
+brings them.
 """
 from __future__ import annotations
 
@@ -170,12 +171,12 @@ _MODULES = {
     "mamba2-1.3b": "mamba2_1_3b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 # The reference's other architectures, and the slice of the port that
-# brings each (ROADMAP, queue 1, item 14).
+# brings each (ROADMAP, queue 1, item 2).
 _LATER = {
-    "zamba2-2.7b": "the hybrid slice, after the MoE slice",
     "internvl2-26b": "the VLM slice",
     "whisper-base": "the encoder-decoder slice",
 }
@@ -186,7 +187,7 @@ ARCH_IDS = list(_MODULES) + list(_LATER)
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id in _LATER:
         raise NotImplementedError(
-            f"{arch_id}: the port serves the dense, MoE and SSM decoders "
-            f"so far; {_LATER[arch_id]} brings it")
+            f"{arch_id}: the port serves the dense, MoE, SSM and hybrid "
+            f"decoders so far; {_LATER[arch_id]} brings it")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG

@@ -3,9 +3,9 @@
 // Both replace the TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention
 //   (_flash_kernel, pallas_call over the grid (B, HQ, q tiles, kv tiles)).
-// The Python wrapper (kernel.py::route) sends bf16 inputs with D in
-// {64, 128} and 16-byte-aligned bases and row strides to the tensor-core
-// kernel below and everything else to the f32 kernel after it.
+// The Python wrapper (kernel.py::route) sends bf16 inputs with D <= 128, a
+// multiple of 8, and 16-byte-aligned bases and row strides to the
+// tensor-core kernel below and everything else to the f32 kernel after it.
 //
 // ---------------------------------------------------------------------------
 // The bf16 route: flash_mma_kernel (entry point flash_attention_mma_launch).
@@ -64,6 +64,14 @@
 //   (D / 2 f32) and P (16 bf16x2).
 // - The output is written from registers in q's layout (bf16 pairs), rows
 //   past S not at all.
+// - Head dims other than 64 and 128 (D <= 128, a multiple of 8; Zamba2's
+//   80) run the instantiation of width DP = 64 (D <= 64) or 128 with no
+//   copy: the tensor maps keep the real D as their inner extent, so TMA
+//   fills columns D..DP-1 of every Q, K and V box with zeros (the box still
+//   moves its full bytes, so the expect_tx counts do not change).  The zero
+//   columns add exactly 0 to q.k and give zero accumulator columns in P V;
+//   the epilogue writes only the 8-column groups below D.  The loops run
+//   over all of DP: at D = 80, 48 of 128 columns are zeros.
 //
 // ---------------------------------------------------------------------------
 // The f32 route: flash_fwd_kernel (entry point flash_attention_launch).
@@ -562,20 +570,22 @@ struct OutStrides {
   long long b, h, s;   // in elements; the last dimension is dense
 };
 
-template <int D, int ST>
+template <int DP, int ST>
 constexpr int smem_bytes() {
-  return (1 + 2 * ST) * (D / 64) * kBox + 1024 + 8 * (1 + 2 * ST);
+  return (1 + 2 * ST) * (DP / 64) * kBox + 1024 + 8 * (1 + 2 * ST);
 }
 
-template <int D, int ST, int MINB>
+// DP: the instantiation's width, 64 or 128; D: the head dim, at most DP and
+// a multiple of 8 (columns D..DP-1 arrive as TMA's zero fill).
+template <int DP, int ST, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
     flash_mma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      __nv_bfloat16* __restrict__ o, int B, int HQ, int HKV,
-                     int S, int SK, OutStrides so, float scale_log2,
+                     int S, int SK, int D, OutStrides so, float scale_log2,
                      int causal) {
-  constexpr int NB = D / 64;            // 64-column boxes per row
+  constexpr int NB = DP / 64;           // 64-column boxes per row
   constexpr int kTile = NB * kBox;      // one Q, K or V tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -633,9 +643,9 @@ __global__ void __launch_bounds__(kThreads, MINB)
   // and r0 + 8 of the tile, columns 8 j + 2 (lane % 4) and the next
   const int g = lane / 4, t = lane % 4;
   const int r0 = warp * 16 + g;
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float sc[32];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
@@ -647,7 +657,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
     // S = Q K^T
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DP / 16; ++kk)
       wgmma_ss_n64(sc, k_major(sQ, kk), k_major(sK(s), kk), kk > 0);
     wgmma_commit();
     wgmma_wait();
@@ -688,7 +698,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
       l[r] += sc[i];
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) & 1];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i / 2) & 1];
 
     // O += P V, P packed to bf16 in place as the A operand
     uint32_t pa[4][4];
@@ -700,7 +710,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (D == 64)
+      if constexpr (DP == 64)
         wgmma_rs_n64(acc, pa[kk], mn_major(sV(s), kk));
       else
         wgmma_rs_n128(acc, pa[kk], mn_major(sV(s), kk));
@@ -724,9 +734,13 @@ __global__ void __launch_bounds__(kThreads, MINB)
     if (row >= S) continue;
     __nv_bfloat16* orow = oh + (long long)row * so.s + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
+    for (int j = 0; j < DP / 8; ++j) {
+      // a predicate, not a break: the loop stays unrolled, acc in registers
+      if (8 * j < D)   // columns D..DP-1 are the zero fill
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * l[r],
+                                  acc[4 * j + 2 * r + 1] * l[r]);
+    }
   }
 }
 
@@ -757,7 +771,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A [B, H, rows, D] bf16 tensor (strides in elements, the last dimension
-// dense) as a tensor map of 64 x 64 boxes, 128-byte swizzle, zero fill.
+// dense) as a tensor map of 64 x 64 boxes, 128-byte swizzle, zero fill:
+// box elements past D or past rows arrive as zeros.
 CUresult tensor_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int B,
                     int H, int rows, int D, long long sb, long long sh,
                     long long ss) {
@@ -773,18 +788,18 @@ CUresult tensor_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D, int ST, int MINB>
+template <int DP, int ST, int MINB>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, int B, int HQ, int HKV, int S, int SK, OutStrides so,
-           float scale_log2, int causal, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D, ST>();
+           void* o, int B, int HQ, int HKV, int S, int SK, int D,
+           OutStrides so, float scale_log2, int causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DP, ST>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<D, ST, MINB>,
+      flash_mma_kernel<DP, ST, MINB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)((S + kRows - 1) / kRows) * B * HQ;
-  flash_mma_kernel<D, ST, MINB><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, HQ, HKV, S, SK, so,
+  flash_mma_kernel<DP, ST, MINB><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, HQ, HKV, S, SK, D, so,
       scale_log2, causal);
   return (int)cudaGetLastError();
 }
@@ -795,16 +810,16 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 #define FA_MMA_NO_ENCODER 9001       // cuTensorMapEncodeTiled not found
 #define FA_MMA_BAD_TENSOR_MAP 9002   // a tensor map was refused
 
-// bf16 q/k/v/o; D in {64, 128}; bases 16-byte aligned; strides in elements
-// (batch, head, row), multiples of 8, the last dimension contiguous; HQ a
-// multiple of HKV, SK >= 1.
+// bf16 q/k/v/o; D <= 128, a multiple of 8; bases 16-byte aligned; strides
+// in elements (batch, head, row), multiples of 8, the last dimension
+// contiguous; HQ a multiple of HKV, SK >= 1.
 extern "C" int flash_attention_mma_launch(
     const void* q, const void* k, const void* v, void* o, int B, int HQ,
     int HKV, int S, int SK, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float scale, int causal, void* stream) {
-  if ((D != 64 && D != 128) || HKV < 1 || HQ % HKV != 0 || SK < 1)
+  if (D < 8 || D > 128 || D % 8 != 0 || HKV < 1 || HQ % HKV != 0 || SK < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * HQ * S == 0) return (int)cudaGetLastError();
   mma::EncodeTiled fn = mma::encode_tiled();
@@ -820,9 +835,9 @@ extern "C" int flash_attention_mma_launch(
   const mma::OutStrides so{o_sb, o_sh, o_ss};
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64)
-    return mma::launch<64, 3, 3>(tq, tk, tv, o, B, HQ, HKV, S, SK, so,
+  if (D <= 64)
+    return mma::launch<64, 3, 3>(tq, tk, tv, o, B, HQ, HKV, S, SK, D, so,
                                  scale_log2, causal, s);
-  return mma::launch<128, 2, 2>(tq, tk, tv, o, B, HQ, HKV, S, SK, so,
+  return mma::launch<128, 2, 2>(tq, tk, tv, o, B, HQ, HKV, S, SK, D, so,
                                 scale_log2, causal, s);
 }

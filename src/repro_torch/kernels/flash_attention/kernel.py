@@ -13,11 +13,15 @@ fallback from one kernel to the other, nor to the plain version.
 
 ``route(q, k, v)`` picks the kernel: ``"mma"``, the tensor-core kernel
 (bf16 products with f32 accumulation, p rounded to bf16 for p.v), for
-bf16 inputs with ``D`` in {64, 128} whose bases are 16-byte aligned and
-whose batch, head and row strides are positive multiples of 8 elements
-(what its TMA tensor maps take); ``"f32"``, the f32-math kernel, for
-everything else: float32 inputs (held to 2e-5, which bf16 products cannot
-meet), other head dims and unaligned views.
+bf16 inputs with ``D <= 128`` a multiple of 8 whose bases are 16-byte
+aligned and whose batch, head and row strides are positive multiples of 8
+elements (what its TMA tensor maps take); ``"f32"``, the f32-math kernel,
+for everything else: float32 inputs (held to 2e-5, which bf16 products
+cannot meet), wider or ragged head dims and unaligned views.  The
+tensor-core kernel is built at widths 64 and 128; a head dim below its
+width (Zamba2's 80) is read with no copy, the columns past ``D`` arriving
+as the tensor maps' zero fill (``csrc/flash_attention.cu``).  The scale
+is ``D ** -0.5`` of the real ``D`` unless the caller gives one.
 
 The CUDA source is compiled at first use into a shared library with a
 plain C interface, loaded with ``ctypes`` (``repro_torch.kernels.build``:
@@ -40,7 +44,7 @@ from repro_torch.kernels.flash_attention import ref
 LAUNCHES = {"flash_attention": 0, "flash_attention_mma": 0,
             "flash_attention_f32": 0}
 MAX_HEAD_DIM = 256
-MMA_HEAD_DIMS = (64, 128)
+MMA_MAX_HEAD_DIM = 128       # the tensor-core kernel's widest build
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -95,7 +99,8 @@ def _check(q, k, v) -> None:
 def route(q, k, v) -> str:
     """The kernel a CUDA launch of these (checked) inputs takes: "mma" or
     "f32" (see the module's docstring)."""
-    if q.dtype != torch.bfloat16 or q.shape[3] not in MMA_HEAD_DIMS:
+    D = q.shape[3]
+    if q.dtype != torch.bfloat16 or D > MMA_MAX_HEAD_DIM or D % 8:
         return "f32"
     for x in (q, k, v):
         if x.data_ptr() % 16 or any(st <= 0 or st % 8

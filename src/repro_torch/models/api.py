@@ -1,5 +1,5 @@
-"""Model API of the port (the reference's ``models/api.py``), dense, MoE
-and SSM families:
+"""Model API of the port (the reference's ``models/api.py``), dense, MoE,
+SSM and hybrid families:
 
   init_params(cfg, gen, device)                -> params
   prefill_fn(cfg)(params, batch, cache_len)    -> (logits, cache)
@@ -8,8 +8,10 @@ and SSM families:
 
 The MoE family's cache is the dense ``{"kv", "t"}`` cache.  For the SSM
 family ``cache_len`` is not read: its decode state is O(1) in the
-sequence.  The encoder-decoder family raises ``NotImplementedError``
-here; the hybrid family, not yet ported, raises in ``transformer``.
+sequence.  The hybrid's cache holds both, the SSM states of every layer
+and a KV cache for each application of the shared attention block
+(``transformer``'s docstring).  The encoder-decoder family raises
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 

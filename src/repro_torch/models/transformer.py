@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly, dense, MoE and SSM families (the port's copy
-of those paths of ``repro/models/transformer.py``).
+"""Decoder-only LM assembly, dense, MoE, SSM and hybrid families (the
+port's copy of those paths of ``repro/models/transformer.py``).
 
 The reference stacks its layer parameters on a leading ``[L, ...]`` axis
 and scans over them; here the layers are an ``nn.ModuleList`` of
@@ -8,12 +8,17 @@ and layouts are the reference's, so ``repro_torch.convert`` moves a
 parameter tree across key by key.  The caches keep the reference's
 stacked layouts: dense ``{"kv": (k [L, B, T, KV, D], v [L, B, T, KV,
 D]), "t": int}`` (the MoE family's too), SSM ``{"ssm": {"conv": [L, B,
-K-1, Ch], "ssm": [L, B, H, N, P]}, "t": int}``; decode updates them in
-place.  A MoE block is the dense block with ``moe.moe_apply`` in place of
-the SwiGLU MLP.  The SSM mixer runs its SSD core on the ssd_scan kernel
-when the activations are on a card (``mamba2.py``'s docstring).  The
-other families (hybrid, encdec) and the VLM stub frontend raise
-``NotImplementedError``: later slices bring them.
+K-1, Ch], "ssm": [L, B, H, N, P]}, "t": int}``, hybrid ``{"ssm": {"conv":
+[G, k, B, K-1, Ch], "ssm": [G, k, B, H, N, P]}, "kv": (k [G, B, T, KV,
+D], v [G, B, T, KV, D]), "t": int}``; decode updates them in place.  A
+MoE block is the dense block with ``moe.moe_apply`` in place of the
+SwiGLU MLP.  The hybrid (Zamba2) runs ``G = n_layers / k`` groups of
+``k = shared_attn_every`` SSM blocks, each group followed by the one
+shared attention block (a dense block whose weights every group reuses,
+``params["shared_attn"]``) with a KV cache per group.  The SSM mixer runs
+its SSD core on the ssd_scan kernel when the activations are on a card
+(``mamba2.py``'s docstring).  The encoder-decoder family and the VLM stub
+frontend raise ``NotImplementedError``: later slices bring them.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ class OptFlags:
 BASELINE_FLAGS = OptFlags()
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -71,6 +76,20 @@ def _check_ported(cfg: ArchConfig) -> None:
     if cfg.vis_len:
         raise NotImplementedError(
             f"{cfg.name}: the VLM stub frontend (vis_len) is not ported yet")
+    if cfg.family == "hybrid":
+        _groups(cfg)
+
+
+def _groups(cfg: ArchConfig):
+    """The hybrid's ``(G, k)``: G groups of k = ``shared_attn_every`` SSM
+    blocks (the reference reshapes its layer stack to ``[G, k, ...]``,
+    which needs k to divide the depth)."""
+    k = cfg.shared_attn_every
+    if k < 1 or cfg.n_layers % k:
+        raise ValueError(
+            f"{cfg.name}: n_layers={cfg.n_layers} is not a multiple of "
+            f"shared_attn_every={k}")
+    return cfg.n_layers // k, k
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +97,7 @@ def _check_ported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 def _block_init(gen, cfg: ArchConfig, device):
     dt = cfg.pdtype()
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return nn.ModuleDict({
             "ln": L.rmsnorm_init(cfg.d_model, dt, device),
             "mamba": M.mamba_init(gen, cfg, device),
@@ -111,7 +130,20 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator, device="cuda"):
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
                                       dtype=dt, device=device)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _shared_attn_init(gen, cfg, device)
     return params
+
+
+def _shared_attn_init(gen, cfg: ArchConfig, device):
+    """The hybrid's shared attention block: a dense block's leaves."""
+    dt = cfg.pdtype()
+    return nn.ModuleDict({
+        "ln1": L.rmsnorm_init(cfg.d_model, dt, device),
+        "attn": A.attn_init(gen, cfg, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, dt, device),
+        "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+    })
 
 
 def _map_params(params, fn, path=()):
@@ -134,15 +166,15 @@ def _map_params(params, fn, path=()):
 
 
 def compute_params(params, cfg: ArchConfig, device=None):
-    """The parameters as the forward pass reads them: the dense weights,
-    biases, the embedding table and the expert weights cast once to the
-    compute dtype, norm scales, the MoE router and the mixer's conv,
-    decay, skip and dt-bias leaves as they are (the reference casts them
-    at each use), all on ``device``
-    (default: where they are).  Every use of a cast leaf casts it first anyway, and a cast is
-    deterministic, so the outputs are bit for bit those of ``params``;
-    what changes is that a step reads bf16 weights instead of converting
-    float32 ones on every call."""
+    """The parameters as the forward pass reads them: the dense weights
+    (the hybrid's shared block's among them), biases, the embedding table
+    and the expert weights cast once to the compute dtype, norm scales,
+    the MoE router and the mixer's conv, decay, skip and dt-bias leaves
+    as they are (the reference casts them at each use), all on ``device``
+    (default: where they are).  Every use of a cast leaf casts it first
+    anyway, and a cast is deterministic, so the outputs are bit for bit
+    those of ``params``; what changes is that a step reads bf16 weights
+    instead of converting float32 ones on every call."""
     cd = cfg.cdtype()
 
     def cast(path, x):
@@ -189,6 +221,23 @@ def _mlp(layer_p, h, cfg: ArchConfig):
     return h + L.swiglu(layer_p["mlp"], inner, compute_dtype=cfg.cdtype())
 
 
+def _blocks(params, cfg: ArchConfig):
+    """The model's blocks in order, as ``(kind, at, block)``: ``kind`` is
+    "ssm" or "attn", ``at`` the block's index into its cache leaves (the
+    hybrid's SSM states are ``[G, k, ...]``, so ``(g, i)``; its KV cache
+    has one entry per group, after which the shared block runs)."""
+    if cfg.family == "hybrid":
+        G, k = _groups(cfg)
+        for g in range(G):
+            for i in range(k):
+                yield "ssm", (g, i), params["layers"][g * k + i]
+            yield "attn", g, params["shared_attn"]
+        return
+    kind = "ssm" if cfg.family == "ssm" else "attn"
+    for i, layer_p in enumerate(params["layers"]):
+        yield kind, i, layer_p
+
+
 def _mixer(layer_p, x, cfg: ArchConfig, *, return_state: bool = False):
     """The SSM block's mixer on ``rmsnorm(x)``, on the ssd_scan kernel
     when ``x`` is on a card."""
@@ -203,17 +252,16 @@ def lm_forward(params, cfg: ArchConfig, tokens, *,
     """Final hidden states ``[B, S, d]`` (after the final norm)."""
     _check_ported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
-    if cfg.family == "ssm":
-        for layer_p in params["layers"]:
-            x = x + _mixer(layer_p, x, cfg)
-        return L.rmsnorm(params["final_norm"], x)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     impl = "pallas" if flags.flash_kernel else flags.attn_impl
-    for layer_p in params["layers"]:
-        h = x + A.attn_apply(layer_p["attn"], L.rmsnorm(layer_p["ln1"], x),
-                             cfg, positions=positions, impl=impl)
-        x = _mlp(layer_p, h, cfg)
+    for kind, _, block in _blocks(params, cfg):
+        if kind == "ssm":
+            x = x + _mixer(block, x, cfg)
+        else:
+            h = x + A.attn_apply(block["attn"], L.rmsnorm(block["ln1"], x),
+                                 cfg, positions=positions, impl=impl)
+            x = _mlp(block, h, cfg)
     return L.rmsnorm(params["final_norm"], x)
 
 
@@ -224,32 +272,38 @@ def lm_prefill(params, cfg: ArchConfig, tokens, *, cache_len: int,
                embeds=None, flags: OptFlags = BASELINE_FLAGS):
     """Run the prompt ``tokens [B, S]``; return (last-position logits
     ``[B, 1, V]`` float32, cache ``{"kv": (k, v) [L, B, T, KV, D], "t":
-    S}``, or for the SSM family ``{"ssm": {"conv", "ssm"}, "t": S}``).
-    Prefill attention runs ``flags.attn_impl``; the SSM family has no
+    S}``, for the SSM family ``{"ssm": {"conv", "ssm"}, "t": S}``, for the
+    hybrid both, grouped as the module's docstring gives).  Prefill
+    attention runs ``flags.attn_impl``; the SSM family has no
     ``cache_len`` (its state is O(1) in the sequence)."""
     _check_ported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
-    if cfg.family == "ssm":
-        convs, ssms = [], []
-        for layer_p in params["layers"]:
-            out, st = _mixer(layer_p, x, cfg, return_state=True)
-            x = x + out
+    positions = _positions(B, S, x.device)
+    convs, ssms, ks, vs = [], [], [], []
+    for kind, _, block in _blocks(params, cfg):
+        if kind == "ssm":
+            out, st = _mixer(block, x, cfg, return_state=True)
             convs.append(st["conv"])
             ssms.append(st["ssm"])
-        cache = {"ssm": {"conv": torch.stack(convs),
-                         "ssm": torch.stack(ssms)}, "t": S}
-        return _logits(params, cfg, x[:, -1:]), cache
-    positions = _positions(B, S, x.device)
-    ks, vs = [], []
-    for layer_p in params["layers"]:
-        a, (k, v) = A.attn_prefill(
-            layer_p["attn"], L.rmsnorm(layer_p["ln1"], x), cfg,
-            positions=positions, cache_len=cache_len, impl=flags.attn_impl)
-        ks.append(k)
-        vs.append(v)
-        x = _mlp(layer_p, x + a, cfg)
-    cache = {"kv": (torch.stack(ks), torch.stack(vs)), "t": S}
+            x = x + out
+        else:
+            a, (k, v) = A.attn_prefill(
+                block["attn"], L.rmsnorm(block["ln1"], x), cfg,
+                positions=positions, cache_len=cache_len,
+                impl=flags.attn_impl)
+            ks.append(k)
+            vs.append(v)
+            x = _mlp(block, x + a, cfg)
+    cache = {}
+    if ssms:
+        lead = _groups(cfg) if cfg.family == "hybrid" else (cfg.n_layers,)
+        cache["ssm"] = {
+            "conv": torch.stack(convs).reshape(*lead, *convs[0].shape),
+            "ssm": torch.stack(ssms).reshape(*lead, *ssms[0].shape)}
+    if ks:
+        cache["kv"] = (torch.stack(ks), torch.stack(vs))
+    cache["t"] = S
     return _logits(params, cfg, x[:, -1:]), cache
 
 
@@ -263,36 +317,40 @@ def lm_decode_step(params, cfg: ArchConfig, cache, token, *,
     cd = cfg.cdtype()
     x = L.embed(params["embed"], token, compute_dtype=cd)
     t = cache["t"]
-    if cfg.family == "ssm":
-        st = cache["ssm"]
-        for i, layer_p in enumerate(params["layers"]):
+    st, kv = cache.get("ssm"), cache.get("kv")
+    for kind, at, block in _blocks(params, cfg):
+        if kind == "ssm":
             out, _ = M.mamba_decode_step(
-                layer_p["mamba"], L.rmsnorm(layer_p["ln"], x),
-                {"conv": st["conv"][i], "ssm": st["ssm"][i]}, cfg)
+                block["mamba"], L.rmsnorm(block["ln"], x),
+                {"conv": st["conv"][at], "ssm": st["ssm"][at]}, cfg)
             x = x + out
-        return _logits(params, cfg, x), {"ssm": st, "t": t + 1}
-    k_all, v_all = cache["kv"]
-    for i, layer_p in enumerate(params["layers"]):
-        a, _ = A.attn_decode(
-            layer_p["attn"], L.rmsnorm(layer_p["ln1"], x),
-            (k_all[i], v_all[i]), t, cfg,
-            seq_parallel=flags.seq_parallel_decode)
-        x = _mlp(layer_p, x + a, cfg)
-    return _logits(params, cfg, x), {"kv": (k_all, v_all), "t": t + 1}
+        else:
+            a, _ = A.attn_decode(
+                block["attn"], L.rmsnorm(block["ln1"], x),
+                (kv[0][at], kv[1][at]), t, cfg,
+                seq_parallel=flags.seq_parallel_decode)
+            x = _mlp(block, x + a, cfg)
+    return _logits(params, cfg, x), {**cache, "t": t + 1}
 
 
 def init_decode_cache(cfg: ArchConfig, batch: int, cache_len: int,
                       device="cuda"):
-    """A fresh (empty) decode cache."""
+    """A fresh (empty) decode cache, laid out as ``lm_prefill``'s."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    if cfg.family == "ssm":
+    cache = {}
+    n_attn = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        lead = (cfg.n_layers,)
+        if cfg.family == "hybrid":
+            lead = _groups(cfg)
+            n_attn = lead[0]
         st = M.mamba_init_state(cfg, batch, device=dev)
-        return {"ssm": {k: torch.zeros((cfg.n_layers, *v.shape),
-                                       dtype=v.dtype, device=dev)
-                        for k, v in st.items()},
-                "t": 0}
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"kv": tuple(torch.zeros(shape, dtype=cfg.cdtype(), device=dev)
-                        for _ in range(2)),
-            "t": 0}
+        cache["ssm"] = {k: torch.zeros((*lead, *v.shape), dtype=v.dtype,
+                                       device=dev) for k, v in st.items()}
+    if cfg.family != "ssm":
+        shape = (n_attn, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        cache["kv"] = tuple(torch.zeros(shape, dtype=cfg.cdtype(),
+                                        device=dev) for _ in range(2))
+    cache["t"] = 0
+    return cache

@@ -6,12 +6,12 @@ with per-request latency accounting (the reference's
 ``ServingEngine`` is the host loop: it admits requests in waves of
 ``slots``, prefills each wave together, decodes it in lock step and
 records when each request was submitted and done.  It serves every
-family ``transformer`` has ported (dense, SSM) with no logic of its own
-per family: the cache is whatever the model's prefill returns and its
-decode updates.  It runs on one device (``device``, CUDA unless the
-caller asks for the CPU) under ``torch.inference_mode()``.  The multi-replica cache protocols
-(NetCRAQ and NetChain over a chain group of ranks) are in
-``serve/kv_cache.py``.
+family ``transformer`` has ported (dense, MoE, SSM, hybrid) with no
+logic of its own per family: the cache is whatever the model's prefill
+returns and its decode updates.  It runs on one device (``device``, CUDA
+unless the caller asks for the CPU) under ``torch.inference_mode()``.
+The multi-replica cache protocols (NetCRAQ and NetChain over a chain
+group of ranks) are in ``serve/kv_cache.py``.
 """
 from __future__ import annotations
 

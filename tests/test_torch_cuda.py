@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, a
 small cluster run, a live rebalance, an open-loop run, the threefry
-draws, tied store winners, reduced serving runs (dense and SSM), and
+draws, tied store winners, reduced serving runs (dense, SSM, MoE and
+hybrid), and
 ``ChainDist`` and the kv_cache protocols on CUDA ranks, on CUDA against
 the same runs on the CPU.  Imports no JAX, so it
 runs where only PyTorch is installed; without a card every test skips:
@@ -643,8 +644,10 @@ def test_cuda_flash_attention_matches_plain_version(card, B, HQ, HKV, S,
     got = fa_kernel.flash_attention(q, k, v, causal=causal)
     exp = fa_ref.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    # float32 takes the f32 kernel; bf16 at D = 64 or 128 the tensor cores
-    route = "mma" if dtype == torch.bfloat16 and D in (64, 128) else "f32"
+    # float32 takes the f32 kernel; bf16 at D <= 128, a multiple of 8, the
+    # tensor cores
+    route = ("mma" if dtype == torch.bfloat16 and D <= 128 and D % 8 == 0
+             else "f32")
     assert fa_kernel.LAUNCHES["flash_attention"] == 1
     assert fa_kernel.LAUNCHES[f"flash_attention_{route}"] == 1
     assert got.dtype == dtype and got.stride() == q.stride()
@@ -672,13 +675,25 @@ def test_cuda_flash_attention_matches_plain_version(card, B, HQ, HKV, S,
     # contiguous [B, H, S, D] tensors instead of the model's views
     (2, 8, 2, 200, 200, 128, True, False),
     (1, 4, 4, 64, 64, 64, False, False),
+    # head dims below the kernel's width (columns past D zero-filled by
+    # TMA): Zamba2's 80 (MHA 32/32, at S = SK = 2048 in chip_smoke.py),
+    # ragged, S != SK both ways, non-causal, views and contiguous; 32, 72
+    (1, 32, 32, 256, 256, 80, True, True),
+    (1, 4, 4, 200, 200, 80, True, True),
+    (1, 4, 2, 100, 224, 80, True, True),
+    (1, 8, 8, 300, 130, 80, True, True),
+    (1, 4, 4, 130, 70, 80, False, True),
+    (2, 8, 8, 200, 200, 80, True, False),
+    (1, 4, 2, 200, 200, 32, True, True),
+    (1, 4, 4, 130, 300, 72, False, False),
 ])
 def test_cuda_flash_attention_mma_route_matches_plain_version(
         card, B, HQ, HKV, S, SK, D, causal, view):
     """The tensor-core route equals the plain version (which keeps p in
-    f32) at the bf16 tolerance: head dims 64/128, GQA groups 1/2/8,
-    ragged tiles, S != SK, non-causal, transposed views and contiguous
-    tensors; every case is launched on that route."""
+    f32) at the bf16 tolerance: head dims 64/128 and, below the kernel's
+    width, 32/72/80; GQA groups 1/2/8, ragged tiles, S != SK, non-causal,
+    transposed views and contiguous tensors; every case is launched on
+    that route and writes q's layout."""
     rng = np.random.default_rng(43)
     shapes = ((B, S, HQ, D), (B, SK, HKV, D), (B, SK, HKV, D))
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
@@ -1219,6 +1234,59 @@ def test_cuda_moe_serving_matches_cpu(card, arch):
     exp = logits["cpu"]
     assert float((logits[str(card)] - exp).abs().max()
                  / exp.abs().max()) < 1e-4
+
+
+def test_cuda_hybrid_serving_matches_cpu(card):
+    """A reduced Zamba2-2.7B (2 groups of 2 SSM layers and the shared
+    attention block) served on CUDA through both kernels gives the CPU's
+    tokens, prefill logits and scoring states (float32 compute, where the
+    two differ only in summation order)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.transformer import OptFlags
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(),
+                              compute_dtype="float32")
+    groups = cfg.n_layers // cfg.shared_attn_every
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, 75) for _ in range(3)]
+    flags = OptFlags(attn_impl="pallas")
+    out, logits, hidden = {}, {}, {}
+    for d in ("cpu", card):
+        eng = ServingEngine(cfg, params, slots=2, cache_len=96, flags=flags,
+                            device=d)
+        fa_kernel.reset_launches()
+        ssd_kernel.reset_launches()
+        done = eng.run([Request(rid=i, prompt=p, max_new=6)
+                        for i, p in enumerate(prompts)], prompt_len=75)
+        out[str(d)] = np.stack([r.output for r in done])
+        on_card = d != "cpu"
+        # two waves: each prefill runs every SSD core and every group's
+        # shared attention on the kernels (float32: the f32 route)
+        assert fa_kernel.LAUNCHES["flash_attention"] == 2 * groups * on_card
+        assert fa_kernel.LAUNCHES["flash_attention_f32"] == \
+            fa_kernel.LAUNCHES["flash_attention"]
+        assert ssd_kernel.LAUNCHES["ssd_scan"] == 2 * cfg.n_layers * on_card
+        assert ssd_kernel.LAUNCHES["ssd_cb"] == \
+            ssd_kernel.LAUNCHES["ssd_scan"]
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.stack(prompts), dtype=torch.int32,
+                                   device=d)
+            logits[str(d)] = api.prefill_fn(cfg)(
+                eng.weights, {"tokens": toks}, 96, flags)[0].cpu()
+            hidden[str(d)] = TF.lm_forward(
+                eng.weights, cfg, toks,
+                flags=OptFlags(flash_kernel=True)).cpu()
+    np.testing.assert_array_equal(out["cpu"], out[str(card)])
+    for got in (logits, hidden):
+        exp = got["cpu"]
+        assert float((got[str(card)] - exp).abs().max()
+                     / exp.abs().max()) < 1e-4
 
 
 def _example(name):

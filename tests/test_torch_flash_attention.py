@@ -143,7 +143,7 @@ def _route_inputs(case):
     bf16 = torch.bfloat16
     view = lambda H, D, dt=bf16: torch.zeros(2, 40, H, D,
                                              dtype=dt).transpose(1, 2)
-    if case.startswith("bf16_d"):   # head dims 32, 64, 128, 256
+    if case.startswith("bf16_d"):   # head dims 32-256
         D = int(case[6:])
         return view(8, D), view(2, D), view(2, D)
     if case == "bf16_contiguous":
@@ -164,14 +164,16 @@ def _route_inputs(case):
 
 @pytest.mark.parametrize("case,want", [
     ("bf16_d64", "mma"), ("bf16_d128", "mma"), ("bf16_contiguous", "mma"),
-    ("f32", "f32"), ("bf16_d32", "f32"), ("bf16_d256", "f32"),
+    ("f32", "f32"), ("bf16_d32", "mma"), ("bf16_d80", "mma"),
+    ("bf16_d256", "f32"), ("bf16_d84", "f32"),
     ("bf16_row_stride", "f32"), ("bf16_base", "f32"),
 ])
 def test_flash_route_rule(case, want):
-    """The rule that picks a CUDA kernel, on CPU tensors: bf16 with head
-    dim 64 or 128 and 16-byte-aligned bases and strides takes the
-    tensor-core kernel; float32, other head dims and misaligned views
-    the f32 one.  On the CPU the wrapper still runs the plain version."""
+    """The rule that picks a CUDA kernel, on CPU tensors: bf16 with a head
+    dim of at most 128, a multiple of 8 (Zamba2's 80 among them), and
+    16-byte-aligned bases and strides takes the tensor-core kernel;
+    float32, wider or ragged head dims and misaligned views the f32 one.
+    On the CPU the wrapper still runs the plain version."""
     q, k, v = _route_inputs(case)
     assert t_kernel.route(q, k, v) == want
     t_kernel.reset_launches()
@@ -195,3 +197,22 @@ def test_plain_versions_agree_at_s_eq_sk_with_the_reference_oracle():
                                               "bf16")
     exp = j_ref.attention_ref(jq, jk, jv, causal=True)
     assert _err(t_ref.flash_attention_ref(tq, tk, tv), exp) < tol
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_version_at_head_dim_80_matches_the_reference_oracle(causal):
+    """Zamba2's head dim (2560 / 32 = 80) in the plain version the CPU
+    runs: equal to the reference's oracle at S == SK, with the scale
+    ``80 ** -0.5`` taken from the real head dim, in both types."""
+    for dtype in ("f32", "bf16"):
+        (jq, jk, jv), (tq, tk, tv), tol = _inputs(6, 2, 4, 4, 72, 72, 80,
+                                                  dtype)
+        exp = j_ref.attention_ref(jq, jk, jv, causal=causal)
+        assert _err(t_ref.flash_attention_ref(tq, tk, tv, causal=causal),
+                    exp) < tol
+        assert _err(t_kernel.flash_attention(tq, tk, tv, causal=causal),
+                    exp) < tol
+        given = t_kernel.flash_attention(tq, tk, tv, causal=causal,
+                                         scale=80 ** -0.5)
+        assert torch.equal(given, t_kernel.flash_attention(
+            tq, tk, tv, causal=causal))

@@ -71,19 +71,19 @@ def _pair(tree):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_configs_match_reference(arch):
     jcfg = j_get_config(arch)
-    if jcfg.family not in ("dense", "moe", "ssm"):   # the ported families
+    if jcfg.family not in ("dense", "moe", "ssm", "hybrid"):   # ported
         with pytest.raises(NotImplementedError):
             get_config(arch)
         return
     tcfg = get_config(arch)
     for j, t in ((jcfg, tcfg), (jcfg.reduced(), tcfg.reduced())):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
-        if t.family == "ssm":    # attention-free: no head_dim at full size
-            assert (t.d_inner, t.ssm_heads, t.vocab_padded) == (
-                j.d_inner, j.ssm_heads, j.vocab_padded)
-        else:
-            assert (t.head_dim, t.vocab_padded) == (j.head_dim,
-                                                    j.vocab_padded)
+        if t.family != "ssm":    # attention-free: no head_dim at full size
+            assert t.head_dim == j.head_dim
+        if t.family in ("ssm", "hybrid"):
+            assert (t.d_inner, t.ssm_heads, t.shared_attn_every) == (
+                j.d_inner, j.ssm_heads, j.shared_attn_every)
+        assert t.vocab_padded == j.vocab_padded
         assert t.n_experts_padded == j.n_experts_padded
         for active in (False, True):
             assert t.param_count(active) == j.param_count(active)
@@ -373,7 +373,7 @@ def test_prefill_and_decode_step_builders():
     assert tok.shape == (2, 1)
     assert cache["t"] == 8 + 4
     with pytest.raises(NotImplementedError):
-        api.init_params(dataclasses.replace(cfg, family="hybrid"),
+        api.init_params(dataclasses.replace(cfg, family="encdec"),
                         torch.Generator(), CPU)
 
 
