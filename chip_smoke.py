@@ -229,13 +229,40 @@ source, all three at once), then:
    within 1e-4 and equal tokens; the bf16 whole-model logits and scoring,
    kernel vs plain path, printed; prints the serving metrics and the
    prefill's device split (attention, the ssd pair, matrix products, the
-   rest).
+   rest);
+21. the encoder-decoder and the VLM stub frontend on phase 11's serving
+   run: Whisper-base at full width and depth (6 encoder and 6 decoder
+   layers of 8 heads of 64; random weights from a seed; 16 requests of
+   128-token decoder prompts and 1,500 frames each, 64 new tokens, 2
+   waves, a 192-position decoder cache), every prefill attention on the
+   tensor-core route (the encoder's and the cross-attention non-causal):
+   36 launches and no call of the kernel's plain version, the decode
+   steps' cross-attention on the naive path as the reference routes it
+   (one ``attention_ref`` call a decoder layer a step, counted); then
+   InternVL2-26B at full width with its depth cut to 16 of 48 layers (one
+   card holds 16), 256 vision embeddings ahead of 1,792 text tokens, 32
+   new tokens, 32 launches; each with phase 11's holds (determinism, the
+   manual greedy loop, the version bump, the naive path's prefill logits
+   on seeded frames or embeddings, 2 layers of each stack on CUDA against
+   the CPU), Whisper also in float32 compute at 2 + 2 layers on the f32
+   route against the CPU (1e-4, equal tokens), InternVL2's text logits
+   held to change with its embeddings; prints the serving metrics per
+   wave (prefill ms, decode ms per token, tokens/s, p50/p99 latency, peak
+   device memory), a decode step's busy share, the prefill's device split
+   and Whisper's encoder's share of it.
+
+Phase 10 also holds and times the kernel non-causal (``NONCAUSAL``):
+Whisper's encoder (q, k, v [8, 8, 1500, 64]) and cross-attention (q [8,
+8, 128, 64], k/v [8, 8, 1500, 64]) on the tensor-core route, ragged S >
+SK and S < SK at head dims 80 and 128, and the f32 route at S < SK and
+Whisper's cross-attention shape, each bound by all S x SK pairs; and
+InternVL2's prefill shape (q [8, 48, 2048, 128], k/v [8, 8, 2048, 128]).
 
 A kernel's ``launches`` in the record add up over the main paths that
-ran it (phases 11, 18 and 20 for the attention kernel, 13 and 20 for the
-ssd pair), each counted from zero just before its run.  ``--phases
+ran it (phases 11, 18, 20 and 21 for the attention kernel, 13 and 20 for
+the ssd pair), each counted from zero just before its run.  ``--phases
 12,13`` runs the build of the kernels those phases use, phase 1 and the
-named phases only (4 and 5 bring 3 along, 8 brings 7; 15-20 stand
+named phases only (4 and 5 bring 3 along, 8 brings 7; 15-21 stand
 alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
@@ -306,12 +333,14 @@ try:
     from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
     from repro_torch.models import api  # noqa: E402
     from repro_torch.models import attention as attn_lib  # noqa: E402
+    from repro_torch.models import encdec as encdec_lib  # noqa: E402
     from repro_torch.models import layers as layers_lib  # noqa: E402
     from repro_torch.models import moe as moe_lib  # noqa: E402
     from repro_torch.obs import tail_percentiles  # noqa: E402
     from repro_torch.models import transformer as TF  # noqa: E402
     from repro_torch.models.transformer import OptFlags  # noqa: E402
     from repro_torch.serve import kv_cache as KV  # noqa: E402
+    from repro_torch.serve import engine as engine_lib  # noqa: E402
     from repro_torch.serve.engine import (  # noqa: E402
         Request, ServingEngine, build_decode_step)
 except ImportError as exc:  # run outside a checkout of the repo
@@ -407,6 +436,24 @@ MOE_LAYER_TOL, F32_TOL = 2e-2, 1e-4
 # logits' largest magnitude apart
 HYBRID_ARCH = "zamba2-2.7b"
 HYBRID_F32_PROMPTS, HYBRID_STEPS, HYBRID_GAP = 2, 4, 1e-3
+# phase 21: the encoder-decoder and the VLM stub frontend on the same
+# serving run.  Whisper-base at full width and depth (6 encoder and 6
+# decoder layers, 8 heads of 64): 16 requests of 128-token decoder
+# prompts, 64 new tokens each, 2 waves, the encoder running 1,500 frames a
+# request; the decoder cache holds 192 positions (Whisper's own table
+# holds 448).  InternVL2-26B at full width and depth, 48 layers: some
+# 19.9 B parameters, 79.6 GB in float32, which one card cannot hold beside
+# a bf16 copy, so its weights are drawn in the compute dtype
+# (``init_params(compute_dtype=True)``, one block in float32 at a time):
+# 39.8 GB in bf16, and the cache of phase 11 (2,080 positions, 3.3 GB)
+# holds a wave of 256 vision embeddings ahead of 1,792 text tokens (S =
+# 2,048, as phases 11, 13, 18 and 20), 32 new tokens.  The engine feeds the
+# stub frontends zeros, as the reference's does; the held comparisons feed
+# seeded inputs (normal x 0.1, as the reference's make_batch draws them).
+WHISPER_ARCH, WHISPER_PROMPT_LEN, WHISPER_CACHE_LEN = "whisper-base", 128, 192
+WHISPER_MAX_NEW = 64
+VLM_ARCH = "internvl2-26b"
+VLM_PROMPT_LEN = PROMPT_LEN - get_config(VLM_ARCH).vis_len
 # phase 14: cross-chain transactions at phase 7's cluster, in
 # benchmarks/fig_txn_pipeline.py's proportions (every transaction spans
 # chains, every key written, zipf_a 1.2), two mixes of 4,096, each on a
@@ -1881,7 +1928,8 @@ def attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype):
 def attention_bound(q, k, causal: bool = True):
     """(bytes, operations) the attention must move and do for these
     inputs: q and o once, k and v once; 4 * D operations (q.k and p.v)
-    per (query, key) pair under the kernel's mask."""
+    per (query, key) pair under the kernel's mask: the causal pairs
+    (top-left), or all S x SK of them when non-causal."""
     B, HQ, S, D = q.shape
     HKV, SK = k.shape[1], k.shape[2]
     pairs = (sum(min(i + 1, SK) for i in range(S)) if causal else S * SK)
@@ -1910,6 +1958,69 @@ def f32_route_ms(q, k, v) -> float:
             if kernels else None)
 
 
+# The non-causal cases of phase 10, as (B, S, SK, dtype, tolerance, route,
+# heads): Whisper's encoder self-attention and its cross-attention (128
+# decoder positions against the 1,500 frames, 1,500 = 23 x 64 + 28: a
+# ragged key edge) at one layer's prefill of phase 21, ragged S > SK and
+# S < SK at head dims 80 (Zamba2's heads) and 128 (Qwen2.5-3B's), and the
+# f32 route at S < SK and at Whisper's cross-attention
+NONCAUSAL = {
+    "whisper_encoder": (SLOTS, 1500, 1500, torch.bfloat16, 2e-2, "mma",
+                        "whisper"),
+    "whisper_cross": (SLOTS, 128, 1500, torch.bfloat16, 2e-2, "mma",
+                      "whisper"),
+    "nc_d80_s_gt_sk": (2, 700, 200, torch.bfloat16, 2e-2, "mma", "zamba2"),
+    "nc_d80_s_lt_sk": (2, 200, 700, torch.bfloat16, 2e-2, "mma", "zamba2"),
+    "nc_d128_s_gt_sk": (2, 700, 200, torch.bfloat16, 2e-2, "mma", "qwen"),
+    "nc_d128_s_lt_sk": (2, 200, 700, torch.bfloat16, 2e-2, "mma", "qwen"),
+    "nc_f32_s_lt_sk": (2, 200, 700, torch.float32, 2e-5, "f32", "qwen"),
+    "nc_f32_whisper_cross": (SLOTS, 128, 1500, torch.float32, 2e-5, "f32",
+                             "whisper"),
+}
+
+
+# The decoder's causal self-attention of phase 21's Whisper prefill (128
+# prompt positions), checked and timed beside the non-causal cases
+WHISPER_DECODER = {"whisper_decoder": (SLOTS, WHISPER_PROMPT_LEN,
+                                       WHISPER_PROMPT_LEN, torch.bfloat16,
+                                       2e-2, "mma", "whisper")}
+# A bf16 case is also held to its error's norm over the plain version's
+# (``rms_err``), which at N(0, 1) inputs rounding alone keeps near bf16's
+# unit roundoff (2**-9) while the absolute 2e-2 cannot see a fault that
+# moves outputs of some 0.04 by 1%.  The limit is twice the largest
+# reading of a sound kernel (0.0024, Whisper's encoder on an H100; PERF.md
+# section 6).  A non-causal
+# kernel that dropped its key mask past SK would let the last tile's
+# zero-filled keys (score 0, value 0) into every row's softmax, diluting
+# it by pad / (SK e^(1/2) + pad); ``unmasked_tail`` computes that
+# function, and each case whose padded keys are at least MASK_SHARE of its
+# tile-rounded keys must read past its limit with it (the control).
+BF16_RMS_TOL = 5e-3
+TILE_KEYS = 64          # keys per K/V tile of both CUDA kernels
+MASK_SHARE = 0.01
+
+
+def rms_err(got, exp) -> float:
+    d = got.float() - exp.float()
+    return float(d.norm() / exp.float().norm())
+
+
+def unmasked_tail(q, k, v):
+    """The plain version of a non-causal case with the last tile's keys
+    past SK left in (zero keys and values): what a kernel that dropped its
+    key mask would compute.  None when SK fills its tiles, or its padded
+    keys are under MASK_SHARE of them."""
+    SK = k.shape[2]
+    pad = -SK % TILE_KEYS
+    if pad < MASK_SHARE * (SK + pad):
+        return None
+    def zero_fill(x):
+        return torch.cat([x, x.new_zeros(x.shape[:2] + (pad, x.shape[3]))],
+                         dim=2)
+    return fa_ref.flash_attention_ref(q, zero_fill(k), zero_fill(v),
+                                      causal=False)
+
+
 def check_flash_attention() -> dict:
     """Both routes of the kernel against its plain version on the card:
     the tensor-core route at the serving shape (one layer's prefill of
@@ -1919,11 +2030,17 @@ def check_flash_attention() -> dict:
     bound: the tensor-core route at the serving shape, the f32 route at
     its float32 case.  The design the tensor-core route replaced (the f32
     kernel, which a misaligned bf16 view still takes) is timed at the
-    serving shape too.  Then the prefill shapes of phases 18 and 20 on the
-    tensor-core route, checked and timed the same way; Zamba2's head dim
-    80, below the kernel's width of 128, also ragged, with S != SK both
-    ways, and the head dims 32 and 72, and the f32 kernel timed at its
-    prefill shape (the route it took before)."""
+    serving shape too.  Then the prefill shapes of phases 18, 20 and 21
+    on the tensor-core route, checked and timed the same way; Zamba2's
+    head dim 80, below the kernel's width of 128, also ragged, with S !=
+    SK both ways, and the head dims 32 and 72, and the f32 kernel timed
+    at its prefill shape (the route it took before).  Then Whisper's
+    causal decoder self-attention (``WHISPER_DECODER``) and the
+    non-causal cases (``NONCAUSAL``), checked and timed the same way, the
+    latter's bound counting all S x SK pairs.  Every bf16 case is also
+    held to its error's norm (``BF16_RMS_TOL``), and each non-causal case
+    with a ragged key edge to the dropped-mask control (``unmasked_tail``)
+    reading past its limit."""
     cfg = get_config(SERVE_ARCH)
     HQ, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1935,7 +2052,8 @@ def check_flash_attention() -> dict:
              ("ragged", SLOTS, 200, 200, bf16, 2e-2, "mma"),
              ("s_lt_sk", 2, 200, 700, f32, 2e-5, "f32"),
              ("s_gt_sk", 2, 700, 200, bf16, 2e-2, "mma")]
-    # phases 18 and 20's prefill shapes: one layer's attention of a wave
+    # phases 18, 20 and 21's prefill shapes: one layer's attention of a
+    # wave
     cases += [(name, SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, 2e-2, "mma")
               for name in heads]
     # head dims below the tensor-core kernel's width, read with zero fill
@@ -1946,16 +2064,26 @@ def check_flash_attention() -> dict:
               ("d80_s_lt_sk", 2, 200, 700, bf16, 2e-2, "mma"),
               ("d32", 2, 1000, 1000, bf16, 2e-2, "mma"),
               ("d72", 2, 1000, 1000, bf16, 2e-2, "mma")]
+    whisper = get_config(WHISPER_ARCH)
+    model_heads = {**heads, "qwen": (HQ, HKV, D),
+                   "whisper": (whisper.n_heads, whisper.n_kv_heads,
+                               whisper.head_dim)}
+    for name, (B, S, SK, dtype, tol, want, model) in {
+            **WHISPER_DECODER, **NONCAUSAL}.items():
+        cases.append((name, B, S, SK, dtype, tol, want))
+        extra[name] = model_heads[model]
     heads_of = {**heads, **extra}
     gen = torch.Generator(device="cuda").manual_seed(13)
     errs = {"mma": {}, "f32": {}}
+    rms, controls = {}, {}
     for name, B, S, SK, dtype, tol, want in cases:
         HQ, HKV, D = heads_of.get(name, (cfg.n_heads, cfg.n_kv_heads,
                                          cfg.head_dim))
+        causal = name not in NONCAUSAL
         q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
         fa_kernel.reset_launches()
-        got = fa_kernel.flash_attention(q, k, v)
-        exp = fa_ref.flash_attention_ref(q, k, v)
+        got = fa_kernel.flash_attention(q, k, v, causal=causal)
+        exp = fa_ref.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         require(fa_kernel.LAUNCHES[f"flash_attention_{want}"] == 1,
                 f"flash_attention {name}: took the wrong route "
@@ -1965,24 +2093,49 @@ def check_flash_attention() -> dict:
         err = float((got.float() - exp.float()).abs().max())
         require(bool(torch.isfinite(got).all()),
                 f"flash_attention {name}: non-finite output")
-        require(err <= tol, f"flash_attention {name} [{B}, {HQ}/{HKV}, "
-                f"{S}, {SK}, {D}] {dtype}: differs from its plain version "
-                f"by {err} > {tol}")
+        mask = "causal" if causal else "non-causal"
+        what = (f"flash_attention {name} [{B}, {HQ}/{HKV}, {S}, {SK}, {D}] "
+                f"{dtype} {mask}")
+        require(err <= tol, f"{what}: differs from its plain version by "
+                f"{err} > {tol}")
         errs[want][name] = err
-        log(f"flash_attention {name} ({want} route): q [{B}, {HQ}, {S}, "
-            f"{D}], k/v [{B}, {HKV}, {SK}, {D}] {str(dtype)[6:]}: max abs "
-            f"err {err:.3g} (tolerance {tol})")
-        del q, k, v, got, exp
+        # bf16: also the error's norm; non-causal: the dropped-mask control
+        half = dtype == torch.bfloat16
+        held = f"max abs err {err:.3g} (tolerance {tol})"
+        if half:
+            rms[name] = rms_err(got, exp)
+            require(rms[name] <= BF16_RMS_TOL, f"{what}: error norm "
+                    f"{rms[name]} of the plain version's > {BF16_RMS_TOL}")
+            held += (f", error norm {rms[name]:.3g} of the plain version's "
+                     f"(limit {BF16_RMS_TOL})")
+        ctrl = None if causal else unmasked_tail(q, k, v)
+        if ctrl is not None:
+            c_err = (rms_err(ctrl, exp) if half else
+                     float((ctrl.float() - exp.float()).abs().max()))
+            limit = BF16_RMS_TOL if half else tol
+            require(c_err > limit, f"{what}: the plain version with its key "
+                    f"mask dropped reads {c_err} <= {limit}: the hold cannot "
+                    "see a dropped mask")
+            controls[name] = c_err
+            held += (f"; with the key mask dropped past SK "
+                     f"({-SK % TILE_KEYS} keys) the plain version reads "
+                     f"{c_err:.3g}")
+        log(f"flash_attention {name} ({want} route, {mask}): q [{B}, {HQ}, "
+            f"{S}, {D}], k/v [{B}, {HKV}, {SK}, {D}] {str(dtype)[6:]}: "
+            f"{held}")
+        del q, k, v, got, exp, ctrl
     HQ, HKV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    def record(q, k, v, peak):
-        nbytes, flop = attention_bound(q, k)
+    def record(q, k, v, peak, causal=True):
+        nbytes, flop = attention_bound(q, k, causal)
         return dict(
-            calls=lambda n: [lambda: fa_kernel.flash_attention(q, k, v)] * n,
-            plain=lambda n: [lambda: fa_ref.flash_attention_ref(q, k, v)] * n,
+            calls=lambda n: [lambda: fa_kernel.flash_attention(
+                q, k, v, causal=causal)] * n,
+            plain=lambda n: [lambda: fa_ref.flash_attention_ref(
+                q, k, v, causal=causal)] * n,
             # timed here only; the port never calls it
             library=lambda n: [lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)] * n,
+                q, k, v, is_causal=causal, enable_gqa=True)] * n,
             bound_bytes=nbytes, bound_flop=flop, flop_per_s=peak,
             iters=FA_ITERS)
     serving = attention_inputs(gen, SLOTS, HQ, HKV, PROMPT_LEN, PROMPT_LEN,
@@ -2015,31 +2168,48 @@ def check_flash_attention() -> dict:
     log(f"flash_attention at the serving shape on the design this route "
         f"replaced (the f32 kernel, bf16 inputs): {old_ms} ms per call")
     del serving, single
-    # phases 18 and 20's shapes on the tensor-core route, timed as the
-    # serving one; Zamba2's also on the f32 kernel, its route before
-    shapes = {}
-    for name, (hq, hkv, d) in heads.items():
-        qkv = attention_inputs(gen, SLOTS, hq, hkv, PROMPT_LEN, PROMPT_LEN,
-                               d, bf16)
-        rec = measure({name: dict(record(*qkv, BF16_FLOP_PER_S),
-                                  max_abs_err=errs["mma"][name])})[name]
-        nbytes, flop = attention_bound(*qkv[:2])
+    # phases 18, 20 and 21's shapes on the tensor-core route, timed as the
+    # serving one; Zamba2's also on the f32 kernel, its route before; then
+    # the non-causal cases
+    timed = {name: (SLOTS, PROMPT_LEN, PROMPT_LEN, bf16, None, "mma", name)
+             for name in heads}
+    timed.update(WHISPER_DECODER)
+    timed.update(NONCAUSAL)
+    shapes, noncausal = {}, {}
+    for name, (B, S, SK, dtype, _, want, model) in timed.items():
+        hq, hkv, d = model_heads[model]
+        causal = name not in NONCAUSAL
+        qkv = attention_inputs(gen, B, hq, hkv, S, SK, d, dtype)
+        peak, peak_name = ((BF16_FLOP_PER_S, "bf16 tensor-core")
+                           if want == "mma" else
+                           (F32_FLOP_PER_S, "f32 CUDA-core"))
+        rec = measure({name: dict(record(*qkv, peak, causal),
+                                  max_abs_err=errs[want][name],
+                                  rms_err=rms.get(name),
+                                  unmasked_tail_err=controls.get(name))
+                       })[name]
+        nbytes, flop = attention_bound(*qkv[:2], causal)
         rec["tflop_per_s"] = flop / rec["ms"] / 1e9
+        rec["route"] = want
         if name == "zamba2":
             rec["f32_route_ms"] = f32_route_ms(*qkv)
-        shapes[name] = rec
-        log(f"flash_attention at {name}'s prefill q {list(qkv[0].shape)} "
-            f"k/v {list(qkv[1].shape)} bf16 ({smi()}): {flop / 1e9:.1f} "
-            f"GFLOP, {nbytes / 1e6:.1f} MB; {rec['ms']:.4f} ms per call = "
-            f"{rec['tflop_per_s']:.1f} TFLOP/s; plain version "
-            f"{rec['plain_ms']:.4f} ms; SDPA {rec['library_ms']:.4f} ms; "
+        (shapes if causal else noncausal)[name] = rec
+        log(f"flash_attention at {name} ({want} route, "
+            f"{'causal' if causal else 'non-causal'}) q {list(qkv[0].shape)}"
+            f" k/v {list(qkv[1].shape)} {str(dtype)[6:]} ({smi()}): "
+            f"{flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; {rec['ms']:.4f}"
+            f" ms per call = {rec['tflop_per_s']:.1f} TFLOP/s; plain version"
+            f" {rec['plain_ms']:.4f} ms; SDPA {rec['library_ms']:.4f} ms; "
             f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} at the "
-            f"bf16 tensor-core peak"
+            f"{peak_name} peak"
             + (f"; the f32 kernel (its route before head dim {d} took the "
                f"tensor cores) {rec['f32_route_ms']} ms"
                if "f32_route_ms" in rec else ""))
         del qkv
     out["flash_attention"]["prefill_shapes"] = shapes
+    out["flash_attention"]["noncausal_shapes"] = noncausal
+    out["flash_attention"]["rms_errs"] = rms
+    out["flash_attention"]["unmasked_tail_errs"] = controls
     return out
 
 
@@ -2326,6 +2496,12 @@ def every_layer(cfg) -> int:
     return cfg.n_layers
 
 
+def encdec_calls(cfg) -> int:
+    """The encoder-decoder's prefill: each encoder layer's self-attention
+    and each decoder layer's self- and cross-attention."""
+    return cfg.enc_layers + 2 * cfg.dec_layers
+
+
 def every_group(cfg) -> int:
     """The hybrid's shared attention: once after each group of
     ``shared_attn_every`` SSM layers."""
@@ -2363,6 +2539,12 @@ class ServePath:
     n_layers: int | None = None    # a depth cut (None: the config's)
     requests: int = N_REQUESTS
     max_new: int = MAX_NEW
+    # plain versions a decode step calls once per decoder layer (Whisper's
+    # cross-attention of the new position, on the naive path as the
+    # reference routes it); none of the kernel's own
+    decode_plain: tuple = ()
+    # the weights drawn in the compute dtype (float32 ones would not fit)
+    compute_init: bool = False
 
 
 SERVE_PATHS = {
@@ -2386,6 +2568,16 @@ SERVE_PATHS = {
                          *SSD_PAIR),
                         (FA_PLAIN, SSD_PLAIN), OptFlags(attn_impl="pallas"),
                         naive_attention_chunked_ssd, True, bf16_tol=None),
+    "whisper": ServePath(21, WHISPER_ARCH, WHISPER_PROMPT_LEN,
+                         WHISPER_CACHE_LEN,
+                         (dataclasses.replace(ATTENTION,
+                                              per_pass=encdec_calls),),
+                         (FA_PLAIN,), OptFlags(attn_impl="pallas"),
+                         naive_attention, False, max_new=WHISPER_MAX_NEW,
+                         decode_plain=("attention_ref",)),
+    "vlm": ServePath(21, VLM_ARCH, VLM_PROMPT_LEN, CACHE_LEN, (ATTENTION,),
+                     (FA_PLAIN,), OptFlags(attn_impl="pallas"),
+                     naive_attention, False, compute_init=True),
 }
 
 
@@ -2396,11 +2588,36 @@ def path_config(path: ServePath):
 
 
 def prefill_configs() -> dict:
-    """The models of phases 18 and 20 whose prefill shapes phases 10 and
-    12 check, Scout at its depth cut."""
+    """The decoders of phases 18, 20 and 21 whose prefill shapes phases 10
+    and 12 check, Scout at its depth cut."""
     return {"granite": path_config(SERVE_PATHS["moe"]),
             "scout": path_config(SERVE_PATHS["scout"]),
-            "zamba2": path_config(SERVE_PATHS["hybrid"])}
+            "zamba2": path_config(SERVE_PATHS["hybrid"]),
+            "internvl2": path_config(SERVE_PATHS["vlm"])}
+
+
+def stub_inputs(cfg, B: int, device, seed: int | None = None) -> dict:
+    """The stub frontend's inputs of a batch of ``B`` (the engine's:
+    ``frames`` for the encoder-decoder, ``embeds`` for the VLM): zeros, as
+    the engine feeds them, unless a seed is given, then normal x 0.1 (the
+    reference's make_batch), drawn on the CPU so every device gets the
+    same values."""
+    zeros = engine_lib.stub_inputs(cfg, B, device)
+    if seed is None:
+        return zeros
+    gen = torch.Generator().manual_seed(seed)
+    return {name: (torch.randn(x.shape, generator=gen) * 0.1).to(x)
+            for name, x in zeros.items()}
+
+
+def decode_plain_calls(path: ServePath, cfg, steps: int) -> dict:
+    """The plain-version calls ``steps`` decode steps of the path make (by
+    name, every counted name listed): Whisper's naive cross-attention,
+    once per decoder layer a step."""
+    out = dict.fromkeys((n for _, names in path.plain for n in names), 0)
+    for name in path.decode_plain:
+        out[name] += steps * cfg.dec_layers
+    return out
 
 
 def reset_path(path: ServePath) -> None:
@@ -2519,6 +2736,11 @@ def prefill_split(eng: ServingEngine, batch, flags: OptFlags,
 
 
 def describe(cfg) -> str:
+    if cfg.family == "encdec":
+        return (f"{cfg.enc_layers} encoder and {cfg.dec_layers} decoder "
+                f"layers, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+                f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.enc_len} frames a "
+                "request")
     ssm = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
            f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}")
     if cfg.family == "ssm":
@@ -2537,6 +2759,8 @@ def describe(cfg) -> str:
                 f"capacity factor {cfg.capacity_factor}; "
                 f"{cfg.param_count(True) / 1e9:.3f} B active of "
                 f"{cfg.param_count() / 1e9:.3f} B without embeddings")
+    if cfg.vis_len:
+        out += f", {cfg.vis_len} vision embeddings ahead of the prompt"
     return out
 
 
@@ -2564,7 +2788,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
-    params = api.init_params(cfg, gen, device)
+    params = api.init_params(cfg, gen, device,
+                             compute_dtype=path.compute_init)
     eng = ServingEngine(cfg, params, slots=SLOTS, cache_len=path.cache_len,
                         flags=flags, device=device)
     sync(device)
@@ -2572,9 +2797,11 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     cut = ("" if path.n_layers is None else
            f" (depth cut to {cfg.n_layers} of "
            f"{get_config(path.arch).n_layers} layers: one card)")
+    depth = "" if cfg.family == "encdec" else f"{cfg.n_layers} layers, "
     log(f"{name} at full width{cut}: {n_params / 1e9:.3f} B params "
-        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {describe(cfg)}, "
-        f"vocab {cfg.vocab_padded}); weights made and cast in "
+        f"({depth}d_model {cfg.d_model}, {describe(cfg)}, "
+        f"vocab {cfg.vocab_padded}); weights made and cast"
+        + (" part by part" if path.compute_init else "") + " in "
         f"{time.perf_counter() - t0:.1f} s; device memory "
         f"{memory_gib(device)} GiB; coordination "
         f"store: model_version=1, epoch=1; hedged reads target "
@@ -2588,11 +2815,20 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_path(path)
+    peaks = []
+
+    def wave_peak(_):
+        # each wave's own peak
+        peaks.append(memory_gib(device, peak=True))
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
     with plain_calls(path.plain) as plain:
         t0 = time.perf_counter()
-        done = eng.run(reqs, prompt_len=path.prompt_len)
+        done = eng.run(reqs, prompt_len=path.prompt_len, on_wave=wave_peak)
         wall = time.perf_counter() - t0
-    n_waves = -(-n_req // SLOTS)
+    n_waves = len(eng.waves)
+    require(n_waves == -(-n_req // eng.slots),
+            f"{name}: {n_waves} waves of {n_req} requests")
     require(len(done) == n_req, f"{name}: {len(done)} requests done")
     for r in done:
         require(r.output is not None and len(r.output) == max_new and
@@ -2601,25 +2837,45 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
                 f"{name}: request {r.rid} output {r.output}")
     launches = check_launches(path, cfg, n_waves, name)
     all_launches = path_launches(path)
-    require(sum(plain.values()) == 0,
-            f"{name}: plain versions called on the kernel path "
-            f"{dict(plain)}")
+    # no plain version of the kernel; Whisper's decode steps call the
+    # naive cross-attention, as the reference routes them
+    want_plain = decode_plain_calls(path, cfg, n_waves * (max_new - 1))
+    require(dict(plain) == want_plain,
+            f"{name}: plain-version calls {dict(plain)} on the kernel path, "
+            f"want {want_plain}")
     lat = eng.latencies_ms
-    waves = []
-    for w in eng.waves:
+    waves, start = [], 0
+    # the positions a prefill runs: the vision embeddings and the prompt;
+    # the encoder-decoder's decoder prompt, its frames counted apart
+    positions = cfg.vis_len + path.prompt_len
+    frames = cfg.enc_len if cfg.family == "encdec" else 0
+    for i, w in enumerate(eng.waves):
         ms = w["prefill_ms"] + w["decode_ms"]
+        wave_lat = lat[start: start + w["requests"]]
+        start += w["requests"]
+        per_s = w["requests"] / w["prefill_ms"] * 1e3
         waves.append({**w, "decode_ms_per_token": w["decode_ms"]
                       / max(w["decode_steps"], 1),
-                      "prompt_tokens_per_s": w["requests"] * path.prompt_len
-                      / w["prefill_ms"] * 1e3,
-                      "tokens_per_s": w["requests"] * max_new / ms * 1e3})
+                      "prefill_positions_per_s": per_s * positions,
+                      "encoder_frames_per_s": per_s * frames or None,
+                      "tokens_per_s": w["requests"] * max_new / ms * 1e3,
+                      "latency_p50_ms": percentile(wave_lat, 50),
+                      "latency_p99_ms": percentile(wave_lat, 99),
+                      "peak_gib": peaks[i]})
     card = on_card(device)
+    what = ("decoder prompt tokens/s" if frames else "prompt tokens/s"
+            if not cfg.vis_len else "prompt and vision positions/s")
     for i, w in enumerate(waves):
+        rate = f"{w['prefill_positions_per_s']:.1f} {what}" + (
+            f", {w['encoder_frames_per_s']:.1f} encoder frames/s"
+            if frames else "")
         log(f"{name} wave {i} ({card}): {w['requests']} requests, prefill "
-            f"{w['prefill_ms']:.3f} ms ({w['prompt_tokens_per_s']:.1f} "
-            f"prompt tokens/s), decode {w['decode_ms_per_token']:.3f} ms per "
-            f"token, {w['tokens_per_s']:.2f} generated tokens/s")
-    peak = memory_gib(device, peak=True)
+            f"{w['prefill_ms']:.3f} ms ({rate}), decode "
+            f"{w['decode_ms_per_token']:.3f} ms per "
+            f"token, {w['tokens_per_s']:.2f} generated tokens/s, latency p50 "
+            f"{w['latency_p50_ms']:.3f} ms p99 {w['latency_p99_ms']:.3f} ms, "
+            f"peak device memory {w['peak_gib']} GiB")
+    peak = max(peaks, key=lambda x: -1.0 if x == "n/a" else float(x))
     log(f"{name} ({card}): {n_req} requests in {wall:.3f} s, latency "
         f"p50 {percentile(lat, 50):.3f} ms p99 {percentile(lat, 99):.3f} ms; "
         f"launches {launches} (routes: every launch on "
@@ -2628,7 +2884,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
         f"{peak} GiB")
 
     # the same prompt twice gives the same tokens; a manual greedy loop
-    # on the float32 parameters gives the engine's
+    # on the parameters as made (float32, or with ``compute_init`` those
+    # the steps read) gives the engine's
     prompt = reqs[0].prompt
     r1, r2 = (eng.run([Request(rid=100 + i, prompt=prompt,
                                max_new=max_new)],
@@ -2637,7 +2894,8 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             f"{name}: the same prompt served twice differs")
     with torch.inference_mode():
         batch = {"tokens": torch.as_tensor(prompt[None], dtype=torch.int32,
-                                           device=device)}
+                                           device=device),
+                 **stub_inputs(cfg, 1, device)}
         logits, cache = api.prefill_fn(cfg)(eng.params, batch,
                                             path.cache_len, flags)
         toks = [int(torch.argmax(logits[:, -1], -1)[0])]
@@ -2660,10 +2918,11 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             f"{name}: the version bump did not read back")
 
     # the first wave's prefill (and, for scoring, lm_forward over two of
-    # its prompts) on the kernel path and on the plain path
+    # its prompts) on the kernel path and on the plain path; the stub
+    # frontends' inputs seeded
     first = {"tokens": torch.as_tensor(
         np.stack([r.prompt for r in reqs[:SLOTS]]), dtype=torch.int32,
-        device=device)}
+        device=device), **stub_inputs(cfg, SLOTS, device, SERVE_SEED + 3)}
     scored = first["tokens"][:2]
     out = {}
     with torch.inference_mode():
@@ -2723,13 +2982,19 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
         del hk, hn
     if cfg.family == "hybrid":
         out["float32"] = hybrid_float32(eng, first, path, device)
+    if cfg.vis_len:
+        out["embeds_change"] = embeds_change(eng, first, path, lk)
     pre = prefill_split(eng, first, flags,
                         {k.part: k.tag for k in path.kernels})
-    log(f"{name} warm prefill of {SLOTS} x {path.prompt_len} tokens "
+    log(f"{name} warm prefill of {SLOTS} x {path.prompt_len} tokens"
+        + (f" after {cfg.vis_len} vision embeddings" if cfg.vis_len else "")
+        + " "
         f"({card}): {pre['wall_ms']:.3f} ms wall, device {pre['device_ms']}"
         f" ms (busy share {pre.get('busy_share')}); device ms by part "
         f"{pre.get('device_ms_by_part')}; top device us "
         f"{pre.get('top_device_us')}")
+    if cfg.family == "encdec":
+        out["encoder"] = encoder_share(eng, first, flags, pre)
     busy = decode_busy_share(eng, first, flags)
     log(f"{name} decode step ({card}): {busy['decode_step_ms']:.3f} ms wall"
         f", device busy {busy['device_busy_ms']} ms, busy share "
@@ -2739,6 +3004,10 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
     reduced = serving_cpu_equality(path, device)
+    if cfg.family == "encdec":
+        # the f32 route's own run of this family
+        out["reduced_cpu_float32"] = serving_cpu_equality(path, device,
+                                                          "float32")
     return {"launches": launches, "waves": waves,
             "latency_p50_ms": percentile(lat, 50),
             "latency_p99_ms": percentile(lat, 99), "wall_s": wall,
@@ -2746,6 +3015,51 @@ def serving_phase(path: ServePath, device="cuda") -> dict:
             "first_token_agree": agree, **out, "prefill": pre,
             "decode": busy,
             "reduced_cpu": reduced}
+
+
+def encoder_share(eng: ServingEngine, first, flags: OptFlags,
+                  pre: dict) -> dict:
+    """The encoder's part of a warm prefill: ``encdec.encode`` alone on
+    the first wave's frames, its wall and device ms beside the whole
+    prefill's (``pre``, ``prefill_split``'s record)."""
+    def step():
+        return encdec_lib.encode(eng.weights, eng.cfg, first["frames"],
+                                 flags)
+    with torch.inference_mode():
+        step()
+        sync(eng.device)
+        t0 = time.perf_counter()
+        step()
+        sync(eng.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = (device_time([step])[0] if eng.device.type == "cuda"
+                  else None)
+    share = (None if dev_ms is None or not pre.get("device_ms")
+             else dev_ms / pre["device_ms"])
+    log(f"serving {eng.cfg.name} encoder of the warm prefill "
+        f"({on_card(eng.device)}): {wall_ms:.3f} ms wall (prefill "
+        f"{pre['wall_ms']:.3f}), device {dev_ms} ms (prefill "
+        f"{pre.get('device_ms')}), share of the prefill's device time "
+        f"{share}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "device_share": share}
+
+
+def embeds_change(eng: ServingEngine, first, path: ServePath, lk) -> dict:
+    """The reference's ``test_vlm_embeds_change_text_logits`` at full
+    width: the first wave's prefill with other vision embeddings (zeros,
+    the engine's) gives other text logits than with the seeded ones
+    (``lk``); both through the kernel path."""
+    with torch.inference_mode():
+        other = {**first, "embeds": torch.zeros_like(first["embeds"])}
+        lz = api.prefill_fn(eng.cfg)(eng.weights, other, path.cache_len,
+                                     path.flags)[0]
+    diff = float((lz - lk).abs().max())
+    require(diff > 1e-4, f"serving {eng.cfg.name}: the vision embeddings "
+            f"do not reach the text logits (max diff {diff})")
+    log(f"serving {eng.cfg.name}: the first wave's last-position logits "
+        f"with zero vision embeddings against the seeded ones: max diff "
+        f"{diff:.4g} (must exceed 1e-4)")
+    return {"max_diff": diff}
 
 
 def block_halves(layer_p, x, cfg, positions, impl: str):
@@ -3015,22 +3329,28 @@ def moe_checks(eng: ServingEngine, first, path: ServePath, lk,
     return out
 
 
-def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
+def serving_cpu_equality(path: ServePath, device="cuda",
+                         compute_dtype: str | None = None) -> dict:
     """The path at full width and 2 layers (the hybrid: one group, its
-    ``shared_attn_every`` SSM layers and the shared block): prefill and
-    teacher-forced decode steps on CUDA (the kernels) and on the CPU (the
-    plain versions) from the same weights; logits within 2e-2 of their
-    largest magnitude (bf16 rounded in another order on each device).  The
-    MoE and hybrid families run in float32 compute, held to ``F32_TOL``
-    and to equal greedy tokens at every step: in bf16 a routing decision
-    near a tie may go either way on the two devices, and the hybrid's
-    float32 run holds its algorithm."""
+    ``shared_attn_every`` SSM layers and the shared block; the
+    encoder-decoder: 2 of each stack): prefill and teacher-forced decode
+    steps on CUDA (the kernels) and on the CPU (the plain versions) from
+    the same weights and the same seeded stub-frontend inputs; logits
+    within 2e-2 of their largest magnitude (bf16 rounded in another order
+    on each device).  The MoE and hybrid families run in float32 compute,
+    as ``compute_dtype="float32"`` asks of any: held to ``F32_TOL`` and to
+    equal greedy tokens at every step, every launch on the f32 route (in
+    bf16 a routing decision near a tie may go either way on the two
+    devices, and the hybrid's float32 run holds its algorithm)."""
     base = get_config(path.arch)
     n_layers = (base.shared_attn_every if base.family == "hybrid"
                 else REDUCED_SERVE["n_layers"])
     cfg = dataclasses.replace(base, n_layers=n_layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, enc_layers=n_layers,
+                                  dec_layers=n_layers)
     tol = 2e-2
-    if cfg.family in ("moe", "hybrid"):
+    if cfg.family in ("moe", "hybrid") or compute_dtype == "float32":
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
         tol = F32_TOL
     gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 1)
@@ -3045,9 +3365,11 @@ def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
         t0 = time.perf_counter()
         reset_path(path)
         with plain_calls(path.plain) as plain, torch.inference_mode():
+            batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32,
+                                               device=dev),
+                     **stub_inputs(cfg, B, dev, SERVE_SEED + 1)}
             lg, cache = api.prefill_fn(cfg)(
-                weights[dev], {"tokens": torch.as_tensor(
-                    toks, dtype=torch.int32, device=dev)}, S + 8, path.flags)
+                weights[dev], batch, cfg.vis_len + S + 8, path.flags)
             out = [lg]
             if forced is None:
                 forced = torch.argmax(lg[:, -1], -1).to(torch.int32)
@@ -3072,8 +3394,9 @@ def serving_cpu_equality(path: ServePath, device="cuda") -> dict:
             f32 = {"flash_attention": "flash_attention_f32"}
             check_launches(path, cfg, 1, what,
                            f32 if cfg.compute_dtype == "float32" else None)
-            require(sum(plain.values()) == 0,
-                    f"{what}: plain calls {dict(plain)}")
+            want = decode_plain_calls(path, cfg, REDUCED_SERVE["steps"])
+            require(dict(plain) == want,
+                    f"{what}: plain calls {dict(plain)}, want {want}")
         log(f"serving {cfg.name} reduced ({on_card(dev)}, "
             f"{cfg.compute_dtype}): {cfg.n_layers} layers, {B} x {S} prompt "
             f"+ {REDUCED_SERVE['steps']} decode steps in "
@@ -4767,7 +5090,7 @@ def build_kernels(phases) -> None:
     t0 = time.perf_counter()
     kernels = [(src, k) for src, k, uses in (
         (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16, 17, 19)),
-        (FA_SRC, fa_kernel, (10, 11, 18, 20)),
+        (FA_SRC, fa_kernel, (10, 11, 18, 20, 21)),
         (SSD_SRC, ssd_kernel, (12, 13, 20))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
         builds = [pool.submit(k.build) for _, k in kernels]
@@ -4777,7 +5100,7 @@ def build_kernels(phases) -> None:
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 21))
+ALL_PHASES = tuple(range(1, 22))
 
 
 def parse_phases(argv) -> set:
@@ -4925,6 +5248,13 @@ def main(argv=None) -> None:
         add_launches(run["hybrid_serving"]["launches"])
         log(f"hybrid_serving: phase 20's run took "
             f"{time.perf_counter() - t0:.1f} s")
+    if 21 in phases:
+        for key in ("whisper", "vlm"):
+            t0 = time.perf_counter()
+            rec = run[f"{key}_serving"] = serving_phase(SERVE_PATHS[key])
+            add_launches(rec["launches"])
+            log(f"{key}_serving: phase 21's run took "
+                f"{time.perf_counter() - t0:.1f} s")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

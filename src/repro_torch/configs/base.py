@@ -5,10 +5,9 @@ Every architecture of the port is a ``repro_torch/configs/<id>.py``
 exporting ``CONFIG`` with the hyperparameters the reference gives it;
 ``reduced()`` derives the CPU smoke-test variant (same family and
 topology, tiny widths).  ``cdtype()``/``pdtype()`` return torch dtypes.
-The port serves the dense decoders, the MoE family (granite, llama4
-scout), the SSM family (mamba2) and the hybrid (zamba2) so far: the other
-architecture ids raise ``NotImplementedError`` naming the slice that
-brings them.
+Every architecture id of the reference resolves: the dense decoders, the
+MoE family (granite, llama4 scout), the SSM family (mamba2), the hybrid
+(zamba2), the encoder-decoder (whisper) and the VLM (internvl2).
 """
 from __future__ import annotations
 
@@ -172,22 +171,13 @@ _MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "zamba2-2.7b": "zamba2_2_7b",
+    "internvl2-26b": "internvl2_26b",
+    "whisper-base": "whisper_base",
 }
 
-# The reference's other architectures, and the slice of the port that
-# brings each (ROADMAP, queue 1, item 2).
-_LATER = {
-    "internvl2-26b": "the VLM slice",
-    "whisper-base": "the encoder-decoder slice",
-}
-
-ARCH_IDS = list(_MODULES) + list(_LATER)
+ARCH_IDS = list(_MODULES)
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in _LATER:
-        raise NotImplementedError(
-            f"{arch_id}: the port serves the dense, MoE, SSM and hybrid "
-            f"decoders so far; {_LATER[arch_id]} brings it")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG

@@ -3,9 +3,11 @@
 For the engine, what crosses over is state: a ``SimState`` (its wave
 table and telemetry plane included), an open-loop generator
 (``loadgen_from``), message schedules, partition maps, role tables, the
-control plane's host state, and transactions and their results.  For the models it is a parameter tree: ``lm_params_from``
-builds the port's from the reference's ``init_lm`` pytree, and
-``lm_params_to_numpy`` turns it back.  These functions take any NamedTuple-like object whose fields
+control plane's host state, and transactions and their results.  For
+the models it is a parameter tree: ``lm_params_from`` builds the port's
+from the reference's ``init_lm`` pytree and ``encdec_params_from`` from
+its ``init_encdec`` pytree; ``lm_params_to_numpy`` and
+``encdec_params_to_numpy`` turn them back.  These functions take any NamedTuple-like object whose fields
 hold array-likes (the JAX package's pytrees after ``np.asarray``, or
 numpy arrays) and build the port's structure on a given device, field by
 field by name; ``to_numpy`` turns the port's structures back into numpy
@@ -207,17 +209,35 @@ def _index(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _stacks_from(params: dict, stacks: dict, device) -> dict:
+    """The port's entries of a reference parameter tree: each stacked
+    ``[L, ...]`` entry of ``stacks`` (name -> L) split into an
+    ``nn.ModuleList`` of L blocks, the other sub-dicts as modules, bare
+    arrays as tensors."""
+    return {k: (nn.ModuleList([_params_module(_index(v, i), device)
+                               for i in range(stacks[k])])
+                if k in stacks else _params_module(v, device)
+                if isinstance(v, dict) else _tensor(v, device))
+            for k, v in params.items()}
+
+
 def lm_params_from(params: dict, cfg, device="cuda"):
     """The port's parameter tree (``transformer.init_lm``'s structure) from
     the reference's ``init_lm`` pytree with numpy leaves: the stacked
     ``[L, ...]`` layer leaves are split into ``cfg.n_layers`` blocks."""
-    dev = resolve_device(device)
-    top = {k: v for k, v in params.items() if k != "layers"}
-    out = _params_module(top, dev)
-    out["layers"] = nn.ModuleList([
-        _params_module(_index(params["layers"], i), dev)
-        for i in range(cfg.n_layers)])
-    return nn.ModuleDict({k: out[k] for k in params})
+    return nn.ModuleDict(_stacks_from(params, {"layers": cfg.n_layers},
+                                      resolve_device(device)))
+
+
+def encdec_params_from(params: dict, cfg, device="cuda"):
+    """The port's encoder-decoder tree (``encdec.init_encdec``'s structure)
+    from the reference's ``init_encdec`` pytree with numpy leaves: the
+    stacked ``enc_layers``/``dec_layers`` leaves are split into
+    ``cfg.enc_layers``/``cfg.dec_layers`` blocks; ``pos_dec`` stays a
+    tensor beside the sub-dicts."""
+    return ParamTree(_stacks_from(
+        params, {"enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers},
+        resolve_device(device)))
 
 
 def _numpy_tree(module) -> dict:
@@ -226,16 +246,27 @@ def _numpy_tree(module) -> dict:
             for k, m in module.items()}
 
 
-def lm_params_to_numpy(params) -> dict:
-    """The reference's pytree layout (layers stacked on ``[L, ...]``) with
-    numpy leaves, from the port's parameter tree."""
-    out = {k: _numpy_tree(m) for k, m in params.items() if k != "layers"}
-    blocks = [_numpy_tree(b) for b in params["layers"]]
-
+def _stacks_to_numpy(params, stacks) -> dict:
+    """The reference's pytree layout with numpy leaves: the blocks of each
+    entry in ``stacks`` stacked on a leading ``[L, ...]`` axis."""
     def stack(*leaves):
         if isinstance(leaves[0], dict):
             return {k: stack(*(x[k] for x in leaves)) for k in leaves[0]}
         return np.stack(leaves)
 
-    out["layers"] = stack(*blocks)
-    return {k: out[k] for k in params}
+    return {k: (stack(*[_numpy_tree(b) for b in m]) if k in stacks
+                else _numpy_tree(m) if isinstance(m, nn.Module)
+                else m.detach().cpu().numpy())
+            for k, m in params.items()}
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The reference's pytree layout (layers stacked on ``[L, ...]``) with
+    numpy leaves, from the port's parameter tree."""
+    return _stacks_to_numpy(params, ("layers",))
+
+
+def encdec_params_to_numpy(params) -> dict:
+    """The reference's ``init_encdec`` layout (both layer stacks on
+    ``[L, ...]``) with numpy leaves, from the port's tree."""
+    return _stacks_to_numpy(params, ("enc_layers", "dec_layers"))

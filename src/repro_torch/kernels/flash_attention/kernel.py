@@ -110,8 +110,8 @@ def route(q, k, v) -> str:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
-    """Causal (top-left) GQA attention, forward; see ``ref.py`` for the
-    function.  Returns ``[B, HQ, S, D]`` in q's dtype."""
+    """GQA attention, forward, causal (aligned top-left) unless
+    ``causal=False``; see ``ref.py`` for the function.  Returns ``[B, HQ, S, D]`` in q's dtype."""
     _check(q, k, v)
     dev = q.device
     if dev.type == "cpu":

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of causal GQA attention.
+"""Plain PyTorch versions of GQA attention, causal or not.
 
 ``attention_ref`` is the reference's ``ref.py::attention_ref``, the
 ``mha(impl="naive")`` path: dense softmax, GQA by repeating KV heads, the
@@ -11,8 +11,10 @@ kernel: the function the reference's Pallas kernel computes
 ``k_pos <= q_pos`` (aligned top-left) and keys at or past ``SK`` are
 masked, with the finite ``-1e30``; scores, softmax statistics and the
 weighted sum are float32 from the loaded inputs, and the output is
-``acc / (l == 0 ? 1 : l)`` cast to ``q.dtype``.  The two agree when
-``S == SK``, which is all the serving path produces.
+``acc / (l == 0 ? 1 : l)`` cast to ``q.dtype``.  Causal, the two agree
+when ``S == SK``, which is all the decoders' prefill produces; non-causal
+(the encoder-decoder's encoder and cross-attention, ``S != SK``) they
+differ only in rounding.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""GQA attention: projections, rotary, causal prefill and decode paths.
+"""GQA attention: projections, rotary, full-sequence (causal or not),
+prefill and decode paths.
 
 The reference's ``shard(...)`` annotations place tensors on a device
 mesh; on one device they are no-ops and are left out.  KV caches keep the
@@ -32,49 +33,55 @@ def attn_init(gen, cfg: ArchConfig, device="cuda"):
 
 
 def _project_qkv(p, x, cfg: ArchConfig, positions):
+    """q, k, v ``[B, S, H, D]``, rotated at ``positions [B, S]`` (None:
+    no rotary, as Whisper's learned and sinusoidal positions)."""
     cd = cfg.cdtype()
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.dense(p["wq"], x, compute_dtype=cd).reshape(B, S, h, hd)
     k = L.dense(p["wk"], x, compute_dtype=cd).reshape(B, S, kv, hd)
     v = L.dense(p["wv"], x, compute_dtype=cd).reshape(B, S, kv, hd)
-    q = L.rotary(q, positions, fraction=cfg.rotary_fraction,
-                 base=cfg.rope_base)
-    k = L.rotary(k, positions, fraction=cfg.rotary_fraction,
-                 base=cfg.rope_base)
+    if positions is not None:
+        q = L.rotary(q, positions, fraction=cfg.rotary_fraction,
+                     base=cfg.rope_base)
+        k = L.rotary(k, positions, fraction=cfg.rotary_fraction,
+                     base=cfg.rope_base)
     return q, k, v
 
 
-def _attend(p, x, cfg: ArchConfig, positions, impl: str):
-    """Causal attention of ``x [B, S, d]`` -> (``[B, S, d]``, k, v)."""
+def _attend(p, x, cfg: ArchConfig, positions, impl: str, causal: bool):
+    """Attention of ``x [B, S, d]`` -> (``[B, S, d]``, k, v)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = flash_ops.mha(q.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=True, impl=impl)
+                      v.transpose(1, 2), causal=causal, impl=impl)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     return L.dense(p["wo"], o, compute_dtype=cfg.cdtype()), k, v
 
 
-def attn_apply(p, x, cfg: ArchConfig, *, positions, impl: str = "naive"):
-    """Full-sequence causal attention of ``x [B, S, d]`` at rotary
-    ``positions [B, S]``. Returns ``[B, S, d]``."""
-    return _attend(p, x, cfg, positions, impl)[0]
+def attn_apply(p, x, cfg: ArchConfig, *, positions=None, causal: bool = True,
+               impl: str = "naive"):
+    """Full-sequence attention of ``x [B, S, d]`` at rotary ``positions
+    [B, S]`` (None: no rotary), causal unless asked otherwise (Whisper's
+    encoder). Returns ``[B, S, d]``."""
+    return _attend(p, x, cfg, positions, impl, causal)[0]
 
 
 def attn_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int,
                  impl: str = "naive"):
     """Prefill: causal attention AND the layer's cache padded to
     ``cache_len``. Returns ``(out, (k_cache, v_cache))``."""
-    out, k, v = _attend(p, x, cfg, positions, impl)
+    out, k, v = _attend(p, x, cfg, positions, impl, True)
     pad = (0, 0, 0, 0, 0, cache_len - x.shape[1])
     return out, (nn.functional.pad(k, pad), nn.functional.pad(v, pad))
 
 
 def attn_decode(p, x, cache, t: int, cfg: ArchConfig, *,
-                seq_parallel: bool = False):
+                seq_parallel: bool = False, use_rotary: bool = True):
     """One decode step of ``x [B, 1, d]`` at position ``t`` against the
     layer's cache ``(k [B, T, KV, D], v [B, T, KV, D])``, which is
-    updated in place and returned with the output ``[B, 1, d]``.
+    updated in place and returned with the output ``[B, 1, d]``;
+    ``use_rotary=False`` (Whisper) leaves q and k unrotated.
 
     Plain torch, as the reference leaves this step to XLA: scores in
     float32 (bf16 products accumulated in float32, as its
@@ -91,7 +98,8 @@ def attn_decode(p, x, cache, t: int, cfg: ArchConfig, *,
     B = x.shape[0]
     k_cache, v_cache = cache
     T = k_cache.shape[1]
-    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    pos = (torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+           if use_rotary else None)
     q, k_new, v_new = _project_qkv(p, x, cfg, pos)
     # dynamic_update_slice clamps the start so the update fits
     at = min(max(t, 0), T - 1)

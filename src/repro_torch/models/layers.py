@@ -9,13 +9,15 @@ packages' trees match name for name and ``repro_torch.convert`` moves
 weights across by key.  Weights keep the
 reference's layouts (``dense`` is ``x @ w`` with ``w [d_in, d_out]``)
 and its roundings: ``dense`` casts ``x`` and ``w`` to the compute dtype
-before the product, ``rmsnorm`` works in float32 and casts back,
-``rotary`` casts cos/sin to ``x.dtype`` before multiplying.
+before the product, ``rmsnorm`` and ``layernorm`` work in float32 and
+cast back, ``rotary`` casts cos/sin to ``x.dtype`` before multiplying,
+``gelu_mlp`` takes ``jax.nn.gelu``'s default, the tanh approximation.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.core.types import resolve_device
 
@@ -100,6 +102,22 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].to(F32)).to(dt)
 
 
+def layernorm_init(d: int, dtype=F32, device="cuda"):
+    device = resolve_device(device)
+    return nn.ParameterDict({
+        "scale": _param(torch.ones((d,), dtype=dtype, device=device)),
+        "bias": _param(torch.zeros((d,), dtype=dtype, device=device))})
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(F32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
 def embed_init(gen, vocab: int, d: int, dtype=F32, device="cuda"):
     device = resolve_device(device)
     return nn.ParameterDict(
@@ -132,6 +150,21 @@ def swiglu(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
                  compute_dtype=compute_dtype)
 
 
+def gelu_mlp_init(gen, d: int, f: int, dtype=F32, device="cuda"):
+    device = resolve_device(device)
+    return nn.ModuleDict({
+        "w_up": dense_init(gen, d, f, bias=True, dtype=dtype, device=device),
+        "w_down": dense_init(gen, f, d, bias=True, dtype=dtype,
+                             device=device),
+    })
+
+
+def gelu_mlp(p, x: torch.Tensor, *, compute_dtype=torch.bfloat16):
+    h = dense(p["w_up"], x, compute_dtype=compute_dtype)
+    return dense(p["w_down"], F.gelu(h, approximate="tanh"),
+                 compute_dtype=compute_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (standard + partial "2d" variant)
 # ---------------------------------------------------------------------------
@@ -155,3 +188,13 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, *,
     if rot_d == D:
         return rotated
     return torch.cat([rotated, x_pass], dim=-1)
+
+
+def sinusoidal_positions(seq_len: int, d: int, device="cpu") -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings ``[seq_len, d]`` float32
+    (the reference's formula: the exponent's step is ``1 / (d // 2 - 1)``)."""
+    pos = torch.arange(seq_len, dtype=F32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=F32, device=device)[None, :]
+    inv = 10000.0 ** (-dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense, MoE, SSM and hybrid families (the
+"""Decoder-only LM assembly, dense, MoE, SSM, hybrid and VLM families (the
 port's copy of those paths of ``repro/models/transformer.py``).
 
 The reference stacks its layer parameters on a leading ``[L, ...]`` axis
@@ -17,8 +17,11 @@ SwiGLU MLP.  The hybrid (Zamba2) runs ``G = n_layers / k`` groups of
 shared attention block (a dense block whose weights every group reuses,
 ``params["shared_attn"]``) with a KV cache per group.  The SSM mixer runs
 its SSD core on the ssd_scan kernel when the activations are on a card
-(``mamba2.py``'s docstring).  The encoder-decoder family and the VLM stub
-frontend raise ``NotImplementedError``: later slices bring them.
+(``mamba2.py``'s docstring).  The VLM is the dense decoder with a stub
+frontend: precomputed embeddings ``embeds [B, vis_len, d]`` arrive with
+the batch and are concatenated ahead of the token embeddings, so the
+rotary positions run over the whole sequence and decode starts at
+``t = vis_len + S``.  The encoder-decoder family is ``encdec.py``.
 """
 from __future__ import annotations
 
@@ -65,17 +68,15 @@ class OptFlags:
 BASELINE_FLAGS = OptFlags()
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"serves the families {PORTED_FAMILIES}")
-    if cfg.vis_len:
-        raise NotImplementedError(
-            f"{cfg.name}: the VLM stub frontend (vis_len) is not ported yet")
+            f"{cfg.name}: family {cfg.family!r} is not a decoder family of "
+            f"the port {PORTED_FAMILIES}; the encoder-decoder is "
+            "models/encdec.py (api dispatches to it)")
     if cfg.family == "hybrid":
         _groups(cfg)
 
@@ -114,24 +115,33 @@ def _block_init(gen, cfg: ArchConfig, device):
     return nn.ModuleDict(block)
 
 
-def init_lm(cfg: ArchConfig, gen: torch.Generator, device="cuda"):
+def init_lm(cfg: ArchConfig, gen: torch.Generator, device="cuda", *,
+            compute_dtype: bool = False):
     """Random parameters from ``gen`` (drawn on the generator's device),
-    placed on ``device``."""
+    placed on ``device``.  ``compute_dtype``: ``compute_params`` of them,
+    each part cast as soon as it is drawn, so only one block is ever held
+    in float32 (a model whose float32 parameters would not fit a card
+    builds all the same); bit for bit ``compute_params(init_lm(...))``."""
     _check_ported(cfg)
     device = resolve_device(device)
     dt = cfg.pdtype()
+
+    def keep(part):
+        return compute_params(part, cfg) if compute_dtype else part
+
     params = nn.ModuleDict({
-        "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt,
-                              device),
-        "layers": nn.ModuleList([_block_init(gen, cfg, device)
+        "embed": keep(L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dt,
+                                   device)),
+        "layers": nn.ModuleList([keep(_block_init(gen, cfg, device))
                                  for _ in range(cfg.n_layers)]),
         "final_norm": L.rmsnorm_init(cfg.d_model, dt, device),
     })
     if not cfg.tie_embeddings:
-        params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
-                                      dtype=dt, device=device)
+        params["head"] = keep(L.dense_init(gen, cfg.d_model,
+                                           cfg.vocab_padded, dtype=dt,
+                                           device=device))
     if cfg.family == "hybrid":
-        params["shared_attn"] = _shared_attn_init(gen, cfg, device)
+        params["shared_attn"] = keep(_shared_attn_init(gen, cfg, device))
     return params
 
 
@@ -201,10 +211,11 @@ def _logits(params, cfg: ArchConfig, x):
 # Forward (scoring)
 # ---------------------------------------------------------------------------
 def _embed_inputs(params, cfg: ArchConfig, tokens, embeds):
-    if embeds is not None:
-        raise NotImplementedError("stub frontend embeddings (VLM/audio) "
-                                  "are not ported yet")
-    return L.embed(params["embed"], tokens, compute_dtype=cfg.cdtype())
+    cd = cfg.cdtype()
+    x = L.embed(params["embed"], tokens, compute_dtype=cd)
+    if embeds is not None:  # VLM stub frontend: precomputed embeddings
+        x = torch.cat([embeds.to(cd), x], dim=1)
+    return x
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:

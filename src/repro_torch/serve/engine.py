@@ -6,9 +6,12 @@ with per-request latency accounting (the reference's
 ``ServingEngine`` is the host loop: it admits requests in waves of
 ``slots``, prefills each wave together, decodes it in lock step and
 records when each request was submitted and done.  It serves every
-family ``transformer`` has ported (dense, MoE, SSM, hybrid) with no
-logic of its own per family: the cache is whatever the model's prefill
-returns and its decode updates.  It runs on one device (``device``, CUDA
+family of ``api`` (dense, MoE, SSM, hybrid, VLM, encoder-decoder) with
+no logic of its own per family but the stub frontends' inputs, zeros as
+the reference's engine gives them (``stub_inputs``).  The cache is whatever the model's prefill returns and its decode
+updates; ``cache_len`` must hold every position a wave writes (the VLM's
+``vis_len`` included), except for the SSM family, which keeps no KV
+cache.  It runs on one device (``device``, CUDA
 unless the caller asks for the CPU) under ``torch.inference_mode()``.
 The multi-replica cache protocols (NetCRAQ and NetChain over a chain
 group of ranks) are in ``serve/kv_cache.py``.
@@ -56,6 +59,17 @@ def build_decode_step(cfg: ArchConfig, flags: OptFlags = BASELINE_FLAGS):
     return decode_step
 
 
+def stub_inputs(cfg: ArchConfig, B: int, device) -> dict:
+    """The stub frontend's inputs of a batch of ``B``, zeros in the compute
+    dtype: ``frames [B, enc_len, d]`` for the encoder-decoder, ``embeds
+    [B, vis_len, d]`` for a config with ``vis_len``, none otherwise."""
+    lead = {"frames": cfg.enc_len if cfg.family == "encdec" else 0,
+            "embeds": cfg.vis_len}
+    return {name: torch.zeros((B, n, cfg.d_model), dtype=cfg.cdtype(),
+                              device=device)
+            for name, n in lead.items() if n}
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -90,13 +104,18 @@ class ServingEngine:
         self.completed: list[Request] = []
         self.waves: list[dict] = []
 
-    def run(self, requests: list[Request], prompt_len: int) -> list[Request]:
+    def run(self, requests: list[Request], prompt_len: int,
+            on_wave=None) -> list[Request]:
         """Serve a request list in waves of ``slots`` (prefill together,
-        decode lock-step; per-request early exit on max_new)."""
+        decode lock-step; per-request early exit on max_new).
+        ``on_wave(record)``, if given, is called after each wave with its
+        record (``waves[-1]``)."""
         out = []
         for i in range(0, len(requests), self.slots):
             wave = requests[i: i + self.slots]
             out.extend(self._run_wave(wave, prompt_len))
+            if on_wave is not None:
+                on_wave(self.waves[-1])
         self.completed.extend(out)
         return out
 
@@ -110,9 +129,16 @@ class ServingEngine:
             r.submitted_at = time.perf_counter()
         t0 = time.perf_counter()
         max_new = max(r.max_new for r in wave)
+        need = self.cfg.vis_len + prompt_len + max_new - 1
+        if self.cfg.family != "ssm" and need > self.cache_len:
+            raise ValueError(
+                f"cache_len={self.cache_len} cannot hold the {need} "
+                f"positions of a wave (vis_len {self.cfg.vis_len} + prompt "
+                f"{prompt_len} + {max_new - 1} decode steps)")
         with torch.inference_mode():
             batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32,
-                                               device=self.device)}
+                                               device=self.device),
+                     **stub_inputs(self.cfg, len(wave), self.device)}
             tok, cache = self._prefill(self.weights, batch)
             self._sync()
             t1 = time.perf_counter()

@@ -629,12 +629,19 @@ def test_cuda_rebalance_and_partitioned_ops_match_cpu(card):
     (1, 4, 2, 200, 200, 64, True, torch.bfloat16, 2e-2),
     (1, 4, 1, 100, 224, 32, True, torch.float32, 2e-5),
     (1, 4, 4, 130, 70, 256, False, torch.float32, 2e-5),
+    # non-causal at Whisper's cross-attention (128 queries, 1,500 frames:
+    # a ragged key edge) and encoder shapes, and S > SK
+    (2, 8, 8, 128, 1500, 64, False, torch.float32, 2e-5),
+    (1, 8, 8, 1500, 1500, 64, False, torch.float32, 2e-5),
+    (1, 4, 2, 300, 130, 128, False, torch.float32, 2e-5),
 ])
 def test_cuda_flash_attention_matches_plain_version(card, B, HQ, HKV, S,
                                                     SK, D, causal, dtype,
                                                     tol):
     """The kernel equals its plain version: GQA, ragged tiles, S != SK,
-    head dims 32-256, and the transposed views the model hands over."""
+    head dims 32-256, and the transposed views the model hands over; a
+    float32 non-causal case with a ragged key edge fails the same hold
+    with the key mask dropped."""
     rng = np.random.default_rng(41)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(card, dtype) for shape in
@@ -652,6 +659,41 @@ def test_cuda_flash_attention_matches_plain_version(card, B, HQ, HKV, S,
     assert fa_kernel.LAUNCHES[f"flash_attention_{route}"] == 1
     assert got.dtype == dtype and got.stride() == q.stride()
     assert float((got.float() - exp.float()).abs().max()) <= tol
+    # a non-causal case with a ragged key edge: the same hold fails on the
+    # function of a kernel that dropped its key mask past SK
+    ctrl = None if causal else _unmasked_tail(q, k, v)
+    if ctrl is not None and dtype == torch.float32:
+        assert float((ctrl.float() - exp.float()).abs().max()) > tol
+
+
+# keys per K/V tile of both CUDA kernels; a dropped-mask control is held
+# where the padded keys are at least 1% of the tile-rounded ones (fewer
+# dilute a row by less than rounding shows, chip_smoke.py's phase 10)
+_TILE_KEYS, _MASK_SHARE = 64, 0.01
+# the bf16 error's norm over the plain version's: twice the largest
+# reading of a sound run (chip_smoke.py's BF16_RMS_TOL)
+_BF16_RMS_TOL = 5e-3
+
+
+def _rms_err(got, exp):
+    d = got.float() - exp.float()
+    return float(d.norm() / exp.float().norm())
+
+
+def _unmasked_tail(q, k, v):
+    """The plain version with the last tile's zero-filled keys past SK
+    left in, non-causal (a kernel that dropped its key mask); None where
+    SK fills its tiles or the padded keys are under 1% of them."""
+    SK = k.shape[2]
+    pad = -SK % _TILE_KEYS
+    if pad < _MASK_SHARE * (SK + pad):
+        return None
+
+    def zero_fill(x):
+        return torch.cat([x, x.new_zeros(x.shape[:2] + (pad, x.shape[3]))],
+                         dim=2)
+    return fa_ref.flash_attention_ref(q, zero_fill(k), zero_fill(v),
+                                      causal=False)
 
 
 @pytest.mark.parametrize("B,HQ,HKV,S,SK,D,causal,view", [
@@ -686,6 +728,17 @@ def test_cuda_flash_attention_matches_plain_version(card, B, HQ, HKV, S,
     (2, 8, 8, 200, 200, 80, True, False),
     (1, 4, 2, 200, 200, 32, True, True),
     (1, 4, 4, 130, 300, 72, False, False),
+    # non-causal at Whisper's shapes (the encoder's 1,500 frames, the
+    # cross-attention's 128 queries against them: ragged key edges) and
+    # S != SK both ways at head dims 128 and 80
+    (1, 8, 8, 1500, 1500, 64, False, True),
+    (2, 8, 8, 128, 1500, 64, False, True),
+    # Whisper's causal decoder self-attention over its 128-token prompt
+    (2, 8, 8, 128, 128, 64, True, True),
+    (1, 8, 2, 300, 130, 128, False, True),
+    (1, 8, 2, 130, 300, 128, False, True),
+    (1, 4, 4, 100, 300, 80, False, True),
+    (1, 4, 4, 300, 100, 80, False, True),
 ])
 def test_cuda_flash_attention_mma_route_matches_plain_version(
         card, B, HQ, HKV, S, SK, D, causal, view):
@@ -693,7 +746,9 @@ def test_cuda_flash_attention_mma_route_matches_plain_version(
     f32) at the bf16 tolerance: head dims 64/128 and, below the kernel's
     width, 32/72/80; GQA groups 1/2/8, ragged tiles, S != SK, non-causal,
     transposed views and contiguous tensors; every case is launched on
-    that route and writes q's layout."""
+    that route and writes q's layout.  The error's norm is held too, and
+    a non-causal case with a ragged key edge shows that this hold fails
+    on a kernel that dropped its key mask."""
     rng = np.random.default_rng(43)
     shapes = ((B, S, HQ, D), (B, SK, HKV, D), (B, SK, HKV, D))
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
@@ -711,6 +766,12 @@ def test_cuda_flash_attention_mma_route_matches_plain_version(
     assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
     assert bool(torch.isfinite(got).all())
     assert float((got.float() - exp.float()).abs().max()) <= 2e-2
+    # the error's norm, which sees a 1% fault the absolute limit cannot;
+    # non-causal with a ragged key edge: a dropped key mask fails it
+    assert _rms_err(got, exp) <= _BF16_RMS_TOL
+    ctrl = None if causal else _unmasked_tail(q, k, v)
+    if ctrl is not None:
+        assert _rms_err(ctrl, exp) > _BF16_RMS_TOL
 
 
 def test_cuda_serving_matches_cpu(card):
@@ -1287,6 +1348,72 @@ def test_cuda_hybrid_serving_matches_cpu(card):
         exp = got["cpu"]
         assert float((got[str(card)] - exp).abs().max()
                      / exp.abs().max()) < 1e-4
+
+
+def _stub_serving(card, arch, prompt_len, flags_for):
+    """A reduced ``arch`` served on the CPU and on CUDA in float32
+    compute from the same weights, its stub frontend's inputs zeros (the
+    engine's) in the serving run and seeded in the prefill compared after
+    it.  Returns the tokens, the prefill logits and the launch counters
+    of each device's serving run."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServingEngine, stub_inputs
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len) for _ in range(3)]
+    stub = {name: torch.from_numpy((rng.standard_normal(tuple(x.shape))
+                                    * 0.1).astype(np.float32))
+            for name, x in stub_inputs(cfg, 3, "cpu").items()}
+    cache_len = cfg.vis_len + prompt_len + 8
+    flags = flags_for()
+    out = {}
+    for d in ("cpu", card):
+        eng = ServingEngine(cfg, params, slots=2, cache_len=cache_len,
+                            flags=flags, device=d)
+        fa_kernel.reset_launches()
+        done = eng.run([Request(rid=i, prompt=p, max_new=6)
+                        for i, p in enumerate(prompts)],
+                       prompt_len=prompt_len)
+        launches = dict(fa_kernel.LAUNCHES)
+        with torch.inference_mode():
+            batch = {"tokens": torch.as_tensor(np.stack(prompts),
+                                               dtype=torch.int32, device=d),
+                     **{name: x.to(d) for name, x in stub.items()}}
+            logits = api.prefill_fn(cfg)(eng.weights, batch, cache_len,
+                                         flags)[0].cpu()
+        out[str(d)] = (np.stack([r.output for r in done]), logits, launches)
+    return cfg, out
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-26b"])
+def test_cuda_stub_frontend_serving_matches_cpu(card, arch):
+    """A reduced Whisper-base (2 + 2 layers: the encoder's non-causal
+    attention, the decoder's causal self- and non-causal cross-attention
+    on the kernel) and a reduced InternVL2-26B (vision embeddings ahead
+    of the prompt) served on CUDA give the CPU's tokens and prefill
+    logits (float32 compute, where the two differ only in summation
+    order), with every prefill attention one launch on the f32 route."""
+    from repro_torch.models.transformer import OptFlags
+
+    cfg, out = _stub_serving(card, arch, 24,
+                             lambda: OptFlags(attn_impl="pallas"))
+    per_prefill = (cfg.enc_layers + 2 * cfg.dec_layers
+                   if cfg.family == "encdec" else cfg.n_layers)
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[2]["flash_attention"] == 0
+    # two waves (3 requests in slots of 2)
+    assert gpu[2] == {"flash_attention": 2 * per_prefill,
+                      "flash_attention_mma": 0,
+                      "flash_attention_f32": 2 * per_prefill}
+    np.testing.assert_array_equal(cpu[0], gpu[0])
+    exp = cpu[1]
+    assert float((gpu[1] - exp).abs().max() / exp.abs().max()) < 1e-4
 
 
 def _example(name):

@@ -3,7 +3,9 @@
 On the CPU ``mha(impl="pallas")`` runs the flash_attention kernel's plain
 version (``ref.flash_attention_ref``); it is held against the reference's
 Pallas kernel in interpret mode (as ``tests/test_kernels.py`` runs it) on
-that test's cases, a GQA group of 8 and a causal ``S != SK`` case.
+that test's cases, a GQA group of 8, a causal ``S != SK`` case and the
+non-causal cases of the encoder-decoder (``S == SK``, ``S < SK`` with a
+ragged key edge, ``S > SK``).
 ``mha(impl="naive")`` is held against the reference's ``attention_ref``.
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  Tolerances are the
@@ -54,6 +56,13 @@ def _err(got, exp) -> float:
     # causal with S != SK: the kernel's top-left alignment
     (1, 4, 2, 100, 224, 32, True, "f32"),
     (1, 4, 2, 160, 96, 32, True, "bf16"),
+    # non-causal (Whisper's encoder and cross-attention): S == SK, S < SK
+    # with a ragged k edge (300 keys: no multiple of the 128-key tiles,
+    # as Whisper's 1,500 frames are none of the kernel's 64), S > SK
+    (1, 4, 4, 256, 256, 64, False, "f32"),
+    (2, 4, 4, 64, 300, 64, False, "f32"),
+    (1, 4, 2, 300, 96, 32, False, "f32"),
+    (1, 4, 4, 64, 300, 64, False, "bf16"),
 ])
 def test_flash_plain_matches_pallas_kernel(B, HQ, HKV, S, SK, D, causal,
                                            dtype):
@@ -73,6 +82,7 @@ def test_flash_plain_matches_pallas_kernel(B, HQ, HKV, S, SK, D, causal,
     (1, 8, 1, 48, 48, 64, True, "bf16"),
     (1, 4, 2, 40, 72, 32, True, "f32"),
     (1, 4, 4, 72, 40, 16, False, "bf16"),
+    (2, 4, 4, 24, 100, 32, False, "f32"),
 ])
 def test_naive_matches_attention_ref(B, HQ, HKV, S, SK, D, causal, dtype):
     (jq, jk, jv), (tq, tk, tv), tol = _inputs(2, B, HQ, HKV, S, SK, D,

@@ -376,7 +376,7 @@ def test_greedy_decode_reproduces_forced_sequence():
 
 def test_unported_families_still_raise():
     _, tcfg = _cfgs()
-    for family in ("encdec",):
+    for family in ("audio",):
         with pytest.raises(NotImplementedError):
             api.init_params(dataclasses.replace(tcfg, family=family),
                             torch.Generator(), CPU)
