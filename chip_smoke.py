@@ -208,10 +208,12 @@ source, all three at once), then:
    serving metrics, the MoE stages' device time, and each layer's dropped
    share of (token, slot) pairs;
 19. the examples' torch twins (``examples/quickstart_torch.py``,
-   ``fault_tolerance_torch.py``, ``kv_serving_torch.py``) on the card,
-   their default device, and with ``--device cpu``: the same lines but for
-   wall-clock numbers; the two chain examples launch the kv kernels on the
-   card and call no plain version;
+   ``fault_tolerance_torch.py``, ``kv_serving_torch.py``,
+   ``train_lm_torch.py`` for 40 steps) on the card, their default device,
+   and with ``--device cpu``: the same lines but for wall-clock numbers
+   (and train_lm's run-specific text; its losses within 2e-2); the two
+   chain examples launch the kv kernels on the card and call no plain
+   version;
 20. the hybrid family on phase 11's serving run: Zamba2-2.7B at full
    width and depth (54 SSM layers in 9 groups of 6, each group followed
    by the one shared attention block of 32 heads of 80; random weights
@@ -249,7 +251,34 @@ source, all three at once), then:
    held to change with its embeddings; prints the serving metrics per
    wave (prefill ms, decode ms per token, tokens/s, p50/p99 latency, peak
    device memory), a decode step's busy share, the prefill's device split
-   and Whisper's encoder's share of it.
+   and Whisper's encoder's share of it;
+22. training (``kernels/flash_attention/csrc/flash_attention_bwd.cu``,
+   built beside the other sources): (a) the flash_attention kernel's
+   forward with its log-sum-exp (the bottom-right causal offset of the
+   reference's ``chunked_attention``) and the three backward kernels
+   (``flash_bwd_delta_kernel``, ``flash_bwd_dkdv_kernel``,
+   ``flash_bwd_dq_kernel``) against ``ref.chunked_fwd``/``chunked_bwd``
+   at ``BWD_CASES`` (the training shape [4, 16, 4096, 64] bf16 causal,
+   Qwen2.5-3B's GQA group, head dim 80, ragged S = SK = 200, 200 queries
+   after 700 keys, Whisper's cross-attention, float32): o, lse, dq, dk and
+   dv each held, bf16 to the error's norm, with two controls that must
+   read past it (delta dropped, the causal mask dropped); each kernel
+   timed at the training shape and at float32 beside its bound, the
+   plain version and SDPA (its forward, its whole backward); (b)
+   Qwen1.5-0.5B at full width and 2 layers, one loss and its gradients:
+   float32, the kernel path against the plain path on the card (every
+   leaf within 1e-4); bf16, the card against the CPU (loss and gradient
+   norm within 2e-2); (c) the ``Trainer`` on Qwen1.5-0.5B at full width
+   and depth (24 layers, random weights from seed 0; batch 4 of
+   train_4k's 4,096-token sequences; chunked attention, full remat,
+   chunked cross-entropy of 1,024; AdamW with warmup 2): 6 steps from
+   the pipeline with a checkpoint after step 3 (48 forward launches and
+   24 of each backward kernel a step), then in the same Trainer 8 steps
+   on one repeated batch, which lower the loss by more than 0.5, and one
+   profiled step (attention forward, attention backward, matrix
+   products, the rest; busy share); a fresh Trainer restored from the
+   checkpoint gives steps 4-6's losses bit for bit; prints ms a step,
+   tokens/s, peak device memory and the seconds of each part.
 
 Phase 10 also holds and times the kernel non-causal (``NONCAUSAL``):
 Whisper's encoder (q, k, v [8, 8, 1500, 64]) and cross-attention (q [8,
@@ -260,9 +289,11 @@ InternVL2's prefill shape (q [8, 48, 2048, 128], k/v [8, 8, 2048, 128]).
 
 A kernel's ``launches`` in the record add up over the main paths that
 ran it (phases 11, 18, 20 and 21 for the attention kernel, 13 and 20 for
-the ssd pair), each counted from zero just before its run.  ``--phases
+the ssd pair, phase 22's 6-step Trainer run for the forward with lse,
+``flash_attention_lse``, and the backward kernels), each counted from
+zero just before its run.  ``--phases
 12,13`` runs the build of the kernels those phases use, phase 1 and the
-named phases only (4 and 5 bring 3 along, 8 brings 7; 15-21 stand
+named phases only (4 and 5 bring 3 along, 8 brings 7; 15-22 stand
 alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
@@ -279,14 +310,18 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -341,6 +376,10 @@ try:
     from repro_torch.models.transformer import OptFlags  # noqa: E402
     from repro_torch.serve import kv_cache as KV  # noqa: E402
     from repro_torch.serve import engine as engine_lib  # noqa: E402
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+    from repro_torch.train import optimizer as opt  # noqa: E402
+    from repro_torch.train.train_step import init_train_state  # noqa: E402
+    from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
     from repro_torch.serve.engine import (  # noqa: E402
         Request, ServingEngine, build_decode_step)
 except ImportError as exc:  # run outside a checkout of the repo
@@ -362,10 +401,14 @@ TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor-core peak
 KV_SRC = "src/repro_torch/kernels/kv_engine/csrc/kv_engine.cu"
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+FA_BWD_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_bwd.cu")
 SOURCES = {"kv_read": KV_SRC, "kv_write": KV_SRC,
            "kv_bucketed_read": KV_SRC, "kv_bucketed_write": KV_SRC,
            "flash_attention": FA_SRC, "flash_attention_f32": FA_SRC,
-           "ssd_cb": SSD_SRC, "ssd_scan": SSD_SRC}
+           "ssd_cb": SSD_SRC, "ssd_scan": SSD_SRC,
+           "flash_attention_lse": FA_SRC, "flash_bwd_delta": FA_BWD_SRC,
+           "flash_bwd_dkdv": FA_BWD_SRC, "flash_bwd_dq": FA_BWD_SRC}
 REPLACES = {
     "kv_read": "src/repro/kernels/kv_engine/kernel.py:153",
     "kv_write": "src/repro/kernels/kv_engine/kernel.py:510",
@@ -375,6 +418,11 @@ REPLACES = {
     "flash_attention_f32": "src/repro/kernels/flash_attention/kernel.py:96",
     "ssd_cb": "src/repro/kernels/ssd_scan/kernel.py:94",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:94",
+    "flash_attention_lse": "src/repro/kernels/flash_attention/kernel.py:96",
+    # no pallas_call: the custom VJP of the reference's chunked_attention
+    "flash_bwd_delta": "src/repro/kernels/flash_attention/ops.py:107",
+    "flash_bwd_dkdv": "src/repro/kernels/flash_attention/ops.py:107",
+    "flash_bwd_dq": "src/repro/kernels/flash_attention/ops.py:107",
 }
 # The partition map of phases 2 and 7-8, in fig_rebalance's proportions:
 # 14 buckets of 4096 registers per chain and two bucket-sized landing
@@ -5010,10 +5058,21 @@ def dist_phase(device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 # phase 19: the examples' torch twins on the card and on the CPU
 # ---------------------------------------------------------------------------
-EXAMPLES = ("quickstart", "fault_tolerance", "kv_serving")
+EXAMPLES = ("quickstart", "fault_tolerance", "kv_serving", "train_lm")
 # a wall-clock number (seconds, milliseconds, tokens per second): the only
 # numbers of an example's output that may differ between two runs
 WALL_CLOCK = re.compile(r"[\d,]+(\.\d+)?(?=(s|ms| tok/s)\b)")
+# train_lm: 40 steps (of its 200 by default), and what is particular to a
+# run: its step times, each with the straggler flag read from it, its
+# temporary checkpoint directory and its losses, which the card and the
+# CPU compute from the same weights in bf16 and round at different places
+# (held pairwise to EXAMPLE_LOSS_TOL)
+EXAMPLE_ARGV = {"train_lm": ["--steps", "40"]}
+RUN_SPECIFIC = {"train_lm": re.compile(
+    r"(?<=loss )\d+\.\d+|(?<=from )\d+\.\d+|(?<=checkpoints -> )\S+"
+    r"|\(\d+ ms\)( STRAGGLER)?")}
+EXAMPLE_LOSS = re.compile(r"(?<=loss )\d+\.\d+|(?<=from )\d+\.\d+")
+EXAMPLE_LOSS_TOL = 2e-2
 
 
 def run_example(name: str, argv: list) -> tuple:
@@ -5045,17 +5104,30 @@ def examples_phase() -> dict:
     out = {}
     card = smi()
     for name in EXAMPLES:
-        got, secs, launches, plain = run_example(name, [])
-        exp, cpu_secs, cpu_launches, _ = run_example(name,
-                                                     ["--device", "cpu"])
-        masked = [[WALL_CLOCK.sub("<wall>", x) for x in lines]
-                  for lines in (got, exp)]
+        argv = EXAMPLE_ARGV.get(name, [])
+        got, secs, launches, plain = run_example(name, argv)
+        exp, cpu_secs, cpu_launches, _ = run_example(
+            name, [*argv, "--device", "cpu"])
+        if name in RUN_SPECIFIC:
+            losses = [[float(x) for line in lines
+                       for x in EXAMPLE_LOSS.findall(line)]
+                      for lines in (got, exp)]
+            gap = max(abs(a - b) for a, b in zip(*losses))
+            require(len(losses[0]) == len(losses[1]) > 2 and
+                    gap <= EXAMPLE_LOSS_TOL and losses[0][-2] < losses[0][0],
+                    f"example {name}: card losses {losses[0]}, CPU "
+                    f"{losses[1]} (limit {EXAMPLE_LOSS_TOL})")
+            log(f"example {name}: card and CPU losses differ by at most "
+                f"{gap:.4g} (limit {EXAMPLE_LOSS_TOL})")
+        masked = [[WALL_CLOCK.sub("<wall>", RUN_SPECIFIC[name].sub(
+                       "<run>", x) if name in RUN_SPECIFIC else x)
+                   for x in lines] for lines in (got, exp)]
         require(masked[0] == masked[1] and len(got) > 3,
                 f"example {name}: the card's lines differ from the CPU's "
                 f"beyond wall-clock numbers:\n{got}\n{exp}")
         require(not cpu_launches, f"example {name} on the CPU launched "
                 f"{cpu_launches}")
-        if name != "kv_serving":    # the chain engine ticks on the card
+        if name in ("quickstart", "fault_tolerance"):   # the chain ticks
             require(launches.get("kv_read", 0) > 0 and
                     launches.get("kv_write", 0) > 0 and plain == 0,
                     f"example {name} on the card: launches {launches}, "
@@ -5069,6 +5141,563 @@ def examples_phase() -> dict:
         out[name] = {"seconds": secs, "cpu_seconds": cpu_secs,
                      "launches": launches, "lines": len(got)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: training
+# ---------------------------------------------------------------------------
+# The backward kernels' cases, as (B, HQ, HKV, S, SK, D, dtype, causal):
+# the training shape of (c) (Qwen1.5-0.5B, 16 heads of 64, MHA, S 4,096),
+# Qwen2.5-3B's GQA group (16/2 heads of 128), Zamba2's head dim 80, a
+# ragged edge (S = SK = 200), 200 causal queries after 700 keys (offset
+# 500, the bottom-right mask), Whisper's cross-attention (its 448-token
+# decoder context against 1,500 frames, non-causal) and float32
+BWD_CASES = {
+    "train": (4, 16, 16, 4096, 4096, 64, torch.bfloat16, True),
+    "gqa": (2, 16, 2, 2048, 2048, 128, torch.bfloat16, True),
+    "d80": (1, 32, 32, 2048, 2048, 80, torch.bfloat16, True),
+    "ragged": (2, 16, 2, 200, 200, 128, torch.bfloat16, True),
+    "s_lt_sk": (2, 16, 2, 200, 700, 128, torch.bfloat16, True),
+    "whisper_cross": (8, 8, 8, 448, 1500, 64, torch.bfloat16, False),
+    "float32": (2, 16, 16, 2048, 2048, 64, torch.float32, True),
+}
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+# bf16 gradients are held to their error's norm over the plain version's
+# (both sum in float32 from the same inputs, so only the bf16 rounding of
+# the outputs and the summation order differ); the limit is set from the
+# readings and must be passed by a control: the plain backward with delta
+# dropped (o = 0) and, causal, with the mask dropped.  Float32 gradients
+# to 1e-4 of their largest magnitude.  The backward's plain version reads
+# the kernel's own o and lse, so the lse is held on its own, to LSE_TOL
+# absolute, against the plain forward on the inputs upcast to float32
+# (``lse_plain``): it scales the float32 score as the kernels do, where
+# the reference's forward rounds q * scale to bf16 first (up to 2**-9 of
+# a score; 4.7e-3 of the lse at D 128).  The two then differ only in the
+# order of float32 sums: 1.9e-6 at D 64, where q * scale is exact in bf16
+# (PERF.md); a shift of the lse by d scales every p, and so every
+# gradient, by exp(-d).
+BWD_RMS_TOL = 2.5e-4   # 2.4x the largest sound reading (1.06e-4; PERF.md)
+F32_BWD_TOL = 1e-4
+LSE_TOL = 5e-5
+# SDPA's backward kernels, by name (flash, cuDNN's "bprop",
+# memory-efficient)
+SDPA_BWD = re.compile(r"bwd|backward|bprop|cutlassB", re.IGNORECASE)
+# (c): Qwen1.5-0.5B at full width and depth, train_4k's sequence with its
+# global batch of 256 cut to 4; (b): 2 layers, 256 tokens
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "qwen1.5-0.5b", 4096, 4
+TRAIN_FLAGS = OptFlags(attn_impl="chunked", remat="full", chunked_ce=True,
+                       ce_chunk=1024)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+TRAIN_REPEAT, TRAIN_STEPS, TRAIN_CKPT, TRAIN_DROP = 8, 6, 3, 0.5
+STEP_CHECK = dict(n_layers=2, seq=256, batch=1)
+STEP_F32_TOL, STEP_BF16_TOL = 1e-4, 2e-2
+
+
+def visible_pairs(S: int, SK: int, causal: bool, offset: int) -> int:
+    """(query, key) pairs under the mask: all S x SK, or causal those with
+    ``k_pos <= q_pos + offset``."""
+    if not causal:
+        return S * SK
+    return int(np.clip(np.arange(S) + offset + 1, 0, SK).sum())
+
+
+def backward_bounds(q, k, causal: bool) -> dict:
+    """Per kernel (and for the whole backward) the (bytes, operations) the
+    function must move and do: each input read once, each output written
+    once; the products per visible pair (dkdv: s, dO v^T, p^T dO, dS^T q;
+    dq: s, dO v^T, dS k; the backward five, 2.5 times the forward's)."""
+    B, HQ, S, D = q.shape
+    HKV, SK = k.shape[1], k.shape[2]
+    e = q.element_size()
+    pairs = B * HQ * visible_pairs(S, SK, causal, SK - S)
+    rows, keys = B * HQ * S * D * e, B * HKV * SK * D * e
+    stats = 8 * B * HQ * S                    # lse and delta, float32
+    return {"flash_bwd_delta": (2 * rows + stats // 2, 2 * B * HQ * S * D),
+            "flash_bwd_dkdv": (2 * rows + 4 * keys + stats, 8 * D * pairs),
+            "flash_bwd_dq": (3 * rows + 2 * keys + stats, 6 * D * pairs),
+            "backward": (4 * rows + 4 * keys + stats // 2, 10 * D * pairs)}
+
+
+def fwd_plain(q, k, v, causal: bool):
+    qc, kc = fa_ref.default_blocks(q.shape[2], k.shape[2])
+    return fa_ref.chunked_fwd(q, k, v, causal=causal, scale=q.shape[3] ** -0.5,
+                              q_chunk=qc, k_chunk=kc)
+
+
+def lse_plain(q, k, v, causal: bool):
+    """The plain forward's lse from the inputs upcast to float32 (see
+    ``LSE_TOL``)."""
+    return fwd_plain(q.float(), k.float(), v.float(), causal)[1]
+
+
+def bwd_plain(q, k, v, o, lse, do, causal: bool):
+    qc, kc = fa_ref.default_blocks(q.shape[2], k.shape[2])
+    return fa_ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                              scale=q.shape[3] ** -0.5, q_chunk=qc,
+                              k_chunk=kc)
+
+
+def per_kernel_us(fn, iters: int, want=()) -> dict:
+    """Device µs of one call of ``fn`` by kernel name (the mean over the
+    records the profiler kept).  A window of a long process may lose
+    records: it is taken again, up to three times, until it holds some
+    record and one whose name contains each of ``want``."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        counts: dict[str, int] = {}
+        kernels = device_time([fn] * iters, counts=counts)[1]
+        if kernels and all(any(w in k for k in kernels) for w in want):
+            break
+    return {k: us / counts[k] * max(1, round(counts[k] / iters))
+            for k, us in kernels.items()}
+
+
+def sdpa_backward_us(q, k, v, do, causal: bool):
+    """SDPA's backward alone: device µs of the kernels of a forward and
+    backward whose names mark them as the backward's."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def run():
+        F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                       enable_gqa=True).backward(do)
+    kernels = per_kernel_us(run, FA_ITERS)
+    bwd = {k: us for k, us in kernels.items() if SDPA_BWD.search(k)}
+    if not bwd:
+        log(f"SDPA's backward: no kernel named as a backward among "
+            f"{sorted(kernels)}")
+    return (sum(bwd.values()) if bwd else None), sorted(bwd)
+
+
+def check_flash_backward(device="cuda") -> dict:
+    """(a): the forward with lse and the three backward kernels against
+    their plain versions (``ref.chunked_fwd``, ``ref.chunked_bwd``) at
+    ``BWD_CASES``, every output held, each bf16 case with its controls;
+    then, at the training shape and at float32, each kernel timed beside
+    its bound, the plain version and SDPA."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(22)
+    cases, abs_errs, controls, timed = {}, {}, {}, {}
+    card = smi()
+    for name, (B, HQ, HKV, S, SK, D, dtype, causal) in BWD_CASES.items():
+        q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
+        do = torch.randn((B, S, HQ, D), generator=gen,
+                         device=device).to(dtype).transpose(1, 2)
+        fa_kernel.reset_launches()
+        o, lse = fa_kernel.flash_attention_lse(q, k, v, causal=causal)
+        grads = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal)
+        sync(device)
+        require(fa_kernel.LAUNCHES["flash_attention"] == 1 and all(
+            fa_kernel.LAUNCHES[x] == 1 for x in BWD_KERNELS),
+            f"backward {name}: launches {fa_kernel.LAUNCHES}")
+        # the kernels write each gradient in its input's layout
+        require((device == "cpu" or all(
+            g.stride() == x.stride() for g, x in zip(grads, (q, k, v))))
+                and all(bool(torch.isfinite(x).all())
+                        for x in (o, lse, *grads)),
+                f"backward {name}: strides or non-finite outputs")
+        o_ref, lse_ref = fwd_plain(q, k, v, causal)
+        if dtype != torch.float32:
+            lse_ref = lse_plain(q, k, v, causal)
+        ref_grads = bwd_plain(q, k, v, o, lse, do, causal)
+        half = dtype == torch.bfloat16
+        what = (f"backward {name} [{B}, {HQ}/{HKV}, {S}, {SK}, {D}] "
+                f"{str(dtype)[6:]} {'causal' if causal else 'non-causal'}")
+
+        def err(got, exp):
+            if half:
+                return rms_err(got, exp)
+            return float((got.float() - exp.float()).abs().max()
+                         / exp.float().abs().max())
+        rec = {"o": err(o, o_ref),
+               "lse": float((lse - lse_ref).abs().max())}
+        require(rec["o"] <= (BF16_RMS_TOL if half else F32_BWD_TOL),
+                f"{what}: o reads {rec['o']}")
+        require(rec["lse"] <= LSE_TOL, f"{what}: lse differs by "
+                f"{rec['lse']} > {LSE_TOL}")
+        limit = BWD_RMS_TOL if half else F32_BWD_TOL
+        for g_name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+            rec[g_name] = err(g, r)
+            require(rec[g_name] <= limit, f"{what}: {g_name} reads "
+                    f"{rec[g_name]} > {limit}")
+        if half:
+            ctrl = {"delta_dropped": bwd_plain(q, k, v, torch.zeros_like(o),
+                                               lse, do, causal)}
+            if causal:
+                ctrl["mask_dropped"] = bwd_plain(q, k, v, o, lse, do, False)
+            for c_name, c_grads in ctrl.items():
+                c_err = max(err(a, r) for a, r in zip(c_grads, ref_grads))
+                # a NaN reading counts as past the limit
+                require(not c_err <= limit, f"{what}: the control "
+                        f"{c_name} reads {c_err} <= {limit}: the hold "
+                        "cannot see it")
+                controls[f"{name}/{c_name}"] = c_err
+        cases[name] = rec
+        abs_errs[name] = {
+            n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(
+                ("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
+                (o_ref, lse_ref, *ref_grads))}
+        log(f"backward {name} ({card}): q [{B}, {HQ}, {S}, {D}], k/v [{B}, "
+            f"{HKV}, {SK}, {D}] {str(dtype)[6:]} "
+            f"{'causal' if causal else 'non-causal'}: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rec.items())
+            + (f" ({'error norm' if half else 'max err of max'}; limit "
+               f"{limit}, lse {LSE_TOL})")
+            + "".join(f"; control {c} {e:.3g}" for c, e in controls.items()
+                      if c.startswith(f"{name}/")))
+        if name in ("train", "float32"):
+            timed[name] = time_backward(q, k, v, o, lse, do, causal)
+        del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref_grads
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    recs = {}
+    train = timed["train"]
+    outputs = {"flash_attention_lse": ("o",), "flash_bwd_delta": ("dq",),
+               "flash_bwd_dkdv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
+    for kname, names in outputs.items():
+        # the training shape's error on what the kernel writes (delta is
+        # held through dq, which reads it)
+        recs[kname] = {"max_abs_err": max(abs_errs["train"][n]
+                                          for n in names), **train[kname]}
+    recs["flash_attention_lse"]["max_abs_err_lse"] = abs_errs["train"]["lse"]
+    recs["flash_attention_lse"]["case_errs"] = cases
+    recs["flash_attention_lse"]["case_abs_errs"] = abs_errs
+    recs["flash_attention_lse"]["controls"] = controls
+    recs["flash_attention_lse"]["float32"] = timed["float32"]
+    log(f"training: phase 22's (a) took {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
+    """Each kernel's device ms beside its bound, the plain version's and
+    SDPA's (forward: SDPA's forward; the backward kernels: SDPA's whole
+    backward, which computes dq, dk and dv in one call)."""
+    card = smi()
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    bounds = backward_bounds(q, k, causal)
+    fwd_bytes, fwd_flop = attention_bound(q, k, causal)
+    bounds["flash_attention_lse"] = (fwd_bytes + 4 * q.shape[0]
+                                     * q.shape[1] * q.shape[2], fwd_flop)
+    kern = per_kernel_us(lambda: fa_kernel.flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal), FA_ITERS, want=BWD_KERNELS)
+    fwd = per_kernel_us(lambda: fa_kernel.flash_attention_lse(
+        q, k, v, causal=causal), FA_ITERS, want=(
+            "flash_mma_kernel" if fa_kernel.route(q, k, v) == "mma"
+            else "flash_fwd_kernel",))
+    plain_bwd = sum(per_kernel_us(lambda: bwd_plain(
+        q, k, v, o, lse, do, causal), 2).values())
+    plain_fwd = sum(per_kernel_us(lambda: fwd_plain(q, k, v, causal),
+                                  2).values())
+    plain_delta = sum(per_kernel_us(lambda: (do.float() * o.float()).sum(-1),
+                                    FA_ITERS).values())
+    sdpa_fwd = sum(per_kernel_us(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), FA_ITERS).values())
+    sdpa_bwd, sdpa_names = sdpa_backward_us(q, k, v, do, causal)
+    out = {}
+    for name, tag, plain_us, lib_us in (
+            ("flash_attention_lse", ("flash_mma_kernel", "flash_fwd_kernel"),
+             plain_fwd, sdpa_fwd),
+            ("flash_bwd_delta", ("flash_bwd_delta",), plain_delta, None),
+            ("flash_bwd_dkdv", ("flash_bwd_dkdv",), plain_bwd, sdpa_bwd),
+            ("flash_bwd_dq", ("flash_bwd_dq",), plain_bwd, sdpa_bwd)):
+        src = fwd if name == "flash_attention_lse" else kern
+        us = sum(t for kn, t in src.items() if any(x in kn for x in tag))
+        require(us > 0, f"{name}: the profiler kept no record of it "
+                f"({sorted(src)})")
+        nbytes, flop = bounds[name]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flop_ms = flop / peak * 1e3
+        out[name] = {"ms": us / 1e3, "plain_ms": plain_us / 1e3,
+                     "library_ms": None if lib_us is None else lib_us / 1e3,
+                     "bound_ms": max(bytes_ms, flop_ms),
+                     "bound_by": "operations" if flop_ms > bytes_ms
+                     else "bytes",
+                     "tflop_per_s": flop / us / 1e6}
+    whole = sum(out[n]["ms"] for n in BWD_KERNELS)
+    nbytes, flop = bounds["backward"]
+    out["backward"] = {"ms": whole, "bound_ms": max(
+        nbytes / HBM_BYTES_PER_S, flop / peak) * 1e3,
+        "sdpa_bwd_ms": None if sdpa_bwd is None else sdpa_bwd / 1e3,
+        "sdpa_bwd_kernels": sdpa_names, "plain_ms": plain_bwd / 1e3}
+    for name, r in out.items():
+        log(f"{name} at q {list(q.shape)} k/v {list(k.shape)} "
+            f"{str(q.dtype)[6:]} ({card}): {r['ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms"
+            + (f" by {r['bound_by']} ({r['tflop_per_s']:.1f} TFLOP/s)"
+               if "bound_by" in r else " (five products a visible pair)")
+            + f"; plain version {r['plain_ms']:.4f} ms"
+            + (f"; SDPA {r['library_ms']:.4f} ms" if r.get("library_ms")
+               is not None else "")
+            + (f"; SDPA's backward {r['sdpa_bwd_ms']} ms "
+               f"({r['sdpa_bwd_kernels']})"
+               if "sdpa_bwd_ms" in r else ""))
+    return out
+
+
+@contextlib.contextmanager
+def plain_chunked_attention():
+    """The training path's plain version on the card: ChunkedAttention's
+    kernel calls answered by ``ref.chunked_fwd``/``chunked_bwd`` while
+    active."""
+    fwd, bwd = fa_kernel.flash_attention_lse, fa_kernel.flash_attention_bwd
+
+    def plain_fwd(q, k, v, *, causal, scale, blocks):
+        return fa_ref.chunked_fwd(q, k, v, causal=causal, scale=scale,
+                                  q_chunk=blocks[0], k_chunk=blocks[1])
+
+    def plain_bwd(q, k, v, o, lse, do, *, causal, scale, blocks):
+        return fa_ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                                  scale=scale, q_chunk=blocks[0],
+                                  k_chunk=blocks[1])
+    fa_kernel.flash_attention_lse = plain_fwd
+    fa_kernel.flash_attention_bwd = plain_bwd
+    try:
+        yield
+    finally:
+        fa_kernel.flash_attention_lse = fwd
+        fa_kernel.flash_attention_bwd = bwd
+
+
+def loss_and_grads(cfg, params, batch, flags) -> tuple:
+    named = dict(params.named_parameters())
+    loss = api.loss_fn(cfg)(params, batch, flags)
+    grads = torch.autograd.grad(loss, list(named.values()))
+    return loss.detach(), dict(zip(named, grads))
+
+
+def step_checks(device="cuda") -> dict:
+    """(b): Qwen1.5-0.5B at full width and 2 layers, one loss and its
+    gradients: in float32 compute the kernel path against the plain path
+    on the card, every leaf within 1e-4 of its largest magnitude; in bf16
+    the card against the CPU, the loss and the global gradient norm
+    within 2e-2."""
+    base = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=STEP_CHECK["n_layers"])
+    batch = TokenPipeline(DataConfig(
+        vocab=base.vocab, seq_len=STEP_CHECK["seq"],
+        global_batch=STEP_CHECK["batch"], seed=5), device=device).batch_at(0)
+    out = {}
+    # one draw of the float32 parameters (compute_dtype does not change
+    # them), on the host and copied to the card
+    host = init_train_state(base, torch.Generator().manual_seed(0),
+                            "cpu")[0]
+    params = {"cpu": host, device: copy.deepcopy(host).to(device)}
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    fa_kernel.reset_launches()
+    loss_k, grads_k = loss_and_grads(cfg, params[device], batch,
+                                     TRAIN_FLAGS)
+    sync(device)
+    launches = dict(fa_kernel.LAUNCHES)
+    with plain_chunked_attention():
+        loss_p, grads_p = loss_and_grads(cfg, params[device], batch,
+                                         TRAIN_FLAGS)
+    if torch.device(device).type == "cuda":
+        n = cfg.n_layers
+        require(launches["flash_attention_f32"] == 2 * n and all(
+            launches[x] == n for x in BWD_KERNELS), f"step check float32: "
+            f"launches {launches}, want {2 * n} forward (one recomputed) "
+            f"and {n} of each backward kernel")
+    worst = max(rel_err(grads_k[k], grads_p[k]) for k in grads_p)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    require(worst <= STEP_F32_TOL and loss_err <= STEP_F32_TOL,
+            f"step check float32: kernel vs plain path loss {loss_err}, "
+            f"worst leaf {worst} > {STEP_F32_TOL}")
+    out["float32"] = {"loss_rel_err": loss_err, "worst_leaf": worst,
+                      "launches": launches}
+    log(f"train step, float32, 2 layers ({on_card(device)}): loss "
+        f"{float(loss_k):.6f}, kernel vs plain path loss {loss_err:.3g}, "
+        f"worst gradient leaf {worst:.3g} of its largest magnitude (limit "
+        f"{STEP_F32_TOL}); launches {launches}")
+    del grads_k, grads_p
+    # bf16: the card against the CPU, the same host-drawn weights
+    runs = {}
+    for dev in (device, "cpu"):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads = loss_and_grads(base, params[dev], b, TRAIN_FLAGS)
+        runs[dev] = (float(loss), float(opt.global_norm(grads.values())))
+        del grads
+    del params
+    (lc, gc_), (lp, gp) = runs[device], runs["cpu"]
+    errs = (abs(lc - lp) / abs(lp), abs(gc_ - gp) / abs(gp))
+    require(max(errs) <= STEP_BF16_TOL, f"step check bf16: card vs CPU "
+            f"loss {errs[0]}, gradient norm {errs[1]} > {STEP_BF16_TOL}")
+    out["bf16"] = {"loss": runs, "loss_rel_err": errs[0],
+                   "grad_norm_rel_err": errs[1]}
+    log(f"train step, bf16, 2 layers: card ({on_card(device)}) loss {lc:.5f}"
+        f" grad norm {gc_:.5f}, CPU loss {lp:.5f} grad norm {gp:.5f}: "
+        f"{errs[0]:.3g}, {errs[1]:.3g} (limit {STEP_BF16_TOL})")
+    return out
+
+
+def step_split(trainer, batch, wall_ms: float) -> dict:
+    """Where one training step's device time goes (torch.profiler):
+    attention forward (the flash kernel, recompute included), attention
+    backward (the three backward kernels), matrix products and the rest;
+    its busy share against the median step's wall time."""
+    def step():
+        trainer.params, trainer.opt_state, _ = trainer.step_fn(
+            trainer.params, trainer.opt_state, batch)
+    dev_ms, kernels, count = device_time([step])
+    gemm_tags = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+    split = {"attention_fwd": 0.0, "attention_bwd": 0.0, "matmul": 0.0,
+             "other": 0.0}
+    for name, us in kernels.items():
+        low = name.lower()
+        part = ("attention_bwd" if "flash_bwd" in name else
+                "attention_fwd" if ("flash_mma_kernel" in name
+                                    or "flash_fwd_kernel" in name) else
+                "matmul" if any(t in low for t in gemm_tags) else "other")
+        split[part] += us / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": dev_ms, "device_ms_by_part": split,
+            "busy_share": None if dev_ms is None else dev_ms / wall_ms,
+            "device_ops": count, "top_device_us": {k[:60]: v for k, v in top}}
+
+
+def trainer_phase(device="cuda") -> dict:
+    """(c): the Trainer on Qwen1.5-0.5B at full width and depth: 6 steps
+    from the pipeline with a checkpoint after step 3, the main path (the
+    launch counters are zeroed just before it and read just after: 48
+    forward launches a step, 24 of each backward kernel); the same Trainer
+    then takes 8 steps on one repeated batch, which must lower the loss by
+    more than 0.5, and one more step, profiled; a fresh Trainer restored
+    from the checkpoint runs steps 4-6 with the same losses bit for
+    bit."""
+    cfg = get_config(TRAIN_ARCH)
+    card = on_card(device)
+    ocfg = opt.AdamWConfig(**TRAIN_OPT)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    on_gpu = torch.device(device).type == "cuda"
+    n_attn = cfg.n_layers
+    out, parts = {}, {}
+
+    def trainer(steps):
+        return Trainer(cfg, ocfg, dcfg, TrainConfig(
+            steps=steps, ckpt_every=TRAIN_CKPT, ckpt_dir=tmp),
+            flags=TRAIN_FLAGS, seed=0, device=device)
+
+    def lap(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+    try:
+        if on_gpu:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        a = trainer(TRAIN_STEPS)
+        t0 = lap("set-up", t0)
+        # 6 steps through the pipeline, a checkpoint after step 3 (the only
+        # save kept: a save of the 620 M parameters and both moments is
+        # 7.4 GB)
+        save = a.checkpointer.save_async
+        a.checkpointer.save_async = lambda step, tree, **kw: (
+            save(step, tree, **kw) if step == TRAIN_CKPT else None)
+        fa_kernel.reset_launches()
+        hist_a = a.train(TRAIN_STEPS)
+        run_s = time.perf_counter() - t0
+        launches = dict(fa_kernel.LAUNCHES)
+        t0 = lap("pipeline run", t0)
+        if on_gpu:
+            want = {"flash_attention": 2 * n_attn * TRAIN_STEPS,
+                    **{k: n_attn * TRAIN_STEPS for k in BWD_KERNELS}}
+            require(all(launches[k] == n for k, n in want.items()),
+                    f"trainer: launches {launches}, want {want}")
+        log(f"trainer ({card}): 6 steps through the pipeline "
+            f"{[round(h['loss'], 4) for h in hist_a]} in {run_s:.1f} s "
+            f"(a checkpoint after step {TRAIN_CKPT}); launches {launches}")
+        # then 8 steps on one repeated batch
+        batch = a.pipeline.batch_at(0)
+        losses, times = [], []
+        fa_kernel.reset_launches()
+        for _ in range(TRAIN_REPEAT):
+            sync(device)
+            t1 = time.perf_counter()
+            a.params, a.opt_state, stats = a.step_fn(a.params, a.opt_state,
+                                                     batch)
+            losses.append(float(stats["loss"]))
+            times.append(time.perf_counter() - t1)
+        repeat_launches = dict(fa_kernel.LAUNCHES)
+        require(all(np.isfinite(losses)) and
+                losses[-1] < losses[0] - TRAIN_DROP,
+                f"trainer: 8 steps on one batch lowered the loss from "
+                f"{losses[0]} to {losses[-1]}, not by {TRAIN_DROP}")
+        step_ms = float(np.median(times[1:])) * 1e3
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        peak = memory_gib(device, peak=True)
+        t0 = lap("repeated batch", t0)
+        split = step_split(a, batch, step_ms) if on_gpu else {}
+        t0 = lap("profiled step", t0)
+        out["repeated_batch"] = {
+            "losses": losses, "step_ms": times, "median_step_ms": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gib": peak,
+            "init_s": parts["set-up"], "launches": repeat_launches, **split}
+        log(f"trainer ({card}): Qwen1.5-0.5B, {cfg.n_layers} layers, batch "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_FLAGS.attn_impl} attention,"
+            f" remat {TRAIN_FLAGS.remat}, chunked CE {TRAIN_FLAGS.ce_chunk}: "
+            f"losses on one repeated batch after the pipeline run "
+            f"{[round(x, 4) for x in losses]}; median step {step_ms:.1f} ms,"
+            f" {tokens / step_ms * 1e3:,.0f} tokens/s, peak {peak} GiB, "
+            f"set-up {parts['set-up']:.1f} s; launches {repeat_launches}")
+        if split and split["device_ms"] is None:
+            log(f"trainer step split ({card}): not measured (the profiler "
+                "kept no record of the step)")
+        elif split:
+            log(f"trainer step split ({card}): device "
+                f"{split['device_ms']:.1f} ms of a {step_ms:.1f} ms step "
+                f"(busy {split['busy_share']:.3f}), "
+                + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                            split["device_ms_by_part"].items())
+                + f"; {split['device_ops']} device activities; top "
+                f"{split['top_device_us']}")
+        del a, batch, stats
+        gc.collect()
+        if on_gpu:
+            torch.cuda.empty_cache()
+        # a fresh Trainer restored from the checkpoint runs steps 4-6
+        b = trainer(TRAIN_STEPS)
+        b.checkpointer.save_async = lambda *a_, **kw: None
+        require(b.maybe_restore() and b.step == TRAIN_CKPT
+                and b.pipeline.index == TRAIN_CKPT,
+                f"trainer: restore gave step {b.step}, offset "
+                f"{b.pipeline.index}")
+        t0 = lap("restore", t0)
+        hist_b = b.train(TRAIN_STEPS)
+        t0 = lap("resumed run", t0)
+        full = [h["loss"] for h in hist_a[TRAIN_CKPT:]]
+        resumed = [h["loss"] for h in hist_b]
+        require(full == resumed, f"trainer: resumed losses {resumed} differ "
+                f"from the uninterrupted run's {full}")
+        del b
+        out["resume"] = {"losses": [h["loss"] for h in hist_a],
+                         "resumed": resumed, "run_s": run_s,
+                         "launches": launches,
+                         "stragglers": [h["straggler"] for h in hist_a]}
+        out["parts_s"] = parts
+        log(f"trainer ({card}): restored at step {TRAIN_CKPT} and resumed: "
+            f"steps 4-6 {resumed} == the uninterrupted run's, bit for bit; "
+            "(c) took " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                     parts.items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        if on_gpu:
+            torch.cuda.empty_cache()
+    return out
+
+
+def training_phase() -> tuple:
+    """Phase 22's (b) and (c) ((a) runs with the other kernel checks);
+    returns (run record, the main path's launches)."""
+    t0 = time.perf_counter()
+    steps = step_checks()
+    t1 = time.perf_counter()
+    run = trainer_phase()
+    t2 = time.perf_counter()
+    log(f"training: phase 22's (b) took {t1 - t0:.1f} s, (c) "
+        f"{t2 - t1:.1f} s")
+    return {"step_checks": steps, **run}, run["resume"]["launches"]
 
 
 def on_card(device) -> str:
@@ -5086,21 +5715,22 @@ def smi() -> str:
 
 def build_kernels(phases) -> None:
     """The kernel sources the phases run, built at once, one nvcc each
-    (all three for a whole run)."""
+    (all four for a whole run)."""
     t0 = time.perf_counter()
-    kernels = [(src, k) for src, k, uses in (
-        (KV_SRC, kv_kernel, (*range(2, 10), 14, 15, 16, 17, 19)),
-        (FA_SRC, fa_kernel, (10, 11, 18, 20, 21)),
-        (SSD_SRC, ssd_kernel, (12, 13, 20))) if set(uses) & phases]
+    kernels = [(src, build) for src, build, uses in (
+        (KV_SRC, kv_kernel.build, (*range(2, 10), 14, 15, 16, 17, 19)),
+        (FA_SRC, fa_kernel.build, (10, 11, 18, 20, 21, 22)),
+        (FA_BWD_SRC, fa_kernel.build_bwd, (22,)),
+        (SSD_SRC, ssd_kernel.build, (12, 13, 20))) if set(uses) & phases]
     with concurrent.futures.ThreadPoolExecutor(max(len(kernels), 1)) as pool:
-        builds = [pool.submit(k.build) for _, k in kernels]
+        builds = [pool.submit(build) for _, build in kernels]
         for b in builds:
             b.result()
     log(f"built {', '.join(src for src, _ in kernels) or 'nothing'} for "
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(1, 22))
+ALL_PHASES = tuple(range(1, 23))
 
 
 def parse_phases(argv) -> set:
@@ -5150,6 +5780,10 @@ def main(argv=None) -> None:
         kernels.update(check_flash_attention())
     if 12 in phases:
         kernels.update(check_ssd_scan())
+    if 22 in phases:
+        # phase 22 (a), timed here with the other kernel checks: late in a
+        # long run the profiler keeps no record of a short window
+        kernels.update(check_flash_backward())
     floor = launch_floor_ms()
     card = smi()
     us = lambda ms: "n/a" if ms is None else f"{ms * 1e3:.2f} us"
@@ -5161,6 +5795,8 @@ def main(argv=None) -> None:
         return f"not measured (event time {us(rec[f'{key}ms'])})"
 
     for name, rec in kernels.items():
+        if "call_ms" not in rec:    # phase 22's records print their own
+            continue
         log(f"{name} ({card}): equals its plain version; device time per "
             f"call {dev_us(rec, '')} (plain {dev_us(rec, 'plain_')}, library "
             f"{dev_us(rec, 'library_')}); event-timed call "
@@ -5255,6 +5891,10 @@ def main(argv=None) -> None:
             add_launches(rec["launches"])
             log(f"{key}_serving: phase 21's run took "
                 f"{time.perf_counter() - t0:.1f} s")
+    if 22 in phases:
+        run["training"], counts = training_phase()
+        add_launches({"flash_attention_lse": counts["flash_attention"],
+                      **{k: counts[k] for k in BWD_KERNELS}})
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

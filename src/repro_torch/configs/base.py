@@ -93,6 +93,12 @@ class ArchConfig:
         return self.d_inner // self.ssm_headdim
 
     @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing (SSM/hybrid): long_500k
+        eligibility (``shapes.applicable``)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def n_experts_padded(self) -> int:
         return self.n_experts + self.expert_pad
 

@@ -7,7 +7,9 @@ control plane's host state, and transactions and their results.  For
 the models it is a parameter tree: ``lm_params_from`` builds the port's
 from the reference's ``init_lm`` pytree and ``encdec_params_from`` from
 its ``init_encdec`` pytree; ``lm_params_to_numpy`` and
-``encdec_params_to_numpy`` turn them back.  These functions take any NamedTuple-like object whose fields
+``encdec_params_to_numpy`` turn them back; ``adamw_state_from`` and
+``adamw_state_to_numpy`` do the same for the AdamW state, whose moments
+are trees like the parameters'.  These functions take any NamedTuple-like object whose fields
 hold array-likes (the JAX package's pytrees after ``np.asarray``, or
 numpy arrays) and build the port's structure on a given device, field by
 field by name; ``to_numpy`` turns the port's structures back into numpy
@@ -270,3 +272,43 @@ def encdec_params_to_numpy(params) -> dict:
     """The reference's ``init_encdec`` layout (both layer stacks on
     ``[L, ...]``) with numpy leaves, from the port's tree."""
     return _stacks_to_numpy(params, ("enc_layers", "dec_layers"))
+
+
+def _tree_from(cfg):
+    return encdec_params_from if cfg.family == "encdec" else lm_params_from
+
+
+def adamw_state_from(state, cfg, device="cuda"):
+    """The port's ``optimizer.AdamWState`` from the reference's (numpy
+    leaves): ``mu`` and ``nu`` split into blocks as the parameters are
+    (``lm_params_from``/``encdec_params_from``) and keyed by the port's
+    parameter names."""
+    from repro_torch.train.optimizer import AdamWState
+
+    dev = resolve_device(device)
+
+    def named(tree) -> dict:
+        return {k: p.detach() for k, p in
+                _tree_from(cfg)(tree, cfg, dev).named_parameters()}
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        mu=named(state.mu), nu=named(state.nu))
+
+
+def adamw_state_to_numpy(state, params, cfg) -> dict:
+    """``{"step", "mu", "nu"}`` in the reference's layout with numpy
+    leaves, from the port's AdamW state of the parameter tree
+    ``params``."""
+    from repro_torch.train.checkpoint import _unflatten
+
+    to_numpy = (encdec_params_to_numpy if cfg.family == "encdec"
+                else lm_params_to_numpy)
+
+    def tree(values: dict) -> dict:
+        names = [k for k, _ in params.named_parameters()]
+        return to_numpy(_unflatten(params, (values[k] for k in names)))
+
+    return {"step": np.asarray(state.step.cpu(), dtype=np.int32),
+            "mu": tree(state.mu), "nu": tree(state.nu)}

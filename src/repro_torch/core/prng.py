@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import I32, resolve_device
@@ -116,6 +117,17 @@ def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
     """``jax.random.uniform`` in float32 over [0, 1) (the default range;
     other ranges are not ported: XLA may fuse their scaling into an FMA)."""
     return bits_to_uniform(random_bits(key, shape))
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal`` in float32: the same uniform on
+    ``(nextafter(-1, 0), 1)`` mapped through ``sqrt(2) erfinv``.  The two
+    ``erfinv`` differ (XLA's float32 one strays in the tails), so the
+    results agree to 1e-6 below |x| = 2.5 and to some 5e-6 of the value
+    beyond, not bit for bit."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = bits_to_uniform(random_bits(key, shape)) * (1.0 - lo) + lo
+    return math.sqrt(2.0) * torch.erfinv(u.clamp_min(lo))
 
 
 def bits_to_randint(higher: torch.Tensor, lower: torch.Tensor, minval: int,

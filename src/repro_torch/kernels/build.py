@@ -9,6 +9,14 @@ build holds an exclusive ``flock`` on ``build/<name>.lock``, so ranks
 started at once build a library once and load it (the kernel frees the
 lock if its holder dies).  Nothing here runs at import: the CPU tests
 import every kernel module.
+
+``refuse_grad`` is the kernels' autograd guard: a kernel launched through
+``ctypes`` writes into a tensor with no ``grad_fn``, so a wrapper handed
+an input that requires grad under grad mode raises rather than return an
+output that silently drops the gradient (the reference's ``jax.grad``
+cannot transpose a ``pallas_call`` either).  The one way into a kernel
+under grad is an ``autograd.Function`` whose backward is a kernel too
+(``flash_attention/ops.py::ChunkedAttention``).
 """
 from __future__ import annotations
 
@@ -23,8 +31,20 @@ import tempfile
 import threading
 from typing import Callable
 
+import torch
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no "
+            "backward (nor has the reference's pallas_call): call it under "
+            "torch.no_grad(), or train through impl='chunked'")
 
 
 def nvcc() -> str:

@@ -7,6 +7,14 @@
 // multiple of 8, and 16-byte-aligned bases and row strides to the
 // tensor-core kernel below and everything else to the f32 kernel after it.
 //
+// Both also serve training (kernel.py::flash_attention_lse, the forward of
+// ops.py::ChunkedAttention, whose backward is flash_attention_bwd.cu): an
+// optional f32 lse [B, HQ, S] output, each row's log-sum-exp of its scaled
+// scores (a null pointer writes nothing, as serving passes), and a causal
+// diagonal offset, k_pos <= q_pos + offset, with the causal k-tile count
+// bounded to match (serving passes 0: the top-left mask below; training
+// SK - S, the reference's chunked_attention aligning it bottom-right).
+//
 // ---------------------------------------------------------------------------
 // The bf16 route: flash_mma_kernel (entry point flash_attention_mma_launch).
 //
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, T* __restrict__ o, int B,
                      int HQ, int HKV, int S, int SK, int D, Strides sq,
                      Strides sk, Strides sv, Strides so, float scale,
-                     int causal) {
+                     int causal, int offset, float* __restrict__ lse) {
   constexpr int LDQ = DP + 4;   // Q/K row stride: conflict-free float4 reads
   constexpr int LDP = TK + 4;
   constexpr int NG = DP / 64;   // float4 output column groups per thread
@@ -216,7 +224,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int n_kt = (SK + TK - 1) / TK;
-  if (causal) n_kt = min(n_kt, (q0 + TQ - 1) / TK + 1);   // skip above diag
+  if (causal) {   // skip the tiles above the diagonal k_pos = q_pos + offset
+    const int last = q0 + TQ - 1 + offset;
+    n_kt = min(n_kt, last < 0 ? 0 : last / TK + 1);
+  }
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * TK;
     __syncthreads();   // Q staged; the previous tile's reads are done
@@ -260,7 +271,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = k0 + tx + 16 * j;
-        const bool ok = k_pos < SK && (!causal || k_pos <= q_pos);
+        const bool ok = k_pos < SK && (!causal || k_pos <= q_pos + offset);
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -323,6 +334,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
+    if (lse != nullptr && tx == 0)   // the reference's m + log(max(l, 1e-37))
+      lse[(long long)bh * S + row] = m[i] + logf(fmaxf(l[i], 1e-37f));
     const float li = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -337,8 +350,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int HQ, int HKV, int S, int SK, int D, Strides sq, Strides sk,
-           Strides sv, Strides so, float scale, int causal,
-           cudaStream_t stream) {
+           Strides sv, Strides so, float scale, int causal, int offset,
+           float* lse, cudaStream_t stream) {
   constexpr int smem = (TQ * (DP + 4) + TK * (DP + 4) + TK * DP +
                         TQ * (TK + 4)) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -349,36 +362,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_fwd_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), B, HQ, HKV, S, SK, D, sq,
-      sk, sv, so, scale, causal);
+      sk, sv, so, scale, causal, offset, lse);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int HQ, int HKV, int S, int SK, int D, Strides sq, Strides sk,
-             Strides sv, Strides so, float scale, int causal,
-             cudaStream_t stream) {
+             Strides sv, Strides so, float scale, int causal, int offset,
+             float* lse, cudaStream_t stream) {
   if (D <= 64)
     return launch<T, 64>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk, sv, so,
-                         scale, causal, stream);
+                         scale, causal, offset, lse, stream);
   if (D <= 128)
     return launch<T, 128>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk, sv, so,
-                          scale, causal, stream);
+                          scale, causal, offset, lse, stream);
   return launch<T, 256>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk, sv, so,
-                        scale, causal, stream);
+                        scale, causal, offset, lse, stream);
 }
 
 }  // namespace
 
 // is_bf16: 1 for bf16 tensors, 0 for f32.  Strides are in elements, per
 // tensor (batch, head, row); the last dimension is contiguous.  D <= 256,
-// HQ a multiple of HKV, SK >= 1.
+// HQ a multiple of HKV, SK >= 1.  Causal: k_pos <= q_pos + offset.  lse:
+// null, or f32 [B, HQ, S] for each row's log-sum-exp of its scaled scores.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
     int HQ, int HKV, int S, int SK, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int causal, void* stream) {
+    long long o_sh, long long o_ss, float scale, int causal, int offset,
+    void* lse, void* stream) {
   if (D < 1 || D > 256 || HKV < 1 || HQ % HKV != 0 || SK < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * HQ * S == 0) return (int)cudaGetLastError();
@@ -387,9 +402,10 @@ extern "C" int flash_attention_launch(
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return dispatch<__nv_bfloat16>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk,
-                                   sv, so, scale, causal, s);
+                                   sv, so, scale, causal, offset,
+                                   static_cast<float*>(lse), s);
   return dispatch<float>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk, sv, so,
-                         scale, causal, s);
+                         scale, causal, offset, static_cast<float*>(lse), s);
 }
 
 // ---------------------------------------------------------------------------
@@ -584,7 +600,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
                      const __grid_constant__ CUtensorMap tv,
                      __nv_bfloat16* __restrict__ o, int B, int HQ, int HKV,
                      int S, int SK, int D, OutStrides so, float scale_log2,
-                     int causal) {
+                     int causal, int offset, float* __restrict__ lse) {
   constexpr int NB = DP / 64;           // 64-column boxes per row
   constexpr int kTile = NB * kBox;      // one Q, K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -605,7 +621,10 @@ __global__ void __launch_bounds__(kThreads, MINB)
   const int hk = h / (HQ / HKV);
   const int q0 = qt * kRows;
   int n_kt = (SK + kKeys - 1) / kKeys;
-  if (causal) n_kt = min(n_kt, qt + 1);   // q0 + 63 < (qt + 1) * 64
+  if (causal) {   // offset 0: qt + 1 tiles, as q0 + 63 < (qt + 1) * 64
+    const int last = q0 + kRows - 1 + offset;
+    n_kt = min(n_kt, last < 0 ? 0 : last / kKeys + 1);
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
@@ -665,12 +684,12 @@ __global__ void __launch_bounds__(kThreads, MINB)
 
     // mask the diagonal tile and the tile that holds SK
     const int k0 = kt * kKeys;
-    if (k0 + kKeys > SK || (causal && k0 + kKeys - 1 > q0)) {
+    if (k0 + kKeys > SK || (causal && k0 + kKeys - 1 > q0 + offset)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
         const int row = q0 + r0 + 8 * ((i / 2) & 1);
-        if (col >= SK || (causal && col > row)) sc[i] = kNegInf;
+        if (col >= SK || (causal && col > row + offset)) sc[i] = kNegInf;
       }
     }
 
@@ -725,6 +744,10 @@ __global__ void __launch_bounds__(kThreads, MINB)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // the row's natural log-sum-exp: m is the log2-domain running max
+    if (lse != nullptr && t == 0 && q0 + r0 + 8 * r < S)
+      lse[(long long)bh * S + q0 + r0 + 8 * r] =
+          m[r] * 0.6931471805599453f + logf(fmaxf(l[r], 1e-37f));
     l[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
   }
   __nv_bfloat16* oh = o + b * so.b + h * so.h;
@@ -791,7 +814,8 @@ CUresult tensor_map(CUtensorMap* map, EncodeTiled fn, const void* ptr, int B,
 template <int DP, int ST, int MINB>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            void* o, int B, int HQ, int HKV, int S, int SK, int D,
-           OutStrides so, float scale_log2, int causal, cudaStream_t stream) {
+           OutStrides so, float scale_log2, int causal, int offset,
+           float* lse, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DP, ST>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<DP, ST, MINB>,
@@ -800,7 +824,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   const long long blocks = (long long)((S + kRows - 1) / kRows) * B * HQ;
   flash_mma_kernel<DP, ST, MINB><<<(unsigned)blocks, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, HQ, HKV, S, SK, D, so,
-      scale_log2, causal);
+      scale_log2, causal, offset, lse);
   return (int)cudaGetLastError();
 }
 
@@ -812,13 +836,15 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 
 // bf16 q/k/v/o; D <= 128, a multiple of 8; bases 16-byte aligned; strides
 // in elements (batch, head, row), multiples of 8, the last dimension
-// contiguous; HQ a multiple of HKV, SK >= 1.
+// contiguous; HQ a multiple of HKV, SK >= 1.  Causal, offset and lse as
+// flash_attention_launch's.
 extern "C" int flash_attention_mma_launch(
     const void* q, const void* k, const void* v, void* o, int B, int HQ,
     int HKV, int S, int SK, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int causal, void* stream) {
+    long long o_sh, long long o_ss, float scale, int causal, int offset,
+    void* lse, void* stream) {
   if (D < 8 || D > 128 || D % 8 != 0 || HKV < 1 || HQ % HKV != 0 || SK < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * HQ * S == 0) return (int)cudaGetLastError();
@@ -837,7 +863,9 @@ extern "C" int flash_attention_mma_launch(
   cudaStream_t s = (cudaStream_t)stream;
   if (D <= 64)
     return mma::launch<64, 3, 3>(tq, tk, tv, o, B, HQ, HKV, S, SK, D, so,
-                                 scale_log2, causal, s);
+                                 scale_log2, causal, offset,
+                                 static_cast<float*>(lse), s);
   return mma::launch<128, 2, 2>(tq, tk, tv, o, B, HQ, HKV, S, SK, D, so,
-                                scale_log2, causal, s);
+                                scale_log2, causal, offset,
+                                static_cast<float*>(lse), s);
 }

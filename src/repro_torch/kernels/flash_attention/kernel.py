@@ -27,9 +27,31 @@ The CUDA source is compiled at first use into a shared library with a
 plain C interface, loaded with ``ctypes`` (``repro_torch.kernels.build``:
 ``build/libflash_attention_<hash>.so`` beside this file).
 
-``LAUNCHES`` counts kernel launches: ``"flash_attention"`` every launch,
-``"flash_attention_mma"`` and ``"flash_attention_f32"`` those of each
-route; only a launch of a CUDA kernel adds to them.
+``flash_attention_lse`` is the same forward on the same two routes with
+two additions the training path needs: each row's log-sum-exp of its
+scaled scores, float32 ``[B, HQ, S]``, and a causal mask ``k_pos <= q_pos
++ SK - S`` (aligned bottom-right as in the reference's
+``chunked_attention``; the kernels take the diagonal offset, which
+``flash_attention`` sets to 0).  On the CPU it runs ``ref.chunked_fwd``,
+the reference's blockwise forward.  On a card a
+causal call with ``S > SK`` raises: its first rows see no key, where the
+reference's finite ``-1e30`` gives them the mean of V over a padded block.
+``flash_attention_bwd`` is its backward, dq, dk, dv from ``(q, k, v, o,
+lse, dO)``: three launches of ``csrc/flash_attention_bwd.cu`` (delta =
+rowsum(dO o), then dk/dv, then dq; f32 math, no atomics, ``D <= 128``) on
+a card, ``ref.chunked_bwd`` on the CPU.  ``ops.ChunkedAttention`` ties the
+two into an autograd function.
+
+Every wrapper raises a ``RuntimeError`` when grad mode is on and an input
+requires grad (``build.refuse_grad``): the kernels write outputs with no
+``grad_fn``, so the only way into them under grad is
+``ops.ChunkedAttention``, whose backward is the backward kernels.
+
+``LAUNCHES`` counts kernel launches: ``"flash_attention"`` every forward
+launch, ``"flash_attention_mma"`` and ``"flash_attention_f32"`` those of
+each route, ``"flash_bwd_delta"``, ``"flash_bwd_dkdv"`` and
+``"flash_bwd_dq"`` each backward kernel's; only a launch of a CUDA kernel
+adds to them.
 """
 from __future__ import annotations
 
@@ -38,13 +60,15 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import CudaLibrary, refuse_grad
 from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_mma": 0,
-            "flash_attention_f32": 0}
+            "flash_attention_f32": 0, "flash_bwd_delta": 0,
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 128       # the tensor-core kernel's widest build
+BWD_MAX_HEAD_DIM = 128       # the backward kernels' widest build
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -56,17 +80,32 @@ def reset_launches() -> None:
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_launch.argtypes = (
-        [p] * 4 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, p])
+        [p] * 4 + [i] * 7 + [ll] * 12 + [ctypes.c_float, i, i, p, p])
     lib.flash_attention_launch.restype = i
     lib.flash_attention_mma_launch.argtypes = (
-        [p] * 4 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, p])
+        [p] * 4 + [i] * 6 + [ll] * 12 + [ctypes.c_float, i, i, p, p])
     lib.flash_attention_mma_launch.restype = i
 
 
-_LIBRARY = CudaLibrary(
-    pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    "flash_attention", _declare)
+def _declare_bwd(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flash_bwd_delta_launch.argtypes = [p] * 3 + [i] * 5 + [ll] * 6 + [p]
+    lib.flash_bwd_delta_launch.restype = i
+    lib.flash_bwd_dkdv_launch.argtypes = (
+        [p] * 8 + [i] * 7 + [p, ctypes.c_float, i, i, p])
+    lib.flash_bwd_dkdv_launch.restype = i
+    lib.flash_bwd_dq_launch.argtypes = (
+        [p] * 7 + [i] * 7 + [p, ctypes.c_float, i, i, p])
+    lib.flash_bwd_dq_launch.restype = i
+
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+_LIBRARY = CudaLibrary(_CSRC / "flash_attention.cu", "flash_attention",
+                       _declare)
+_BWD_LIBRARY = CudaLibrary(_CSRC / "flash_attention_bwd.cu",
+                           "flash_attention_bwd", _declare_bwd)
 build = _LIBRARY.build
+build_bwd = _BWD_LIBRARY.build
 
 
 def _check(q, k, v) -> None:
@@ -109,36 +148,150 @@ def route(q, k, v) -> str:
     return "mma"
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None):
-    """GQA attention, forward, causal (aligned top-left) unless
-    ``causal=False``; see ``ref.py`` for the function.  Returns ``[B, HQ, S, D]`` in q's dtype."""
-    _check(q, k, v)
+def _scale(D: int, scale) -> float:
+    return (D ** -0.5) if scale is None else scale
+
+
+def _forward(q, k, v, causal: bool, scale: float, offset: int, lse):
+    """One launch of the route ``route`` picks; ``lse``: None, or the
+    float32 ``[B, HQ, S]`` tensor the kernel writes."""
     dev = q.device
-    if dev.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
     B, HQ, S, D = q.shape
     HKV, SK = k.shape[1], k.shape[2]
-    scale = (D ** -0.5) if scale is None else scale
     o = torch.empty_like(q)
     strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
     path = route(q, k, v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    tail = (float(scale), int(causal), int(offset),
+            None if lse is None else lse.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _LIBRARY.lib()
         if path == "mma":
             rc = lib.flash_attention_mma_launch(
-                *ptrs, B, HQ, HKV, S, SK, D, *strides, float(scale),
-                int(causal), stream)
+                *ptrs, B, HQ, HKV, S, SK, D, *strides, *tail, stream)
         else:
             rc = lib.flash_attention_launch(
                 *ptrs, int(q.dtype == torch.bfloat16), B, HQ, HKV, S, SK, D,
-                *strides, float(scale), int(causal), stream)
+                *strides, *tail, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention ({path} route) launch failed: "
                            f"error {rc}")
     LAUNCHES["flash_attention"] += 1
     LAUNCHES[f"flash_attention_{path}"] += 1
     return o
+
+
+def _cuda(name: str, dev) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """GQA attention, forward, causal (aligned top-left) unless
+    ``causal=False``; see ``ref.py`` for the function.  Returns ``[B, HQ, S, D]`` in q's dtype."""
+    refuse_grad("flash_attention", q, k, v)
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    _cuda("flash_attention", q.device)
+    return _forward(q, k, v, causal, _scale(q.shape[3], scale), 0, None)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None,
+                        blocks=None):
+    """The forward with each row's log-sum-exp: ``(o [B, HQ, S, D]`` in
+    q's dtype, ``lse [B, HQ, S]`` float32), causal as ``k_pos <= q_pos +
+    SK - S``.  ``blocks``: the ``(q, k)`` blocks of the CPU's plain
+    version (default ``ref.default_blocks``)."""
+    refuse_grad("flash_attention_lse", q, k, v)
+    _check(q, k, v)
+    B, HQ, S, D = q.shape
+    SK = k.shape[2]
+    scale = _scale(D, scale)
+    if q.device.type == "cpu":
+        qc, kc = blocks or ref.default_blocks(S, SK)
+        return ref.chunked_fwd(q, k, v, causal=causal, scale=scale,
+                               q_chunk=qc, k_chunk=kc)
+    _cuda("flash_attention_lse", q.device)
+    if causal and S > SK:
+        raise ValueError(
+            f"flash_attention_lse: causal with S = {S} > SK = {SK} leaves "
+            "the first rows no key; the reference's finite -1e30 gives "
+            "them the mean of V over a padded block, which the kernel does "
+            "not compute")
+    lse = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, scale, SK - S, lse), lse
+
+
+def _check_bwd(q, k, v, o, lse, do) -> None:
+    _check(q, k, v)
+    B, HQ, S, D = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if tuple(x.shape) != tuple(q.shape) or x.dtype != q.dtype or \
+                x.device != q.device:
+            raise ValueError(f"{name}: expected {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+        if x.stride(3) != 1 and D > 1:
+            raise ValueError(f"{name}: the last dimension must be "
+                             "contiguous")
+    if tuple(lse.shape) != (B, HQ, S) or lse.dtype != torch.float32 or \
+            lse.device != q.device:
+        raise ValueError(f"lse: expected float32 {(B, HQ, S)} on "
+                         f"{q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        scale=None, blocks=None):
+    """The backward of ``flash_attention_lse``: ``(dq, dk, dv)`` in the
+    inputs' dtypes and layouts from q, k, v, the forward's ``o`` and
+    ``lse`` and the output's gradient ``do`` (q's shape, the last
+    dimension contiguous); ``blocks`` as the forward's."""
+    refuse_grad("flash_attention_bwd", q, k, v, o, lse, do)
+    _check_bwd(q, k, v, o, lse, do)
+    B, HQ, S, D = q.shape
+    HKV, SK = k.shape[1], k.shape[2]
+    scale = _scale(D, scale)
+    if q.device.type == "cpu":
+        qc, kc = blocks or ref.default_blocks(S, SK)
+        return ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                               scale=scale, q_chunk=qc, k_chunk=kc)
+    _cuda("flash_attention_bwd", q.device)
+    if D > BWD_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: head dim {D} > "
+                         f"{BWD_MAX_HEAD_DIM}")
+    if causal and S > SK:
+        raise ValueError(f"flash_attention_bwd: causal with S = {S} > SK = "
+                         f"{SK}, as flash_attention_lse")
+    lse = lse.contiguous()
+    delta = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    strides = (ctypes.c_longlong * 21)(*[
+        s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]])
+    tail = (ctypes.cast(strides, ctypes.c_void_p), float(scale), int(causal),
+            SK - S)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        lib = _BWD_LIBRARY.lib()
+        for name, launch in (
+                ("flash_bwd_delta", lambda: lib.flash_bwd_delta_launch(
+                    o.data_ptr(), do.data_ptr(), delta.data_ptr(), is_bf16,
+                    B, HQ, S, D, *o.stride()[:3], *do.stride()[:3],
+                    stream)),
+                ("flash_bwd_dkdv", lambda: lib.flash_bwd_dkdv_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), is_bf16, B, HQ, HKV, S, SK, D, *tail,
+                    stream)),
+                ("flash_bwd_dq", lambda: lib.flash_bwd_dq_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), is_bf16,
+                    B, HQ, HKV, S, SK, D, *tail, stream))):
+            rc = launch()
+            if rc != 0:
+                raise RuntimeError(f"{name} launch failed: error {rc}")
+            LAUNCHES[name] += 1
+    return dq, dk, dv

@@ -1,30 +1,74 @@
 """Attention entry point of the port (the reference's ``ops.py::mha``).
 
   impl="naive"   - dense softmax (``ref.attention_ref``), the oracle
+  impl="chunked" - the reference's training attention
+                   (``chunked_attention``): an online softmax that keeps
+                   each row's log-sum-exp and a backward that recomputes
+                   the probabilities from ``(q, k, v, o, lse)``, O(S)
+                   residuals; ``ChunkedAttention``, an autograd function,
+                   on CUDA the flash_attention kernel with its lse output
+                   and the three backward kernels, on the CPU their plain
+                   versions (``ref.chunked_fwd``, ``ref.chunked_bwd``)
   impl="pallas"  - the flash_attention kernel (``kernel.flash_attention``;
                    the name is the reference's, whose kernel is Pallas):
                    on CUDA one of the two hand-written kernels (bf16 on
                    the tensor cores, the rest in f32; ``kernel.route``),
-                   on the CPU their plain version
-  impl="chunked" - the reference's online softmax in XLA with its custom
-                   VJP, the training path: it comes with the training slice
+                   on the CPU their plain version; it has no backward, and
+                   under grad an input that requires grad raises
 
-The two implementations align a causal mask differently when ``S != SK``
-(bottom-right for "naive", top-left for "pallas"), as the reference's do.
+"naive" and "chunked" align a causal mask bottom-right when ``S != SK``,
+"pallas" top-left, as the reference's do.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
 
 
+class ChunkedAttention(torch.autograd.Function):
+    """``chunked_attention``'s core (the reference's ``_chunked_core``
+    with its custom VJP): saves ``(q, k, v, o, lse)``, never the S x SK
+    scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, q_chunk: int,
+                k_chunk: int):
+        o, lse = _k.flash_attention_lse(q, k, v, causal=causal, scale=scale,
+                                        blocks=(q_chunk, k_chunk))
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, q_chunk, k_chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, q_chunk, k_chunk = ctx.args
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = _k.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, scale=scale,
+            blocks=(q_chunk, k_chunk))
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, scale=None,
+                      q_chunk: int = _ref.Q_CHUNK,
+                      k_chunk: int = _ref.K_CHUNK):
+    """GQA flash attention with its backward: q ``[B, HQ, S, D]``, k/v
+    ``[B, HKV, SK, D]``."""
+    D = q.shape[-1]
+    scale = (D ** -0.5) if scale is None else scale
+    blocks = _ref.default_blocks(q.shape[2], k.shape[2], q_chunk, k_chunk)
+    return ChunkedAttention.apply(q, k, v, causal, scale, *blocks)
+
+
 def mha(q, k, v, *, causal: bool = True, scale=None, impl: str = "naive"):
     if impl == "pallas":
         return _k.flash_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, scale=scale)
     if impl == "naive":
         return _ref.attention_ref(q, k, v, causal=causal, scale=scale)
-    if impl == "chunked":
-        raise NotImplementedError(
-            "mha(impl='chunked') is the training path; it comes with the "
-            "training slice of the port")
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -15,13 +15,37 @@ weighted sum are float32 from the loaded inputs, and the output is
 when ``S == SK``, which is all the decoders' prefill produces; non-causal
 (the encoder-decoder's encoder and cross-attention, ``S != SK``) they
 differ only in rounding.
+
+``chunked_fwd`` and ``chunked_bwd`` are the reference's training
+attention (``ops.py::_chunked_fwd_impl`` and ``_chunked_core_bwd``),
+step for step: q and k/v padded to blocks of ``q_chunk`` x ``k_chunk``
+(``default_blocks``: the reference's 512 x 1024, each cut to its
+sequence); the mask ``k_pos < SK`` and, causal, ``k_pos <= q_pos + SK -
+S`` (aligned bottom-right) with the finite ``-1e30``;
+the forward scales q in its own dtype before the float32 upcast and
+returns each row's log-sum-exp ``m + log(max(l, 1e-37))``; the backward
+scales q after the upcast, gives padded q rows ``lse = +1e30`` (p = 0),
+takes ``delta = rowsum(dO o)`` in float32, sums dk and dv over each KV
+head's query heads in float32 and casts each gradient to its input's
+dtype.  They are the CPU's plain versions of ``kernel.flash_attention_lse``
+and ``kernel.flash_attention_bwd``.
 """
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
 F32 = torch.float32
 NEG_INF = -1e30
+# the reference's chunked_attention blocks
+Q_CHUNK, K_CHUNK = 512, 1024
+
+
+def default_blocks(S: int, SK: int, q_chunk: int = Q_CHUNK,
+                   k_chunk: int = K_CHUNK) -> tuple:
+    """The ``(q, k)`` blocks of ``chunked_fwd``/``chunked_bwd`` for ``S``
+    queries and ``SK`` keys: each chunk cut to its sequence."""
+    return min(q_chunk, S), min(k_chunk, SK)
 
 
 def _scale(D: int, scale):
@@ -63,3 +87,103 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
     acc = torch.einsum("bkgqt,bktd->bkgqd", p, v.to(F32))
     o = acc / torch.where(l == 0, 1.0, l)
     return o.reshape(B, HQ, S, D).to(q.dtype)
+
+
+def _pad_blocks(q, k, v, qc: int, kc: int):
+    S, SK = q.shape[2], k.shape[2]
+    pad_q, pad_k = -S % qc, -SK % kc
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, pad_k))
+    return q, k, v, S + pad_q, SK + pad_k
+
+
+def _block_mask(qi, ki, qc, kc, S, SK, causal, device):
+    q_pos = qi * qc + torch.arange(qc, device=device)[:, None]
+    k_pos = ki * kc + torch.arange(kc, device=device)[None, :]
+    m = k_pos < SK
+    if causal:
+        m = m & (k_pos <= q_pos + SK - S)
+    return m
+
+
+def chunked_fwd(q, k, v, *, causal: bool, scale: float, q_chunk: int,
+                k_chunk: int):
+    """q ``[B, HQ, S, D]``, k/v ``[B, HKV, SK, D]`` -> (o ``[B, HQ, S,
+    D]`` in q's dtype, lse ``[B, HQ, S]`` float32)."""
+    B, HQ, S, D = q.shape
+    HKV, SK = k.shape[1], k.shape[2]
+    G = HQ // HKV
+    qc, kc = q_chunk, k_chunk
+    qp, kp, vp, Sp, SKp = _pad_blocks(q, k, v, qc, kc)
+    qb = qp.reshape(B, HKV, G, Sp, D) * scale         # in q's dtype
+    outs, lses = [], []
+    for qi in range(Sp // qc):
+        q32 = qb[:, :, :, qi * qc:(qi + 1) * qc].to(F32)
+        m = torch.full((B, HKV, G, qc), NEG_INF, dtype=F32, device=q.device)
+        l = torch.zeros((B, HKV, G, qc), dtype=F32, device=q.device)
+        acc = torch.zeros((B, HKV, G, qc, D), dtype=F32, device=q.device)
+        for ki in range(SKp // kc):
+            k_blk = kp[:, :, ki * kc:(ki + 1) * kc].to(F32)
+            v_blk = vp[:, :, ki * kc:(ki + 1) * kc].to(F32)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q32, k_blk)
+            msk = _block_mask(qi, ki, qc, kc, S, SK, causal, q.device)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, v_blk)
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-37)[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l.clamp_min(1e-37)))
+    o = torch.cat(outs, dim=3).reshape(B, HQ, Sp, D)[:, :, :S]
+    lse = torch.cat(lses, dim=3).reshape(B, HQ, Sp)[:, :, :S]
+    return o, lse
+
+
+def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
+                q_chunk: int, k_chunk: int):
+    """The gradients ``(dq, dk, dv)`` of ``chunked_fwd``'s o, recomputed
+    blockwise from ``(q, k, v, o, lse)`` and the output's gradient
+    ``do``."""
+    B, HQ, S, D = q.shape
+    HKV, SK = k.shape[1], k.shape[2]
+    G = HQ // HKV
+    qc, kc = q_chunk, k_chunk
+    qp, kp, vp, Sp, SKp = _pad_blocks(q, k, v, qc, kc)
+    dop = F.pad(do, (0, 0, 0, Sp - S))
+    op = F.pad(o, (0, 0, 0, Sp - S))
+    # padded q rows get lse = +1e30, so p = exp(s - lse) == 0
+    lsep = F.pad(lse.reshape(B, HKV, G, S), (0, Sp - S), value=-NEG_INF)
+    qs = qp.reshape(B, HKV, G, Sp, D).to(F32) * scale
+    kb, vb = kp.to(F32), vp.to(F32)
+    dob = dop.reshape(B, HKV, G, Sp, D).to(F32)
+    delta = (dop.to(F32) * op.to(F32)).sum(-1).reshape(B, HKV, G, Sp)
+    dk = torch.zeros((B, HKV, SKp, D), dtype=F32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for qi in range(Sp // qc):
+        rows = slice(qi * qc, (qi + 1) * qc)
+        q_i, do_i = qs[:, :, :, rows], dob[:, :, :, rows]
+        lse_i, d_i = lsep[..., rows], delta[..., rows]
+        dq_i = torch.zeros((B, HKV, G, qc, D), dtype=F32, device=q.device)
+        for ki in range(SKp // kc):
+            keys = slice(ki * kc, (ki + 1) * kc)
+            k_j, v_j = kb[:, :, keys], vb[:, :, keys]
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_i, k_j)
+            msk = _block_mask(qi, ki, qc, kc, S, SK, causal, q.device)
+            s = torch.where(msk, s, NEG_INF)
+            p = torch.exp(s - lse_i[..., None])
+            dv[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", p, do_i)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do_i, v_j)
+            ds = p * (dp - d_i[..., None])
+            dq_i = dq_i + torch.einsum("bhgqk,bhkd->bhgqd", ds, k_j)
+            dk[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", ds, q_i)
+        dqs.append(dq_i * scale)
+    dq = torch.cat(dqs, dim=3).reshape(B, HQ, Sp, D)[:, :, :S]
+    return (dq.to(q.dtype), dk[:, :, :SK].to(k.dtype),
+            dv[:, :, :SK].to(v.dtype))

@@ -32,6 +32,9 @@ them, as the reference's ``ssd_chunked`` pads.  ``chunk`` (at most 64),
 ``P`` (at most 64) and ``N`` (at most 128) outside the kernels' tiles
 raise.
 
+Under grad mode an input that requires grad raises a ``RuntimeError``
+(``build.refuse_grad``): the kernels have no backward, as the reference's
+Pallas kernel has none; the model trains through ``impl="chunked"``.
 For tensors on the CPU each wrapper runs its plain version
 (``ref.ssd_chunked``, ``ref.chunk_cb``); for CUDA tensors it launches the
 kernels or raises - there is no fallback.  The CUDA source is compiled at
@@ -49,7 +52,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import CudaLibrary, refuse_grad
 from repro_torch.kernels.ssd_scan import ref
 
 DEFAULT_CHUNK = 64
@@ -168,6 +171,7 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = DEFAULT_CHUNK,
     """The reference kernel's signature: x ``[BH, L, P]``, dt ``[BH, L]``,
     A/D ``[BH]``, B/C ``[BH, L, N]`` -> y ``[BH, L, P]`` in x's dtype (and
     the final state ``[BH, N, P]`` float32 with ``h_final``)."""
+    refuse_grad("ssd_scan", x, dt, A, B, C, D)
     BH, L, P = x.shape
     N = B.shape[-1]
     _check(x, dt, A, B, C, D, chunk, {
@@ -191,6 +195,7 @@ def ssd_scan_heads(x, dt, A, B, C, D, *, chunk: int = DEFAULT_CHUNK,
     """The model's layout: x ``[B, L, H, P]``, dt ``[B, L, H]``, A/D
     ``[H]``, B/C ``[B, L, N]`` -> y ``[B, L, H, P]`` in x's dtype (and the
     final state ``[B, H, N, P]`` float32 with ``h_final``)."""
+    refuse_grad("ssd_scan_heads", x, dt, A, B, C, D)
     Bz, L, H, P = x.shape
     N = B.shape[-1]
     _check(x, dt, A, B, C, D, chunk, {
@@ -215,6 +220,7 @@ def chunk_cb(B, C, *, chunk: int = DEFAULT_CHUNK):
     """The first kernel alone: B and C ``[Bz, L, N]`` -> G ``[Bz, chunks,
     Q, Q]`` float32 with ``G[b, c, t, s] = C[b, cQ + t] . B[b, cQ + s]``,
     ``Q = min(chunk, L)``, rows past L zero."""
+    refuse_grad("chunk_cb", B, C)
     Bz, L, N = B.shape
     if tuple(C.shape) != (Bz, L, N):
         raise ValueError(f"C: expected shape {(Bz, L, N)}, got "

@@ -21,8 +21,10 @@ torch, as the reference leaves it to XLA: the self-attention step of
 one new position through ``mha(impl="naive")``, the reference's default
 there.  The cache is ``{"kv": (k, v) [L, B, T, KV, D], "cross": (k, v)
 [L, B, enc_len, KV, D], "t": int}``; decode writes ``kv`` in place.
-Training (``decode_train``, ``encdec_loss``) comes with the training
-slice.
+Training: ``decode_train`` is the teacher-forced decoder pass and
+``encdec_loss`` its cross-entropy (chunked when ``flags.chunked_ce`` and
+the token count is a multiple of ``ce_chunk``, as the reference's); each
+encoder and decoder layer runs under ``transformer.remat``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import BASELINE_FLAGS, OptFlags
+from repro_torch.models.transformer import BASELINE_FLAGS, OptFlags, remat
 
 F32 = torch.float32
 # rows of the learned decoder positions: the reference sizes the table for
@@ -113,13 +115,56 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor,
     B, T, d = frames.shape
     x = frames.to(cd) + L.sinusoidal_positions(T, d, frames.device).to(
         cd)[None]
-    for lp in params["enc_layers"]:
+
+    def block(lp, x):
         h = x + A.attn_apply(lp["attn"], L.layernorm(lp["ln1"], x), cfg,
                              positions=None, causal=False,
                              impl=flags.attn_impl)
-        x = h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h),
-                           compute_dtype=cd)
+        return h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h),
+                              compute_dtype=cd)
+
+    for lp in params["enc_layers"]:
+        x = remat(block, flags)(lp, x)
     return L.layernorm(params["enc_ln"], x)
+
+
+def decode_train(params, cfg: ArchConfig, tokens, memory,
+                 flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
+    """Teacher-forced decoder pass over ``tokens [B, S]`` against the
+    encoder's ``memory`` -> hidden states ``[B, S, d]`` (after the final
+    LayerNorm)."""
+    cd = cfg.cdtype()
+    S = tokens.shape[1]
+    x = L.embed(params["embed"], tokens, compute_dtype=cd)
+    x = x + params["pos_dec"][:S].to(cd)[None]
+
+    def block(lp, x):
+        mem_kv = _memory_kv(lp["cross_attn"], memory, cfg)
+        h = x + A.attn_apply(lp["self_attn"], L.layernorm(lp["ln1"], x), cfg,
+                             positions=None, causal=True,
+                             impl=flags.attn_impl)
+        h = h + _cross_apply(lp["cross_attn"], L.layernorm(lp["ln_x"], h),
+                             mem_kv, cfg, impl=flags.attn_impl)
+        return h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h),
+                              compute_dtype=cd)
+
+    for lp in params["dec_layers"]:
+        x = remat(block, flags)(lp, x)
+    return L.layernorm(params["dec_ln"], x)
+
+
+def encdec_loss(params, cfg: ArchConfig, batch: dict,
+                flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
+    """Cross-entropy of the decoder's next-token predictions; batch:
+    ``frames``, ``tokens``, ``labels``."""
+    memory = encode(params, cfg, batch["frames"], flags)
+    hidden = decode_train(params, cfg, batch["tokens"], memory, flags)
+    hw = params["head"]["w"]
+    if flags.chunked_ce and batch["tokens"].shape[1] % flags.ce_chunk == 0:
+        return L.chunked_xent(hidden, hw, batch["labels"],
+                              chunk=flags.ce_chunk)
+    logits = (hidden @ hw.to(hidden.dtype)).to(F32)
+    return L.softmax_xent(logits, batch["labels"])
 
 
 def _logits(params, x):

@@ -198,3 +198,44 @@ def sinusoidal_positions(seq_len: int, d: int, device="cpu") -> torch.Tensor:
     inv = 10000.0 ** (-dim / max(d // 2 - 1, 1))
     ang = pos * inv
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+    """Token cross-entropy: logits ``[.., V]`` upcast to float32 (the
+    ``logsumexp`` runs over every column, the padded vocabulary's too, as
+    the reference's), labels ``[..]`` int; with a mask the sum of its
+    weighted terms over ``max(sum(mask), 1)``."""
+    logits = logits.to(F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(F32)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def chunked_xent(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                 mask=None, chunk: int = 1024):
+    """Cross-entropy of ``x [B, S, d] @ head_w [d, V]`` one sequence chunk
+    at a time, never the whole ``[B, S, V]`` logits at once; ``chunk`` is
+    rounded down to the largest divisor of S (the reference's scan)."""
+    B, S, d = x.shape
+    while S % chunk:
+        chunk -= 1
+    w = head_w.to(x.dtype)
+    nll = torch.zeros((), dtype=F32, device=x.device)
+    count = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(0, S, chunk):
+        logits = (x[:, i:i + chunk] @ w).to(F32)
+        logz = torch.logsumexp(logits, dim=-1)
+        li = labels[:, i:i + chunk, None].long()
+        gold = torch.gather(logits, -1, li)[..., 0]
+        mi = (torch.ones_like(logz) if mask is None
+              else mask[:, i:i + chunk].to(F32))
+        nll = nll + ((logz - gold) * mi).sum()
+        count = count + mi.sum()
+    return nll / count.clamp_min(1.0)

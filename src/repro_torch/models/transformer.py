@@ -22,14 +22,26 @@ frontend: precomputed embeddings ``embeds [B, vis_len, d]`` arrive with
 the batch and are concatenated ahead of the token embeddings, so the
 rotary positions run over the whole sequence and decode starts at
 ``t = vis_len + S``.  The encoder-decoder family is ``encdec.py``.
+
+Training: ``lm_loss`` is the reference's next-token cross-entropy on the
+text positions (the VLM's embedding positions carry no label), with the
+optional ``loss_mask`` and the chunked cross-entropy of ``flags``.
+``flags.remat`` checkpoints each block (each group of the hybrid, its
+shared block included) with ``torch.utils.checkpoint``: "full" keeps only
+its input, "dots" also the matrix products' outputs (the reference's
+``checkpoint_dots``); neither changes the loss.  Under grad the SSM
+mixer's SSD core takes ``impl="chunked"``, the reference's own route (its
+model never reaches the Pallas kernel, which has no backward).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
@@ -49,8 +61,11 @@ _COMPUTE_LEAVES = ("w", "b", "table")
 class OptFlags:
     """Performance knobs, with the reference's fields and defaults.  The
     serving path reads ``attn_impl`` (prefill attention: "naive" or
-    "pallas") and ``seq_parallel_decode``; the others belong to the
-    training and multi-device paths of later slices."""
+    "pallas") and ``seq_parallel_decode``; training reads ``attn_impl``
+    ("chunked" is the one with a backward), ``flash_kernel``, ``remat``
+    ("none", "full", "dots"), ``chunked_ce`` with ``ce_chunk`` and
+    ``cast_params_bf16``; the others belong to the multi-device paths of
+    a later slice."""
 
     remat: str = "none"
     chunked_ce: bool = False
@@ -249,31 +264,121 @@ def _blocks(params, cfg: ArchConfig):
         yield kind, i, layer_p
 
 
+def requires_grad(tree) -> bool:
+    """Whether any tensor of a parameter tree (modules, or the plain
+    dicts and lists of a cast view) requires grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, nn.Module):
+        return any(p.requires_grad for p in tree.parameters())
+    values = tree.values() if isinstance(tree, dict) else tree
+    return any(requires_grad(v) for v in values)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+def ssd_on_kernel(layer_p, x) -> bool:
+    """Whether the SSM block's SSD core runs the ssd_scan kernel: for
+    activations on a card when no gradient is taken.  Under grad it takes
+    the plain ``impl="chunked"``, which autograd differentiates (the
+    kernel has no backward)."""
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or requires_grad(layer_p)):
+        return False
+    return _on_card(x)
+
+
 def _mixer(layer_p, x, cfg: ArchConfig, *, return_state: bool = False):
-    """The SSM block's mixer on ``rmsnorm(x)``, on the ssd_scan kernel
-    when ``x`` is on a card."""
+    """The SSM block's mixer on ``rmsnorm(x)`` (``ssd_on_kernel`` picks
+    its SSD core's route)."""
     return M.mamba_apply(layer_p["mamba"], L.rmsnorm(layer_p["ln"], x), cfg,
-                         use_kernel=x.device.type == "cuda",
+                         use_kernel=ssd_on_kernel(layer_p, x),
                          return_state=return_state)
+
+
+# the matrix products whose outputs remat="dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, flags: OptFlags):
+    """``fn`` under ``flags.remat``: as it is ("none"), or checkpointed,
+    keeping its inputs ("full") and its matrix products' outputs too
+    ("dots", the reference's ``checkpoint_dots``)."""
+    if flags.remat == "none":
+        return fn
+    if flags.remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if flags.remat == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat policy {flags.remat!r}")
+
+
+def _ssm_block(block, x, cfg: ArchConfig):
+    return x + _mixer(block, x, cfg)
+
+
+def _attn_block(block, x, cfg: ArchConfig, positions, impl: str):
+    h = x + A.attn_apply(block["attn"], L.rmsnorm(block["ln1"], x), cfg,
+                         positions=positions, impl=impl)
+    return _mlp(block, h, cfg)
 
 
 def lm_forward(params, cfg: ArchConfig, tokens, *,
                embeds: Optional[torch.Tensor] = None,
                flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
-    """Final hidden states ``[B, S, d]`` (after the final norm)."""
+    """Final hidden states ``[B, S, d]`` (after the final norm); each
+    block (each group of the hybrid) under ``remat(..., flags)``."""
     _check_ported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     impl = "pallas" if flags.flash_kernel else flags.attn_impl
-    for kind, _, block in _blocks(params, cfg):
-        if kind == "ssm":
-            x = x + _mixer(block, x, cfg)
-        else:
-            h = x + A.attn_apply(block["attn"], L.rmsnorm(block["ln1"], x),
-                                 cfg, positions=positions, impl=impl)
-            x = _mlp(block, h, cfg)
+    if cfg.family == "hybrid":
+        G, k = _groups(cfg)
+
+        def group(x, g: int):
+            for i in range(k):
+                x = _ssm_block(params["layers"][g * k + i], x, cfg)
+            return _attn_block(params["shared_attn"], x, cfg, positions,
+                               impl)
+
+        for g in range(G):
+            x = remat(group, flags)(x, g)
+    else:
+        ssm = remat(_ssm_block, flags)
+        attn = remat(_attn_block, flags)
+        for kind, _, block in _blocks(params, cfg):
+            x = (ssm(block, x, cfg) if kind == "ssm"
+                 else attn(block, x, cfg, positions, impl))
     return L.rmsnorm(params["final_norm"], x)
+
+
+def lm_loss(params, cfg: ArchConfig, batch: dict, *,
+            flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
+    """Next-token cross-entropy (float32 scalar).  batch: ``tokens``,
+    ``labels``, the VLM's ``embeds``, optionally ``loss_mask``; only the
+    last ``tokens.shape[1]`` positions (the text) are scored."""
+    hidden = lm_forward(params, cfg, batch["tokens"],
+                        embeds=batch.get("embeds"), flags=flags)
+    n_text = batch["tokens"].shape[1]
+    hidden = hidden[:, -n_text:]
+    labels, mask = batch["labels"], batch.get("loss_mask")
+    hw = head_weight(params, cfg)
+    if flags.chunked_ce:
+        return L.chunked_xent(hidden, hw, labels, mask, chunk=flags.ce_chunk)
+    logits = (hidden @ hw.to(hidden.dtype)).to(torch.float32)
+    return L.softmax_xent(logits, labels, mask)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,8 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+# the backward kernels' launch counters, which serving leaves at 0
+BWD_COUNTERS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 @pytest.fixture
@@ -762,7 +764,8 @@ def test_cuda_flash_attention_mma_route_matches_plain_version(
     torch.cuda.synchronize()
     assert fa_kernel.LAUNCHES == {"flash_attention": 1,
                                   "flash_attention_mma": 1,
-                                  "flash_attention_f32": 0}
+                                  "flash_attention_f32": 0,
+                                  **dict.fromkeys(BWD_COUNTERS, 0)}
     assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
     assert bool(torch.isfinite(got).all())
     assert float((got.float() - exp.float()).abs().max()) <= 2e-2
@@ -1410,7 +1413,8 @@ def test_cuda_stub_frontend_serving_matches_cpu(card, arch):
     # two waves (3 requests in slots of 2)
     assert gpu[2] == {"flash_attention": 2 * per_prefill,
                       "flash_attention_mma": 0,
-                      "flash_attention_f32": 2 * per_prefill}
+                      "flash_attention_f32": 2 * per_prefill,
+                      **dict.fromkeys(BWD_COUNTERS, 0)}
     np.testing.assert_array_equal(cpu[0], gpu[0])
     exp = cpu[1]
     assert float((gpu[1] - exp).abs().max() / exp.abs().max()) < 1e-4
@@ -1468,3 +1472,200 @@ def test_cuda_is_the_default_device(card, capsys):
     _example("quickstart").main([])
     assert t_kernel.LAUNCHES["kv_read"] > 0
     assert "LEADER={7}" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# training: the forward with lse and the backward kernels
+# ---------------------------------------------------------------------------
+def _bwd_inputs(card, B, HQ, HKV, S, SK, D, dtype, seed=0):
+    """q, k, v and dO as the model hands them over: [B, H, S, D] views of
+    [B, S, H, D] tensors."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def one(H, T):
+        return torch.randn((B, T, H, D), generator=g, device=card).to(
+            dtype).transpose(1, 2)
+    return one(HQ, S), one(HKV, SK), one(HKV, SK), one(HQ, S)
+
+
+@pytest.mark.parametrize("B,HQ,HKV,S,SK,D,dtype,causal", [
+    (2, 4, 2, 200, 200, 64, torch.bfloat16, True),
+    (2, 4, 4, 200, 700, 128, torch.bfloat16, True),
+    (1, 4, 4, 130, 260, 80, torch.bfloat16, False),
+    (2, 4, 1, 300, 300, 128, torch.float32, True),
+    (1, 2, 2, 64, 1500, 64, torch.float32, False),
+])
+def test_cuda_flash_backward_matches_plain_version(card, B, HQ, HKV, S, SK,
+                                                   D, dtype, causal):
+    """o, lse and the three backward kernels against ``ref.chunked_fwd``
+    and ``ref.chunked_bwd`` (the backward from the kernel's own o and
+    lse): bf16 o to its error norm 5e-3, gradients to 2.5e-4; float32 to
+    1e-4 of the largest magnitude; one launch of each kernel, the
+    gradients in their inputs' layouts.  The backward's plain version
+    reads the kernel's lse, so the lse is held on its own to 5e-5 against
+    the plain forward on the inputs upcast to float32, which scales the
+    float32 score as the kernels do (the reference's forward rounds q *
+    scale to bf16 first)."""
+    q, k, v, do = _bwd_inputs(card, B, HQ, HKV, S, SK, D, dtype)
+    fa_kernel.reset_launches()
+    o, lse = fa_kernel.flash_attention_lse(q, k, v, causal=causal)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] == 1
+    assert all(fa_kernel.LAUNCHES[k] == 1 for k in BWD_COUNTERS)
+    blocks = dict(zip(("q_chunk", "k_chunk"), fa_ref.default_blocks(S, SK)))
+    o_ref = fa_ref.chunked_fwd(q, k, v, causal=causal, scale=D ** -0.5,
+                               **blocks)[0]
+    lse_ref = fa_ref.chunked_fwd(q.float(), k.float(), v.float(),
+                                 causal=causal, scale=D ** -0.5, **blocks)[1]
+    ref_grads = fa_ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                                   scale=D ** -0.5, **blocks)
+    half = dtype == torch.bfloat16
+
+    def err(got, exp):
+        got, exp = got.float(), exp.float()
+        if half:
+            return float((got - exp).norm() / exp.norm())
+        return float((got - exp).abs().max() / exp.abs().max())
+    assert err(o, o_ref) <= (5e-3 if half else 1e-4)
+    assert float((lse - lse_ref).abs().max()) <= 5e-5
+    for g, r, x in zip(grads, ref_grads, (q, k, v)):
+        assert g.stride() == x.stride() and g.dtype == x.dtype
+        assert err(g, r) <= (2.5e-4 if half else 1e-4)
+
+
+def test_cuda_chunked_attention_trains_through_the_kernels(card):
+    """``mha(impl="chunked")`` under autograd on a card: the forward with
+    lse and the backward kernels, nothing else, and the gradients of
+    autograd through ``attention_ref`` (float32, 1e-4)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v, do = _bwd_inputs(card, 2, 8, 2, 333, 333, 64, torch.float32)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    fa_kernel.reset_launches()
+    o = fa_ops.mha(*leaves, impl="chunked")
+    grads = torch.autograd.grad(o, leaves, do)
+    counts = dict(fa_kernel.LAUNCHES)
+    assert counts["flash_attention"] == counts["flash_bwd_dq"] == 1
+    o_ref = fa_ref.attention_ref(*leaves)
+    ref_grads = torch.autograd.grad(o_ref, leaves, do)
+    o, o_ref = o.detach(), o_ref.detach()
+    assert float((o - o_ref).abs().max()) <= 1e-4 * float(o_ref.abs().max())
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+def test_cuda_backward_is_deterministic(card):
+    """No atomics: two runs of the backward are equal bit for bit."""
+    q, k, v, do = _bwd_inputs(card, 2, 4, 2, 500, 500, 64, torch.bfloat16)
+    o, lse = fa_kernel.flash_attention_lse(q, k, v)
+    a = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    b = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_cuda_causal_s_gt_sk_chunked_raises(card):
+    """Causal with S > SK leaves the first rows no key, which the kernel
+    does not compute as the reference does: the chunked path raises."""
+    q, k, v, do = _bwd_inputs(card, 1, 2, 2, 300, 100, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="S = 300 > SK = 100"):
+        fa_kernel.flash_attention_lse(q, k, v, causal=True)
+    o, lse = fa_kernel.flash_attention_lse(q, k, v, causal=False)
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+
+
+def test_cuda_kernel_wrappers_refuse_grad(card):
+    """On a card, every kernel wrapper handed an input that requires grad
+    under grad mode raises, and a model run on the forward kernel
+    (``impl="pallas"``) under grad too; under ``no_grad`` both run."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.models.transformer import OptFlags
+
+    q, k, v, do = _bwd_inputs(card, 1, 2, 2, 64, 64, 64, torch.bfloat16)
+    qg = q.detach().requires_grad_()
+    for fn in (lambda: fa_kernel.flash_attention(qg, k, v),
+               lambda: fa_kernel.flash_attention_lse(qg, k, v)):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            fn()
+    x = torch.randn(1, 64, 2, 32, device=card, requires_grad=True)
+    dt = torch.rand(1, 64, 2, device=card)
+    A, D = -torch.rand(2, device=card), torch.ones(2, device=card)
+    Bm, Cm = (torch.randn(1, 64, 16, device=card) for _ in range(2))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ssd_kernel.ssd_scan_heads(x, dt, A, Bm, Cm, D)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ssd_kernel.chunk_cb(Bm.requires_grad_(), Cm)
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              n_layers=1)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), card)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    tok = torch.zeros((1, 64), dtype=torch.int32, device=card)
+    batch = {"tokens": tok, "labels": tok}
+    with pytest.raises(RuntimeError, match="requires grad"):
+        api.loss_fn(cfg)(params, batch, OptFlags(attn_impl="pallas"))
+    with torch.no_grad():
+        api.loss_fn(cfg)(params, batch, OptFlags(attn_impl="pallas"))
+    fa_kernel.reset_launches()
+    api.loss_fn(cfg)(params, batch, OptFlags(attn_impl="chunked")).backward()
+    assert fa_kernel.LAUNCHES["flash_bwd_dkdv"] == 1
+
+
+def test_cuda_train_step_matches_cpu(card):
+    """One float32 train step of the reduced Qwen1.5 (2 layers) with the
+    training flags on the card (the kernels) and on the CPU (their plain
+    versions), from the same weights: loss and gradient norm within 1e-4,
+    the first moment within 1e-4 of its largest leaf, and every parameter
+    within 1e-4 of its leaf plus lr times the difference of the two
+    sides' normalised updates (each from its own moments) and 1e-3."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import OptFlags
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (build_train_step,
+                                              init_train_state)
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              n_layers=2, compute_dtype="float32")
+    flags = OptFlags(attn_impl="chunked", remat="full", chunked_ce=True,
+                     ce_chunk=32)
+    ocfg = opt.AdamWConfig(lr=1e-2, warmup_steps=0)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 129), dtype=np.int32))
+    out = {}
+    for dev in (card, "cpu"):
+        params, state = init_train_state(
+            cfg, torch.Generator().manual_seed(0), dev)
+        step = build_train_step(cfg, ocfg, flags)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        params, state, stats = step(params, state, batch)
+        # AdamW's normalised update after the first step, from this side's
+        # own moments
+        update = {k: (m.cpu() / (1 - ocfg.b1)) / (
+            torch.sqrt(state.nu[k].cpu() / (1 - ocfg.b2)) + ocfg.eps)
+            for k, m in state.mu.items()}
+        out[str(dev)] = (stats, {k: p.detach().cpu() for k, p in
+                                 params.named_parameters()},
+                         {k: m.cpu() for k, m in state.mu.items()}, update)
+    (sc, pc, mc, uc), (sp, pp, mp, up) = out[str(card)], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(sc[k]) - float(sp[k])) <= 1e-4 * abs(float(sp[k]))
+    # the first moment is the gradient times (1 - b1): each leaf within
+    # 1e-4 of the largest, over all leaves (a near-zero gradient, the key
+    # bias's, carries the float32 noise of the whole loss)
+    floor = max(float(m.abs().max()) for m in mp.values())
+    for k, e in mp.items():
+        assert float((mc[k] - e).abs().max()) <= 1e-4 * floor, k
+    # both sides start from the same weights, so the parameters differ by
+    # lr times the difference of their updates, which a gradient at that
+    # noise may turn; an update skipped or of the wrong sign reads lr
+    lr = float(sp["lr"])
+    assert float(sc["lr"]) == lr
+    for k, e in pp.items():
+        slack = lr * ((uc[k] - up[k]).abs() + 1e-3)
+        assert bool(((pc[k] - e).abs()
+                     <= 1e-4 * float(e.abs().max()) + slack).all()), k

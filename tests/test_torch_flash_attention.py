@@ -193,9 +193,13 @@ def test_flash_route_rule(case, want):
 
 
 def test_mha_chunked_waits_for_the_training_slice():
-    x = torch.zeros(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError):
-        t_ops.mha(x, x, x, impl="chunked")
+    """The training slice has come: ``impl="chunked"`` no longer raises
+    but is the reference's ``chunked_attention`` (``ChunkedAttention``,
+    on the CPU its plain versions), equal to the oracle here; an unknown
+    impl still raises."""
+    x = torch.randn(1, 2, 4, 8, generator=torch.Generator().manual_seed(0))
+    got = t_ops.mha(x, x, x, impl="chunked")
+    assert float((got - t_ref.attention_ref(x, x, x)).abs().max()) < 1e-6
     with pytest.raises(ValueError):
         t_ops.mha(x, x, x, impl="fused")
 
