@@ -255,15 +255,20 @@ source, all three at once), then:
 22. training (``kernels/flash_attention/csrc/flash_attention_bwd.cu``,
    built beside the other sources): (a) the flash_attention kernel's
    forward with its log-sum-exp (the bottom-right causal offset of the
-   reference's ``chunked_attention``) and the three backward kernels
-   (``flash_bwd_delta_kernel``, ``flash_bwd_dkdv_kernel``,
-   ``flash_bwd_dq_kernel``) against ``ref.chunked_fwd``/``chunked_bwd``
-   at ``BWD_CASES`` (the training shape [4, 16, 4096, 64] bf16 causal,
-   Qwen2.5-3B's GQA group, head dim 80, ragged S = SK = 200, 200 queries
-   after 700 keys, Whisper's cross-attention, float32): o, lse, dq, dk and
-   dv each held, bf16 to the error's norm, with two controls that must
-   read past it (delta dropped, the causal mask dropped); each kernel
-   timed at the training shape and at float32 beside its bound, the
+   reference's ``chunked_attention``) and the three backward launches
+   (``flash_bwd_delta_kernel``, then dK/dV and dQ: bf16 on the
+   tensor-core pair ``flash_bwd_dkdv_mma_kernel``,
+   ``flash_bwd_dq_mma_kernel``, float32 on the f32 pair
+   ``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``) against
+   ``ref.chunked_fwd``/``chunked_bwd`` at ``BWD_CASES`` (the training
+   shape [4, 16, 4096, 64] bf16 causal, Qwen2.5-3B's GQA group, head dim
+   80, ragged S = SK = 200, 200 queries after 700 keys, Whisper's
+   cross-attention, float32), each case's launches by route: o, lse, dq,
+   dk and dv each held, bf16 to the error's norm against the plain
+   version with the tensor-core pair's two roundings and against the
+   unrounded one, with two controls that must read past both (delta
+   dropped, the causal mask dropped); each kernel timed at the training
+   shape, the GQA group, head dim 80 and float32 beside its bound, the
    plain version and SDPA (its forward, its whole backward); (b)
    Qwen1.5-0.5B at full width and 2 layers, one loss and its gradients:
    float32, the kernel path against the plain path on the card (every
@@ -273,7 +278,8 @@ source, all three at once), then:
    train_4k's 4,096-token sequences; chunked attention, full remat,
    chunked cross-entropy of 1,024; AdamW with warmup 2): 6 steps from
    the pipeline with a checkpoint after step 3 (48 forward launches and
-   24 of each backward kernel a step), then in the same Trainer 8 steps
+   24 of each backward kernel a step, on the tensor-core pair), then in
+   the same Trainer 8 steps
    on one repeated batch, which lower the loss by more than 0.5, and one
    profiled step (attention forward, attention backward, matrix
    products, the rest; busy share); a fresh Trainer restored from the
@@ -290,7 +296,8 @@ InternVL2's prefill shape (q [8, 48, 2048, 128], k/v [8, 8, 2048, 128]).
 A kernel's ``launches`` in the record add up over the main paths that
 ran it (phases 11, 18, 20 and 21 for the attention kernel, 13 and 20 for
 the ssd pair, phase 22's 6-step Trainer run for the forward with lse,
-``flash_attention_lse``, and the backward kernels), each counted from
+``flash_attention_lse``, delta and the backward's tensor-core pair, its
+float32 step check (b) for the backward's f32 pair), each counted from
 zero just before its run.  ``--phases
 12,13`` runs the build of the kernels those phases use, phase 1 and the
 named phases only (4 and 5 bring 3 along, 8 brings 7; 15-22 stand
@@ -358,6 +365,7 @@ try:
     from repro_torch.core.workload import (  # noqa: E402
         TxnWorkloadConfig, WorkloadConfig, _sample_keys, make_schedule,
         make_txn_workload, route_stream)
+    from repro_torch.kernels import build as kernel_build  # noqa: E402
     from repro_torch.kernels.kv_engine import kernel as kv_kernel  # noqa: E402
     from repro_torch.kernels.kv_engine import ops as kv_ops  # noqa: E402
     from repro_torch.kernels.kv_engine import ref as kv_ref  # noqa: E402
@@ -408,7 +416,8 @@ SOURCES = {"kv_read": KV_SRC, "kv_write": KV_SRC,
            "flash_attention": FA_SRC, "flash_attention_f32": FA_SRC,
            "ssd_cb": SSD_SRC, "ssd_scan": SSD_SRC,
            "flash_attention_lse": FA_SRC, "flash_bwd_delta": FA_BWD_SRC,
-           "flash_bwd_dkdv": FA_BWD_SRC, "flash_bwd_dq": FA_BWD_SRC}
+           "flash_bwd_dkdv": FA_BWD_SRC, "flash_bwd_dq": FA_BWD_SRC,
+           "flash_bwd_dkdv_mma": FA_BWD_SRC, "flash_bwd_dq_mma": FA_BWD_SRC}
 REPLACES = {
     "kv_read": "src/repro/kernels/kv_engine/kernel.py:153",
     "kv_write": "src/repro/kernels/kv_engine/kernel.py:510",
@@ -423,6 +432,8 @@ REPLACES = {
     "flash_bwd_delta": "src/repro/kernels/flash_attention/ops.py:107",
     "flash_bwd_dkdv": "src/repro/kernels/flash_attention/ops.py:107",
     "flash_bwd_dq": "src/repro/kernels/flash_attention/ops.py:107",
+    "flash_bwd_dkdv_mma": "src/repro/kernels/flash_attention/ops.py:107",
+    "flash_bwd_dq_mma": "src/repro/kernels/flash_attention/ops.py:107",
 }
 # The partition map of phases 2 and 7-8, in fig_rebalance's proportions:
 # 14 buckets of 4096 registers per chain and two bucket-sized landing
@@ -5162,12 +5173,24 @@ BWD_CASES = {
     "float32": (2, 16, 16, 2048, 2048, 64, torch.float32, True),
 }
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
-# bf16 gradients are held to their error's norm over the plain version's
-# (both sum in float32 from the same inputs, so only the bf16 rounding of
-# the outputs and the summation order differ); the limit is set from the
-# readings and must be passed by a control: the plain backward with delta
-# dropped (o = 0) and, causal, with the mask dropped.  Float32 gradients
-# to 1e-4 of their largest magnitude.  The backward's plain version reads
+# each route's dk/dv and dq counters (``kernel.route_bwd``): bf16 at these
+# shapes takes the tensor-core pair, float32 the f32 pair
+BWD_ROUTES = {"mma": ("flash_bwd_dkdv_mma", "flash_bwd_dq_mma"),
+              "f32": ("flash_bwd_dkdv_f32", "flash_bwd_dq_f32")}
+# timed beside their bounds, the plain version and SDPA
+BWD_TIMED = ("train", "gqa", "d80", "float32")
+# A bf16 case runs the tensor-core pair, whose products take p and dS as
+# bf16 operands; its gradients are held twice, each by its error's norm:
+# against the plain version that makes the same two roundings
+# (``ref.chunked_bwd(..., round_bf16=True)``), to BWD_EMU_TOL, set from
+# the readings (the rest is summation order, ``ex2.approx`` and a p or dS
+# that rounds the other way near a tie, where dP - delta cancels), and
+# against the unrounded plain version to the forward's BF16_RMS_TOL (the
+# two roundings alone read 2.5e-3 to 2.7e-3 there).  Two controls, the
+# plain version with the roundings and with delta dropped (o = 0) or,
+# causal, the mask dropped, must read past both limits.  Float32 gradients
+# (the f32 pair) to 1e-4 of their largest magnitude.  The backward's plain
+# version reads
 # the kernel's own o and lse, so the lse is held on its own, to LSE_TOL
 # absolute, against the plain forward on the inputs upcast to float32
 # (``lse_plain``): it scales the float32 score as the kernels do, where
@@ -5176,7 +5199,7 @@ BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # order of float32 sums: 1.9e-6 at D 64, where q * scale is exact in bf16
 # (PERF.md); a shift of the lse by d scales every p, and so every
 # gradient, by exp(-d).
-BWD_RMS_TOL = 2.5e-4   # 2.4x the largest sound reading (1.06e-4; PERF.md)
+BWD_EMU_TOL = 1e-3     # 2.9x the largest sound reading (3.48e-4; PERF.md)
 F32_BWD_TOL = 1e-4
 LSE_TOL = 5e-5
 # SDPA's backward kernels, by name (flash, cuDNN's "bprop",
@@ -5230,11 +5253,11 @@ def lse_plain(q, k, v, causal: bool):
     return fwd_plain(q.float(), k.float(), v.float(), causal)[1]
 
 
-def bwd_plain(q, k, v, o, lse, do, causal: bool):
+def bwd_plain(q, k, v, o, lse, do, causal: bool, round_bf16: bool = False):
     qc, kc = fa_ref.default_blocks(q.shape[2], k.shape[2])
     return fa_ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
                               scale=q.shape[3] ** -0.5, q_chunk=qc,
-                              k_chunk=kc)
+                              k_chunk=kc, round_bf16=round_bf16)
 
 
 def per_kernel_us(fn, iters: int, want=()) -> dict:
@@ -5272,9 +5295,11 @@ def sdpa_backward_us(q, k, v, do, causal: bool):
 def check_flash_backward(device="cuda") -> dict:
     """(a): the forward with lse and the three backward kernels against
     their plain versions (``ref.chunked_fwd``, ``ref.chunked_bwd``) at
-    ``BWD_CASES``, every output held, each bf16 case with its controls;
-    then, at the training shape and at float32, each kernel timed beside
-    its bound, the plain version and SDPA."""
+    ``BWD_CASES``, every output held, each bf16 case (the tensor-core
+    pair) against the emulating and the unrounded plain version with its
+    controls, float32 (the f32 pair) to its maximum; then, at
+    ``BWD_TIMED``, each kernel timed beside its bound, the plain version
+    and SDPA."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(22)
     cases, abs_errs, controls, timed = {}, {}, {}, {}
@@ -5283,14 +5308,19 @@ def check_flash_backward(device="cuda") -> dict:
         q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
         do = torch.randn((B, S, HQ, D), generator=gen,
                          device=device).to(dtype).transpose(1, 2)
+        half = dtype == torch.bfloat16
+        path = "mma" if half else "f32"
         fa_kernel.reset_launches()
         o, lse = fa_kernel.flash_attention_lse(q, k, v, causal=causal)
         grads = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
                                               causal=causal)
         sync(device)
         require(fa_kernel.LAUNCHES["flash_attention"] == 1 and all(
-            fa_kernel.LAUNCHES[x] == 1 for x in BWD_KERNELS),
-            f"backward {name}: launches {fa_kernel.LAUNCHES}")
+            fa_kernel.LAUNCHES[x] == (x in BWD_KERNELS + BWD_ROUTES[path])
+            for x in (*BWD_KERNELS, *BWD_ROUTES["mma"],
+                      *BWD_ROUTES["f32"])),
+            f"backward {name}: launches {fa_kernel.LAUNCHES}, want one of "
+            f"each kernel on the {path} route")
         # the kernels write each gradient in its input's layout
         require((device == "cpu" or all(
             g.stride() == x.stride() for g, x in zip(grads, (q, k, v))))
@@ -5301,7 +5331,8 @@ def check_flash_backward(device="cuda") -> dict:
         if dtype != torch.float32:
             lse_ref = lse_plain(q, k, v, causal)
         ref_grads = bwd_plain(q, k, v, o, lse, do, causal)
-        half = dtype == torch.bfloat16
+        emu_grads = (bwd_plain(q, k, v, o, lse, do, causal, round_bf16=True)
+                     if half else ref_grads)
         what = (f"backward {name} [{B}, {HQ}/{HKV}, {S}, {SK}, {D}] "
                 f"{str(dtype)[6:]} {'causal' if causal else 'non-causal'}")
 
@@ -5316,64 +5347,85 @@ def check_flash_backward(device="cuda") -> dict:
                 f"{what}: o reads {rec['o']}")
         require(rec["lse"] <= LSE_TOL, f"{what}: lse differs by "
                 f"{rec['lse']} > {LSE_TOL}")
-        limit = BWD_RMS_TOL if half else F32_BWD_TOL
-        for g_name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
-            rec[g_name] = err(g, r)
-            require(rec[g_name] <= limit, f"{what}: {g_name} reads "
-                    f"{rec[g_name]} > {limit}")
+        # (suffix, plain gradients, limit): bf16 against the emulating and
+        # the unrounded plain version, float32 against the plain version
+        holds = ((("", emu_grads, BWD_EMU_TOL),
+                  ("_unrounded", ref_grads, BF16_RMS_TOL)) if half else
+                 (("", ref_grads, F32_BWD_TOL),))
+        for suffix, refs, limit in holds:
+            for g_name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                rec[g_name + suffix] = err(g, r)
+                require(rec[g_name + suffix] <= limit, f"{what}: {g_name} "
+                        f"reads {rec[g_name + suffix]} > {limit} against "
+                        f"the {'unrounded' if suffix else 'emulating'} "
+                        "plain version")
         if half:
-            ctrl = {"delta_dropped": bwd_plain(q, k, v, torch.zeros_like(o),
-                                               lse, do, causal)}
+            ctrl = {"delta_dropped": bwd_plain(
+                q, k, v, torch.zeros_like(o), lse, do, causal, True)}
             if causal:
-                ctrl["mask_dropped"] = bwd_plain(q, k, v, o, lse, do, False)
+                ctrl["mask_dropped"] = bwd_plain(q, k, v, o, lse, do, False,
+                                                 True)
             for c_name, c_grads in ctrl.items():
-                c_err = max(err(a, r) for a, r in zip(c_grads, ref_grads))
-                # a NaN reading counts as past the limit
-                require(not c_err <= limit, f"{what}: the control "
-                        f"{c_name} reads {c_err} <= {limit}: the hold "
-                        "cannot see it")
-                controls[f"{name}/{c_name}"] = c_err
+                for suffix, refs, limit in holds:
+                    c_err = max(err(a, r) for a, r in zip(c_grads, refs))
+                    # a NaN reading counts as past the limit
+                    require(not c_err <= limit, f"{what}: the control "
+                            f"{c_name} reads {c_err} <= {limit}: the hold "
+                            "cannot see it")
+                    controls[f"{name}/{c_name}{suffix}"] = c_err
         cases[name] = rec
         abs_errs[name] = {
             n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(
                 ("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
-                (o_ref, lse_ref, *ref_grads))}
+                (o_ref, lse_ref, *emu_grads))}
         log(f"backward {name} ({card}): q [{B}, {HQ}, {S}, {D}], k/v [{B}, "
             f"{HKV}, {SK}, {D}] {str(dtype)[6:]} "
-            f"{'causal' if causal else 'non-causal'}: "
+            f"{'causal' if causal else 'non-causal'}, {path} route: "
             + ", ".join(f"{k} {v:.3g}" for k, v in rec.items())
-            + (f" ({'error norm' if half else 'max err of max'}; limit "
-               f"{limit}, lse {LSE_TOL})")
+            + (f" (error norm against the emulating plain version, limit "
+               f"{BWD_EMU_TOL}; _unrounded against the unrounded one, "
+               f"limit {BF16_RMS_TOL}; lse {LSE_TOL})" if half else
+               f" (max err of max, limit {F32_BWD_TOL}; lse {LSE_TOL})")
             + "".join(f"; control {c} {e:.3g}" for c, e in controls.items()
                       if c.startswith(f"{name}/")))
-        if name in ("train", "float32"):
+        if name in BWD_TIMED:
             timed[name] = time_backward(q, k, v, o, lse, do, causal)
-        del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref_grads
+        del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref_grads, emu_grads
         if device != "cpu":
             torch.cuda.empty_cache()
     recs = {}
-    train = timed["train"]
-    outputs = {"flash_attention_lse": ("o",), "flash_bwd_delta": ("dq",),
-               "flash_bwd_dkdv": ("dk", "dv"), "flash_bwd_dq": ("dq",)}
-    for kname, names in outputs.items():
-        # the training shape's error on what the kernel writes (delta is
-        # held through dq, which reads it)
-        recs[kname] = {"max_abs_err": max(abs_errs["train"][n]
-                                          for n in names), **train[kname]}
+    # each kernel at its route's case (the tensor-core pair and the rest at
+    # the training shape, the f32 pair at float32): the error on what it
+    # writes (delta is held through dq, which reads it)
+    for kname, case, names, timing in (
+            ("flash_attention_lse", "train", ("o",), "flash_attention_lse"),
+            ("flash_bwd_delta", "train", ("dq",), "flash_bwd_delta"),
+            ("flash_bwd_dkdv_mma", "train", ("dk", "dv"), "flash_bwd_dkdv"),
+            ("flash_bwd_dq_mma", "train", ("dq",), "flash_bwd_dq"),
+            ("flash_bwd_dkdv", "float32", ("dk", "dv"), "flash_bwd_dkdv"),
+            ("flash_bwd_dq", "float32", ("dq",), "flash_bwd_dq")):
+        recs[kname] = {"max_abs_err": max(abs_errs[case][n] for n in names),
+                       **timed[case][timing]}
+        if kname.endswith("_mma"):
+            recs[kname]["shapes"] = {c: timed[c][timing]
+                                     for c in ("gqa", "d80")}
     recs["flash_attention_lse"]["max_abs_err_lse"] = abs_errs["train"]["lse"]
     recs["flash_attention_lse"]["case_errs"] = cases
     recs["flash_attention_lse"]["case_abs_errs"] = abs_errs
     recs["flash_attention_lse"]["controls"] = controls
-    recs["flash_attention_lse"]["float32"] = timed["float32"]
+    recs["flash_attention_lse"]["backward"] = {c: timed[c]["backward"]
+                                               for c in BWD_TIMED}
     log(f"training: phase 22's (a) took {time.perf_counter() - t0:.1f} s")
     return recs
 
 
 def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
-    """Each kernel's device ms beside its bound, the plain version's and
-    SDPA's (forward: SDPA's forward; the backward kernels: SDPA's whole
-    backward, which computes dq, dk and dv in one call)."""
+    """Each kernel's device ms beside its bound, the plain version's (the
+    tensor-core pair's: with its roundings) and SDPA's (forward: SDPA's
+    forward; the backward kernels: SDPA's whole backward, which computes
+    dq, dk and dv in one call)."""
     card = smi()
+    mma = fa_kernel.route_bwd(q, k, v, do) == "mma"
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
     bounds = backward_bounds(q, k, causal)
     fwd_bytes, fwd_flop = attention_bound(q, k, causal)
@@ -5386,7 +5438,7 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
             "flash_mma_kernel" if fa_kernel.route(q, k, v) == "mma"
             else "flash_fwd_kernel",))
     plain_bwd = sum(per_kernel_us(lambda: bwd_plain(
-        q, k, v, o, lse, do, causal), 2).values())
+        q, k, v, o, lse, do, causal, mma), 2).values())
     plain_fwd = sum(per_kernel_us(lambda: fwd_plain(q, k, v, causal),
                                   2).values())
     plain_delta = sum(per_kernel_us(lambda: (do.float() * o.float()).sum(-1),
@@ -5420,8 +5472,10 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
         nbytes / HBM_BYTES_PER_S, flop / peak) * 1e3,
         "sdpa_bwd_ms": None if sdpa_bwd is None else sdpa_bwd / 1e3,
         "sdpa_bwd_kernels": sdpa_names, "plain_ms": plain_bwd / 1e3}
+    route = f" ({'mma' if mma else 'f32'} route)"
     for name, r in out.items():
-        log(f"{name} at q {list(q.shape)} k/v {list(k.shape)} "
+        log(f"{name}{'' if name == 'flash_attention_lse' else route} at q "
+            f"{list(q.shape)} k/v {list(k.shape)} "
             f"{str(q.dtype)[6:]} ({card}): {r['ms']:.4f} ms; bound "
             f"{r['bound_ms']:.4f} ms"
             + (f" by {r['bound_by']} ({r['tflop_per_s']:.1f} TFLOP/s)"
@@ -5495,9 +5549,11 @@ def step_checks(device="cuda") -> dict:
     if torch.device(device).type == "cuda":
         n = cfg.n_layers
         require(launches["flash_attention_f32"] == 2 * n and all(
-            launches[x] == n for x in BWD_KERNELS), f"step check float32: "
-            f"launches {launches}, want {2 * n} forward (one recomputed) "
-            f"and {n} of each backward kernel")
+            launches[x] == n for x in BWD_KERNELS + BWD_ROUTES["f32"])
+            and not any(launches[x] for x in BWD_ROUTES["mma"]),
+            f"step check float32: launches {launches}, want {2 * n} "
+            f"forward (one recomputed) and {n} of each backward kernel, on "
+            "the f32 route")
     worst = max(rel_err(grads_k[k], grads_p[k]) for k in grads_p)
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     require(worst <= STEP_F32_TOL and loss_err <= STEP_F32_TOL,
@@ -5559,11 +5615,11 @@ def trainer_phase(device="cuda") -> dict:
     """(c): the Trainer on Qwen1.5-0.5B at full width and depth: 6 steps
     from the pipeline with a checkpoint after step 3, the main path (the
     launch counters are zeroed just before it and read just after: 48
-    forward launches a step, 24 of each backward kernel); the same Trainer
-    then takes 8 steps on one repeated batch, which must lower the loss by
-    more than 0.5, and one more step, profiled; a fresh Trainer restored
-    from the checkpoint runs steps 4-6 with the same losses bit for
-    bit."""
+    forward launches a step, 24 of each backward kernel, on the
+    tensor-core pair); the same Trainer then takes 8 steps on one
+    repeated batch, which must lower the loss by more than 0.5, and one
+    more step, profiled; a fresh Trainer restored from the checkpoint runs
+    steps 4-6 with the same losses bit for bit."""
     cfg = get_config(TRAIN_ARCH)
     card = on_card(device)
     ocfg = opt.AdamWConfig(**TRAIN_OPT)
@@ -5601,7 +5657,9 @@ def trainer_phase(device="cuda") -> dict:
         t0 = lap("pipeline run", t0)
         if on_gpu:
             want = {"flash_attention": 2 * n_attn * TRAIN_STEPS,
-                    **{k: n_attn * TRAIN_STEPS for k in BWD_KERNELS}}
+                    **{k: n_attn * TRAIN_STEPS
+                       for k in BWD_KERNELS + BWD_ROUTES["mma"]},
+                    **dict.fromkeys(BWD_ROUTES["f32"], 0)}
             require(all(launches[k] == n for k, n in want.items()),
                     f"trainer: launches {launches}, want {want}")
         log(f"trainer ({card}): 6 steps through the pipeline "
@@ -5689,7 +5747,9 @@ def trainer_phase(device="cuda") -> dict:
 
 def training_phase() -> tuple:
     """Phase 22's (b) and (c) ((a) runs with the other kernel checks);
-    returns (run record, the main path's launches)."""
+    returns (run record, each kernel's launches on its main path: (c)'s
+    6-step run for the forward, delta and the tensor-core pair, (b)'s
+    float32 step for the f32 pair)."""
     t0 = time.perf_counter()
     steps = step_checks()
     t1 = time.perf_counter()
@@ -5697,7 +5757,13 @@ def training_phase() -> tuple:
     t2 = time.perf_counter()
     log(f"training: phase 22's (b) took {t1 - t0:.1f} s, (c) "
         f"{t2 - t1:.1f} s")
-    return {"step_checks": steps, **run}, run["resume"]["launches"]
+    main, f32 = run["resume"]["launches"], steps["float32"]["launches"]
+    return {"step_checks": steps, **run}, {
+        "flash_attention_lse": main["flash_attention"],
+        "flash_bwd_delta": main["flash_bwd_delta"],
+        **{k: main[k] for k in BWD_ROUTES["mma"]},
+        "flash_bwd_dkdv": f32["flash_bwd_dkdv_f32"],
+        "flash_bwd_dq": f32["flash_bwd_dq_f32"]}
 
 
 def on_card(device) -> str:
@@ -5713,9 +5779,10 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def build_kernels(phases) -> None:
+def build_kernels(phases) -> dict:
     """The kernel sources the phases run, built at once, one nvcc each
-    (all four for a whole run)."""
+    (all four for a whole run); logs and returns each kernel's registers
+    and spills as ptxas reported them."""
     t0 = time.perf_counter()
     kernels = [(src, build) for src, build, uses in (
         (KV_SRC, kv_kernel.build, (*range(2, 10), 14, 15, 16, 17, 19)),
@@ -5728,6 +5795,16 @@ def build_kernels(phases) -> None:
             b.result()
     log(f"built {', '.join(src for src, _ in kernels) or 'nothing'} for "
         f"sm_90a in {time.perf_counter() - t0:.1f} s")
+    usage = kernel_build.ptxas_report()
+    for lib, per_kernel in usage.items():
+        log(f"ptxas, {lib}: " + "; ".join(
+            f"{name} {u['registers']} registers"
+            + (f", {u['spill_stores']}/{u['spill_loads']} bytes spilled "
+               "(stores/loads)" if u["spill_stores"] or u["spill_loads"]
+               else "")
+            + (", wgmma serialized" if u["wgmma_serialized"] else "")
+            for name, u in per_kernel.items()))
+    return usage
 
 
 ALL_PHASES = tuple(range(1, 23))
@@ -5765,7 +5842,7 @@ def main(argv=None) -> None:
         sys.exit("chip_smoke: no CUDA device - this script measures the "
                  "port on a GPU and has no CPU mode")
     t_start = T_START
-    build_kernels(phases)
+    ptxas = build_kernels(phases)
     log(smi())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}; float32 matmul in "
@@ -5893,8 +5970,7 @@ def main(argv=None) -> None:
                 f"{time.perf_counter() - t0:.1f} s")
     if 22 in phases:
         run["training"], counts = training_phase()
-        add_launches({"flash_attention_lse": counts["flash_attention"],
-                      **{k: counts[k] for k in BWD_KERNELS}})
+        add_launches(counts)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -5904,7 +5980,8 @@ def main(argv=None) -> None:
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
         for name, rec in kernels.items() if name in SOURCES]}
     log(json.dumps({
-        "card": card, **run, "kernel_detail": kernels, "add_one_ms": floor,
+        "card": card, **run, "kernel_detail": kernels, "ptxas": ptxas,
+        "add_one_ms": floor,
         "seconds": time.perf_counter() - t_start,
     }))
     log(json.dumps(record))

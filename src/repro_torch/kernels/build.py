@@ -1,10 +1,11 @@
 """Build a kernel package's CUDA source with nvcc and load it with ctypes.
 
-Each kernel package keeps one ``csrc/<name>.cu`` with a plain C interface.
-At first use it is compiled with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into ``build/lib<name>_<tag>.so`` beside
-``csrc/``, where ``<tag>`` hashes the source and the flags, so an edited
-source is rebuilt; the library is then loaded once per process.  A
+Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
+(the headers it includes with ``#include "..."`` beside it).  At first
+use it is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
+into ``build/lib<name>_<tag>.so`` beside ``csrc/``, where ``<tag>``
+hashes the source, those headers and the flags, so an edited source or
+header is rebuilt; the library is then loaded once per process.  A
 build holds an exclusive ``flock`` on ``build/<name>.lock``, so ranks
 started at once build a library once and load it (the kernel frees the
 lock if its holder dies).  Nothing here runs at import: the CPU tests
@@ -25,6 +26,7 @@ import fcntl
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,8 +35,10 @@ from typing import Callable
 
 import torch
 
+# -Xptxas -v: ptxas reports each kernel's registers and spills
+# (``CudaLibrary.ptxas``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -60,6 +64,94 @@ def nvcc() -> str:
 
 
 _LIBRARIES: list = []   # every CudaLibrary made, in order
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+# "Potential Performance Loss: wgmma.mma_async instructions are serialized"
+_PTXAS_SERIAL = re.compile(r"C7512.*function '(\w+)'")
+
+
+def _template_args(s: str) -> list:
+    """The arguments of a mangled template argument list ``I...E``:
+    integer literals (``Li64E``), ``float``, ``int`` and named types."""
+    args, i = [], 1
+    while i < len(s) and s[i] != "E":
+        if s[i] == "L":                     # a literal: L<type><value>E
+            j = s.index("E", i)
+            args.append(s[i + 2:j])
+            i = j + 1
+        elif s[i] in "fi":
+            args.append({"f": "float", "i": "int"}[s[i]])
+            i += 1
+        elif (found := re.match(r"\d+", s[i:])):
+            j = i + found.end()
+            args.append(s[j:j + int(found.group())])
+            i = j + int(found.group())
+        else:
+            break
+    return args
+
+
+def kernel_name(mangled: str) -> str:
+    """A mangled kernel name (``_Z[N]<len><name>...[I<args>E]...``)
+    shortened to ``name<args>``."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (found := re.match(r"\d+", mangled[i:])):
+        n, i = int(found.group()), i + found.end()
+        name, i = mangled[i:i + n], i + n
+    args = _template_args(mangled[i:]) if mangled[i:i + 1] == "I" else []
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_usage(log: str) -> dict:
+    """``{kernel: {"registers": n, "spill_stores": bytes, "spill_loads":
+    bytes, "wgmma_serialized": bool}}`` from nvcc's ``-Xptxas -v``
+    output (serialized: ptxas made a kernel's asynchronous products wait
+    one by one, advisory C7512)."""
+    usage, name, serialized = {}, None, set()
+    for line in log.splitlines():
+        if (found := _PTXAS_SERIAL.search(line)):
+            serialized.add(kernel_name(found.group(1)))
+        elif (found := _PTXAS_ENTRY.search(line)):
+            name = kernel_name(found.group(1))
+            usage[name] = {"registers": None, "spill_stores": 0,
+                           "spill_loads": 0, "wgmma_serialized": False}
+        elif name and (found := _PTXAS_SPILLS.search(line)):
+            usage[name]["spill_stores"] = int(found.group(1))
+            usage[name]["spill_loads"] = int(found.group(2))
+        elif name and (found := _PTXAS_REGS.search(line)):
+            usage[name]["registers"] = int(found.group(1))
+    for name in serialized & usage.keys():
+        usage[name]["wgmma_serialized"] = True
+    return usage
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_bytes(src: pathlib.Path) -> bytes:
+    """``src`` followed by every header it includes with ``#include
+    "..."``, each once, recursively, in the order first included."""
+    seen, out = set(), []
+
+    def add(path: pathlib.Path) -> None:
+        path = path.resolve()
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        out.append(text)
+        for name in _LOCAL_INCLUDE.findall(text):
+            add(path.parent / name.decode())
+    add(src)
+    return b"".join(out)
+
+
+def ptxas_report() -> dict:
+    """``{library: ptxas_usage}`` of every library this process
+    compiled."""
+    return {lib.name: lib.ptxas for lib in _LIBRARIES if lib.ptxas}
 
 
 def loaded_libraries() -> int:
@@ -71,7 +163,9 @@ def loaded_libraries() -> int:
 class CudaLibrary:
     """One kernel package's shared library: ``build()`` compiles it if
     needed and returns its path; ``lib()`` loads it once and lets
-    ``declare`` set each entry point's ``argtypes``/``restype``."""
+    ``declare`` set each entry point's ``argtypes``/``restype``;
+    ``ptxas``: each kernel's registers and spills (``ptxas_usage``) when
+    this process compiled it, else empty."""
 
     def __init__(self, src: pathlib.Path, name: str,
                  declare: Callable[[ctypes.CDLL], None]):
@@ -81,13 +175,18 @@ class CudaLibrary:
         self._declare = declare
         self._lib = None
         self._lock = threading.Lock()
+        self.ptxas: dict = {}
         _LIBRARIES.append(self)
 
+    def path(self) -> pathlib.Path:
+        """Where ``build`` puts the library: its tag hashes the source,
+        its local headers and the flags."""
+        tag = hashlib.sha256(source_bytes(self.src)
+                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        return self.build_dir / f"lib{self.name}_{tag}.so"
+
     def build(self) -> pathlib.Path:
-        src = self.src.read_bytes()
-        tag = hashlib.sha256(
-            src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = self.build_dir / f"lib{self.name}_{tag}.so"
+        out = self.path()
         if out.exists():
             return out
         self.build_dir.mkdir(parents=True, exist_ok=True)
@@ -105,6 +204,7 @@ class CudaLibrary:
                                    f"({proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, out)
+            self.ptxas = ptxas_usage(proc.stdout + proc.stderr)
         return out
 
     def lib(self) -> ctypes.CDLL:

@@ -38,9 +38,15 @@ causal call with ``S > SK`` raises: its first rows see no key, where the
 reference's finite ``-1e30`` gives them the mean of V over a padded block.
 ``flash_attention_bwd`` is its backward, dq, dk, dv from ``(q, k, v, o,
 lse, dO)``: three launches of ``csrc/flash_attention_bwd.cu`` (delta =
-rowsum(dO o), then dk/dv, then dq; f32 math, no atomics, ``D <= 128``) on
-a card, ``ref.chunked_bwd`` on the CPU.  ``ops.ChunkedAttention`` ties the
-two into an autograd function.
+rowsum(dO o), then dk/dv, then dq; no atomics, ``D <= 128``) on a card,
+``ref.chunked_bwd`` on the CPU.  ``route_bwd(q, k, v, do)`` picks the
+dk/dv and dq kernels as ``route`` picks the forward's: ``"mma"``, the
+tensor-core pair (bf16 products with f32 sums, p rounded to bf16 for the
+dv product and dS for the dk and dq products, which ``ref.chunked_bwd(...,
+round_bf16=True)`` repeats), where ``route`` takes q, k and v and dO is
+aligned as they are; ``"f32"``, the f32-math pair, for everything else.
+``ops.ChunkedAttention`` ties the forward and the backward into an
+autograd function.
 
 Every wrapper raises a ``RuntimeError`` when grad mode is on and an input
 requires grad (``build.refuse_grad``): the kernels write outputs with no
@@ -50,8 +56,10 @@ requires grad (``build.refuse_grad``): the kernels write outputs with no
 ``LAUNCHES`` counts kernel launches: ``"flash_attention"`` every forward
 launch, ``"flash_attention_mma"`` and ``"flash_attention_f32"`` those of
 each route, ``"flash_bwd_delta"``, ``"flash_bwd_dkdv"`` and
-``"flash_bwd_dq"`` each backward kernel's; only a launch of a CUDA kernel
-adds to them.
+``"flash_bwd_dq"`` each backward kernel's, ``"flash_bwd_dkdv_mma"``,
+``"flash_bwd_dq_mma"``, ``"flash_bwd_dkdv_f32"`` and ``"flash_bwd_dq_f32"``
+those of each backward route; only a launch of a CUDA kernel adds to
+them.
 """
 from __future__ import annotations
 
@@ -65,7 +73,9 @@ from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_mma": 0,
             "flash_attention_f32": 0, "flash_bwd_delta": 0,
-            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkdv_mma": 0, "flash_bwd_dq_mma": 0,
+            "flash_bwd_dkdv_f32": 0, "flash_bwd_dq_f32": 0}
 MAX_HEAD_DIM = 256
 MMA_MAX_HEAD_DIM = 128       # the tensor-core kernel's widest build
 BWD_MAX_HEAD_DIM = 128       # the backward kernels' widest build
@@ -97,6 +107,12 @@ def _declare_bwd(lib) -> None:
     lib.flash_bwd_dq_launch.argtypes = (
         [p] * 7 + [i] * 7 + [p, ctypes.c_float, i, i, p])
     lib.flash_bwd_dq_launch.restype = i
+    lib.flash_bwd_dkdv_mma_launch.argtypes = (
+        [p] * 8 + [i] * 6 + [p, ctypes.c_float, i, i, p])
+    lib.flash_bwd_dkdv_mma_launch.restype = i
+    lib.flash_bwd_dq_mma_launch.argtypes = (
+        [p] * 7 + [i] * 6 + [p, ctypes.c_float, i, i, p])
+    lib.flash_bwd_dq_mma_launch.restype = i
 
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -135,17 +151,27 @@ def _check(q, k, v) -> None:
         raise ValueError("no keys (SK = 0)")
 
 
+def _tma_aligned(x) -> bool:
+    """A 16-byte-aligned base and batch, head and row strides that are
+    positive multiples of 8 elements: what a TMA tensor map takes."""
+    return x.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0
+                                          for st in x.stride()[:3])
+
+
 def route(q, k, v) -> str:
     """The kernel a CUDA launch of these (checked) inputs takes: "mma" or
     "f32" (see the module's docstring)."""
     D = q.shape[3]
     if q.dtype != torch.bfloat16 or D > MMA_MAX_HEAD_DIM or D % 8:
         return "f32"
-    for x in (q, k, v):
-        if x.data_ptr() % 16 or any(st <= 0 or st % 8
-                                    for st in x.stride()[:3]):
-            return "f32"
-    return "mma"
+    return "mma" if all(_tma_aligned(x) for x in (q, k, v)) else "f32"
+
+
+def route_bwd(q, k, v, do) -> str:
+    """The dk/dv and dq kernels a CUDA launch of the backward takes: "mma"
+    where ``route`` takes q, k and v and dO is aligned as they are, else
+    "f32"."""
+    return "mma" if route(q, k, v) == "mma" and _tma_aligned(do) else "f32"
 
 
 def _scale(D: int, scale) -> float:
@@ -268,30 +294,40 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     lse = lse.contiguous()
     delta = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    path = route_bwd(q, k, v, do)
     is_bf16 = int(q.dtype == torch.bfloat16)
     strides = (ctypes.c_longlong * 21)(*[
         s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]])
     tail = (ctypes.cast(strides, ctypes.c_void_p), float(scale), int(causal),
             SK - S)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         lib = _BWD_LIBRARY.lib()
+        # the f32 entry points take the dtype; the tensor-core ones are bf16
+        if path == "mma":
+            dkdv, dq_launch, dtype = (lib.flash_bwd_dkdv_mma_launch,
+                                      lib.flash_bwd_dq_mma_launch, ())
+        else:
+            dkdv, dq_launch, dtype = (lib.flash_bwd_dkdv_launch,
+                                      lib.flash_bwd_dq_launch, (is_bf16,))
         for name, launch in (
                 ("flash_bwd_delta", lambda: lib.flash_bwd_delta_launch(
                     o.data_ptr(), do.data_ptr(), delta.data_ptr(), is_bf16,
                     B, HQ, S, D, *o.stride()[:3], *do.stride()[:3],
                     stream)),
-                ("flash_bwd_dkdv", lambda: lib.flash_bwd_dkdv_launch(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), is_bf16, B, HQ, HKV, S, SK, D, *tail,
-                    stream)),
-                ("flash_bwd_dq", lambda: lib.flash_bwd_dq_launch(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), is_bf16,
-                    B, HQ, HKV, S, SK, D, *tail, stream))):
+                ("flash_bwd_dkdv", lambda: dkdv(
+                    *inputs, dk.data_ptr(), dv.data_ptr(), *dtype, B, HQ,
+                    HKV, S, SK, D, *tail, stream)),
+                ("flash_bwd_dq", lambda: dq_launch(
+                    *inputs, dq.data_ptr(), *dtype, B, HQ, HKV, S, SK, D,
+                    *tail, stream))):
             rc = launch()
             if rc != 0:
-                raise RuntimeError(f"{name} launch failed: error {rc}")
+                raise RuntimeError(f"{name} launch failed ({path} route): "
+                                   f"error {rc}")
             LAUNCHES[name] += 1
+            if name != "flash_bwd_delta":
+                LAUNCHES[f"{name}_{path}"] += 1
     return dq, dk, dv

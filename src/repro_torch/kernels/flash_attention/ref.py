@@ -28,7 +28,11 @@ scales q after the upcast, gives padded q rows ``lse = +1e30`` (p = 0),
 takes ``delta = rowsum(dO o)`` in float32, sums dk and dv over each KV
 head's query heads in float32 and casts each gradient to its input's
 dtype.  They are the CPU's plain versions of ``kernel.flash_attention_lse``
-and ``kernel.flash_attention_bwd``.
+and ``kernel.flash_attention_bwd``.  ``chunked_bwd(..., round_bf16=True)``
+makes the backward's tensor-core route's two roundings, and no other: p
+rounded to bf16 as the dv product's operand, dS (formed from the float32
+p) as the dk and dq products' operand; off, the default and the CPU's
+route, it is the reference's step for step.
 """
 from __future__ import annotations
 
@@ -145,11 +149,17 @@ def chunked_fwd(q, k, v, *, causal: bool, scale: float, q_chunk: int,
     return o, lse
 
 
+def _bf16(x):
+    return x.to(torch.bfloat16).to(F32)
+
+
 def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
-                q_chunk: int, k_chunk: int):
+                q_chunk: int, k_chunk: int, round_bf16: bool = False):
     """The gradients ``(dq, dk, dv)`` of ``chunked_fwd``'s o, recomputed
     blockwise from ``(q, k, v, o, lse)`` and the output's gradient
-    ``do``."""
+    ``do``; ``round_bf16``: p and dS rounded to bf16 as product operands
+    (see the module's docstring)."""
+    rnd = _bf16 if round_bf16 else (lambda x: x)
     B, HQ, S, D = q.shape
     HKV, SK = k.shape[1], k.shape[2]
     G = HQ // HKV
@@ -178,9 +188,9 @@ def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
             msk = _block_mask(qi, ki, qc, kc, S, SK, causal, q.device)
             s = torch.where(msk, s, NEG_INF)
             p = torch.exp(s - lse_i[..., None])
-            dv[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", p, do_i)
+            dv[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", rnd(p), do_i)
             dp = torch.einsum("bhgqd,bhkd->bhgqk", do_i, v_j)
-            ds = p * (dp - d_i[..., None])
+            ds = rnd(p * (dp - d_i[..., None]))
             dq_i = dq_i + torch.einsum("bhgqk,bhkd->bhgqd", ds, k_j)
             dk[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", ds, q_i)
         dqs.append(dq_i * scale)

@@ -8,12 +8,19 @@ against ``jax.vjp`` of the reference's ``chunked_attention`` and, as an
 independent oracle, against autograd through ``attention_ref``.  The
 cases: causal and not, ``S == SK``, ``S < SK`` (bottom-right mask),
 ``S > SK``, ragged blocks and GQA; float32 to 1e-5 and bf16 to 2e-2 of
-the largest magnitude.  Then the autograd guard: every kernel wrapper
-raises when grad mode is on and an input requires grad (a model run with
-``impl="pallas"`` or ``flash_kernel`` among them), and the SSM mixer
-takes the plain SSD route under grad.
+the largest magnitude.  The plain backward with the tensor-core route's
+roundings (``ref.chunked_bwd(..., round_bf16=True)``) against ``jax.vjp``
+at bf16 shapes of that route, to an error norm of 5e-3, and against its
+unrounded self (the option acts); the backward's route rule on CPU
+tensors; the build tag's hash of a source's local headers and the
+build's ptxas report.  Then the
+autograd guard: every kernel wrapper raises when grad mode is on and an
+input requires grad (a model run with ``impl="pallas"`` or
+``flash_kernel`` among them), and the SSM mixer takes the plain SSD route
+under grad.
 """
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +32,7 @@ torch = pytest.importorskip("torch")
 import torch_parity  # noqa: E402,F401  (one intra-op thread a worker)
 from repro.kernels.flash_attention import ops as j_ops  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels import build as t_build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
@@ -129,6 +137,185 @@ def test_mha_chunked_saves_no_scores():
     assert [tuple(x.shape) for x in saved[:4]] == [
         tuple(x.shape) for x in (q, k, v, o)]
     assert tuple(saved[4].shape) == tuple(q.shape[:3])
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route's roundings, emulated, and the backward's route
+# ---------------------------------------------------------------------------
+# (B, HQ, HKV, S, SK, D, causal, q_chunk, k_chunk), bf16: the head dims the
+# tensor-core backward takes (64 and Zamba2's 80), GQA, ragged edges, the
+# bottom-right causal mask at S < SK, and non-causal
+EMULATED = {
+    "gqa_d64_ragged": (2, 4, 2, 72, 72, 64, True, 32, 32),
+    "d80_s_lt_sk": (1, 4, 2, 24, 88, 80, True, 16, 32),
+    "d80_noncausal": (1, 2, 2, 40, 56, 80, False, 16, 32),
+    "d64_noncausal_gqa": (2, 4, 1, 33, 48, 64, False, 16, 16),
+}
+EMULATED_TOL = 5e-3   # error norm; 2.4e-3-2.9e-3 read here
+
+
+def _emulated_inputs(case):
+    B, HQ, HKV, S, SK, D, causal, qc, kc = EMULATED[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in (
+        (B, HQ, S, D), (B, HKV, SK, D), (B, HKV, SK, D), (B, HQ, S, D)))
+    return ([jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, do)],
+            [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)])
+
+
+def _norm_err(got, exp) -> float:
+    got = got.detach().float().numpy()
+    exp = np.asarray(jnp.asarray(exp).astype(jnp.float32))
+    return float(np.linalg.norm(got - exp) / np.linalg.norm(exp))
+
+
+def _plain_backward(case, q, k, v, do, round_bf16):
+    B, HQ, HKV, S, SK, D, causal, qc, kc = EMULATED[case]
+    o, lse = ref.chunked_fwd(q, k, v, causal=causal, scale=D ** -0.5,
+                             q_chunk=qc, k_chunk=kc)
+    return ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                           scale=D ** -0.5, q_chunk=qc, k_chunk=kc,
+                           round_bf16=round_bf16)
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_rounded_plain_backward_matches_reference_vjp(case):
+    """p rounded to bf16 for the dv product and dS for the dk and dq
+    products, as the tensor-core kernels do: the reference's
+    ``_chunked_core_bwd`` through ``jax.vjp`` to an error norm of 5e-3."""
+    B, HQ, HKV, S, SK, D, causal, qc, kc = EMULATED[case]
+    (jq, jk, jv, jdo), (q, k, v, do) = _emulated_inputs(case)
+    _, vjp = jax.vjp(lambda a, b, c: j_ops.chunked_attention(
+        a, b, c, causal=causal, q_chunk=qc, k_chunk=kc), jq, jk, jv)
+    grads = _plain_backward(case, q, k, v, do, round_bf16=True)
+    for name, g, e in zip("qkv", grads, vjp(jdo)):
+        assert g.dtype == torch.bfloat16 and g.shape == tuple(e.shape)
+        assert _norm_err(g, e) <= EMULATED_TOL, (name, _norm_err(g, e))
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_rounding_option_changes_the_plain_backward(case):
+    """The option acts: every gradient moves, by more than 1e-3 of its
+    norm (p's rounding moves dv, dS's dq and dk; 2.4e-3-2.8e-3 here), and
+    off it is the default step for step."""
+    _, (q, k, v, do) = _emulated_inputs(case)
+    rounded = _plain_backward(case, q, k, v, do, round_bf16=True)
+    plain = _plain_backward(case, q, k, v, do, round_bf16=False)
+    B, HQ, HKV, S, SK, D, causal, qc, kc = EMULATED[case]
+    o, lse = ref.chunked_fwd(q, k, v, causal=causal, scale=D ** -0.5,
+                             q_chunk=qc, k_chunk=kc)
+    default = ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                              scale=D ** -0.5, q_chunk=qc, k_chunk=kc)
+    for name, a, b, c in zip("qkv", rounded, plain, default):
+        assert torch.equal(b, c), name
+        moved = float((a.float() - b.float()).norm() / b.float().norm())
+        assert moved > 1e-3, (name, moved)
+
+
+def _bwd_route_inputs(case):
+    """q, k, v, dO on the CPU for each case of the backward's route rule:
+    views as the model hands them over, [B, S, H, D] transposed."""
+    bf16 = torch.bfloat16
+    view = lambda H, D, dt=bf16: torch.zeros(2, 40, H, D,
+                                             dtype=dt).transpose(1, 2)
+    D = int(case[6:]) if case.startswith("bf16_d") else 64
+    q, k, v, do = view(4, D), view(2, D), view(2, D), view(4, D)
+    if case == "f32":
+        q, k, v, do = (x.float() for x in (q, k, v, do))
+    elif case == "do_base":        # dO 2 bytes past a 16-byte boundary
+        do = torch.zeros(1 + 2 * 40 * 4 * 64, dtype=bf16)[1:].view(
+            2, 40, 4, 64).transpose(1, 2)
+    elif case == "do_row_stride":  # dO rows of 66 elements
+        do = torch.zeros(2, 40, 4, 66, dtype=bf16)[..., :64].transpose(1, 2)
+    elif case == "k_row_stride":
+        k = torch.zeros(2, 40, 2, 66, dtype=bf16)[..., :64].transpose(1, 2)
+    elif case == "do_contiguous":  # contiguous [B, H, S, D], q a view
+        do = torch.zeros(2, 4, 40, 64, dtype=bf16)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16_d64", "mma"), ("bf16_d128", "mma"), ("bf16_d80", "mma"),
+    ("bf16_d32", "mma"), ("do_contiguous", "mma"), ("f32", "f32"),
+    ("bf16_d84", "f32"), ("bf16_d256", "f32"), ("do_base", "f32"),
+    ("do_row_stride", "f32"), ("k_row_stride", "f32"),
+])
+def test_backward_route_rule(case, want):
+    """The rule that picks the CUDA backward's dk/dv and dq kernels, on CPU
+    tensors: the forward's tensor-core rule for q, k and v plus dO's
+    alignment takes the tensor-core pair, anything else the f32 pair.  On
+    the CPU the wrapper still runs the plain version and launches
+    nothing."""
+    q, k, v, do = _bwd_route_inputs(case)
+    assert fa_kernel.route_bwd(q, k, v, do) == want
+    assert fa_kernel.route(q, k, v) == (
+        "f32" if case in ("f32", "bf16_d84", "bf16_d256", "k_row_stride")
+        else "mma")
+    fa_kernel.reset_launches()
+    o, lse = fa_kernel.flash_attention_lse(q, k, v)
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    assert [g.shape for g in grads] == [x.shape for x in (q, k, v)]
+    assert all(n == 0 for n in fa_kernel.LAUNCHES.values())
+
+
+def test_build_tag_hashes_the_local_headers(tmp_path):
+    """A kernel library's build path changes with the source and with a
+    header it includes (``#include "..."``, recursively), not with
+    another file beside them; the port's two attention sources include
+    ``hopper.cuh``."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "h.cuh"\nint a;\n')
+    (csrc / "h.cuh").write_text('#include "g.cuh"\nint h;\n')
+    (csrc / "g.cuh").write_text("int g;\n")
+    (csrc / "other.cuh").write_text("int o;\n")
+    lib = t_build.CudaLibrary(csrc / "a.cu", "a", lambda _: None)
+    t_build._LIBRARIES.remove(lib)
+    seen = [lib.path()]
+    for name, text in (("other.cuh", "int o2;\n"), ("g.cuh", "int g2;\n"),
+                       ("h.cuh", '#include "g.cuh"\nint h2;\n'),
+                       ("a.cu", '#include "h.cuh"\nint a2;\n')):
+        (csrc / name).write_text(text)
+        seen.append(lib.path())
+    assert seen[1] == seen[0] and len(set(seen)) == 4
+    assert seen[0].parent == tmp_path / "build"
+    fa_csrc = pathlib.Path(fa_kernel.__file__).parent / "csrc"
+    header = (fa_csrc / "hopper.cuh").read_bytes()
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert header in t_build.source_bytes(fa_csrc / src)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN7bwd_mma25flash_bwd_dkdv_mma_kernelILi64ELi3ELi2EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiiiNS_10OutStridesES6_ffii'
+ptxas info    : Compiling entry function '_ZN7bwd_mma25flash_bwd_dkdv_mma_kernelILi64ELi3ELi2EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiiiNS_10OutStridesES6_ffii' for 'sm_90a'
+ptxas info    : Function properties for _ZN7bwd_mma25flash_bwd_dkdv_mma_kernelILi64ELi3ELi2EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiiiNS_10OutStridesES6_ffii
+    16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiiiNS_7StridesES8_S8_S8_S8_S8_fii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiiiNS_7StridesES8_S8_S8_S8_S8_fii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z14kv_read_kernelILb1EEvPKi' for 'sm_90a'
+ptxas info    : Used 40 registers
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """The build keeps what ``-Xptxas -v`` prints: each kernel by its
+    demangled name and template arguments, its registers, its spilled
+    bytes and whether ptxas serialized its wgmma products (C7512)."""
+    assert t_build.ptxas_usage(PTXAS_LOG) == {
+        "flash_bwd_dkdv_mma_kernel<64, 3, 2>": {
+            "registers": 166, "spill_stores": 16, "spill_loads": 12,
+            "wgmma_serialized": True},
+        "flash_bwd_dkdv_kernel<__nv_bfloat16, 128>": {
+            "registers": 128, "spill_stores": 0, "spill_loads": 0,
+            "wgmma_serialized": False},
+        "kv_read_kernel<1>": {
+            "registers": 40, "spill_stores": 0, "spill_loads": 0,
+            "wgmma_serialized": False}}
+    assert "-v" in t_build.NVCC_FLAGS
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,12 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
-# the backward kernels' launch counters, which serving leaves at 0
-BWD_COUNTERS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+# the backward kernels' launch counters, and each route's dk/dv and dq
+# counters; serving leaves them all at 0
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+BWD_ROUTES = {"mma": ("flash_bwd_dkdv_mma", "flash_bwd_dq_mma"),
+              "f32": ("flash_bwd_dkdv_f32", "flash_bwd_dq_f32")}
+BWD_COUNTERS = BWD_KERNELS + BWD_ROUTES["mma"] + BWD_ROUTES["f32"]
 
 
 @pytest.fixture
@@ -1488,6 +1492,35 @@ def _bwd_inputs(card, B, HQ, HKV, S, SK, D, dtype, seed=0):
     return one(HQ, S), one(HKV, SK), one(HKV, SK), one(HQ, S)
 
 
+def _bwd_launched(path: str) -> bool:
+    """One launch of each backward kernel, the dk/dv and dq ones on the
+    ``path`` route."""
+    return all(fa_kernel.LAUNCHES[k] == (k in BWD_KERNELS + BWD_ROUTES[path])
+               for k in BWD_COUNTERS)
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal, round_bf16=False):
+    S, SK, D = q.shape[2], k.shape[2], q.shape[3]
+    return fa_ref.chunked_bwd(
+        q, k, v, o, lse, do, causal=causal, scale=D ** -0.5,
+        round_bf16=round_bf16,
+        **dict(zip(("q_chunk", "k_chunk"), fa_ref.default_blocks(S, SK))))
+
+
+def _norm_err(got, exp) -> float:
+    return float((got.float() - exp.float()).norm() / exp.float().norm())
+
+
+# The tensor-core backward's gradients against the plain version that
+# makes its two roundings (p and dS as bf16 operands): 2.9x the largest
+# sound reading, 3.48e-4 (PERF.md); the rest is summation order,
+# ex2.approx and a p or dS rounded the other way near a tie
+BWD_EMU_TOL = 1e-3
+# ... and against the unrounded plain version: the forward's bf16 limit
+# (the roundings alone read 2.5e-3 to 2.7e-3)
+BF16_NORM_TOL = 5e-3
+
+
 @pytest.mark.parametrize("B,HQ,HKV,S,SK,D,dtype,causal", [
     (2, 4, 2, 200, 200, 64, torch.bfloat16, True),
     (2, 4, 4, 200, 700, 128, torch.bfloat16, True),
@@ -1497,41 +1530,76 @@ def _bwd_inputs(card, B, HQ, HKV, S, SK, D, dtype, seed=0):
 ])
 def test_cuda_flash_backward_matches_plain_version(card, B, HQ, HKV, S, SK,
                                                    D, dtype, causal):
-    """o, lse and the three backward kernels against ``ref.chunked_fwd``
-    and ``ref.chunked_bwd`` (the backward from the kernel's own o and
-    lse): bf16 o to its error norm 5e-3, gradients to 2.5e-4; float32 to
-    1e-4 of the largest magnitude; one launch of each kernel, the
-    gradients in their inputs' layouts.  The backward's plain version
-    reads the kernel's lse, so the lse is held on its own to 5e-5 against
-    the plain forward on the inputs upcast to float32, which scales the
-    float32 score as the kernels do (the reference's forward rounds q *
-    scale to bf16 first)."""
+    """o, lse and the backward kernels against ``ref.chunked_fwd`` and
+    ``ref.chunked_bwd`` (the backward from the kernel's own o and lse),
+    the gradients in their inputs' layouts.  bf16 takes the tensor-core
+    pair: o to its error norm 5e-3, the gradients by their error norm to
+    ``BWD_EMU_TOL`` against the plain version with the pair's roundings
+    and to 5e-3 against the unrounded one, and two controls (delta
+    dropped; causal, the mask dropped) read past both.  float32 takes the
+    f32 pair, to 1e-4 of the largest magnitude.  One launch of each
+    kernel, on its route.  The backward's plain version reads the
+    kernel's lse, so the lse is held on its own to 5e-5 against the plain
+    forward on the inputs upcast to float32, which scales the float32
+    score as the kernels do (the reference's forward rounds q * scale to
+    bf16 first)."""
     q, k, v, do = _bwd_inputs(card, B, HQ, HKV, S, SK, D, dtype)
+    half = dtype == torch.bfloat16
+    path = "mma" if half else "f32"
+    assert fa_kernel.route_bwd(q, k, v, do) == path
     fa_kernel.reset_launches()
     o, lse = fa_kernel.flash_attention_lse(q, k, v, causal=causal)
     grads = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     assert fa_kernel.LAUNCHES["flash_attention"] == 1
-    assert all(fa_kernel.LAUNCHES[k] == 1 for k in BWD_COUNTERS)
+    assert _bwd_launched(path), fa_kernel.LAUNCHES
     blocks = dict(zip(("q_chunk", "k_chunk"), fa_ref.default_blocks(S, SK)))
     o_ref = fa_ref.chunked_fwd(q, k, v, causal=causal, scale=D ** -0.5,
                                **blocks)[0]
     lse_ref = fa_ref.chunked_fwd(q.float(), k.float(), v.float(),
                                  causal=causal, scale=D ** -0.5, **blocks)[1]
-    ref_grads = fa_ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
-                                   scale=D ** -0.5, **blocks)
-    half = dtype == torch.bfloat16
-
-    def err(got, exp):
-        got, exp = got.float(), exp.float()
-        if half:
-            return float((got - exp).norm() / exp.norm())
-        return float((got - exp).abs().max() / exp.abs().max())
-    assert err(o, o_ref) <= (5e-3 if half else 1e-4)
-    assert float((lse - lse_ref).abs().max()) <= 5e-5
-    for g, r, x in zip(grads, ref_grads, (q, k, v)):
+    plain = _bwd_plain(q, k, v, o, lse, do, causal)
+    for g, x in zip(grads, (q, k, v)):
         assert g.stride() == x.stride() and g.dtype == x.dtype
-        assert err(g, r) <= (2.5e-4 if half else 1e-4)
+    assert float((lse - lse_ref).abs().max()) <= 5e-5
+    if not half:
+        assert float((o - o_ref).abs().max() / o_ref.abs().max()) <= 1e-4
+        for g, r in zip(grads, plain):
+            assert float((g - r).abs().max() / r.abs().max()) <= 1e-4
+        return
+    assert _norm_err(o, o_ref) <= 5e-3
+    holds = ((_bwd_plain(q, k, v, o, lse, do, causal, True), BWD_EMU_TOL),
+             (plain, BF16_NORM_TOL))
+    for refs, limit in holds:
+        for g, r in zip(grads, refs):
+            assert _norm_err(g, r) <= limit
+    controls = [_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, causal,
+                           True)]
+    if causal:
+        controls.append(_bwd_plain(q, k, v, o, lse, do, False, True))
+    for ctrl in controls:
+        for refs, limit in holds:
+            assert max(_norm_err(c, r) for c, r in zip(ctrl, refs)) > limit
+
+
+def test_cuda_flash_backward_f32_route_on_misaligned_bf16(card):
+    """bf16 whose dO rows are not 16-byte aligned takes the f32 pair: one
+    launch of each of its kernels, the gradients within 2.5e-4 of the
+    unrounded plain version's norm (its f32 math rounds only the
+    outputs)."""
+    q, k, v, do = _bwd_inputs(card, 2, 4, 2, 200, 200, 64, torch.bfloat16)
+    do_view = torch.empty((2, 200, 4, 66), dtype=torch.bfloat16,
+                          device=card)[..., :64].transpose(1, 2)
+    do_view.copy_(do)
+    assert fa_kernel.route(q, k, v) == "mma"
+    assert fa_kernel.route_bwd(q, k, v, do_view) == "f32"
+    o, lse = fa_kernel.flash_attention_lse(q, k, v)
+    fa_kernel.reset_launches()
+    grads = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do_view)
+    torch.cuda.synchronize()
+    assert _bwd_launched("f32"), fa_kernel.LAUNCHES
+    for g, r in zip(grads, _bwd_plain(q, k, v, o, lse, do, True)):
+        assert _norm_err(g, r) <= 2.5e-4
 
 
 def test_cuda_chunked_attention_trains_through_the_kernels(card):
@@ -1555,12 +1623,16 @@ def test_cuda_chunked_attention_trains_through_the_kernels(card):
         assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
 
 
-def test_cuda_backward_is_deterministic(card):
-    """No atomics: two runs of the backward are equal bit for bit."""
-    q, k, v, do = _bwd_inputs(card, 2, 4, 2, 500, 500, 64, torch.bfloat16)
+@pytest.mark.parametrize("D", [64, 128])
+def test_cuda_backward_is_deterministic(card, D):
+    """No atomics: two runs of the tensor-core backward are equal bit for
+    bit, at both of its widths."""
+    q, k, v, do = _bwd_inputs(card, 2, 4, 2, 500, 500, D, torch.bfloat16)
     o, lse = fa_kernel.flash_attention_lse(q, k, v)
+    fa_kernel.reset_launches()
     a = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
     b = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+    assert fa_kernel.LAUNCHES["flash_bwd_dkdv_mma"] == 2
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
