@@ -284,7 +284,23 @@ source, all three at once), then:
    profiled step (attention forward, attention backward, matrix
    products, the rest; busy share); a fresh Trainer restored from the
    checkpoint gives steps 4-6's losses bit for bit; prints ms a step,
-   tokens/s, peak device memory and the seconds of each part.
+   tokens/s, peak device memory and the seconds of each part;
+23. the multi-device modules (``distributed/``, ``launch/``,
+   ``roofline/``): (a) the dry-run's counter (``launch/dryrun.py`` on a
+   one-device mesh) on phase 22 (c)'s training step and phase 11's
+   prefill wave: counted FLOPs and bytes, model FLOPs, the roofline's
+   compute and memory terms against the H100's data sheet, and, beside
+   each run's measured time, ``mfu`` (model FLOPs over the time and the
+   bf16 peak) and the bound's share of the time; (b) ``psum_compressed``
+   and 3 steps of ``compress_with_feedback`` on 4 gloo ranks sharing the
+   card, one Qwen1.5-0.5B layer's seeded gradients a rank: the CUDA
+   ranks equal the CPU ranks bit for bit, the sum within 4 x (block max
+   / 254) of the exact sum, the bytes a rank sends (the collective
+   recorder) and the median ms of 5 calls after an untimed one; (c)
+   Qwen2.5-3B at full width and 2 layers on a (1, 1) ``DeviceMesh`` under
+   ``SINGLE_POD_SERVE``, every parameter a DTensor: the prefill's and a
+   decode step's logits equal the run without rules bit for bit, with the
+   same attention launches.
 
 Phase 10 also holds and times the kernel non-causal (``NONCAUSAL``):
 Whisper's encoder (q, k, v [8, 8, 1500, 64]) and cross-attention (q [8,
@@ -300,8 +316,8 @@ the ssd pair, phase 22's 6-step Trainer run for the forward with lse,
 float32 step check (b) for the backward's f32 pair), each counted from
 zero just before its run.  ``--phases
 12,13`` runs the build of the kernels those phases use, phase 1 and the
-named phases only (4 and 5 bring 3 along, 8 brings 7; 15-22 stand
-alone);
+named phases only (4 and 5 bring 3 along, 8 brings 7, 23 brings 11
+and 22; 15-22 stand alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
 it placed in another checkout (a parent commit's, unpacked with ``git
@@ -386,6 +402,14 @@ try:
     from repro_torch.serve import engine as engine_lib  # noqa: E402
     from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
     from repro_torch.train import optimizer as opt  # noqa: E402
+    from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
+    from repro_torch.distributed import compression  # noqa: E402
+    from repro_torch.distributed import sharding as sh  # noqa: E402
+    from repro_torch.launch import dryrun  # noqa: E402
+    # the H100 SXM's data-sheet figures, every bound below reads them
+    from repro_torch.roofline.analysis import (  # noqa: E402
+        BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S, TF32_FLOP_PER_S,
+        CollectiveRecorder)
     from repro_torch.train.train_step import init_train_state  # noqa: E402
     from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
     from repro_torch.serve.engine import (  # noqa: E402
@@ -402,10 +426,6 @@ WORKLOAD = dict(ticks=32, queries_per_tick=32, write_fraction=0.25,
 EXTRA_TICKS = 16
 REDUCED_TICKS, REDUCED_EXTRA = 4, 8
 ITERS = 40                         # timed calls per kernel measurement
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
-F32_FLOP_PER_S = 67e12             # H100 SXM f32 peak outside tensor cores
-TF32_FLOP_PER_S = 495e12           # H100 SXM dense TF32 tensor-core peak
 KV_SRC = "src/repro_torch/kernels/kv_engine/csrc/kv_engine.cu"
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
@@ -5766,6 +5786,227 @@ def training_phase() -> tuple:
         "flash_bwd_dq": f32["flash_bwd_dq_f32"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: distributed/, launch/ and roofline/ on the card
+# ---------------------------------------------------------------------------
+# (b): one Qwen1.5-0.5B layer's gradients (full width) on 4 ranks
+COMPRESS_ARCH, COMPRESS_RANKS, COMPRESS_SEED = "qwen1.5-0.5b", 4, 2300
+COMPRESS_TIMED = 5       # timed calls after one untimed; the median is kept
+# (c): Qwen2.5-3B at full width and 2 layers, 2 x 256 tokens
+SHARDED_LAYERS, SHARDED_BATCH, SHARDED_PROMPT = 2, 2, 256
+
+
+def roofline_of_runs(run: dict) -> dict:
+    """(a): the dry-run's counter (``launch/dryrun.py``, on a one-device
+    mesh) on the two runs this script times whole: phase 22 (c)'s
+    training step and phase 11's prefill wave, each beside its measured
+    time: model FLOPs over the measured time and the bf16 peak (MFU), and
+    the roofline bound's share of the measured time."""
+    card = smi()
+    cells = {
+        "train_step": (get_config(TRAIN_ARCH),
+                       ShapeSpec("phase22_step", "train", TRAIN_SEQ,
+                                 TRAIN_BATCH), TRAIN_FLAGS,
+                       run["training"]["repeated_batch"]["median_step_ms"]),
+        "prefill_wave": (get_config(SERVE_ARCH),
+                         ShapeSpec("phase11_prefill", "prefill", PROMPT_LEN,
+                                   SLOTS), SERVE_PATHS["dense"].flags,
+                         run["serving"]["prefill"]["device_ms"]),
+    }
+    out = {}
+    for name, (cfg, shape, flags, ms) in cells.items():
+        require(ms is not None, f"roofline {name}: no measured time")
+        t0 = time.perf_counter()
+        rep, _ = dryrun.lower(cfg, shape, "one", train_flags=flags,
+                              serve_flags=flags, verbose=False)
+        s = ms / 1e3
+        rec = {"measured_ms": ms, "counted_flops": rep.flops_per_device,
+               "counted_bytes": rep.bytes_per_device,
+               "model_flops": rep.model_flops_total,
+               "compute_ms": rep.compute_s * 1e3,
+               "memory_ms": rep.memory_s * 1e3,
+               "bound_ms": rep.bound_s * 1e3, "bottleneck": rep.bottleneck,
+               "mfu": rep.mfu(s), "bound_share": rep.bound_s / s,
+               "kernels": rep.probes["d1"]["kernels"],
+               "trace_s": time.perf_counter() - t0}
+        require(all(np.isfinite(v) and v > 0 for v in (
+            rec["counted_flops"], rec["counted_bytes"], rec["mfu"],
+            rec["bound_share"])) and rec["mfu"] < 1,
+                f"roofline {name}: {rec}")
+        out[name] = rec
+        log(f"roofline {name} ({card}): {cfg.name}, {shape.global_batch} x "
+            f"{shape.seq_len}, {flags.attn_impl} attention, remat "
+            f"{flags.remat}, kernels a probe {rec['kernels']}: counted {rec['counted_flops']:.4g} "
+            f"FLOPs and {rec['counted_bytes']:.4g} bytes (eager, each op's "
+            f"inputs and outputs) a step, model FLOPs "
+            f"{rec['model_flops']:.4g}; compute {rec['compute_ms']:.2f} ms, "
+            f"memory {rec['memory_ms']:.2f} ms -> {rec['bottleneck']}-bound "
+            f"{rec['bound_ms']:.2f} ms; measured {ms:.2f} ms: mfu "
+            f"{rec['mfu']:.4f}, bound share {rec['bound_share']:.4f}; "
+            f"counted in {rec['trace_s']:.1f} s")
+    return out
+
+
+def compress_grads(rank: int) -> dict:
+    """Rank ``rank``'s seeded float32 gradients at the leaf shapes of one
+    Qwen1.5-0.5B layer (full width), on the CPU."""
+    cfg = dataclasses.replace(get_config(COMPRESS_ARCH), n_layers=1)
+    shapes = {n: tuple(p.shape) for n, p in dryrun.meta_params(cfg)
+              .named_parameters() if n.startswith("layers.0.")}
+    gen = torch.Generator().manual_seed(COMPRESS_SEED + rank)
+    return {n: torch.randn(s, generator=gen) * 0.01
+            for n, s in shapes.items()}
+
+
+def compress_worker(rank: int, world: int, dev) -> dict:
+    """(b) on one rank: ``psum_compressed`` of this rank's gradients on
+    the card (once under the collective recorder, then ``COMPRESS_TIMED``
+    timed repeats, each equal to the first) and on the CPU, and
+    ``compress_with_feedback`` over 3 steps on both."""
+    grads = compress_grads(rank)
+    on_dev = {k: v.to(dev) for k, v in grads.items()}
+    with CollectiveRecorder() as rec:
+        summed = compression.psum_compressed(on_dev)    # untimed: warm-up
+    times = []
+    for _ in range(COMPRESS_TIMED):
+        torch.distributed.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        again = compression.psum_compressed(on_dev)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(all(torch.equal(again[k], summed[k]) for k in grads),
+                "compressed all-reduce: a repeat differs")
+    cpu = compression.psum_compressed(grads)
+    same = all(torch.equal(summed[k].cpu(), cpu[k]) for k in grads)
+    ef_dev, ef_cpu = (compression.ErrorFeedback.init(g)
+                      for g in (on_dev, grads))
+    ef_same = True
+    for _ in range(3):
+        c_dev, ef_dev = compression.compress_with_feedback(on_dev, ef_dev)
+        c_cpu, ef_cpu = compression.compress_with_feedback(grads, ef_cpu)
+        ef_same &= all(torch.equal(c_dev[k].cpu(), c_cpu[k]) and
+                       torch.equal(ef_dev.residual[k].cpu(),
+                                   ef_cpu.residual[k]) for k in grads)
+    return dict(ms=float(np.median(times)), times=times, coll=rec.report(),
+                same=same, ef_same=ef_same,
+                summed={k: v.cpu() for k, v in summed.items()}
+                if rank == 0 else None)
+
+
+def compressed_allreduce(device="cuda") -> dict:
+    """(b): ``psum_compressed`` and ``compress_with_feedback`` on 4 gloo
+    ranks on the card: CUDA ranks equal to CPU ranks bit for bit, the sum
+    within 4 x (block max / 254) of the exact sum of the 4 ranks'
+    gradients, the bytes a rank sends (the recorder) and the ms."""
+    card = on_card(device)
+    res = collectives.spawn_ranks(compress_worker, COMPRESS_RANKS,
+                                  backend="gloo", device=device,
+                                  timeout=DIST_TIMEOUT)
+    require(all(r["same"] and r["ef_same"] for r in res),
+            "compressed all-reduce: CUDA ranks differ from CPU ranks")
+    grads = [compress_grads(r) for r in range(COMPRESS_RANKS)]
+    worst, n = 0.0, 0
+    for k, got in res[0]["summed"].items():
+        exact = sum(g[k].double() for g in grads)
+        blocks = [compression.quantize_int8(g[k])[1] for g in grads]
+        bmax = torch.stack(blocks).amax(0) * 127.0      # each block's max
+        allowed = (4 * bmax / 254).repeat_interleave(compression.BLOCK)
+        err = F.pad((got.double() - exact).reshape(-1).abs(),
+                    (0, -got.numel() % compression.BLOCK))
+        slack = 8 * 2.0 ** -24 * exact.abs().max()
+        require(bool((err <= allowed.double() + slack).all()),
+                f"compressed all-reduce {k}: error past 4 x block max / 254")
+        worst = max(worst, float((err / (allowed.double() + slack)).max()))
+        n += got.numel()
+    coll = res[0]["coll"]
+    ms = max(r["ms"] for r in res)      # the slowest rank's median
+    log(f"compressed all-reduce ({card}; gloo, {COMPRESS_RANKS} ranks on "
+        f"one card, staged through host memory): one Qwen1.5-0.5B layer's "
+        f"{len(grads[0])} leaves, {n:,} floats a rank: CUDA ranks == CPU "
+        f"ranks bit for bit (psum and 3 error-feedback steps); error at "
+        f"most {worst:.3f} of 4 x block max / 254; bytes a rank sends "
+        f"{coll['total']:,.0f} ({coll['counts']['all-reduce']} float32 "
+        f"all-reduces, ring factor 2: the reference's dequantized payload, "
+        f"4 bytes an element); {ms:.3f} ms (the slowest rank's median of "
+        f"{COMPRESS_TIMED} calls after an untimed one; each rank's calls: "
+        f"{[[round(t, 3) for t in r['times']] for r in res]})")
+    return {"ms": ms, "times": [r["times"] for r in res], "bytes_sent": coll["total"], "coll": coll,
+            "elements": n, "worst_share_of_bound": worst}
+
+
+def sharded_serving(device="cuda") -> dict:
+    """(c): Qwen2.5-3B at full width and 2 layers on a one-card
+    ``DeviceMesh`` under ``SINGLE_POD_SERVE``, every parameter a DTensor
+    of its spec: the prefill's and one decode step's logits equal the same
+    run's without rules, bit for bit, with the same attention launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    card = on_card(device)
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=SHARDED_LAYERS)
+    flags = OptFlags(attn_impl="chunked")
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED)
+    toks = torch.randint(0, cfg.vocab, (SHARDED_BATCH, SHARDED_PROMPT + 1),
+                         generator=gen, device=device, dtype=torch.int32)
+    prompt, nxt = toks[:, :-1], toks[:, -1:]
+
+    def run(params):
+        fa_kernel.reset_launches()
+        with torch.no_grad():
+            logits, cache = api.prefill_fn(cfg)(
+                params, {"tokens": prompt}, SHARDED_PROMPT + 8, flags)
+            step, _ = api.decode_fn(cfg)(params, cache, nxt, flags)
+            full = [x.full_tensor() if sh.is_dtensor(x) else x
+                    for x in (logits, step)]
+        sync(device)
+        return full, dict(fa_kernel.LAUNCHES)
+
+    params = api.init_params(cfg, gen, device, compute_dtype=True)
+    plain, plain_launches = run(params)
+    dev = torch.device(device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = sh.SINGLE_POD_SERVE
+        sh.distribute_params(params, sh.build_param_specs(params, rules,
+                                                          mesh), mesh)
+        with sh.use_rules(rules, mesh), implicit_replication():
+            sharded, launches = run(params)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(sharded, plain))
+    require(same, "sharded serving: logits differ from the run without "
+            "rules")
+    require(launches == plain_launches and launches["flash_attention"] ==
+            (SHARDED_LAYERS if dev.type == "cuda" else 0),
+            f"sharded serving: attention launches {launches}, without rules "
+            f"{plain_launches}")
+    log(f"sharded serving ({card}): Qwen2.5-3B, {SHARDED_LAYERS} layers, "
+        f"{SHARDED_BATCH} x {SHARDED_PROMPT} tokens, SINGLE_POD_SERVE on a "
+        f"(1, 1) DeviceMesh, every parameter a DTensor: prefill and one "
+        f"decode step's logits == the run without rules, bit for bit; "
+        f"attention through local_map, flash_attention launches "
+        f"{launches['flash_attention']} (without rules "
+        f"{plain_launches['flash_attention']})")
+    return {"same": same, "launches": launches}
+
+
+def distributed_slice_phase(run: dict) -> dict:
+    """Phase 23: (a) the roofline of phases 22 and 11, (b) the compressed
+    all-reduce on 4 ranks, (c) the sharded serving path on one card."""
+    return {"roofline": roofline_of_runs(run),
+            "compressed_allreduce": compressed_allreduce(),
+            "sharded_serving": sharded_serving()}
+
+
 def on_card(device) -> str:
     """What a timing ran on: the card's name and power limit, or the
     host's CPU."""
@@ -5807,13 +6048,14 @@ def build_kernels(phases) -> dict:
     return usage
 
 
-ALL_PHASES = tuple(range(1, 23))
+ALL_PHASES = tuple(range(1, 24))
 
 
 def parse_phases(argv) -> set:
     """``--phases 12,13``: the build, phase 1 and the named phases (a
     phase that needs an earlier one's run brings it along: 4 and 5 need 3,
-    8 needs 7).  No argument: every phase."""
+    8 needs 7, 23 reads 11's and 22's times).  No argument: every
+    phase."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5830,6 +6072,8 @@ def parse_phases(argv) -> set:
         phases.add(3)
     if 8 in phases:
         phases.add(7)
+    if 23 in phases:
+        phases |= {11, 22}
     return phases
 
 
@@ -5971,6 +6215,11 @@ def main(argv=None) -> None:
     if 22 in phases:
         run["training"], counts = training_phase()
         add_launches(counts)
+    if 23 in phases:
+        t0 = time.perf_counter()
+        run["distributed_slice"] = distributed_slice_phase(run)
+        log(f"distributed slice: phase 23's run took "
+            f"{time.perf_counter() - t0:.1f} s")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,2 +1,2 @@
-"""Multi-device helpers of the port; so far the int8 gradient round trip
-that the train step uses."""
+"""Multi-device helpers of the port: the sharding rules as DTensor
+placements (``sharding``) and gradient compression (``compression``)."""

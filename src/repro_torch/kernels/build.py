@@ -17,10 +17,21 @@ an input that requires grad under grad mode raises rather than return an
 output that silently drops the gradient (the reference's ``jax.grad``
 cannot transpose a ``pallas_call`` either).  The one way into a kernel
 under grad is an ``autograd.Function`` whose backward is a kernel too
-(``flash_attention/ops.py::ChunkedAttention``).
+(``flash_attention/ops.py::ChunkedAttention``).  ``refuse_dtensor`` is
+the wrappers' mesh guard: a kernel reads one device's memory, so a
+wrapper handed a DTensor raises rather than take its local shard; a
+caller on a mesh runs the kernel on the shards itself, with the
+placements stated (``flash_attention/ops.py::mha``).
+
+``note_kernel`` is how a wrapper handed ``meta`` tensors (a dry-run's
+stand-ins: shapes, no data) reports the work its kernel would do: it
+hands ``(name, flops, bytes)`` to the sink in ``WORK_SINK``, if a caller
+set one (``roofline/analysis.py::StepCounter`` does), and else does
+nothing.
 """
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import fcntl
 import hashlib
@@ -34,6 +45,7 @@ import threading
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 # -Xptxas -v: ptxas reports each kernel's registers and spills
 # (``CudaLibrary.ptxas``)
@@ -49,6 +61,31 @@ def refuse_grad(name: str, *tensors) -> None:
             f"{name}: an input requires grad, and this kernel has no "
             "backward (nor has the reference's pallas_call): call it under "
             "torch.no_grad(), or train through impl='chunked'")
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise if any of ``tensors`` is a DTensor."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{name}: a DTensor input; the kernel reads one device's "
+            "tensors, so run it on the local shards with their placements "
+            "stated (torch.distributed.tensor.experimental.local_map)")
+
+
+WORK_SINK: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_kernel_work", default=None)
+
+
+def note_kernel(name: str, flops: float, nbytes: float) -> None:
+    """A kernel's work from a wrapper handed ``meta`` tensors, where it
+    runs no plain version: passed to the active sink, if any."""
+    sink = WORK_SINK.get()
+    if sink is not None:
+        sink(name, flops, nbytes)
 
 
 def nvcc() -> str:

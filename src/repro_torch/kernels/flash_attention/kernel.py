@@ -51,7 +51,13 @@ autograd function.
 Every wrapper raises a ``RuntimeError`` when grad mode is on and an input
 requires grad (``build.refuse_grad``): the kernels write outputs with no
 ``grad_fn``, so the only way into them under grad is
-``ops.ChunkedAttention``, whose backward is the backward kernels.
+``ops.ChunkedAttention``, whose backward is the backward kernels.  A
+DTensor raises a ``TypeError`` (``build.refuse_dtensor``).  On the
+``meta`` device (the dry-run's stand-ins: shapes, no data) a wrapper
+returns its outputs' shapes and dtypes, as a custom op's fake kernel
+does, and reports the kernel's work, its matrix FLOPs over the unmasked
+(query, key) pairs and the bytes it reads and writes once each, to the
+active step counter (``build.note_kernel``).
 
 ``LAUNCHES`` counts kernel launches: ``"flash_attention"`` every forward
 launch, ``"flash_attention_mma"`` and ``"flash_attention_f32"`` those of
@@ -66,9 +72,11 @@ from __future__ import annotations
 import ctypes
 import pathlib
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.build import CudaLibrary, refuse_grad
+from repro_torch.kernels.build import (
+    CudaLibrary, note_kernel, refuse_dtensor, refuse_grad)
 from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_mma": 0,
@@ -208,6 +216,30 @@ def _forward(q, k, v, causal: bool, scale: float, offset: int, lse):
     return o
 
 
+def _pairs(S: int, SK: int, causal: bool, offset: int) -> int:
+    """The (query, key) pairs a mask leaves, per batch and head: row i
+    sees the keys up to ``i + offset``."""
+    if not causal:
+        return S * SK
+    return int(np.clip(np.arange(S) + offset + 1, 0, SK).sum())
+
+
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _meta_forward(name, q, k, v, causal: bool, offset: int, lse: bool):
+    """The forward on meta tensors (module docstring): QK^T and PV over
+    the visible pairs."""
+    B, HQ, S, D = q.shape
+    o = torch.empty_like(q)
+    outs = (o,) + ((torch.empty((B, HQ, S), dtype=torch.float32,
+                                device=q.device),) if lse else ())
+    flops = 4.0 * B * HQ * D * _pairs(S, k.shape[2], causal, offset)
+    note_kernel(name, flops, _nbytes(q, k, v, *outs))
+    return outs if lse else o
+
+
 def _cuda(name: str, dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -216,10 +248,13 @@ def _cuda(name: str, dev) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """GQA attention, forward, causal (aligned top-left) unless
     ``causal=False``; see ``ref.py`` for the function.  Returns ``[B, HQ, S, D]`` in q's dtype."""
+    refuse_dtensor("flash_attention", q, k, v)
     refuse_grad("flash_attention", q, k, v)
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        return _meta_forward("flash_attention", q, k, v, causal, 0, False)
     _cuda("flash_attention", q.device)
     return _forward(q, k, v, causal, _scale(q.shape[3], scale), 0, None)
 
@@ -230,6 +265,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None,
     q's dtype, ``lse [B, HQ, S]`` float32), causal as ``k_pos <= q_pos +
     SK - S``.  ``blocks``: the ``(q, k)`` blocks of the CPU's plain
     version (default ``ref.default_blocks``)."""
+    refuse_dtensor("flash_attention_lse", q, k, v)
     refuse_grad("flash_attention_lse", q, k, v)
     _check(q, k, v)
     B, HQ, S, D = q.shape
@@ -239,6 +275,9 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None,
         qc, kc = blocks or ref.default_blocks(S, SK)
         return ref.chunked_fwd(q, k, v, causal=causal, scale=scale,
                                q_chunk=qc, k_chunk=kc)
+    if q.device.type == "meta":
+        return _meta_forward("flash_attention_lse", q, k, v, causal, SK - S,
+                             True)
     _cuda("flash_attention_lse", q.device)
     if causal and S > SK:
         raise ValueError(
@@ -275,6 +314,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     inputs' dtypes and layouts from q, k, v, the forward's ``o`` and
     ``lse`` and the output's gradient ``do`` (q's shape, the last
     dimension contiguous); ``blocks`` as the forward's."""
+    refuse_dtensor("flash_attention_bwd", q, k, v, o, lse, do)
     refuse_grad("flash_attention_bwd", q, k, v, o, lse, do)
     _check_bwd(q, k, v, o, lse, do)
     B, HQ, S, D = q.shape
@@ -284,6 +324,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         qc, kc = blocks or ref.default_blocks(S, SK)
         return ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
                                scale=scale, q_chunk=qc, k_chunk=kc)
+    if q.device.type == "meta":
+        # seven products over the pairs, as both routes' kernels do: S
+        # and dP in the dk/dv kernel and again in the dq kernel (no
+        # atomics), then dV, dK and dQ
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+        flops = 14.0 * B * HQ * D * _pairs(S, SK, causal, SK - S)
+        note_kernel("flash_attention_bwd", flops,
+                    _nbytes(q, k, v, o, lse, do, *grads))
+        return grads
     _cuda("flash_attention_bwd", q.device)
     if D > BWD_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_bwd: head dim {D} > "

@@ -18,11 +18,23 @@
 
 "naive" and "chunked" align a causal mask bottom-right when ``S != SK``,
 "pallas" top-left, as the reference's do.
+
+On DTensors (a model run on a device mesh) attention has no DTensor
+strategy, and the kernel wrappers refuse DTensors, so ``mha`` runs its
+impl on each device's local shards (``local_map``): a mesh dim on which
+q, k and v are all sharded on batch (dim 0) keeps that sharding; one on
+which q is sharded on heads (dim 1) keeps it, k and v sharded on heads
+too or, where their fewer heads do not divide (GQA), replicated and cut
+on each device to the kv heads its q heads read (their gradients then
+summed over that dim); any other dim is replicated, DTensor gathering
+what it must.  On the card the local shards reach the kernels as on one
+device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.build import is_dtensor
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -64,7 +76,43 @@ def chunked_attention(q, k, v, *, causal: bool = True, scale=None,
     return ChunkedAttention.apply(q, k, v, causal, scale, *blocks)
 
 
+def _mha_on_mesh(q, k, v, causal: bool, scale, impl: str):
+    """``mha`` of DTensors on their local shards (module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    group = q.shape[1] // k.shape[1]
+    qp, kvp, grads, cut = [], [], [], None
+    for d, (pq, pk, pv) in enumerate(zip(q.placements, k.placements,
+                                         v.placements)):
+        n = q.shape[1] // mesh.size(d)     # q heads a device, if sharded
+        if pq == pk == pv and pq in (Shard(0), Shard(1)):
+            place = (pq, pq, pq)
+        elif pq == Shard(1) and cut is None and (n % group == 0
+                                                 or group % n == 0):
+            place, cut = (pq, Replicate(), Partial()), d
+        else:
+            place = (Replicate(),) * 3
+        qp.append(place[0])
+        kvp.append(place[1])
+        grads.append(place[2])
+
+    def local(q_, k_, v_):
+        if cut is not None:     # the kv heads this device's q heads read
+            first = mesh.get_local_rank(cut) * q_.shape[1]
+            lo, hi = first // group, (first + q_.shape[1] - 1) // group + 1
+            k_, v_ = k_[:, lo:hi], v_[:, lo:hi]
+        return mha(q_, k_, v_, causal=causal, scale=scale, impl=impl)
+
+    return local_map(local, out_placements=qp, in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, grads, grads), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def mha(q, k, v, *, causal: bool = True, scale=None, impl: str = "naive"):
+    if is_dtensor(q):
+        return _mha_on_mesh(q, k, v, causal, scale, impl)
     if impl == "pallas":
         return _k.flash_attention(q, k, v, causal=causal, scale=scale)
     if impl == "chunked":

@@ -45,7 +45,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary
+from repro_torch.kernels.build import CudaLibrary, refuse_dtensor
 from repro_torch.kernels.kv_engine import ref
 
 LAUNCHES = {"kv_read": 0, "kv_write": 0, "kv_bucketed_read": 0,
@@ -172,6 +172,7 @@ def cluster_read_engine(values, seqs, pending, keys):
     [N, B], latest_val [N, B, W], latest_seq [N, B], pending_of_key
     [N, B]); a key outside ``[0, K)`` answers zeros.
     """
+    refuse_dtensor("cluster_read_engine", values, seqs, pending, keys)
     N, K, V, W, B, dev = _node_checks(values, seqs, pending, keys)
     if dev.type == "cpu":
         return ref.cluster_read_engine_ref(values, seqs, pending, keys)
@@ -205,6 +206,7 @@ def cluster_read_decide(values, seqs, pending, keys, is_tail=False):
     at a tail node (reply: the latest cell), 2 for a dirty one elsewhere
     (reply: cell 0; the read goes on to the tail).
     """
+    refuse_dtensor("cluster_read_decide", values, seqs, pending, keys)
     N, K, V, W, B, dev = _node_checks(values, seqs, pending, keys)
     per_node = isinstance(is_tail, torch.Tensor)
     if per_node:
@@ -233,6 +235,7 @@ def read_engine(values, seqs, pending, keys):
     """One chain's read lookup: the one-node slice of
     ``cluster_read_engine`` (``values [K, V, W]``, ``seqs [K, V]``,
     ``pending [K]``, ``keys [B]``)."""
+    refuse_dtensor("read_engine", values, seqs, pending, keys)
     outs = cluster_read_engine(values[None], seqs[None], pending[None],
                                keys[None])
     return tuple(o[0] for o in outs)
@@ -247,6 +250,8 @@ def cluster_write_engine(values, seqs, pending, keys, wvals, wseqs, active,
     updated in place (the reference kernel aliases them to its outputs)
     and returned with ``accepted [N, B]`` int32.
     """
+    refuse_dtensor("cluster_write_engine", values, seqs, pending, keys, wvals,
+                   wseqs, active)
     W = values.shape[3]
     N, K, V, W, B, dev = _node_checks(
         values, seqs, pending, keys,
@@ -290,6 +295,8 @@ def cluster_write_append(values, seqs, pending, keys, wvals, wseqs, active,
     [N, B]`` bool.  ``dense_rank`` picks the plain version's rank
     algorithm; both give the rank the kernel takes in its block.
     """
+    refuse_dtensor("cluster_write_append", values, seqs, pending, keys, wvals,
+                   wseqs, active)
     W = values.shape[3]
     N, K, V, W, B, dev = _node_checks(
         values, seqs, pending, keys,
@@ -320,6 +327,8 @@ def write_engine(values, seqs, pending, keys, wvals, wseqs, active, rank):
     """One chain's append: the one-node slice of ``cluster_write_engine``
     (store leaves ``[K, ...]``, edited in place; batch leaves ``[B]`` and
     ``wvals [B, W]``)."""
+    refuse_dtensor("write_engine", values, seqs, pending, keys, wvals, wseqs,
+                   active)
     outs = cluster_write_engine(values[None], seqs[None], pending[None],
                                 keys[None], wvals[None], wseqs[None],
                                 active[None], rank[None])
@@ -378,6 +387,8 @@ def bucketed_read_engine(values, seqs, pending, slots, chains):
     outside ``[0, C)`` (parked, -1) or whose slot lies outside ``[0, K)``
     answers zeros.
     """
+    refuse_dtensor("bucketed_read_engine", values, seqs, pending, slots,
+                   chains)
     C, K, V, W, B, dev = _store_checks(
         values, seqs, pending, (("slots", slots, ()),
                                 ("chains", chains, ())))
@@ -417,6 +428,7 @@ def bucketed_read_resolve(values, seqs, pending, gkeys, cluster, pmap,
     elsewhere (reply: cell 0), -1 with a zero reply for a key outside
     the key space, which is parked on chain -1 with key 0's slot.
     """
+    refuse_dtensor("bucketed_read_resolve", values, seqs, pending, gkeys)
     C, K, V, W, B, dev = _store_checks(values, seqs, pending,
                                        (("gkeys", gkeys, ()),))
     _map_checks(cluster, pmap, dev)
@@ -501,6 +513,8 @@ def bucketed_write_engine(values, seqs, pending, slots, chains, wvals,
     ``active``/``rank [B]`` and ``wvals [B, W]`` (int32).  Returns the
     store leaves and ``accepted [B]`` int32.
     """
+    refuse_dtensor("bucketed_write_engine", values, seqs, pending, slots,
+                   chains, wvals, wseqs, active)
     W = values.shape[3]
     C, K, V, W, B, dev = _store_checks(
         values, seqs, pending, (("slots", slots, ()), ("chains", chains, ()),
@@ -542,6 +556,8 @@ def bucketed_write_append(values, seqs, pending, gkeys, wvals, wseqs, active,
     cell is at most ``V - 1``.  Returns the store leaves and ``accepted
     [B]`` bool.
     """
+    refuse_dtensor("bucketed_write_append", values, seqs, pending, gkeys,
+                   wvals, wseqs, active)
     W = values.shape[3]
     active_dtype = (torch.int32 if active.dtype == torch.int32
                     else torch.bool)

@@ -52,7 +52,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels.build import CudaLibrary, refuse_grad
+from repro_torch.kernels.build import CudaLibrary, refuse_dtensor, refuse_grad
 from repro_torch.kernels.ssd_scan import ref
 
 DEFAULT_CHUNK = 64
@@ -171,6 +171,7 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = DEFAULT_CHUNK,
     """The reference kernel's signature: x ``[BH, L, P]``, dt ``[BH, L]``,
     A/D ``[BH]``, B/C ``[BH, L, N]`` -> y ``[BH, L, P]`` in x's dtype (and
     the final state ``[BH, N, P]`` float32 with ``h_final``)."""
+    refuse_dtensor("ssd_scan", x, dt, A, B, C, D)
     refuse_grad("ssd_scan", x, dt, A, B, C, D)
     BH, L, P = x.shape
     N = B.shape[-1]
@@ -195,6 +196,7 @@ def ssd_scan_heads(x, dt, A, B, C, D, *, chunk: int = DEFAULT_CHUNK,
     """The model's layout: x ``[B, L, H, P]``, dt ``[B, L, H]``, A/D
     ``[H]``, B/C ``[B, L, N]`` -> y ``[B, L, H, P]`` in x's dtype (and the
     final state ``[B, H, N, P]`` float32 with ``h_final``)."""
+    refuse_dtensor("ssd_scan_heads", x, dt, A, B, C, D)
     refuse_grad("ssd_scan_heads", x, dt, A, B, C, D)
     Bz, L, H, P = x.shape
     N = B.shape[-1]
@@ -220,6 +222,7 @@ def chunk_cb(B, C, *, chunk: int = DEFAULT_CHUNK):
     """The first kernel alone: B and C ``[Bz, L, N]`` -> G ``[Bz, chunks,
     Q, Q]`` float32 with ``G[b, c, t, s] = C[b, cQ + t] . B[b, cQ + s]``,
     ``Q = min(chunk, L)``, rows past L zero."""
+    refuse_dtensor("chunk_cb", B, C)
     refuse_grad("chunk_cb", B, C)
     Bz, L, N = B.shape
     if tuple(C.shape) != (Bz, L, N):

@@ -6,6 +6,7 @@ family the reference serves:
   prefill_fn(cfg)(params, batch, cache_len)    -> (logits, cache)
   decode_fn(cfg)(params, cache, token)         -> (logits, cache')
   init_decode_cache(cfg, batch, cache_len)     -> cache
+  input_specs(cfg, shape, kind)                -> meta-tensor batch
   make_batch(cfg, shape, kind, key)            -> concrete batch
 
 The MoE and VLM families' cache is the dense ``{"kv", "t"}`` cache; the
@@ -18,8 +19,9 @@ reads ``frames [B, enc_len, d]`` beside ``tokens`` and keeps the cross
 K/V in its cache.  ``make_batch`` draws its integers with the port's
 threefry (``core/prng.py``: ``split``, ``randint``), so tokens and labels
 equal the reference's bit for bit, and its float inputs with
-``prng.normal`` (to 1e-6 of the reference's but in the tails).  The dry-run's
-``input_specs`` is not ported.
+``prng.normal`` (to 1e-6 of the reference's but in the tails).
+``input_specs`` gives the dry-run's stand-ins: tensors on the ``meta``
+device, with shape and dtype and no storage.
 """
 from __future__ import annotations
 
@@ -102,6 +104,13 @@ def _batch_shapes(cfg: ArchConfig, shape: ShapeSpec, kind: str) -> dict:
     if kind == "decode":
         return {"token": ((B, 1), i32)}
     raise ValueError(kind)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, kind: str) -> dict:
+    """Stand-ins for every model input (no allocation): ``meta``
+    tensors of each input's shape and dtype."""
+    return {k: torch.empty(shp, dtype=dt, device="meta")
+            for k, (shp, dt) in _batch_shapes(cfg, shape, kind).items()}
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeSpec, kind: str, key) -> dict:

@@ -1,19 +1,22 @@
 """GQA attention: projections, rotary, full-sequence (causal or not),
 prefill and decode paths.
 
-The reference's ``shard(...)`` annotations place tensors on a device
-mesh; on one device they are no-ops and are left out.  KV caches keep the
-reference's layout, ``(k [B, T, KV, D], v [B, T, KV, D])`` per layer;
-``attn_decode`` writes the new token into them in place, as the
-reference's donated cache is updated in place.
+The reference's ``shard(...)`` annotations stand where it has them; they
+act only on DTensors inside a rule context (``distributed/sharding.py``).
+KV caches keep the reference's layout, ``(k [B, T, KV, D], v [B, T, KV,
+D])`` per layer; ``attn_decode`` writes the new token into them in
+place, as the reference's donated cache is updated in place (on a cache
+whose length is sharded, the shard that holds the position writes it).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import is_dtensor, shard, shard_groups
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import layers as L
 
@@ -38,24 +41,38 @@ def _project_qkv(p, x, cfg: ArchConfig, positions):
     cd = cfg.cdtype()
     B, S, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = L.dense(p["wq"], x, compute_dtype=cd).reshape(B, S, h, hd)
-    k = L.dense(p["wk"], x, compute_dtype=cd).reshape(B, S, kv, hd)
-    v = L.dense(p["wv"], x, compute_dtype=cd).reshape(B, S, kv, hd)
+
+    def heads(w, n: int, logical: str):
+        # on a mesh, whole heads per shard before the view splits them
+        y = shard_groups(L.dense(p[w], x, compute_dtype=cd), n, "batch",
+                         None, logical)
+        return y.reshape(B, S, n, hd)
+
+    q, k, v = heads("wq", h, "heads"), heads("wk", kv, "kv"), heads("wv", kv,
+                                                                   "kv")
     if positions is not None:
         q = L.rotary(q, positions, fraction=cfg.rotary_fraction,
                      base=cfg.rope_base)
         k = L.rotary(k, positions, fraction=cfg.rotary_fraction,
                      base=cfg.rope_base)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv", None)
+    v = shard(v, "batch", None, "kv", None)
     return q, k, v
 
 
-def _attend(p, x, cfg: ArchConfig, positions, impl: str, causal: bool):
-    """Attention of ``x [B, S, d]`` -> (``[B, S, d]``, k, v)."""
+def _attend(p, x, cfg: ArchConfig, positions, impl: str, causal: bool,
+            shard_out: bool = False):
+    """Attention of ``x [B, S, d]`` -> (``[B, S, d]``, k, v);
+    ``shard_out``: the heads' output constrained before ``wo``, as the
+    reference's ``attn_apply`` (not its prefill) does."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = flash_ops.mha(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2), causal=causal, impl=impl)
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    if shard_out:
+        o = shard(o, "batch", None, "heads")
     return L.dense(p["wo"], o, compute_dtype=cfg.cdtype()), k, v
 
 
@@ -64,7 +81,7 @@ def attn_apply(p, x, cfg: ArchConfig, *, positions=None, causal: bool = True,
     """Full-sequence attention of ``x [B, S, d]`` at rotary ``positions
     [B, S]`` (None: no rotary), causal unless asked otherwise (Whisper's
     encoder). Returns ``[B, S, d]``."""
-    return _attend(p, x, cfg, positions, impl, causal)[0]
+    return _attend(p, x, cfg, positions, impl, causal, shard_out=True)[0]
 
 
 def attn_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int,
@@ -72,8 +89,35 @@ def attn_prefill(p, x, cfg: ArchConfig, *, positions, cache_len: int,
     """Prefill: causal attention AND the layer's cache padded to
     ``cache_len``. Returns ``(out, (k_cache, v_cache))``."""
     out, k, v = _attend(p, x, cfg, positions, impl, True)
-    pad = (0, 0, 0, 0, 0, cache_len - x.shape[1])
-    return out, (nn.functional.pad(k, pad), nn.functional.pad(v, pad))
+    B, S, KV, D = k.shape
+    # zeros appended by cat, not F.pad: DTensor's pad strategy (torch
+    # 2.11) gives a malformed spec on a 2-D mesh
+    tail = k.new_zeros((B, cache_len - S, KV, D))
+    return out, (torch.cat([k, tail], dim=1), torch.cat([v, tail], dim=1))
+
+
+def _write_token(cache, at: int, new) -> None:
+    """``cache[:, at] = new[:, 0]`` in place.  On a DTensor cache whose
+    length (dim 1) is sharded, only the shard that holds position ``at``
+    writes it, at its local offset: ``dynamic_update_slice`` on a sharded
+    dim, as each GSPMD shard runs it."""
+    seq = ([i for i, pl in enumerate(cache.placements) if pl == Shard(1)]
+           if is_dtensor(cache) else [])
+    if not seq:
+        cache[:, at] = new[:, 0]
+        return
+    mesh = cache.device_mesh
+    if is_dtensor(new):
+        place = [Replicate() if pl == Shard(1) else pl
+                 for pl in cache.placements]
+        new = new.redistribute(mesh, place).to_local()
+    local = cache.to_local()
+    shard_idx = 0
+    for d in seq:
+        shard_idx = shard_idx * mesh.size(d) + mesh.get_local_rank(d)
+    off = shard_idx * local.shape[1]
+    if off <= at < off + local.shape[1]:
+        local[:, at - off] = new[:, 0]
 
 
 def attn_decode(p, x, cache, t: int, cfg: ArchConfig, *,
@@ -87,12 +131,15 @@ def attn_decode(p, x, cache, t: int, cfg: ArchConfig, *,
     float32 (bf16 products accumulated in float32, as its
     ``preferred_element_type``), the ``-1e30`` mask past ``t``, and the
     exponentials cast to the compute dtype before the product with V.
+
+    ``seq_parallel=True`` constrains the cache to its length sharded over
+    ``seq_kv`` (flash-decoding SP): each shard's partial products are
+    summed by DTensor.  The arithmetic is unchanged, so off a mesh it
+    equals ``seq_parallel=False`` exactly.  The query, scores and
+    exponentials are held replicated over all but the batch, as the
+    reference holds them (a sharded score tensor made GSPMD gather the
+    whole V cache).
     """
-    if seq_parallel:
-        raise NotImplementedError(
-            "attn_decode(seq_parallel=True) shards the cache over a device "
-            "mesh (the reference's GSPMD sharding); it comes with the port "
-            "of distributed/ (ROADMAP queue 1 item 5)")
     h, kv_h, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.cdtype()
     B = x.shape[0]
@@ -103,17 +150,25 @@ def attn_decode(p, x, cache, t: int, cfg: ArchConfig, *,
     q, k_new, v_new = _project_qkv(p, x, cfg, pos)
     # dynamic_update_slice clamps the start so the update fits
     at = min(max(t, 0), T - 1)
-    k_cache[:, at] = k_new[:, 0]
-    v_cache[:, at] = v_new[:, 0]
+    _write_token(k_cache, at, k_new)
+    _write_token(v_cache, at, v_new)
+    if seq_parallel:
+        k_cache = shard(k_cache, "batch", "seq_kv", None, None)
+        v_cache = shard(v_cache, "batch", "seq_kv", None, None)
 
     group = h // kv_h
+    # replicated before the view into groups (the reference constrains
+    # the grouped query so; DTensor cannot split a head-sharded dim)
+    q = shard(q, "batch", None, None, None)
     qg = q.reshape(B, kv_h, group, hd)                      # [B, KV, G, D]
+    qg = shard(qg, "batch", None, None, None)
     s = torch.einsum("bkgd,btkd->bkgt", qg.to(F32),
                      k_cache.to(F32)) * (hd ** -0.5)
+    s = shard(s, "batch", None, None, None)
     valid = (torch.arange(T, device=x.device) <= t)[None, None, None, :]
     s = torch.where(valid, s, -1e30)
     m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
+    e = shard(torch.exp(s - m), "batch", None, None, None)
     num = torch.einsum("bkgt,btkd->bkgd", e.to(cd).to(F32),
                        v_cache.to(F32))
     den = e.sum(dim=-1)

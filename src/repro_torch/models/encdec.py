@@ -33,10 +33,12 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import BASELINE_FLAGS, OptFlags, remat
+from repro_torch.models.transformer import (BASELINE_FLAGS, OptFlags, remat,
+                                            residual)
 
 F32 = torch.float32
 # rows of the learned decoder positions: the reference sizes the table for
@@ -107,6 +109,12 @@ def init_encdec(cfg: ArchConfig, gen: torch.Generator, device="cuda"):
     })
 
 
+def _ln(p, x):
+    """LayerNorm of the residual stream, which on a mesh is held
+    replicated but for its batch first (``transformer.residual``)."""
+    return L.layernorm(p, residual(x))
+
+
 def encode(params, cfg: ArchConfig, frames: torch.Tensor,
            flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
     """``frames [B, T, d]`` (the stub conv output) -> memory ``[B, T, d]``
@@ -115,17 +123,18 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor,
     B, T, d = frames.shape
     x = frames.to(cd) + L.sinusoidal_positions(T, d, frames.device).to(
         cd)[None]
+    x = shard(x, "batch", None, None)
 
     def block(lp, x):
-        h = x + A.attn_apply(lp["attn"], L.layernorm(lp["ln1"], x), cfg,
+        h = x + A.attn_apply(lp["attn"], _ln(lp["ln1"], x), cfg,
                              positions=None, causal=False,
                              impl=flags.attn_impl)
-        return h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h),
+        return h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h),
                               compute_dtype=cd)
 
     for lp in params["enc_layers"]:
         x = remat(block, flags)(lp, x)
-    return L.layernorm(params["enc_ln"], x)
+    return _ln(params["enc_ln"], x)
 
 
 def decode_train(params, cfg: ArchConfig, tokens, memory,
@@ -136,21 +145,21 @@ def decode_train(params, cfg: ArchConfig, tokens, memory,
     cd = cfg.cdtype()
     S = tokens.shape[1]
     x = L.embed(params["embed"], tokens, compute_dtype=cd)
-    x = x + params["pos_dec"][:S].to(cd)[None]
+    x = shard(x + params["pos_dec"][:S].to(cd)[None], "batch", None, None)
 
     def block(lp, x):
         mem_kv = _memory_kv(lp["cross_attn"], memory, cfg)
-        h = x + A.attn_apply(lp["self_attn"], L.layernorm(lp["ln1"], x), cfg,
+        h = x + A.attn_apply(lp["self_attn"], _ln(lp["ln1"], x), cfg,
                              positions=None, causal=True,
                              impl=flags.attn_impl)
-        h = h + _cross_apply(lp["cross_attn"], L.layernorm(lp["ln_x"], h),
+        h = h + _cross_apply(lp["cross_attn"], _ln(lp["ln_x"], h),
                              mem_kv, cfg, impl=flags.attn_impl)
-        return h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h),
+        return h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h),
                               compute_dtype=cd)
 
     for lp in params["dec_layers"]:
         x = remat(block, flags)(lp, x)
-    return L.layernorm(params["dec_ln"], x)
+    return _ln(params["dec_ln"], x)
 
 
 def encdec_loss(params, cfg: ArchConfig, batch: dict,
@@ -164,11 +173,12 @@ def encdec_loss(params, cfg: ArchConfig, batch: dict,
         return L.chunked_xent(hidden, hw, batch["labels"],
                               chunk=flags.ce_chunk)
     logits = (hidden @ hw.to(hidden.dtype)).to(F32)
+    logits = shard(logits, "batch", None, "vocab")
     return L.softmax_xent(logits, batch["labels"])
 
 
 def _logits(params, x):
-    x = L.layernorm(params["dec_ln"], x)
+    x = _ln(params["dec_ln"], x)
     return (x @ params["head"]["w"].to(x.dtype)).to(F32)
 
 
@@ -187,12 +197,12 @@ def encdec_prefill(params, cfg: ArchConfig, frames, tokens, *,
         mem_kv = _memory_kv(lp["cross_attn"], memory, cfg)
         # learned positions: no rotary
         a, (k, v) = A.attn_prefill(
-            lp["self_attn"], L.layernorm(lp["ln1"], x), cfg, positions=None,
+            lp["self_attn"], _ln(lp["ln1"], x), cfg, positions=None,
             cache_len=cache_len, impl=flags.attn_impl)
         h = x + a
-        h = h + _cross_apply(lp["cross_attn"], L.layernorm(lp["ln_x"], h),
+        h = h + _cross_apply(lp["cross_attn"], _ln(lp["ln_x"], h),
                              mem_kv, cfg, impl=flags.attn_impl)
-        x = h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h),
+        x = h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h),
                            compute_dtype=cd)
         ks.append(k)
         vs.append(v)
@@ -217,12 +227,12 @@ def encdec_decode_step(params, cfg: ArchConfig, cache, token,
     (k, v), (ck, cv) = cache["kv"], cache["cross"]
     for i, lp in enumerate(params["dec_layers"]):
         # Whisper: learned positions, no rotary
-        a, _ = A.attn_decode(lp["self_attn"], L.layernorm(lp["ln1"], x),
+        a, _ = A.attn_decode(lp["self_attn"], _ln(lp["ln1"], x),
                              (k[i], v[i]), t, cfg, use_rotary=False)
         h = x + a
-        h = h + _cross_apply(lp["cross_attn"], L.layernorm(lp["ln_x"], h),
+        h = h + _cross_apply(lp["cross_attn"], _ln(lp["ln_x"], h),
                              (ck[i], cv[i]), cfg)
-        x = h + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], h),
+        x = h + L.gelu_mlp(lp["mlp"], _ln(lp["ln2"], h),
                            compute_dtype=cd)
     return _logits(params, x), {**cache, "t": t + 1}
 

@@ -20,6 +20,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import is_dtensor
 
 F32 = torch.float32
 
@@ -190,9 +191,11 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, *,
     return torch.cat([rotated, x_pass], dim=-1)
 
 
-def sinusoidal_positions(seq_len: int, d: int, device="cpu") -> torch.Tensor:
+def sinusoidal_positions(seq_len: int, d: int,
+                         device="cuda") -> torch.Tensor:
     """Whisper-style fixed sinusoidal embeddings ``[seq_len, d]`` float32
     (the reference's formula: the exponent's step is ``1 / (d // 2 - 1)``)."""
+    device = resolve_device(device)
     pos = torch.arange(seq_len, dtype=F32, device=device)[:, None]
     dim = torch.arange(d // 2, dtype=F32, device=device)[None, :]
     inv = 10000.0 ** (-dim / max(d // 2 - 1, 1))
@@ -203,14 +206,75 @@ def sinusoidal_positions(seq_len: int, d: int, device="cpu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
+def _rows(x: torch.Tensor) -> list:
+    """The placements a vocab-parallel loss runs a DTensor ``x [..., V]``
+    at: its sharding of the batch (dim 0) and of the vocabulary (the
+    last dim) kept, any other replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = x.dim() - 1
+    return [p if isinstance(p, Shard) and p.dim in (0, last) else Replicate()
+            for p in x.placements]
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim.  On a mesh (a DTensor) each device
+    takes it over its slice of the vocabulary and the slices' values are
+    combined by a ``logsumexp`` over one number a slice: DTensor's own
+    ``logsumexp``, and its backward, gather the whole vocabulary."""
+    if not is_dtensor(x):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed.tensor.experimental import local_map
+
+    lp = _rows(x)
+    part = local_map(lambda t: torch.logsumexp(t, dim=-1, keepdim=True),
+                     out_placements=lp, in_placements=(lp,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)
+    return torch.logsumexp(part, dim=-1)
+
+
+def _gold(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``logits`` at the labels ``idx [..., 1]``, the last dim dropped.
+    On a mesh (a DTensor) the pick is vocab-parallel, as Megatron's: each
+    device picks the labels inside its slice of the vocabulary (0
+    elsewhere) and the picks are summed over the vocab's mesh dims.
+    DTensor's own ``gather`` differentiates into a zero tensor of the
+    global logits' shape on every device."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, idx.long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    lp = _rows(logits)
+    vocab = [d for d, p in enumerate(lp) if p == Shard(last)]
+
+    def pick(lg, ix):
+        n = lg.shape[-1]
+        slot = 0
+        for d in vocab:
+            slot = slot * mesh.size(d) + mesh.get_local_rank(d)
+        rel = ix.long() - slot * n
+        inside = (rel >= 0) & (rel < n)
+        g = torch.gather(lg, -1, rel.clamp(0, n - 1))
+        return torch.where(inside, g, torch.zeros_like(g))[..., 0]
+
+    return local_map(
+        pick, out_placements=[Partial() if d in vocab else p
+                              for d, p in enumerate(lp)],
+        in_placements=(lp, [Replicate() if d in vocab else p
+                            for d, p in enumerate(lp)]),
+        device_mesh=mesh, redistribute_inputs=True)(logits, idx)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
     """Token cross-entropy: logits ``[.., V]`` upcast to float32 (the
     ``logsumexp`` runs over every column, the padded vocabulary's too, as
     the reference's), labels ``[..]`` int; with a mask the sum of its
     weighted terms over ``max(sum(mask), 1)``."""
     logits = logits.to(F32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    logz = _logsumexp(logits)
+    gold = _gold(logits, labels[..., None])
     nll = logz - gold
     if mask is None:
         return nll.mean()
@@ -231,9 +295,8 @@ def chunked_xent(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
     count = torch.zeros((), dtype=F32, device=x.device)
     for i in range(0, S, chunk):
         logits = (x[:, i:i + chunk] @ w).to(F32)
-        logz = torch.logsumexp(logits, dim=-1)
-        li = labels[:, i:i + chunk, None].long()
-        gold = torch.gather(logits, -1, li)[..., 0]
+        logz = _logsumexp(logits)
+        gold = _gold(logits, labels[:, i:i + chunk, None])
         mi = (torch.ones_like(logz) if mask is None
               else mask[:, i:i + chunk].to(F32))
         nll = nll + ((logz - gold) * mi).sum()

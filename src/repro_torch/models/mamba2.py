@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
 
@@ -117,6 +118,7 @@ def mamba_apply(p, hidden: torch.Tensor, cfg: ArchConfig, *,
     xbc = _silu(_causal_conv(xbc_raw, p["conv_w"].to(cd),
                              p["conv_b"].to(cd)))
     x, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+    x = shard(x, "batch", None, "heads")
 
     dt_s, A = _ssd_inputs(p, dtp)                   # [B, S, H], [H]
     xh = x.reshape(Bsz, S, H, P)                    # a view of xbc
@@ -125,7 +127,7 @@ def mamba_apply(p, hidden: torch.Tensor, cfg: ArchConfig, *,
                       p["D"].to(F32), impl=impl, return_state=return_state)
     y, final_ssm = out if return_state else (out, None)
     y = y.reshape(Bsz, S, di).to(cd)
-    y = L.rmsnorm(p["norm"], y * _silu(z))
+    y = shard(L.rmsnorm(p["norm"], y * _silu(z)), "batch", None, "heads")
     out = L.dense(p["out_proj"], y, compute_dtype=cd)
     if return_state:
         # a copy: a view would keep the whole in_proj output alive

@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -158,10 +159,12 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, *,
     """``x [B, S, d]`` -> ``[B, S, d]``."""
     B, S, d = x.shape
     G = n_groups_for(B * S, cfg) if n_groups is None else n_groups
-    xg = x.reshape(G, (B * S) // G, d)
+    xg = shard(x.reshape(G, (B * S) // G, d), "batch", None, None)
     r = moe_route(p, xg, cfg)
     xe, comb = moe_dispatch(r, xg, cfg)
-    y = moe_combine(comb, moe_experts(p, xe, cfg), cfg).reshape(B, S, d)
+    xe = shard(xe, "batch", "experts", None, None)
+    ye = shard(moe_experts(p, xe, cfg), "batch", "experts", None, None)
+    y = moe_combine(comb, ye, cfg).reshape(B, S, d)
     if cfg.shared_expert:
         y = y + L.swiglu(p["shared"], x, compute_dtype=cfg.cdtype())
     return y

@@ -45,6 +45,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
@@ -60,12 +61,16 @@ _COMPUTE_LEAVES = ("w", "b", "table")
 @dataclasses.dataclass(frozen=True)
 class OptFlags:
     """Performance knobs, with the reference's fields and defaults.  The
-    serving path reads ``attn_impl`` (prefill attention: "naive" or
-    "pallas") and ``seq_parallel_decode``; training reads ``attn_impl``
-    ("chunked" is the one with a backward), ``flash_kernel``, ``remat``
-    ("none", "full", "dots"), ``chunked_ce`` with ``ce_chunk`` and
-    ``cast_params_bf16``; the others belong to the multi-device paths of
-    a later slice."""
+    serving path reads ``attn_impl`` (prefill attention: "naive",
+    "chunked" or "pallas") and ``seq_parallel_decode`` (the decode cache
+    constrained to its length over ``seq_kv``); training reads
+    ``attn_impl`` ("chunked" is the one with a backward),
+    ``flash_kernel``, ``remat`` ("none", "full", "dots"), ``chunked_ce``
+    with ``ce_chunk``, ``cast_params_bf16`` and ``seq_parallel_acts``
+    (the residual stream after each block constrained to its sequence
+    over ``seq_sp``).  ``donate_cache`` (decode always updates the cache
+    in place), ``kv_cache_dtype`` and ``unroll_layers`` (the layers are a
+    Python loop) are the reference's and read by nothing here."""
 
     remat: str = "none"
     chunked_ce: bool = False
@@ -211,8 +216,14 @@ def compute_params(params, cfg: ArchConfig, device=None):
 
 
 def head_weight(params, cfg: ArchConfig):
+    """The head ``[d, V]``, on a mesh constrained to its vocab over
+    ``vocab``: a tied table is sharded on d (its rule), and a product
+    contracting over a sharded d leaves DTensor a partial sum of the
+    whole vocabulary's logits on every device; resharding the table to
+    vocab instead keeps the logits vocab-sharded, as the untied head's
+    rule does (PERF.md, PR 30)."""
     if cfg.tie_embeddings:
-        return params["embed"]["table"].T
+        return shard(params["embed"]["table"].T, None, "vocab")
     return params["head"]["w"]
 
 
@@ -230,7 +241,7 @@ def _embed_inputs(params, cfg: ArchConfig, tokens, embeds):
     x = L.embed(params["embed"], tokens, compute_dtype=cd)
     if embeds is not None:  # VLM stub frontend: precomputed embeddings
         x = torch.cat([embeds.to(cd), x], dim=1)
-    return x
+    return shard(x, "batch", None, None)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -238,13 +249,26 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
         B, S)
 
 
+def residual(x):
+    """The residual stream after a sub-layer, on a mesh held replicated
+    but for its batch: the row-parallel output's partial sum is reduced
+    there, as Megatron's tensor parallelism does.  The reference leaves
+    this to GSPMD; DTensor, op by op, keeps the sum partial or shards d
+    and then gathers the next column-parallel weights and inputs whole
+    (the MLP's gate and up products 16 times over on a 16-way model
+    axis; PERF.md, PR 30)."""
+    return shard(x, "batch", *[None] * (x.dim() - 1))
+
+
 def _mlp(layer_p, h, cfg: ArchConfig):
     """The block's second half: the SwiGLU MLP, or for the MoE family the
     experts, on ``rmsnorm(h)``, added to ``h``."""
+    h = residual(h)
     inner = L.rmsnorm(layer_p["ln2"], h)
     if cfg.family == "moe":
-        return h + MOE.moe_apply(layer_p["moe"], inner, cfg)
-    return h + L.swiglu(layer_p["mlp"], inner, compute_dtype=cfg.cdtype())
+        return residual(h + MOE.moe_apply(layer_p["moe"], inner, cfg))
+    return residual(h + L.swiglu(layer_p["mlp"], inner,
+                                 compute_dtype=cfg.cdtype()))
 
 
 def _blocks(params, cfg: ArchConfig):
@@ -325,7 +349,7 @@ def remat(fn, flags: OptFlags):
 
 
 def _ssm_block(block, x, cfg: ArchConfig):
-    return x + _mixer(block, x, cfg)
+    return residual(x + _mixer(block, x, cfg))
 
 
 def _attn_block(block, x, cfg: ArchConfig, positions, impl: str):
@@ -338,29 +362,41 @@ def lm_forward(params, cfg: ArchConfig, tokens, *,
                embeds: Optional[torch.Tensor] = None,
                flags: OptFlags = BASELINE_FLAGS) -> torch.Tensor:
     """Final hidden states ``[B, S, d]`` (after the final norm); each
-    block (each group of the hybrid) under ``remat(..., flags)``."""
+    block (each group of the hybrid) under ``remat(..., flags)``, each
+    layer's output under ``flags.seq_parallel_acts``'s constraint (the
+    hybrid's shared block's is not, as in the reference)."""
     _check_ported(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     impl = "pallas" if flags.flash_kernel else flags.attn_impl
+
+    def sp(x):
+        # TP sequence parallelism: the residual kept seq-sharded
+        return (shard(x, "batch", "seq_sp", None) if flags.seq_parallel_acts
+                else x)
+
+    def ssm(block, x):
+        return sp(_ssm_block(block, x, cfg))
+
+    def attn(block, x):
+        return sp(_attn_block(block, x, cfg, positions, impl))
+
     if cfg.family == "hybrid":
         G, k = _groups(cfg)
 
         def group(x, g: int):
             for i in range(k):
-                x = _ssm_block(params["layers"][g * k + i], x, cfg)
+                x = ssm(params["layers"][g * k + i], x)
             return _attn_block(params["shared_attn"], x, cfg, positions,
                                impl)
 
         for g in range(G):
             x = remat(group, flags)(x, g)
     else:
-        ssm = remat(_ssm_block, flags)
-        attn = remat(_attn_block, flags)
+        blocks = {"ssm": remat(ssm, flags), "attn": remat(attn, flags)}
         for kind, _, block in _blocks(params, cfg):
-            x = (ssm(block, x, cfg) if kind == "ssm"
-                 else attn(block, x, cfg, positions, impl))
+            x = blocks[kind](block, x)
     return L.rmsnorm(params["final_norm"], x)
 
 
@@ -372,12 +408,17 @@ def lm_loss(params, cfg: ArchConfig, batch: dict, *,
     hidden = lm_forward(params, cfg, batch["tokens"],
                         embeds=batch.get("embeds"), flags=flags)
     n_text = batch["tokens"].shape[1]
-    hidden = hidden[:, -n_text:]
+    # the port's one constraint the reference lacks: on a mesh the
+    # sequence-parallel residual is gathered over seq_sp before the head,
+    # since DTensor has no strategy for the head's product on the
+    # flattened (batch, seq-shard) layout (PERF.md, PR 30)
+    hidden = shard(hidden, "batch", None, None)[:, -n_text:]
     labels, mask = batch["labels"], batch.get("loss_mask")
     hw = head_weight(params, cfg)
     if flags.chunked_ce:
         return L.chunked_xent(hidden, hw, labels, mask, chunk=flags.ce_chunk)
     logits = (hidden @ hw.to(hidden.dtype)).to(torch.float32)
+    logits = shard(logits, "batch", None, "vocab")
     return L.softmax_xent(logits, labels, mask)
 
 
@@ -402,7 +443,7 @@ def lm_prefill(params, cfg: ArchConfig, tokens, *, cache_len: int,
             out, st = _mixer(block, x, cfg, return_state=True)
             convs.append(st["conv"])
             ssms.append(st["ssm"])
-            x = x + out
+            x = residual(x + out)
         else:
             a, (k, v) = A.attn_prefill(
                 block["attn"], L.rmsnorm(block["ln1"], x), cfg,
@@ -431,7 +472,8 @@ def lm_decode_step(params, cfg: ArchConfig, cache, token, *,
     cache."""
     _check_ported(cfg)
     cd = cfg.cdtype()
-    x = L.embed(params["embed"], token, compute_dtype=cd)
+    x = shard(L.embed(params["embed"], token, compute_dtype=cd), "batch",
+              None, None)
     t = cache["t"]
     st, kv = cache.get("ssm"), cache.get("kv")
     for kind, at, block in _blocks(params, cfg):
@@ -439,7 +481,7 @@ def lm_decode_step(params, cfg: ArchConfig, cache, token, *,
             out, _ = M.mamba_decode_step(
                 block["mamba"], L.rmsnorm(block["ln"], x),
                 {"conv": st["conv"][at], "ssm": st["ssm"][at]}, cfg)
-            x = x + out
+            x = residual(x + out)
         else:
             a, _ = A.attn_decode(
                 block["attn"], L.rmsnorm(block["ln1"], x),

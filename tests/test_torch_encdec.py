@@ -175,7 +175,7 @@ def test_layernorm_and_gelu_mlp_match_reference():
 def test_sinusoidal_positions_match_reference(S, d):
     """The reference's formula, its ``max(d // 2 - 1, 1)`` step included
     (``d = 2``: one frequency; odd ``d``: ``2 * (d // 2)`` columns)."""
-    got = TL.sinusoidal_positions(S, d)
+    got = TL.sinusoidal_positions(S, d, device="cpu")
     exp = np.asarray(JL.sinusoidal_positions(S, d))
     assert tuple(got.shape) == exp.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), exp, rtol=0, atol=1e-6)

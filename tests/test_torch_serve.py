@@ -168,12 +168,22 @@ def test_attention_prefill_and_decode_match_reference(impl, cd):
 
 
 def test_attn_decode_seq_parallel_waits_for_the_distributed_slice():
+    """Off a mesh ``seq_parallel=True`` (the distributed slice's cache
+    constraint) computes what ``seq_parallel=False`` does, bit for bit."""
     _, tcfg = _cfgs()
     p = TA.attn_init(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    cache = TA.init_cache(tcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TA.attn_decode(p, torch.zeros(1, 1, tcfg.d_model), cache, 0, tcfg,
-                       seq_parallel=True)
+    rng = np.random.default_rng(3)
+    full = torch.from_numpy(rng.standard_normal(
+        (2, 8, tcfg.n_kv_heads, tcfg.head_dim)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 1, tcfg.d_model)).astype(np.float32))
+    outs = []
+    for sp in (False, True):
+        cache = tuple(full.clone().to(tcfg.cdtype()) for _ in range(2))
+        outs.append(TA.attn_decode(p, x, cache, 5, tcfg, seq_parallel=sp))
+    (o0, (k0, v0)), (o1, (k1, v1)) = outs
+    for a, b in ((o0, o1), (k0, k1), (v0, v1)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -431,3 +431,213 @@ def raise_on(rank: int, world: int, dev, bad: int, how: str):
         raise ValueError(f"rank {rank} fails on purpose")
     torch.distributed.barrier()
     return rank
+
+
+# ---------------------------------------------------------------------------
+# distributed/: the compressed all-reduce and the sharded model
+# ---------------------------------------------------------------------------
+def psum_compressed_run(rank: int, world: int, dev, grads: dict) -> dict:
+    """``psum_compressed`` of this rank's row of each ``[world, ...]``
+    float32 array, under the collective recorder: the sums (numpy) and
+    the recorder's report."""
+    from repro_torch.distributed import compression as C
+    from repro_torch.roofline.analysis import CollectiveRecorder
+
+    mine = {k: torch.from_numpy(np.array(v[rank])).to(dev)
+            for k, v in grads.items()}
+    with CollectiveRecorder() as rec:
+        out = C.psum_compressed(mine)
+    return dict(out={k: v.cpu().numpy() for k, v in out.items()},
+                coll=rec.report())
+
+
+def _full(x) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    return x.detach().cpu().numpy()
+
+
+def sharded_model_run(rank: int, world: int, dev, spec: dict) -> dict:
+    """The port's model on a ``spec["mesh"]`` DeviceMesh of the ranks
+    under ``SINGLE_POD`` rules, every parameter a DTensor of its spec
+    (``tests/test_torch_dryrun.py`` holds the same runs unsharded): the
+    prefill's logits, ``spec["decode_steps"]`` decode
+    steps with ``seq_parallel_decode`` against a one-sequence cache
+    sharded by ``cache_specs`` (its length over ``data``), and one train
+    step's loss, gradients and AdamW-updated parameters."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import api
+    from repro_torch.models.transformer import OptFlags
+    from repro_torch.train import optimizer as opt
+
+    cfg = sharded_model_cfg(get_config, spec["arch"])
+    mesh = init_device_mesh("cpu", tuple(spec["mesh"]),
+                            mesh_dim_names=("data", "model"))
+    rules = sh.SINGLE_POD
+
+    def params(requires_grad=False):
+        p = api.init_params(cfg, torch.Generator().manual_seed(spec["seed"]),
+                            "cpu")
+        for t in p.parameters():
+            t.requires_grad_(requires_grad)
+        return sh.distribute_params(p, sh.build_param_specs(p, rules, mesh),
+                                    mesh)
+
+    def batch(b: dict) -> dict:
+        b = {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+        return sh.distribute_tree(b, sh.batch_specs(b, rules, mesh), mesh)
+
+    out = {}
+    serve = OptFlags(attn_impl="chunked")
+    with sh.use_rules(rules, mesh), implicit_replication(), \
+            torch.no_grad():
+        p = params()
+        toks = batch({"tokens": spec["prompt"]})["tokens"]
+        logits, _ = api.prefill_fn(cfg)(p, {"tokens": toks},
+                                        spec["cache_len"], serve)
+        out["prefill"] = _full(logits)
+        # decode: the unsharded prefill's cache of one sequence, sharded
+        plain = api.init_params(cfg, torch.Generator().manual_seed(
+            spec["seed"]), "cpu")
+    with torch.no_grad():
+        _, cache = api.prefill_fn(cfg)(
+            plain, {"tokens": torch.from_numpy(spec["one"])},
+            spec["cache_len"], serve)
+    sp = dataclasses.replace(serve, seq_parallel_decode=True)
+    with sh.use_rules(rules, mesh), implicit_replication(), \
+            torch.no_grad():
+        specs = sh.cache_specs(cache, rules, mesh)
+        cache = sh.distribute_tree(cache, specs, mesh)
+        out["cache_local"] = tuple(cache["kv"][0].to_local().shape)
+        steps = []
+        for tok in spec["decode_tokens"]:
+            tok = batch({"token": tok})["token"]
+            logits, cache = api.decode_fn(cfg)(p, cache, tok, sp)
+            steps.append(_full(logits))
+        out["decode"] = np.stack(steps)
+    train = OptFlags(remat="full", chunked_ce=True, ce_chunk=8,
+                     seq_parallel_acts=True, attn_impl="chunked")
+    with sh.use_rules(rules, mesh), implicit_replication():
+        p = params(requires_grad=True)
+        b = batch(spec["train"])
+        loss = api.loss_fn(cfg)(p, b, train)
+        named = dict(p.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        out["loss"] = _full(loss)
+        out["grads"] = {k: _full(g) for k, g in zip(named, grads)}
+        # the train step's update (train_step.py: AdamW on these grads)
+        p, _, _ = opt.update(opt.AdamWConfig(), dict(zip(named, grads)),
+                             opt.init(p), p)
+        out["updated"] = {k: _full(v) for k, v in p.named_parameters()}
+    return out if rank == 0 else {}
+
+
+def sharded_model_cfg(get_config, arch: str):
+    """The reduced config of the sharded runs: 2 layers, float32."""
+    import dataclasses
+
+    return dataclasses.replace(get_config(arch).reduced(), n_layers=2,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def sharded_model_spec(arch: str) -> dict:
+    """Seeded inputs of ``sharded_model_run`` for ``arch``'s reduced
+    config: 4 prompts of 16 tokens, one of 12 for the decode cache, 2
+    decode tokens, a train batch of 4 x 16."""
+    from repro_torch.configs.base import get_config
+
+    rng = np.random.default_rng(0)
+    cfg = sharded_model_cfg(get_config, arch)
+    toks = rng.integers(0, cfg.vocab, (4, 17)).astype(np.int32)
+    return dict(
+        arch=arch, mesh=(2, 2), seed=3, cache_len=24,
+        prompt=rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32),
+        one=rng.integers(0, cfg.vocab, (1, 12)).astype(np.int32),
+        decode_tokens=[rng.integers(0, cfg.vocab, (1, 1)).astype(np.int32)
+                       for _ in range(2)],
+        train={"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+
+
+def unsharded_model_run(spec: dict) -> dict:
+    """``sharded_model_run``'s outputs from the unsharded port, in this
+    process."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.models.transformer import OptFlags
+    from repro_torch.train import optimizer as opt
+
+    cfg = sharded_model_cfg(get_config, spec["arch"])
+
+    def params(requires_grad=False):
+        p = api.init_params(cfg, torch.Generator().manual_seed(spec["seed"]),
+                            "cpu")
+        for t in p.parameters():
+            t.requires_grad_(requires_grad)
+        return p
+
+    out = {}
+    serve = OptFlags(attn_impl="chunked")
+    with torch.no_grad():
+        p = params()
+        logits, _ = api.prefill_fn(cfg)(
+            p, {"tokens": torch.from_numpy(spec["prompt"])},
+            spec["cache_len"], serve)
+        out["prefill"] = logits.numpy()
+        _, cache = api.prefill_fn(cfg)(
+            p, {"tokens": torch.from_numpy(spec["one"])}, spec["cache_len"],
+            serve)
+        steps = []
+        for tok in spec["decode_tokens"]:
+            logits, cache = api.decode_fn(cfg)(p, cache, torch.from_numpy(tok),
+                                               serve)
+            steps.append(logits.numpy())
+        out["decode"] = np.stack(steps)
+    train = OptFlags(remat="full", chunked_ce=True, ce_chunk=8,
+                     seq_parallel_acts=True, attn_impl="chunked")
+    p = params(requires_grad=True)
+    b = {k: torch.from_numpy(v) for k, v in spec["train"].items()}
+    loss = api.loss_fn(cfg)(p, b, train)
+    named = dict(p.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()))
+    out["loss"] = loss.detach().numpy()
+    out["grads"] = {k: g.numpy() for k, g in zip(named, grads)}
+    p, _, _ = opt.update(opt.AdamWConfig(), dict(zip(named, grads)),
+                         opt.init(p), p)
+    out["updated"] = {k: v.detach().numpy() for k, v in p.named_parameters()}
+    return out
+
+
+def _close(got, exp, what, scale=None):
+    """Within 1e-5 of the largest magnitude of ``exp`` (of ``scale``: a
+    tree's largest, for leaves such as the k bias's gradient, which is 0
+    but for rounding, as softmax ignores a shift of every key)."""
+    got, exp = np.asarray(got), np.asarray(exp)
+    assert got.shape == exp.shape, what
+    big = float(np.abs(exp).max()) if scale is None else scale
+    err = float(np.abs(got - exp).max())
+    assert err <= 1e-5 * big, (what, err, big)
+
+
+def check_sharded_run(got: dict, exp: dict, spec: dict) -> None:
+    """The sharded run's prefill, decode and loss within 1e-5 of the
+    unsharded run's largest magnitude, each gradient and updated
+    parameter within 1e-5 of its tree's; the one-sequence cache's length
+    sharded over data (2 ways)."""
+    assert got["cache_local"][2] == spec["cache_len"] // 2
+    for key in ("prefill", "decode", "loss"):
+        _close(got[key], exp[key], key)
+    assert set(got["grads"]) == set(exp["grads"])
+    g_max = max(float(np.abs(v).max()) for v in exp["grads"].values())
+    p_max = max(float(np.abs(v).max()) for v in exp["updated"].values())
+    for name in exp["grads"]:
+        _close(got["grads"][name], exp["grads"][name], name, g_max)
+        _close(got["updated"][name], exp["updated"][name], name, p_max)
