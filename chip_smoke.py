@@ -300,7 +300,13 @@ source, all three at once), then:
    Qwen2.5-3B at full width and 2 layers on a (1, 1) ``DeviceMesh`` under
    ``SINGLE_POD_SERVE``, every parameter a DTensor: the prefill's and a
    decode step's logits equal the run without rules bit for bit, with the
-   same attention launches.
+   same attention launches;
+24. the port's contract linter (``src/repro_torch/analysis``: int32 lane
+   pins, host syncs in code tagged sync-free, scatters in code tagged
+   scatter-free) run as ``python -m repro_torch.analysis --strict
+   --json`` in a subprocess over the package and this script: any
+   finding fails the run; prints the findings per rule, the file count
+   and the seconds.
 
 Phase 10 also holds and times the kernel non-causal (``NONCAUSAL``):
 Whisper's encoder (q, k, v [8, 8, 1500, 64]) and cross-attention (q [8,
@@ -317,7 +323,7 @@ float32 step check (b) for the backward's f32 pair), each counted from
 zero just before its run.  ``--phases
 12,13`` runs the build of the kernels those phases use, phase 1 and the
 named phases only (4 and 5 bring 3 along, 8 brings 7, 23 brings 11
-and 22; 15-22 stand alone);
+and 22; 15-22 and 24 stand alone);
 the JSON record then lists the kernels of the phases that ran.  The
 script measures the ``repro_torch`` under ``src/`` beside it: a copy of
 it placed in another checkout (a parent commit's, unpacked with ``git
@@ -339,6 +345,7 @@ import gc
 import importlib.util
 import io
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -6013,6 +6020,35 @@ def on_card(device) -> str:
     return smi() if torch.device(device).type == "cuda" else "host CPU"
 
 
+def lint_phase() -> dict:
+    """Phase 24: the port's contract linter (``python -m
+    repro_torch.analysis --strict --json``) in a subprocess, over the
+    package and this script; a finding, or an exit other than 0, fails
+    the run."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict", "--json"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    seconds = time.perf_counter() - t0
+    report = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    for f in report.get("findings", []):
+        log(f"lint: {f['path']}:{f['line']}:{f['col']}: {f['rule']} "
+            f"{f['message']}")
+    summary = report.get("summary", {})
+    per_rule = {r: summary.get("per_rule", {}).get(r, 0)
+                for r in report.get("rules", [])}
+    log(f"lint: repro_torch.analysis --strict over {report.get('files')} "
+        f"files in {seconds:.2f} s: {summary.get('total')} findings, per "
+        f"rule {per_rule}, {len(report.get('pragmas', []))} pragmas; exit "
+        f"{proc.returncode}")
+    require(proc.returncode == 0 and summary.get("total") == 0,
+            f"the port's linter failed (exit {proc.returncode}): "
+            f"{proc.stderr.strip()[-2000:]}")
+    return {"files": report["files"], "per_rule": per_rule,
+            "seconds": seconds}
+
+
 def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6048,7 +6084,7 @@ def build_kernels(phases) -> dict:
     return usage
 
 
-ALL_PHASES = tuple(range(1, 24))
+ALL_PHASES = tuple(range(1, 25))
 
 
 def parse_phases(argv) -> set:
@@ -6220,6 +6256,8 @@ def main(argv=None) -> None:
         run["distributed_slice"] = distributed_slice_phase(run)
         log(f"distributed slice: phase 23's run took "
             f"{time.perf_counter() - t0:.1f} s")
+    if 24 in phases:
+        run["lint"] = lint_phase()
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -225,6 +225,8 @@ def segmented_route(flat: Msg, alive: torch.Tensor, chain_pos: torch.Tensor,
     when every message's ``src`` is its emitting node).  Every inbox slot
     then binary-searches its source.  Drop counts come from segment
     lengths, independent of the lane.
+
+    repro-torch-lint: scatter-free
     """
     C, M = flat.op.shape
     n = alive.shape[1]
@@ -349,7 +351,10 @@ def cluster_route(flat: Msg, target: torch.Tensor, n_chains: int,
     (``[N]``; outside ``[0, n_chains)`` drops it).  One sort of ``(target
     segment, index)`` puts each chain's deliveries contiguous and in flat
     order.  Returns ``(routed [n_chains, cap] Msg, overflow [n_chains])``:
-    a chain's messages past ``cap`` are dropped and counted."""
+    a chain's messages past ``cap`` are dropped and counted.
+
+    repro-torch-lint: scatter-free
+    """
     N = flat.op.shape[0]
     dev = flat.op.device
     i64 = torch.int64
@@ -676,7 +681,10 @@ class ChainSim:
     def tick(self, state: SimState, injected: Msg) -> SimState:
         """Advance every chain one tick.  ``injected``: [C, n, c_in] client
         queries addressed to their entry node.  The input state may be
-        updated in place: rebind ``state = sim.tick(state, inj)``."""
+        updated in place: rebind ``state = sim.tick(state, inj)``.
+
+        repro-torch-lint: sync-free
+        """
         injected = tree_map(lambda x: x.to(self.device), self._lift(injected))
         args = (state.stores, state.inbox, state.locks, state.metrics,
                 state.replies, injected, state.roles, state.pmap, state.t)

@@ -247,7 +247,10 @@ def gen_tick(gen: LoadGenState, cluster: ClusterConfig, width: int,
     backlog in global-key form, and what the backlog cannot hold is shed.
 
     Returns ``(injection [C, n, q], gen', offered [C], shed [C])``:
-    ``offered`` counts this tick's new client ops per owning chain."""
+    ``offered`` counts this tick's new client ops per owning chain.
+
+    repro-torch-lint: sync-free
+    """
     vw = cluster.chain.value_words
     C = cluster.n_chains
     B = gen.backlog.op.shape[0]

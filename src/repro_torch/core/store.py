@@ -303,7 +303,10 @@ def commit(store: Store, keys, values, seqs, active):
 
 def overwrite_clean(store: Store, keys, values, seqs, active):
     """NetChain-style single-version write: cell 0 := value iff seq newer.
-    Edits cell 0 in place."""
+    Edits cell 0 in place, with no host sync: every entry writes its
+    register's final cell 0 (the last winner's, or the cell as it was),
+    so entries of one register write one value, and an entry outside the
+    table writes register 0's."""
     N, K = store.pending.shape
     active = active.to(torch.bool)
     dev = keys.device
@@ -318,10 +321,19 @@ def overwrite_clean(store: Store, keys, values, seqs, active):
         reduce="amax",
     )
     win = newer & in_range & (seqs == take(best[:, :K], keys))
-    n_i = rows.expand_as(keys)[win]
-    k_i = dst[win]
     # tied winners of one register (raw keys -1 and K - 1): the later stays
-    last = last_writes(n_i * K + k_i)
-    store.values[n_i[last], k_i[last], 0] = values[win][last].to(I32)
-    store.seqs[n_i[last], k_i[last], 0] = seqs[win][last].to(I32)
+    pos = torch.arange(keys.shape[1], device=dev).expand_as(keys)
+    last = torch.full((N, K + 1), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(-1, torch.where(win, dst, K),
+                         torch.where(win, pos, -1), reduce="amax")
+    reg = torch.where(in_range, dst, 0)
+    src = last.gather(1, reg)
+    has = src >= 0
+    src = src.clamp(min=0)
+    W = store.values.shape[-1]
+    new_vals = values.to(I32).gather(1, src[..., None].expand(-1, -1, W))
+    store.values[rows, reg, 0] = torch.where(
+        has[..., None], new_vals, store.values[rows, reg, 0])
+    store.seqs[rows, reg, 0] = torch.where(
+        has, seqs.to(I32).gather(1, src), store.seqs[rows, reg, 0])
     return store

@@ -181,6 +181,36 @@ def shard(x: torch.Tensor, *logical):
     return x.redistribute(x.device_mesh, placements)
 
 
+class _GradPlacements(torch.autograd.Function):
+    """The identity on a DTensor whose backward redistributes the gradient
+    to the value's own placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def shard_with_grad(x: torch.Tensor, *logical):
+    """``shard`` of ``x`` and of its gradient: the gradient that reaches
+    ``x`` is redistributed to ``x``'s placements, as the transpose of
+    ``with_sharding_constraint`` constrains the cotangent.  DTensor's own
+    backward leaves a gradient where the backward's ops put it, and a view
+    of it back through a reshape may then split a dim unevenly (the MoE
+    groups over all three mesh axes viewed as a batch of fewer rows)."""
+    x = shard(x, *logical)
+    if (_RULES.get() is None or not is_dtensor(x) or not x.requires_grad
+            or not torch.is_grad_enabled()):
+        return x
+    return _GradPlacements.apply(x)
+
+
 def shard_groups(x: torch.Tensor, groups: int, *logical):
     """``shard`` of ``x`` whose last dim is ``groups`` x width flattened
     (heads x head_dim): the last dim's axis is resolved against the group

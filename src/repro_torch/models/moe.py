@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import shard, shard_with_grad
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -70,11 +70,11 @@ class Routing(NamedTuple):
     E]`` (float32), ``topv``/``topi`` the renormalised top-k weights and
     expert ids ``[G, T, k]``, ``pos`` each (token, slot)'s rank in its
     expert and ``keep`` whether it is inside the capacity ``cap``."""
-    gate: torch.Tensor
-    topv: torch.Tensor
-    topi: torch.Tensor
-    pos: torch.Tensor
-    keep: torch.Tensor
+    gate: torch.Tensor  # [G, T, E] float32
+    topv: torch.Tensor  # [G, T, k] float32
+    topi: torch.Tensor  # [G, T, k] int64
+    pos: torch.Tensor   # [G, T, k] int32
+    keep: torch.Tensor  # [G, T, k] bool
     cap: int
 
 
@@ -159,7 +159,11 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig, *,
     """``x [B, S, d]`` -> ``[B, S, d]``."""
     B, S, d = x.shape
     G = n_groups_for(B * S, cfg) if n_groups is None else n_groups
-    xg = shard(x.reshape(G, (B * S) // G, d), "batch", None, None)
+    # the groups' gradient is held to their placements: left to the
+    # backward's ops it can come back split over every mesh axis, which
+    # the reshape's backward cannot view as [B, S, d] when B has fewer
+    # rows than the mesh has devices
+    xg = shard_with_grad(x.reshape(G, (B * S) // G, d), "batch", None, None)
     r = moe_route(p, xg, cfg)
     xe, comb = moe_dispatch(r, xg, cfg)
     xe = shard(xe, "batch", "experts", None, None)

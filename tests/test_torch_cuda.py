@@ -1118,6 +1118,33 @@ def test_cuda_set_lease_and_a_segment_make_no_host_sync(card):
     assert int(state.t) == 10
 
 
+def test_cuda_netchain_segment_makes_no_host_sync(card):
+    """NetChain's tick writes cell 0 through ``store.overwrite_clean``: an
+    open-loop NetChain segment with writes syncs the host nowhere, tied
+    winners and all (the sync debug mode raises at any synchronizing
+    call)."""
+    from repro_torch.core import loadgen
+
+    cl = t_types.ClusterConfig(
+        chain=t_types.ChainConfig(n_nodes=3, num_keys=64, num_versions=4,
+                                  protocol="netchain"), n_chains=2)
+    sim = ChainSim(cl, inject_capacity=8, route_capacity=128,
+                   reply_capacity=8192, device=card)
+    gen = loadgen.make_loadgen(cl, qps=6.0, seed=3, backlog_capacity=64,
+                               write_fraction=0.5, device=card)
+    state, gen = sim.run_openloop(sim.init_state(), gen, 2, arrival_width=48,
+                                  extra_ticks=0)         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, gen = sim.run_openloop(state, gen, 8, arrival_width=48,
+                                      extra_ticks=0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(state.t) == 10
+    assert int(state.metrics.writes_in.sum()) > 0
+
+
 # ---------------------------------------------------------------------------
 # ChainDist and the kv_cache protocols on CUDA ranks (torch.distributed
 # over gloo, every rank on this card; the workers import no JAX)

@@ -5,7 +5,10 @@ model on real ranks.
 shapes its specs give (the kv cache's ``(None, ("data",), None, None,
 "model")``, the long-context cache's length over ``data``, expert
 parallelism) and the per-device argument bytes, equal to the sum of the
-local shard bytes that the reference's own specs give.  A 4-rank gloo run
+local shard bytes that the reference's own specs give.  A reduced MoE
+train cell on a 2x2x2 fake mesh, its routing groups' gradient split over
+all three axes, traces (the full-size multi-pod MoE train cells failed in
+the grouping reshape's backward).  A 4-rank gloo run
 on a 2x2 mesh (reduced Qwen2.5-3B, 2 layers, float32, ``SINGLE_POD``
 rules): the sharded prefill's logits, a ``seq_parallel_decode`` step
 against a cache whose length is sharded, and one train step's loss,
@@ -16,6 +19,7 @@ wrapper refuses a DTensor, and the flash wrappers report their kernels'
 work on meta tensors to the step counter.
 """
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -124,6 +128,64 @@ def test_lower_cell_full_size(arch, shape_id, rules, leaf, local):
     assert report.model_flops_total == dryrun.roofline.model_flops(
         get_config(arch), dryrun.SHAPES[shape_id], dryrun.SHAPES[shape_id]
         .kind)
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_train_trace():
+    """A reduced Granite-MoE train cell traced on a 2x2x2 (pod, data,
+    model) fake mesh under the multi-pod rules: 4 rows of 64 tokens, one a
+    device on the 4-way batch axes, in 16 groups of 16 tokens.  Returns the
+    trace and, where ``sharding`` holds the groups' gradient
+    (``_GradPlacements``), the placements it arrived in and left in."""
+    from repro_torch.configs.shapes import ShapeSpec
+
+    seen = []
+    hold = getattr(dryrun.sh, "_GradPlacements", None)
+    with pytest.MonkeyPatch.context() as mp:
+        if hold is not None:
+            back = hold.backward
+
+            def spy(ctx, g):
+                out = back(ctx, g)
+                seen.append((tuple(g.placements), tuple(out.placements)))
+                return out
+
+            mp.setattr(hold, "backward", staticmethod(spy))
+        mp.setitem(dryrun.MESHES, "2x2x2",
+                   ((2, 2, 2), ("pod", "data", "model")))
+        cfg = dataclasses.replace(
+            get_config("granite-moe-3b-a800m").reduced(), n_layers=1,
+            moe_group_tokens=16)
+        with dryrun.fake_mesh("2x2x2") as mesh:
+            res = dryrun.trace_step(cfg, ShapeSpec("t", "train", 64, 4),
+                                    "train", mesh, dryrun.sh.MULTI_POD,
+                                    dryrun.TRAIN_FLAGS)
+    return res, seen
+
+
+def test_moe_train_cell_traces_with_groups_split_over_three_axes():
+    """The groups' gradient comes back from the routing and dispatch split
+    over all three axes (2 groups a device, half a row), and the grouping
+    reshape's backward must view it as whole rows.  Without ``moe_apply``'s
+    hold the step failed in ``ViewBackward0`` (the full-size twins:
+    ``granite-moe-3b-a800m`` and ``llama4-scout-17b-a16e`` x ``train_4k``
+    x ``multi``)."""
+    res, _ = _moe_train_trace()
+    assert res["step"].local_shapes["tokens"] == (1, 64)
+    for v in (res["flops"], res["bytes"], res["coll"]):
+        assert np.isfinite(v) and v > 0
+
+
+def test_moe_groups_gradient_held_to_their_placements():
+    """``moe_apply`` holds the groups' gradient to the groups' own
+    placements: it arrives split over all three axes and leaves split over
+    the batch axes only."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    _, seen = _moe_train_trace()
+    split, held = (Shard(0),) * 3, (Shard(0), Shard(0), Replicate())
+    assert (split, held) in seen
+    assert all(out == held for _, out in seen)
 
 
 # ---------------------------------------------------------------------------
