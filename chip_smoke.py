@@ -258,18 +258,25 @@ source, all three at once), then:
    reference's ``chunked_attention``) and the three backward launches
    (``flash_bwd_delta_kernel``, then dK/dV and dQ: bf16 on the
    tensor-core pair ``flash_bwd_dkdv_mma_kernel``,
-   ``flash_bwd_dq_mma_kernel``, float32 on the f32 pair
-   ``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``) against
-   ``ref.chunked_fwd``/``chunked_bwd`` at ``BWD_CASES`` (the training
-   shape [4, 16, 4096, 64] bf16 causal, Qwen2.5-3B's GQA group, head dim
-   80, ragged S = SK = 200, 200 queries after 700 keys, Whisper's
-   cross-attention, float32), each case's launches by route: o, lse, dq,
-   dk and dv each held, bf16 to the error's norm against the plain
-   version with the tensor-core pair's two roundings and against the
-   unrounded one, with two controls that must read past both (delta
-   dropped, the causal mask dropped); each kernel timed at the training
-   shape, the GQA group, head dim 80 and float32 beside its bound, the
-   plain version and SDPA (its forward, its whole backward); (b)
+   ``flash_bwd_dq_mma_kernel``, float32 and views TMA refuses on the
+   f32 pair ``flash_bwd_dkdv_kernel``, ``flash_bwd_dq_kernel``, split
+   TF32 on ``mma.sync``) against ``ref.chunked_fwd``/``chunked_bwd`` at
+   ``BWD_CASES`` (the training shape [4, 16, 4096, 64] bf16 causal,
+   Qwen2.5-3B's GQA group, head dim 80, ragged S = SK = 200, 200 queries
+   after 700 keys, Whisper's cross-attention, float32, float32 at the GQA
+   group, the training shape with a dO view TMA refuses), each case's
+   launches by route: o, lse, dq, dk and dv each held, bf16 on the
+   tensor-core pair to the error's norm against the plain version with
+   its two roundings and against the unrounded one, bf16 on the f32 pair
+   against the unrounded one, with two controls that must read past each
+   (delta dropped, the causal mask dropped), float32 to its maximum
+   against the plain version and its split TF32 emulation
+   (``ref.chunked_bwd(..., split_tf32=True)``); ptxas's report of the
+   f32 pair; each kernel timed at the training shape, the GQA group, head
+   dim 80, float32, float32 GQA and the misaligned bf16 view beside its
+   bound (the f32 pair's also beside its split TF32 bound), the plain
+   version and SDPA (its forward, its whole backward), delta beside
+   ``torch.linalg.vecdot``; (b)
    Qwen1.5-0.5B at full width and 2 layers, one loss and its gradients:
    float32, the kernel path against the plain path on the card (every
    leaf within 1e-4); bf16, the card against the CPU (loss and gradient
@@ -5189,7 +5196,10 @@ def examples_phase() -> dict:
 # Qwen2.5-3B's GQA group (16/2 heads of 128), Zamba2's head dim 80, a
 # ragged edge (S = SK = 200), 200 causal queries after 700 keys (offset
 # 500, the bottom-right mask), Whisper's cross-attention (its 448-token
-# decoder context against 1,500 frames, non-causal) and float32
+# decoder context against 1,500 frames, non-causal), float32 (the f32
+# pair), float32 at Qwen2.5-3B's GQA group and the training shape in bf16
+# with dO a view whose rows are not 16-byte aligned (``BWD_DO_PADDED``:
+# the f32 pair on bf16, its 4-byte copies)
 BWD_CASES = {
     "train": (4, 16, 16, 4096, 4096, 64, torch.bfloat16, True),
     "gqa": (2, 16, 2, 2048, 2048, 128, torch.bfloat16, True),
@@ -5198,14 +5208,18 @@ BWD_CASES = {
     "s_lt_sk": (2, 16, 2, 200, 700, 128, torch.bfloat16, True),
     "whisper_cross": (8, 8, 8, 448, 1500, 64, torch.bfloat16, False),
     "float32": (2, 16, 16, 2048, 2048, 64, torch.float32, True),
+    "float32_gqa": (2, 16, 2, 2048, 2048, 128, torch.float32, True),
+    "bf16_view": (4, 16, 16, 4096, 4096, 64, torch.bfloat16, True),
 }
+# dO's rows padded to D + 2 elements (132 bytes at D 64): TMA refuses it
+BWD_DO_PADDED = ("bf16_view",)
 BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 # each route's dk/dv and dq counters (``kernel.route_bwd``): bf16 at these
 # shapes takes the tensor-core pair, float32 the f32 pair
 BWD_ROUTES = {"mma": ("flash_bwd_dkdv_mma", "flash_bwd_dq_mma"),
               "f32": ("flash_bwd_dkdv_f32", "flash_bwd_dq_f32")}
 # timed beside their bounds, the plain version and SDPA
-BWD_TIMED = ("train", "gqa", "d80", "float32")
+BWD_TIMED = ("train", "gqa", "d80", "float32", "float32_gqa", "bf16_view")
 # A bf16 case runs the tensor-core pair, whose products take p and dS as
 # bf16 operands; its gradients are held twice, each by its error's norm:
 # against the plain version that makes the same two roundings
@@ -5216,8 +5230,12 @@ BWD_TIMED = ("train", "gqa", "d80", "float32")
 # two roundings alone read 2.5e-3 to 2.7e-3 there).  Two controls, the
 # plain version with the roundings and with delta dropped (o = 0) or,
 # causal, the mask dropped, must read past both limits.  Float32 gradients
-# (the f32 pair) to 1e-4 of their largest magnitude.  The backward's plain
-# version reads
+# (the f32 pair) to 1e-4 of their largest magnitude against the plain
+# version and to SPLIT_TOL against it in the pair's split TF32 arithmetic
+# (``ref.chunked_bwd(..., split_tf32=True)``); bf16 on the f32 pair (its
+# products exact but for p's and dS's splits, only the outputs rounded)
+# by its error's norm to F32_ROUTE_BF16_TOL against the unrounded plain
+# version, its controls likewise.  The backward's plain version reads
 # the kernel's own o and lse, so the lse is held on its own, to LSE_TOL
 # absolute, against the plain forward on the inputs upcast to float32
 # (``lse_plain``): it scales the float32 score as the kernels do, where
@@ -5228,10 +5246,9 @@ BWD_TIMED = ("train", "gqa", "d80", "float32")
 # gradient, by exp(-d).
 BWD_EMU_TOL = 1e-3     # 2.9x the largest sound reading (3.48e-4; PERF.md)
 F32_BWD_TOL = 1e-4
+SPLIT_TOL = 1e-5
+F32_ROUTE_BF16_TOL = 2.5e-4
 LSE_TOL = 5e-5
-# SDPA's backward kernels, by name (flash, cuDNN's "bprop",
-# memory-efficient)
-SDPA_BWD = re.compile(r"bwd|backward|bprop|cutlassB", re.IGNORECASE)
 # (c): Qwen1.5-0.5B at full width and depth, train_4k's sequence with its
 # global batch of 256 cut to 4; (b): 2 layers, 256 tokens
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "qwen1.5-0.5b", 4096, 4
@@ -5268,6 +5285,31 @@ def backward_bounds(q, k, causal: bool) -> dict:
             "backward": (4 * rows + 4 * keys + stats // 2, 10 * D * pairs)}
 
 
+def split_tf32_ms(q, k, causal: bool) -> dict:
+    """The f32 pair's products at the TF32 tensor-core peak, each counted
+    as the split TF32 products it takes: three, less one for each operand
+    exact in TF32 (a bf16 q, k, v or dO; p and dS are float32, always
+    split): dkdv's s, dO v^T, p^T dO and dS^T q, dq's s, dO v^T and dS
+    k."""
+    B, HQ, S, D = q.shape
+    SK = k.shape[2]
+    pairs = B * HQ * visible_pairs(S, SK, causal, SK - S)
+    both = 1 if q.dtype == torch.bfloat16 else 3     # s, dO v^T
+    one = 2 if q.dtype == torch.bfloat16 else 3      # p or dS times an input
+    per = {"flash_bwd_dkdv": 2 * both + 2 * one, "flash_bwd_dq": 2 * both + one}
+    return {n: 2 * D * pairs * t / TF32_FLOP_PER_S * 1e3
+            for n, t in per.items()}
+
+
+def f32_pair_ptxas() -> dict:
+    """What ptxas reported for the f32 pair's instantiations (registers,
+    spills, wgmma serialization), when this process built them."""
+    return {name: u for per_lib in kernel_build.ptxas_report().values()
+            for name, u in per_lib.items()
+            if name.startswith(("flash_bwd_dkdv_kernel<",
+                                "flash_bwd_dq_kernel<"))}
+
+
 def fwd_plain(q, k, v, causal: bool):
     qc, kc = fa_ref.default_blocks(q.shape[2], k.shape[2])
     return fa_ref.chunked_fwd(q, k, v, causal=causal, scale=q.shape[3] ** -0.5,
@@ -5280,11 +5322,13 @@ def lse_plain(q, k, v, causal: bool):
     return fwd_plain(q.float(), k.float(), v.float(), causal)[1]
 
 
-def bwd_plain(q, k, v, o, lse, do, causal: bool, round_bf16: bool = False):
+def bwd_plain(q, k, v, o, lse, do, causal: bool, round_bf16: bool = False,
+              split_tf32: bool = False):
     qc, kc = fa_ref.default_blocks(q.shape[2], k.shape[2])
     return fa_ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
                               scale=q.shape[3] ** -0.5, q_chunk=qc,
-                              k_chunk=kc, round_bf16=round_bf16)
+                              k_chunk=kc, round_bf16=round_bf16,
+                              split_tf32=split_tf32)
 
 
 def per_kernel_us(fn, iters: int, want=()) -> dict:
@@ -5304,19 +5348,18 @@ def per_kernel_us(fn, iters: int, want=()) -> dict:
 
 
 def sdpa_backward_us(q, k, v, do, causal: bool):
-    """SDPA's backward alone: device µs of the kernels of a forward and
-    backward whose names mark them as the backward's."""
+    """SDPA's backward alone: device µs of every kernel of one backward
+    call (``torch.autograd.grad`` of a forward taken outside the window,
+    its graph kept), whichever path SDPA picks (a fused backward, or the
+    math path's products and softmax backward)."""
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=True)
 
     def run():
-        F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                       enable_gqa=True).backward(do)
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
     kernels = per_kernel_us(run, FA_ITERS)
-    bwd = {k: us for k, us in kernels.items() if SDPA_BWD.search(k)}
-    if not bwd:
-        log(f"SDPA's backward: no kernel named as a backward among "
-            f"{sorted(kernels)}")
-    return (sum(bwd.values()) if bwd else None), sorted(bwd)
+    return (sum(kernels.values()) if kernels else None), sorted(kernels)
 
 
 def check_flash_backward(device="cuda") -> dict:
@@ -5331,12 +5374,27 @@ def check_flash_backward(device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(22)
     cases, abs_errs, controls, timed = {}, {}, {}, {}
     card = smi()
+    ptxas = f32_pair_ptxas()
+    log(f"ptxas, the f32 pair: " + "; ".join(
+        f"{n} {u['registers']} registers, {u['spill_stores']}/"
+        f"{u['spill_loads']} bytes spilled (stores/loads), wgmma "
+        f"{'serialized (C7512)' if u['wgmma_serialized'] else 'not serialized'}"
+        for n, u in ptxas.items()) if ptxas else "ptxas, the f32 pair: "
+        "not built by this process")
     for name, (B, HQ, HKV, S, SK, D, dtype, causal) in BWD_CASES.items():
         q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
         do = torch.randn((B, S, HQ, D), generator=gen,
                          device=device).to(dtype).transpose(1, 2)
+        if name in BWD_DO_PADDED:
+            do = torch.empty((B, S, HQ, D + 2), dtype=dtype,
+                             device=device)[..., :D].copy_(
+                do.transpose(1, 2)).transpose(1, 2)
         half = dtype == torch.bfloat16
-        path = "mma" if half else "f32"
+        path = ("f32" if name in BWD_DO_PADDED or not half else "mma")
+        require(device == "cpu" or fa_kernel.route_bwd(q, k, v, do) == path,
+                f"backward {name}: route {fa_kernel.route_bwd(q, k, v, do)}"
+                f", want {path}")
+        mma = path == "mma"
         fa_kernel.reset_launches()
         o, lse = fa_kernel.flash_attention_lse(q, k, v, causal=causal)
         grads = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do,
@@ -5359,7 +5417,7 @@ def check_flash_backward(device="cuda") -> dict:
             lse_ref = lse_plain(q, k, v, causal)
         ref_grads = bwd_plain(q, k, v, o, lse, do, causal)
         emu_grads = (bwd_plain(q, k, v, o, lse, do, causal, round_bf16=True)
-                     if half else ref_grads)
+                     if mma else ref_grads)
         what = (f"backward {name} [{B}, {HQ}/{HKV}, {S}, {SK}, {D}] "
                 f"{str(dtype)[6:]} {'causal' if causal else 'non-causal'}")
 
@@ -5374,24 +5432,30 @@ def check_flash_backward(device="cuda") -> dict:
                 f"{what}: o reads {rec['o']}")
         require(rec["lse"] <= LSE_TOL, f"{what}: lse differs by "
                 f"{rec['lse']} > {LSE_TOL}")
-        # (suffix, plain gradients, limit): bf16 against the emulating and
-        # the unrounded plain version, float32 against the plain version
-        holds = ((("", emu_grads, BWD_EMU_TOL),
-                  ("_unrounded", ref_grads, BF16_RMS_TOL)) if half else
-                 (("", ref_grads, F32_BWD_TOL),))
+        # (suffix, plain gradients, limit): bf16 on the tensor-core pair
+        # against the emulating and the unrounded plain version, on the
+        # f32 pair against the unrounded one; float32 against the plain
+        # version and its split TF32 emulation
+        if mma:
+            holds = (("", emu_grads, BWD_EMU_TOL),
+                     ("_unrounded", ref_grads, BF16_RMS_TOL))
+        elif half:
+            holds = (("", ref_grads, F32_ROUTE_BF16_TOL),)
+        else:
+            holds = (("", ref_grads, F32_BWD_TOL), ("_split", bwd_plain(
+                q, k, v, o, lse, do, causal, split_tf32=True), SPLIT_TOL))
         for suffix, refs, limit in holds:
             for g_name, g, r in zip(("dq", "dk", "dv"), grads, refs):
                 rec[g_name + suffix] = err(g, r)
                 require(rec[g_name + suffix] <= limit, f"{what}: {g_name} "
                         f"reads {rec[g_name + suffix]} > {limit} against "
-                        f"the {'unrounded' if suffix else 'emulating'} "
-                        "plain version")
+                        f"the plain version{suffix or ' it is held to'}")
         if half:
             ctrl = {"delta_dropped": bwd_plain(
-                q, k, v, torch.zeros_like(o), lse, do, causal, True)}
+                q, k, v, torch.zeros_like(o), lse, do, causal, mma)}
             if causal:
                 ctrl["mask_dropped"] = bwd_plain(q, k, v, o, lse, do, False,
-                                                 True)
+                                                 mma)
             for c_name, c_grads in ctrl.items():
                 for suffix, refs, limit in holds:
                     c_err = max(err(a, r) for a, r in zip(c_grads, refs))
@@ -5411,8 +5475,12 @@ def check_flash_backward(device="cuda") -> dict:
             + ", ".join(f"{k} {v:.3g}" for k, v in rec.items())
             + (f" (error norm against the emulating plain version, limit "
                f"{BWD_EMU_TOL}; _unrounded against the unrounded one, "
-               f"limit {BF16_RMS_TOL}; lse {LSE_TOL})" if half else
-               f" (max err of max, limit {F32_BWD_TOL}; lse {LSE_TOL})")
+               f"limit {BF16_RMS_TOL}; lse {LSE_TOL})" if mma else
+               f" (error norm against the plain version, limit "
+               f"{F32_ROUTE_BF16_TOL}; lse {LSE_TOL})" if half else
+               f" (max err of max, limit {F32_BWD_TOL}; _split against "
+               f"the split TF32 emulation, limit {SPLIT_TOL}; lse "
+               f"{LSE_TOL})")
             + "".join(f"; control {c} {e:.3g}" for c, e in controls.items()
                       if c.startswith(f"{name}/")))
         if name in BWD_TIMED:
@@ -5436,12 +5504,31 @@ def check_flash_backward(device="cuda") -> dict:
         if kname.endswith("_mma"):
             recs[kname]["shapes"] = {c: timed[c][timing]
                                      for c in ("gqa", "d80")}
+        elif case == "float32" and kname != "flash_bwd_delta":
+            recs[kname]["shapes"] = {c: timed[c][timing]
+                                     for c in ("float32_gqa", "bf16_view")}
+            recs[kname]["ptxas"] = {n: u for n, u in ptxas.items()
+                                    if n.startswith(kname + "_kernel<")}
     recs["flash_attention_lse"]["max_abs_err_lse"] = abs_errs["train"]["lse"]
     recs["flash_attention_lse"]["case_errs"] = cases
     recs["flash_attention_lse"]["case_abs_errs"] = abs_errs
     recs["flash_attention_lse"]["controls"] = controls
     recs["flash_attention_lse"]["backward"] = {c: timed[c]["backward"]
                                                for c in BWD_TIMED}
+    f32 = {c: timed[c]["backward"] for c in ("float32", "float32_gqa",
+                                             "bf16_view")}
+    log("the f32 pair (" + card + "): " + "; ".join(
+        f"{c} dkdv {timed[c]['flash_bwd_dkdv']['ms'] * 1e3:.2f} us (bound "
+        f"{timed[c]['flash_bwd_dkdv']['bound_ms'] * 1e3:.2f}, split "
+        f"TF32 bound {timed[c]['flash_bwd_dkdv']['split_tf32_bound_ms'] * 1e3:.2f}), "
+        f"dq {timed[c]['flash_bwd_dq']['ms'] * 1e3:.2f} us (bound "
+        f"{timed[c]['flash_bwd_dq']['bound_ms'] * 1e3:.2f}, split TF32 "
+        f"bound {timed[c]['flash_bwd_dq']['split_tf32_bound_ms'] * 1e3:.2f}), "
+        f"whole backward {r['ms'] * 1e3:.2f} us against SDPA's "
+        + ("n/a" if r["sdpa_bwd_ms"] is None else
+           f"{r['sdpa_bwd_ms'] * 1e3:.2f} us")
+        + f", the plain version {r['plain_ms'] * 1e3:.2f} us"
+        for c, r in f32.items()))
     log(f"training: phase 22's (a) took {time.perf_counter() - t0:.1f} s")
     return recs
 
@@ -5470,6 +5557,8 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
                                   2).values())
     plain_delta = sum(per_kernel_us(lambda: (do.float() * o.float()).sum(-1),
                                     FA_ITERS).values())
+    lib_delta = sum(per_kernel_us(lambda: torch.linalg.vecdot(o, do, dim=-1),
+                                  FA_ITERS).values())
     sdpa_fwd = sum(per_kernel_us(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True), FA_ITERS).values())
     sdpa_bwd, sdpa_names = sdpa_backward_us(q, k, v, do, causal)
@@ -5477,7 +5566,8 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
     for name, tag, plain_us, lib_us in (
             ("flash_attention_lse", ("flash_mma_kernel", "flash_fwd_kernel"),
              plain_fwd, sdpa_fwd),
-            ("flash_bwd_delta", ("flash_bwd_delta",), plain_delta, None),
+            ("flash_bwd_delta", ("flash_bwd_delta",), plain_delta,
+             lib_delta),
             ("flash_bwd_dkdv", ("flash_bwd_dkdv",), plain_bwd, sdpa_bwd),
             ("flash_bwd_dq", ("flash_bwd_dq",), plain_bwd, sdpa_bwd)):
         src = fwd if name == "flash_attention_lse" else kern
@@ -5493,6 +5583,9 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
                      "bound_by": "operations" if flop_ms > bytes_ms
                      else "bytes",
                      "tflop_per_s": flop / us / 1e6}
+    if not mma:   # the f32 pair: its split TF32 products at the TF32 peak
+        for name, ms in split_tf32_ms(q, k, causal).items():
+            out[name]["split_tf32_bound_ms"] = ms
     whole = sum(out[n]["ms"] for n in BWD_KERNELS)
     nbytes, flop = bounds["backward"]
     out["backward"] = {"ms": whole, "bound_ms": max(
@@ -5507,6 +5600,8 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
             f"{r['bound_ms']:.4f} ms"
             + (f" by {r['bound_by']} ({r['tflop_per_s']:.1f} TFLOP/s)"
                if "bound_by" in r else " (five products a visible pair)")
+            + (f"; split TF32 bound {r['split_tf32_bound_ms']:.4f} ms"
+               if "split_tf32_bound_ms" in r else "")
             + f"; plain version {r['plain_ms']:.4f} ms"
             + (f"; SDPA {r['library_ms']:.4f} ms" if r.get("library_ms")
                is not None else "")

@@ -83,33 +83,93 @@
 //
 // ---------------------------------------------------------------------------
 // The f32 route: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel (entry
-// points flash_bwd_dkdv_launch, flash_bwd_dq_launch), for float32 inputs,
-// other head dims and unaligned views, in f32 from the loaded bf16 or f32
-// inputs on the CUDA cores (67 TFLOP/s peak), so it sits far above the
-// bound by construction, as the forward's f32 kernel does:
-// - dkdv: one block per (batch, KV head, 64-key tile), 256 threads.  K and
-//   V stay in shared memory as f32 while the block loops over the G query
-//   heads of its group and, for each, over the 64-row q tiles the mask
-//   lets through (causal: from the tile of the first row that sees the
-//   block's first key); dk and dv accumulate in registers and are written
-//   once.  The heaviest key tiles (the first ones, under a causal mask)
-//   start first.
-// - dq: one block per (batch, q head, 64-row q tile): Q, dO, lse and delta
-//   staged once, a loop over the k tiles the mask lets through, dq in
-//   registers, written once; the heaviest q tiles start first.
-// - Register tiling as in flash_fwd_kernel: a thread holds a 4 x 4 block
-//   of each 64 x 64 score tile (rows by ty, keys tx + 16 j) and a 4 x D/16
-//   block of its accumulators (columns 64 g + 4 tx .. + 3), so each 16-byte
-//   shared-memory load feeds 4 to 8 FMAs; rows padded by 4 floats keep the
-//   16-byte loads free of bank conflicts.  p and dS go through shared
-//   memory between the score products and the accumulating ones.
-// - The ragged edge is masked, not padded by copies: rows past S or SK and
-//   columns past D stage as zeros, their p is 0, and only real rows and
-//   columns are stored.  Inputs are read through their own strides (the
-//   last dimension contiguous), so the model's transposed [B, S, H, D] ->
-//   [B, H, S, D] views are read in place; outputs take the caller's
-//   strides.
-// - D <= 128 (the 64- and 128-wide instantiations).
+// points flash_bwd_dkdv_launch, flash_bwd_dq_launch), for float32 inputs
+// and every bf16 view the tensor-core route does not take (a head dim
+// that is not a multiple of 8, a base or stride TMA refuses): any D <=
+// 128, any strides with the last dimension contiguous, any base.
+//
+// Numerics: f32 sums of products formed on the tensor cores in split TF32
+// (tf32.cuh): each float32 operand split once into hi = tf32(v) and lo =
+// v - hi, a product a_lo b_hi + a_hi b_lo + a_hi b_hi (tf32.cuh's mma3),
+// which is about as accurate as float32 (ref.chunked_bwd(...,
+// split_tf32=True) emulates it on the CPU; one TF32 product alone reads
+// some 5e-4 off).  p = expf(s scale - lse) and dS = p (dP - delta) are
+// formed in f32 and split in registers, each value once.  On a bf16 view
+// q, k, v and dO are exact in TF32 (lo = 0): s and dO v^T take one
+// product, dV, dK and dQ two.  The tensor cores add into an accumulator
+// with truncation (each mma loses up to an ulp of it, toward zero), so
+// no sum runs long on them: each tile's dK, dV and dQ terms start from
+// zero (3 NT chained mma) and join the running sums by rounded f32 adds,
+// and in float32 the score products' small terms (a_lo b_hi, a_hi b_lo)
+// have their own accumulators, so the hi chain is D / 8 long.  With one
+// accumulator for everything (3 S / 8 chained mma for dK at S queries)
+// dk read 1.09e-5 of its largest value off the split emulation at
+// float32 [2, 16, 2048, 64] on the card (chip_smoke.py phase 22); with
+// short chains it reads 2.07e-6 there (PERF.md).
+//
+// What the design does about the bound (split TF32 runs at a third of the
+// 495 TFLOP/s TF32 peak, 2.5 times the f32 CUDA-core peak of 67):
+// - Instruction: mma.sync.m16n8k8 TF32, as ssd_scan.cu.  wgmma's TF32
+//   kind reads shared-memory operands K-major only, with no transpose,
+//   and the backward reads each streamed tile both ways (Q is K-major in
+//   S^T = K Q^T and MN-major in dK += dS^T Q; K likewise in dq), so wgmma
+//   would need a transposed split copy of Q and dO (or K and V) beside
+//   the plain one: eight float32 tiles a stage, 128 KB at D = 64, which
+//   with K and V does not fit.  mma.sync takes its fragments from
+//   registers, loaded from one row-major split tile either way: K-major
+//   with ldmatrix (x4: an A fragment, or the B fragments of two 8-wide
+//   column tiles, a load), MN-major with scalar loads; the row stride D +
+//   4 floats keeps both free of bank conflicts.  The contraction index of
+//   dV += P^T dO, dK += dS^T Q and dQ += dS K is permuted (k = t <-> column
+//   2t, k = t + 4 <-> 2t + 1) in both operands, so P^T, dS^T and dS feed
+//   those products straight from the accumulators.
+// - Each staged tile is split once: it arrives raw (the input's type) in
+//   a two-stage cp.async ring (16-byte copies where the base and strides
+//   allow, else 4-byte, else plain loads: a bf16 view offset by one
+//   element; zero fill past S, SK and D), then one pass writes its f32 hi
+//   and lo tiles (hi alone on a bf16 view), which every warp's products
+//   read.  Tile i + 1's copies are in flight while tile i is split and
+//   multiplied.
+// - dkdv: one block per (batch, KV head, key tile), heaviest (first)
+//   first.  K and V are staged and split once; then the Q, dO, lse and
+//   delta tiles of the group's G query heads stream through the ring, for
+//   each head the q tiles the mask lets through (causal: from the tile of
+//   the first row that sees the block's first key).  Warp w holds keys
+//   16 (w % (TR / 16)) .. + 15 and a share (NSPLIT) of each q tile's
+//   queries:
+//   S^T = K Q^T and dP^T = V dO^T (K, V the A operands, both products in
+//   one k loop), P^T and dS^T in registers, then dV += P^T dO and dK +=
+//   dS^T Q over its queries, all D columns.  The warps of a key group add
+//   their partial dK and dV through shared memory at the end, in a fixed
+//   order: no atomics.
+// - dq: one block per (batch, q head, q tile), heaviest first.  Q and dO
+//   are staged and split once, each row's lse and delta held in
+//   registers; the K and V tiles stream through the ring, cut at the
+//   causal diagonal; S = Q K^T, dP = dO V^T, dS = P (dP - delta), dQ +=
+//   dS K, with warps and partial sums as dkdv's.
+// - Only the causal diagonal tile and the ragged edges (rows past S, keys
+//   past SK) are masked element by element.  dK scale, dV and dQ scale
+//   are written once, in the caller's strides.
+// - Tiles (Tiles<T, DP>): float32 at width 64 has 64-row tiles and 8
+//   warps, 206,336 bytes of shared memory (the K, V, Q and dO hi and lo
+//   tiles 139,264, the ring 66,560): one block an SM.  At width 128 a
+//   64-row tile pair does not fit beside its ring, so the block holds 32
+//   keys (dkdv) or 32 rows (dq) and streams 32-row tiles (201,472
+//   bytes); four warps share a row group, 8 query or key columns each
+//   (ldmatrix.x2 for their B fragments), so the block still has 8 warps
+//   (with 2 a row group and 4 warps it was 11% slower at float32 [2,
+//   16/2, 2048, 128]).  A bf16 view has no lo tiles: 64-row tiles and 8
+//   warps at both widths (103,936 and 202,240 bytes).  chip_smoke.py logs
+//   what ptxas reports for each (236-255 registers, no spills).
+// - What still bounds it: one block of 8 warps an SM (the shared memory
+//   and the registers allow no more) is too few to hide the latency of
+//   the mma chains, the fragment loads and the two barriers a tile; at
+//   float32 [2, 16, 2048, 64] the pair reaches about 28% of the TF32
+//   peak in split-TF32 products.  Tried on the card and not kept: four D
+//   tiles a B-load batch (NC 4; within 1%), exp by ex2.approx (about
+//   2.5% faster; expf kept, the accurate exp the emulation uses).  Next:
+//   wgmma, whose transposed split copies fit beside K and V only at D =
+//   64 with one raw stage.
 //
 // Each entry point returns cudaGetLastError() after its launch, so a
 // refused launch surfaces in the Python wrapper.
@@ -117,15 +177,21 @@
 #include <cmath>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int TQ = 64;          // query rows per tile
-constexpr int TK = 64;          // keys per tile
-constexpr int kThreads = 256;   // 16 x 16: ty picks 4 rows, tx the columns
+using namespace tf32;
+
+constexpr int kDeltaThreads = 256;   // 8 rows a block, a warp a row
 
 struct Strides {
   long long b, h, s;            // in elements; the last dimension is dense
+};
+
+// The cp.async width (16 or 4 bytes; 0: plain loads) of each input's rows.
+struct Vec {
+  int q, k, v, dO;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -144,108 +210,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Stages rows [row0, row0 + ROWS) of one head (rows past n_rows and
-// columns past D as zeros) into dst [ROWS][LD] as f32.
-template <typename T, int ROWS, int DP, int LD>
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const T* __restrict__ head,
-                                      long long row_stride, int row0,
-                                      int n_rows, int D) {
-  for (int e = threadIdx.x; e < ROWS * DP; e += kThreads) {
-    const int r = e / DP, d = e % DP;
-    const int row = row0 + r;
-    float x = 0.f;
-    if (row < n_rows && d < D) x = to_f32(head[(long long)row * row_stride + d]);
-    dst[r * LD + d] = x;
-  }
-}
-
-// One row's f32 values of lse or delta into dst [TQ] (0 past S).
-__device__ __forceinline__ void stage_row(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int row0, int S) {
-  for (int i = threadIdx.x; i < TQ; i += kThreads)
-    dst[i] = row0 + i < S ? src[row0 + i] : 0.f;
-}
-
-// s[i][j] = Qs[ty*4+i] . Ks[tx+16j] and dp[i][j] = dOs[ty*4+i] . Vs[tx+16j]
-template <int DP, int LD>
-__device__ __forceinline__ void score_tiles(const float* __restrict__ Qs,
-                                            const float* __restrict__ dOs,
-                                            const float* __restrict__ Ks,
-                                            const float* __restrict__ Vs,
-                                            float (&s)[4][4],
-                                            float (&dp)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < DP; d += 4) {
-    float4 qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * LD + d]);
-      ov[i] = *reinterpret_cast<const float4*>(&dOs[(ty * 4 + i) * LD + d]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
-      vv[j] = *reinterpret_cast<const float4*>(&Vs[(tx + 16 * j) * LD + d]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float a = s[i][j], b = dp[i][j];
-        a = fmaf(qv[i].x, kv[j].x, a);
-        a = fmaf(qv[i].y, kv[j].y, a);
-        a = fmaf(qv[i].z, kv[j].z, a);
-        a = fmaf(qv[i].w, kv[j].w, a);
-        b = fmaf(ov[i].x, vv[j].x, b);
-        b = fmaf(ov[i].y, vv[j].y, b);
-        b = fmaf(ov[i].z, vv[j].z, b);
-        b = fmaf(ov[i].w, vv[j].w, b);
-        s[i][j] = a;
-        dp[i][j] = b;
-      }
-  }
-}
-
-// p and dS of the score tile in place: p = exp(s * scale - lse) under the
-// mask (0 elsewhere), dS = p (dp - delta); rows are q0 + ty*4 + i, keys
-// k0 + tx + 16 j.
-__device__ __forceinline__ void probabilities(float (&s)[4][4],
-                                              float (&dp)[4][4],
-                                              const float* __restrict__ lse_s,
-                                              const float* __restrict__ delta_s,
-                                              int q0, int k0, int S, int SK,
-                                              float scale, int causal,
-                                              int offset) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const int q_pos = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k_pos = k0 + tx + 16 * j;
-      const bool ok = q_pos < S && k_pos < SK &&
-                      (!causal || k_pos <= q_pos + offset);
-      const float p = ok ? expf(fmaf(s[i][j], scale, -lse_s[r])) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - delta_s[r]);
-    }
-  }
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
     flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
                            float* __restrict__ delta, int HQ, int S, int D,
                            long long rows, Strides so, Strides sdo) {
-  const long long row = ((long long)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const long long row =
+      ((long long)blockIdx.x * kDeltaThreads + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const int s = (int)(row % S);
@@ -261,8 +232,281 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) delta[row] = acc;
 }
 
+// The f32 pair's tiles, by input type and width DP (64 or 128).
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+struct Tiles {
+  static constexpr bool kExact = sizeof(T) == 2;   // bf16: lo = 0
+  static constexpr int kParts = kExact ? 1 : 2;    // hi (and lo) a tile
+  static constexpr int TR = (!kExact && DP == 128) ? 32 : 64;   // own rows
+  static constexpr int TS = TR;                    // rows of a streamed tile
+  // warps sharing a row group: 2, or 4 where the rows are 32 (8 warps)
+  static constexpr int NSPLIT = (!kExact && DP == 128) ? 4 : 2;
+  static constexpr int kWarps = TR / 16 * NSPLIT;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int NT = TS / NSPLIT / 8;       // a warp's column tiles
+  static constexpr int NC = 2;                     // D tiles a B-load batch
+  static constexpr int LD = DP + 4;                // split rows, in floats
+  static constexpr int LR = DP + 8;                // partial-sum rows
+  static constexpr int kFixed = 2 * kParts * TR * LD;    // floats
+  static constexpr int kStream = 2 * kParts * TS * LD;   // floats
+  static constexpr int kRaw = TS * DP;             // elements of a raw tile
+  // bytes of a ring stage: two raw tiles and a tile's lse and delta
+  static constexpr int kStage = 2 * kRaw * (int)sizeof(T) + 2 * TS * 4;
+  static constexpr int kSmem = (kFixed + kStream + 2 * TS) * 4 + 2 * kStage;
+  static_assert(NT == 1 || NT % 2 == 0, "B fragments load in pairs");
+  static_assert(TR == TS, "the fixed tiles stage through a ring stage");
+  static_assert((NSPLIT - 1) * 2 * TR * LR <= kFixed + kStream,
+                "the partial sums fit where the tiles were");
+  static_assert(kSmem <= 232448, "one block's shared memory");
+};
+
+// Rows [row0, row0 + ROWS) of one head (row stride ld elements) into dst
+// [ROWS][DP] in the input's type, rows past n_rows and columns past D as
+// zeros, by cp.async copies of kBytes (the host checked the alignment);
+// in flight on return.
+template <int kBytes, typename T, int ROWS, int DP, int NTH>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, long long ld,
+                                          int row0, int n_rows, int D) {
+  constexpr int kV = kBytes / (int)sizeof(T);
+  constexpr int kPer = DP / kV;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * kPer; e += NTH) {
+    const int r = e / kPer, c = (e % kPer) * kV;
+    const int n = row0 + r < n_rows ? max(0, min(kV, D - c)) : 0;
+    const T* p = n > 0 ? src + (long long)(row0 + r) * ld + c : src;
+    if constexpr (kBytes == 16)
+      cp_async16(dst + r * DP + c, p, n * (int)sizeof(T));
+    else
+      cp_async4(dst + r * DP + c, p, n * (int)sizeof(T));
+  }
+}
+
+// copy_rows by the widest copy the rows allow (vec: 16, 4, or 0 for plain
+// loads, which have landed on return).
+template <typename T, int ROWS, int DP, int NTH>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ld,
+                                          int row0, int n_rows, int D,
+                                          int vec) {
+  if (vec == 16) {
+    copy_rows<16, T, ROWS, DP, NTH>(dst, src, ld, row0, n_rows, D);
+  } else if (vec == 4) {
+    copy_rows<4, T, ROWS, DP, NTH>(dst, src, ld, row0, n_rows, D);
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += NTH) {
+      const int r = e / DP, c = e % DP;
+      dst[e] = row0 + r < n_rows && c < D
+                   ? src[(long long)(row0 + r) * ld + c]
+                   : from_f32<T>(0.f);
+    }
+  }
+}
+
+// One tile's ROWS f32 values of lse or delta (0 past S), by cp.async.
+template <int ROWS>
+__device__ __forceinline__ void load_stats(float* dst, const float* src,
+                                           int row0, int S) {
+  const int i = threadIdx.x;
+  if (i < ROWS) {
+    const bool ok = row0 + i < S;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok ? 4 : 0);
+  }
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
+}
+
+// The split pass: a raw tile [ROWS][DP] into its f32 hi and lo tiles
+// [ROWS][LD] (hi alone when kExact: the value is its own hi).
+template <bool kExact, typename T, int ROWS, int DP, int LD, int NTH>
+__device__ __forceinline__ void split_rows(float* hi, float* lo,
+                                           const T* raw) {
+  constexpr int kPer = DP / 4;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * kPer; e += NTH) {
+    const int r = e / kPer, c = (e % kPer) * 4;
+    float x[4];
+    load4(raw + r * DP + c, x);
+    if constexpr (kExact) {
+      *reinterpret_cast<float4*>(hi + r * LD + c) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+      float h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = to_tf32(x[i]);
+      *reinterpret_cast<float4*>(hi + r * LD + c) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<float4*>(lo + r * LD + c) = make_float4(
+          x[0] - h[0], x[1] - h[1], x[2] - h[2], x[3] - h[3]);
+    }
+  }
+}
+
+// A lane's ldmatrix offsets (floats) into a split tile of row stride LD:
+// an A fragment of rows 0..15, columns 0..7; the B fragments of two
+// column tiles, rows 0..7 and 8..15, columns (k) 0..7.
+template <int LD>
+__device__ __forceinline__ int a_offset(int lane) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 4;
+}
+template <int LD>
+__device__ __forceinline__ int b_offset(int lane) {
+  return ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 4;
+}
+
+// B fragments of column tiles 2 jp and 2 jp + 1 from one ldmatrix.
+template <int NT>
+__device__ __forceinline__ void b_pair(uint32_t (&b)[NT][2], int jp,
+                                       uint32_t addr) {
+  uint32_t r[4];
+  ldsm_x4(r, addr);
+  b[2 * jp][0] = r[0];
+  b[2 * jp][1] = r[1];
+  b[2 * jp + 1][0] = r[2];
+  b[2 * jp + 1][1] = r[3];
+}
+
+// The score products of a tile, both in one k loop over the width: s =
+// X1 Y1^T and dp = X2 Y2^T, X the A operands (a warp's 16 rows), Y the B
+// operands (its NT 8-row column tiles); each argument holds the shared
+// addresses of the hi tile and the lo tile (not read when kExact) with the
+// lane's offsets folded in.  In float32 the small terms go to their own
+// accumulators, added at the end (tf32.cuh's mma3): the hi products' chain
+// on the tensor cores is DP / 8 additions long, not 3 DP / 8.
+template <bool kExact, int DP, int LD, int NT>
+__device__ __forceinline__ void score_products(float (&s)[NT][4],
+                                               float (&dp)[NT][4],
+                                               const uint32_t (&x1)[2],
+                                               const uint32_t (&y1)[2],
+                                               const uint32_t (&x2)[2],
+                                               const uint32_t (&y2)[2]) {
+  constexpr int kParts = kExact ? 1 : 2;
+  float sl[NT][4], dpl[NT][4];   // the small terms (float32 only)
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = sl[j][e] = dpl[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    uint32_t a1[2][4], a2[2][4], b1[2][NT][2], b2[2][NT][2];
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      ldsm_x4(a1[part], x1[part] + 32 * kk);
+      ldsm_x4(a2[part], x2[part] + 32 * kk);
+      if constexpr (NT == 1) {
+        ldsm_x2(b1[part][0], y1[part] + 32 * kk);
+        ldsm_x2(b2[part][0], y2[part] + 32 * kk);
+      }
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        b_pair<NT>(b1[part], jp, y1[part] + jp * 64 * LD + 32 * kk);
+        b_pair<NT>(b2[part], jp, y2[part] + jp * 64 * LD + 32 * kk);
+      }
+    }
+    mma3<kExact, kExact, NT>(s, sl, a1[0], a1[1], b1[0], b1[1]);
+    mma3<kExact, kExact, NT>(dp, dpl, a2[0], a2[1], b2[0], b2[1]);
+  }
+  if constexpr (!kExact) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += sl[j][e];
+        dp[j][e] += dpl[j][e];
+      }
+  }
+}
+
+// The A fragment of an accumulator's 8-wide column tile c, k permuted
+// (k = t <-> column 2t, k = t + 4 <-> 2t + 1), split into hi and lo.
+__device__ __forceinline__ void a_from_acc(const float (&c)[4],
+                                           uint32_t (&h)[4],
+                                           uint32_t (&l)[4]) {
+  split(c[0], h[0], l[0]);
+  split(c[2], h[1], l[1]);
+  split(c[1], h[2], l[2]);
+  split(c[3], h[3], l[3]);
+}
+
+// B fragments of column tiles n0 .. n0 + NC - 1 (head-dim columns 8 n +
+// g) for a product contracted over rows row, row + 1 of a split tile (the
+// permuted k = t, t + 4): MN-major scalar loads.
+template <int LD, int NC>
+__device__ __forceinline__ void mn_frags(uint32_t (&b)[NC][2],
+                                         const float* tile, int row, int n0,
+                                         int g) {
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    b[i][0] = __float_as_uint(tile[row * LD + 8 * (n0 + i) + g]);
+    b[i][1] = __float_as_uint(tile[(row + 1) * LD + 8 * (n0 + i) + g]);
+  }
+}
+
+// A warp's partial sums (rows r0 + g and + 8, columns 8 n + 2t, + 1) into
+// part [TR][LR], or added from it.
+template <int LR, int NN>
+__device__ __forceinline__ void put_partial(const float (&acc)[NN][4],
+                                            float* part, int r0, int g,
+                                            int t) {
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(part + (r0 + g + 8 * h) * LR + 8 * n +
+                                 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+}
+template <int LR, int NN>
+__device__ __forceinline__ void add_partial(float (&acc)[NN][4],
+                                            const float* part, int r0, int g,
+                                            int t) {
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 x = *reinterpret_cast<const float2*>(
+          part + (r0 + g + 8 * h) * LR + 8 * n + 2 * t);
+      acc[n][2 * h] += x.x;
+      acc[n][2 * h + 1] += x.y;
+    }
+}
+
+// acc (times mul) into rows r0 + g and + 8 of a head's output (row stride
+// ld), rows at or past n_rows and columns at or past D not at all.
+template <typename T, int NN>
+__device__ __forceinline__ void store_rows(const float (&acc)[NN][4], T* out,
+                                           long long ld, int row0,
+                                           int n_rows, int D, float mul,
+                                           int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= n_rows) continue;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * n + 2 * t + e;
+        if (d < D) out[(long long)row * ld + d] = from_f32<T>(acc[n][2 * h + e] * mul);
+      }
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(Tiles<T, DP>::kThreads, 1)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dO,
                           const float* __restrict__ lse,
@@ -270,239 +514,345 @@ __global__ void __launch_bounds__(kThreads)
                           T* __restrict__ dk, T* __restrict__ dv, int B,
                           int HQ, int HKV, int S, int SK, int D, Strides sq,
                           Strides sk, Strides sv, Strides sdo, Strides sdk,
-                          Strides sdv, float scale, int causal, int offset) {
-  constexpr int LD = DP + 4;
-  constexpr int LDP = TK + 4;
-  constexpr int NG = DP / 64;
+                          Strides sdv, float scale, int causal, int offset,
+                          Vec vec) {
+  using C = Tiles<T, DP>;
+  constexpr bool kExact = C::kExact;
+  constexpr int TR = C::TR, TS = C::TS, NT = C::NT, NC = C::NC, LD = C::LD;
+  constexpr int NTH = C::kThreads;
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);   // [TK][LD]
-  float* Vs = Ks + TK * LD;                      // [TK][LD]
-  float* Qs = Vs + TK * LD;                      // [TQ][LD]
-  float* dOs = Qs + TQ * LD;                     // [TQ][LD]
-  float* Ps = dOs + TQ * LD;                     // [TQ][LDP]
-  float* dSs = Ps + TQ * LDP;                    // [TQ][LDP]
-  float* lse_s = dSs + TQ * LDP;                 // [TQ]
-  float* delta_s = lse_s + TQ;                   // [TQ]
+  float* const fixed = reinterpret_cast<float*>(smem4);   // K, V split
+  float* const strm = fixed + C::kFixed;                   // Q, dO split
+  float* const stats = strm + C::kStream;                  // lse, delta [TS]
+  uint8_t* const ring = reinterpret_cast<uint8_t*>(stats + 2 * TS);
+  // split tiles: x 0 (K; Q), 1 (V; dO); part 0 hi, 1 lo
+  auto fix = [&](int x, int part) {
+    return fixed + (x * C::kParts + part) * TR * LD;
+  };
+  auto str = [&](int x, int part) {
+    return strm + (x * C::kParts + part) * TS * LD;
+  };
+  auto raw = [&](int st, int x) {
+    return reinterpret_cast<T*>(ring + st * C::kStage) + x * C::kRaw;
+  };
+  auto raw_stats = [&](int st) {
+    return reinterpret_cast<float*>(ring + st * C::kStage +
+                                    2 * C::kRaw * sizeof(T));
+  };
 
   const int BH = B * HKV;
   const int bh = blockIdx.x % BH;
-  const int kt = (int)(blockIdx.x / BH);         // heaviest (first) first
+  const int kt = (int)(blockIdx.x / BH);   // heaviest (first) first
   const int b = bh / HKV, hk = bh % HKV;
   const int G = HQ / HKV;
-  const int k0 = kt * TK;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int k0 = kt * TR;
+  const int n_qt = (S + TS - 1) / TS;
+  // causal: from the tile of the first row that sees key k0 (q = k0 - offset)
+  const int qt0 = causal ? min(max(k0 - offset, 0) / TS, n_qt) : 0;
+  const int per_head = n_qt - qt0;
+  const int n_it = G * per_head;
 
-  stage<T, TK, DP, LD>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, SK, D);
-  stage<T, TK, DP, LD>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, SK, D);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * (warp % (TR / 16));   // the warp's keys in the tile
+  const int sp = warp / (TR / 16);
+  const int c0 = sp * (TS / C::NSPLIT);     // its queries in a q tile
 
-  float dk_acc[4][NG][4], dv_acc[4][NG][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) dk_acc[i][g][c] = dv_acc[i][g][c] = 0.f;
+  // q tile it (head it / per_head) into ring stage st
+  auto issue = [&](int it, int st) {
+    const int h = hk * G + it / per_head;
+    const int q0 = (qt0 + it % per_head) * TS;
+    load_rows<T, TS, DP, NTH>(raw(st, 0), q + b * sq.b + h * sq.h, sq.s, q0,
+                              S, D, vec.q);
+    load_rows<T, TS, DP, NTH>(raw(st, 1), dO + b * sdo.b + h * sdo.h, sdo.s,
+                              q0, S, D, vec.dO);
+    const long long row = ((long long)b * HQ + h) * S;
+    load_stats<TS>(raw_stats(st), lse + row, q0, S);
+    load_stats<TS>(raw_stats(st) + TS, delta + row, q0, S);
+  };
 
-  const int n_qt = (S + TQ - 1) / TQ;
-  int qt0 = 0;   // causal: the tile of the first row that sees key k0
-  if (causal && k0 - offset > 0) qt0 = (k0 - offset) / TQ;
-  for (int gq = 0; gq < G; ++gq) {
-    const int h = hk * G + gq;
-    const T* qh = q + b * sq.b + h * sq.h;
-    const T* doh = dO + b * sdo.b + h * sdo.h;
-    const float* lse_h = lse + ((long long)b * HQ + h) * S;
-    const float* delta_h = delta + ((long long)b * HQ + h) * S;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * TQ;
-      __syncthreads();   // the previous tile's reads are done
-      stage<T, TQ, DP, LD>(Qs, qh, sq.s, q0, S, D);
-      stage<T, TQ, DP, LD>(dOs, doh, sdo.s, q0, S, D);
-      stage_row(lse_s, lse_h, q0, S);
-      stage_row(delta_s, delta_h, q0, S);
-      __syncthreads();
+  // K and V through stage 0 while the first q tile goes to stage 1
+  load_rows<T, TR, DP, NTH>(raw(0, 0), k + b * sk.b + hk * sk.h, sk.s, k0,
+                            SK, D, vec.k);
+  load_rows<T, TR, DP, NTH>(raw(0, 1), v + b * sv.b + hk * sv.h, sv.s, k0,
+                            SK, D, vec.v);
+  cp_async_commit();
+  if (n_it > 0) issue(0, 1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  split_rows<kExact, T, TR, DP, LD, NTH>(fix(0, 0), fix(0, 1), raw(0, 0));
+  split_rows<kExact, T, TR, DP, LD, NTH>(fix(1, 0), fix(1, 1), raw(0, 1));
+  __syncthreads();   // stage 0 is free again
 
-      float s[4][4], dp[4][4];
-      score_tiles<DP, LD>(Qs, dOs, Ks, Vs, s, dp);
-      probabilities(s, dp, lse_s, delta_s, q0, k0, S, SK, scale, causal,
-                    offset);
+  const uint32_t a_off = 4 * (r0 * LD + a_offset<LD>(lane));
+  const uint32_t b_off = 4 * (c0 * LD + b_offset<LD>(lane));
+  const uint32_t xk[2] = {smem_addr(fix(0, 0)) + a_off,
+                          smem_addr(fix(0, kExact ? 0 : 1)) + a_off};
+  const uint32_t xv[2] = {smem_addr(fix(1, 0)) + a_off,
+                          smem_addr(fix(1, kExact ? 0 : 1)) + a_off};
+  const uint32_t yq[2] = {smem_addr(str(0, 0)) + b_off,
+                          smem_addr(str(0, kExact ? 0 : 1)) + b_off};
+  const uint32_t yo[2] = {smem_addr(str(1, 0)) + b_off,
+                          smem_addr(str(1, kExact ? 0 : 1)) + b_off};
+
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          Ps[(ty * 4 + i) * LDP + tx + 16 * j] = s[i][j];
-          dSs[(ty * 4 + i) * LDP + tx + 16 * j] = dp[i][j];
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) issue(it + 1, it & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile it has landed; tile it - 1's products are done
+    const int st = (it + 1) & 1;
+    split_rows<kExact, T, TS, DP, LD, NTH>(str(0, 0), str(0, 1), raw(st, 0));
+    split_rows<kExact, T, TS, DP, LD, NTH>(str(1, 0), str(1, 1), raw(st, 1));
+    for (int i = threadIdx.x; i < 2 * TS; i += NTH) stats[i] = raw_stats(st)[i];
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: keys the rows, queries the columns
+    float s[NT][4], dp[NT][4];
+    score_products<kExact, DP, LD, NT>(s, dp, xk, yq, xv, yo);
+
+    // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta), lse and
+    // delta by column; masked only on the causal diagonal and past S
+    const int q0 = (qt0 + it % per_head) * TS;
+    const bool edge = q0 + TS > S || (causal && k0 + TR - 1 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 8 * j + 2 * t + (e & 1);
+        float p = expf(fmaf(s[j][e], scale, -stats[col]));
+        if (edge) {
+          const int qp = q0 + col, key = k0 + r0 + g + 8 * (e >> 1);
+          if (qp >= S || (causal && key > qp + offset)) p = 0.f;
         }
-      __syncthreads();
-
-      // dv[key] += p[row, key] dO[row], dk[key] += dS[row, key] q[row]; this
-      // thread's keys are ty*4 .. ty*4 + 3
-#pragma unroll 2
-      for (int r = 0; r < TQ; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(&Ps[r * LDP + ty * 4]);
-        const float4 sv4 = *reinterpret_cast<const float4*>(&dSs[r * LDP + ty * 4]);
-        const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-        const float sa[4] = {sv4.x, sv4.y, sv4.z, sv4.w};
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 ov = *reinterpret_cast<const float4*>(
-              &dOs[r * LD + g * 64 + tx * 4]);
-          const float4 qv = *reinterpret_cast<const float4*>(
-              &Qs[r * LD + g * 64 + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][g][0] = fmaf(pa[i], ov.x, dv_acc[i][g][0]);
-            dv_acc[i][g][1] = fmaf(pa[i], ov.y, dv_acc[i][g][1]);
-            dv_acc[i][g][2] = fmaf(pa[i], ov.z, dv_acc[i][g][2]);
-            dv_acc[i][g][3] = fmaf(pa[i], ov.w, dv_acc[i][g][3]);
-            dk_acc[i][g][0] = fmaf(sa[i], qv.x, dk_acc[i][g][0]);
-            dk_acc[i][g][1] = fmaf(sa[i], qv.y, dk_acc[i][g][1]);
-            dk_acc[i][g][2] = fmaf(sa[i], qv.z, dk_acc[i][g][2]);
-            dk_acc[i][g][3] = fmaf(sa[i], qv.w, dk_acc[i][g][3]);
-          }
-        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - stats[TS + col]);
       }
+
+    // dV += P^T dO and dK += dS^T Q over the warp's queries, dO and Q read
+    // MN-major (queries the contraction); each tile's sums start from zero
+    // (a chain of 3 NT tensor-core additions) and join the running sums by
+    // the CUDA cores' rounded adds
+    uint32_t ph[NT][4], pl[NT][4], dh[NT][4], dl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      a_from_acc(s[j], ph[j], pl[j]);
+      a_from_acc(dp[j], dh[j], dl[j]);
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < DP / 8; n0 += NC) {
+      float tv[NC][4] = {}, tk[NC][4] = {};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int row = c0 + 8 * j + 2 * t;
+        uint32_t oh[NC][2], ol[NC][2], qh[NC][2], ql[NC][2];
+        mn_frags<LD, NC>(oh, str(1, 0), row, n0, g);
+        mn_frags<LD, NC>(qh, str(0, 0), row, n0, g);
+        if constexpr (!kExact) {
+          mn_frags<LD, NC>(ol, str(1, 1), row, n0, g);
+          mn_frags<LD, NC>(ql, str(0, 1), row, n0, g);
+        }
+        mma3<false, kExact, NC>(tv, tv, ph[j], pl[j], oh, ol);
+        mma3<false, kExact, NC>(tk, tk, dh[j], dl[j], qh, ql);
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv_acc[n0 + i][e] += tv[i][e];
+          dk_acc[n0 + i][e] += tk[i][e];
+        }
     }
   }
 
-  T* dkh = dk + b * sdk.b + hk * sdk.h;
-  T* dvh = dv + b * sdv.b + hk * sdv.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= SK) continue;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = g * 64 + tx * 4 + c;
-        if (d < D) {
-          dkh[(long long)key * sdk.s + d] = from_f32<T>(dk_acc[i][g][c] * scale);
-          dvh[(long long)key * sdv.s + d] = from_f32<T>(dv_acc[i][g][c]);
-        }
-      }
+  // the key group's two warps add their sums in a fixed order (shared
+  // memory now holds the partial sums: dK [TR][LR], then dV)
+  constexpr int LR = C::LR;
+  __syncthreads();
+  if (sp > 0) {
+    put_partial<LR>(dk_acc, fixed + (sp - 1) * 2 * TR * LR, r0, g, t);
+    put_partial<LR>(dv_acc, fixed + ((sp - 1) * 2 + 1) * TR * LR, r0, g, t);
   }
+  __syncthreads();
+  if (sp > 0) return;
+#pragma unroll
+  for (int o = 0; o < C::NSPLIT - 1; ++o) {
+    add_partial<LR>(dk_acc, fixed + o * 2 * TR * LR, r0, g, t);
+    add_partial<LR>(dv_acc, fixed + (o * 2 + 1) * TR * LR, r0, g, t);
+  }
+  store_rows<T>(dk_acc, dk + b * sdk.b + hk * sdk.h, sdk.s, k0 + r0, SK, D,
+                scale, g, t);
+  store_rows<T>(dv_acc, dv + b * sdv.b + hk * sdv.h, sdv.s, k0 + r0, SK, D,
+                1.f, g, t);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tiles<T, DP>::kThreads, 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dO,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int B, int HQ, int HKV, int S, int SK, int D,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
-                        Strides sdq, float scale, int causal, int offset) {
-  constexpr int LD = DP + 4;
-  constexpr int LDP = TK + 4;
-  constexpr int NG = DP / 64;
+                        Strides sdq, float scale, int causal, int offset,
+                        Vec vec) {
+  using C = Tiles<T, DP>;
+  constexpr bool kExact = C::kExact;
+  constexpr int TR = C::TR, TS = C::TS, NT = C::NT, NC = C::NC, LD = C::LD;
+  constexpr int NTH = C::kThreads;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [TQ][LD]
-  float* dOs = Qs + TQ * LD;                     // [TQ][LD]
-  float* Ks = dOs + TQ * LD;                     // [TK][LD]
-  float* Vs = Ks + TK * LD;                      // [TK][LD]
-  float* dSs = Vs + TK * LD;                     // [TQ][LDP]
-  float* lse_s = dSs + TQ * LDP;                 // [TQ]
-  float* delta_s = lse_s + TQ;                   // [TQ]
+  float* const fixed = reinterpret_cast<float*>(smem4);   // Q, dO split
+  float* const strm = fixed + C::kFixed;                   // K, V split
+  uint8_t* const ring = reinterpret_cast<uint8_t*>(strm + C::kStream + 2 * TS);
+  auto fix = [&](int x, int part) {
+    return fixed + (x * C::kParts + part) * TR * LD;
+  };
+  auto str = [&](int x, int part) {
+    return strm + (x * C::kParts + part) * TS * LD;
+  };
+  auto raw = [&](int st, int x) {
+    return reinterpret_cast<T*>(ring + st * C::kStage) + x * C::kRaw;
+  };
 
   const int BH = B * HQ;
-  const int n_qt = (S + TQ - 1) / TQ;
+  const int n_qt = (S + TR - 1) / TR;
   const int bh = blockIdx.x % BH;
   const int qt = n_qt - 1 - (int)(blockIdx.x / BH);   // heaviest first
   const int b = bh / HQ, h = bh % HQ;
   const int hk = h / (HQ / HKV);
-  const int q0 = qt * TQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int q0 = qt * TR;
+  int n_kt = (SK + TS - 1) / TS;
+  if (causal) {   // cut at the diagonal k_pos = q_pos + offset
+    const int last = q0 + TR - 1 + offset;
+    n_kt = min(n_kt, last < 0 ? 0 : last / TS + 1);
+  }
 
-  stage<T, TQ, DP, LD>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, D);
-  stage<T, TQ, DP, LD>(dOs, dO + b * sdo.b + h * sdo.h, sdo.s, q0, S, D);
-  stage_row(lse_s, lse + (long long)bh * S, q0, S);
-  stage_row(delta_s, delta + (long long)bh * S, q0, S);
-
-  float acc[4][NG][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][g][c] = 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * (warp % (TR / 16));   // the warp's rows in the tile
+  const int sp = warp / (TR / 16);
+  const int c0 = sp * (TS / C::NSPLIT);     // its keys in a k tile
 
   const T* kh = k + b * sk.b + hk * sk.h;
   const T* vh = v + b * sv.b + hk * sv.h;
-  int n_kt = (SK + TK - 1) / TK;
-  if (causal) {   // skip the tiles above the diagonal k_pos = q_pos + offset
-    const int last = q0 + TQ - 1 + offset;
-    n_kt = min(n_kt, last < 0 ? 0 : last / TK + 1);
+  auto issue = [&](int kt, int st) {
+    load_rows<T, TS, DP, NTH>(raw(st, 0), kh, sk.s, kt * TS, SK, D, vec.k);
+    load_rows<T, TS, DP, NTH>(raw(st, 1), vh, sv.s, kt * TS, SK, D, vec.v);
+  };
+
+  // Q and dO through stage 0 while the first k tile goes to stage 1
+  load_rows<T, TR, DP, NTH>(raw(0, 0), q + b * sq.b + h * sq.h, sq.s, q0, S,
+                            D, vec.q);
+  load_rows<T, TR, DP, NTH>(raw(0, 1), dO + b * sdo.b + h * sdo.h, sdo.s, q0,
+                            S, D, vec.dO);
+  cp_async_commit();
+  if (n_kt > 0) issue(0, 1);
+  cp_async_commit();
+  // this thread's two rows' lse (negated) and delta, 0 past S
+  float nl[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + g + 8 * hh;
+    const bool ok = row < S;
+    nl[hh] = ok ? -lse[(long long)bh * S + row] : 0.f;
+    dl[hh] = ok ? delta[(long long)bh * S + row] : 0.f;
   }
+  cp_async_wait<1>();
+  __syncthreads();
+  split_rows<kExact, T, TR, DP, LD, NTH>(fix(0, 0), fix(0, 1), raw(0, 0));
+  split_rows<kExact, T, TR, DP, LD, NTH>(fix(1, 0), fix(1, 1), raw(0, 1));
+  __syncthreads();   // stage 0 is free again
+
+  const uint32_t a_off = 4 * (r0 * LD + a_offset<LD>(lane));
+  const uint32_t b_off = 4 * (c0 * LD + b_offset<LD>(lane));
+  const uint32_t xq[2] = {smem_addr(fix(0, 0)) + a_off,
+                          smem_addr(fix(0, kExact ? 0 : 1)) + a_off};
+  const uint32_t xo[2] = {smem_addr(fix(1, 0)) + a_off,
+                          smem_addr(fix(1, kExact ? 0 : 1)) + a_off};
+  const uint32_t yk[2] = {smem_addr(str(0, 0)) + b_off,
+                          smem_addr(str(0, kExact ? 0 : 1)) + b_off};
+  const uint32_t yv[2] = {smem_addr(str(1, 0)) + b_off,
+                          smem_addr(str(1, kExact ? 0 : 1)) + b_off};
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TK;
-    __syncthreads();   // Q staged; the previous tile's reads are done
-    stage<T, TK, DP, LD>(Ks, kh, sk.s, k0, SK, D);
-    stage<T, TK, DP, LD>(Vs, vh, sv.s, k0, SK, D);
+    if (kt + 1 < n_kt) issue(kt + 1, kt & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile kt has landed; tile kt - 1's products are done
+    const int st = (kt + 1) & 1;
+    split_rows<kExact, T, TS, DP, LD, NTH>(str(0, 0), str(0, 1), raw(st, 0));
+    split_rows<kExact, T, TS, DP, LD, NTH>(str(1, 0), str(1, 1), raw(st, 1));
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    score_tiles<DP, LD>(Qs, dOs, Ks, Vs, s, dp);
-    probabilities(s, dp, lse_s, delta_s, q0, k0, S, SK, scale, causal,
-                  offset);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(ty * 4 + i) * LDP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
+    // S = Q K^T and dP = dO V^T
+    float s[NT][4], dp[NT][4];
+    score_products<kExact, DP, LD, NT>(s, dp, xq, yk, xo, yv);
 
-    // dq[row] += dS[row, key] k[key] over the tile's keys
-#pragma unroll 2
-    for (int c = 0; c < TK; c += 4) {
-      float4 dsv[4];
+    // dS = P (dP - delta), P = exp(S scale - lse) under the mask (the
+    // diagonal tile and the tile that holds SK)
+    const int k0 = kt * TS;
+    const bool edge =
+        k0 + TS > SK || (causal && k0 + TS - 1 > q0 + offset);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        dsv[i] = *reinterpret_cast<const float4*>(&dSs[(ty * 4 + i) * LDP + c]);
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 kv = *reinterpret_cast<const float4*>(
-              &Ks[(c + cc) * LD + g * 64 + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float w = cc == 0 ? dsv[i].x
-                            : cc == 1 ? dsv[i].y
-                            : cc == 2 ? dsv[i].z
-                                      : dsv[i].w;
-            acc[i][g][0] = fmaf(w, kv.x, acc[i][g][0]);
-            acc[i][g][1] = fmaf(w, kv.y, acc[i][g][1]);
-            acc[i][g][2] = fmaf(w, kv.z, acc[i][g][2]);
-            acc[i][g][3] = fmaf(w, kv.w, acc[i][g][3]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        float p = expf(fmaf(s[j][e], scale, nl[hh]));
+        if (edge) {
+          const int key = k0 + c0 + 8 * j + 2 * t + (e & 1);
+          if (key >= SK ||
+              (causal && key > q0 + r0 + g + 8 * hh + offset))
+            p = 0.f;
         }
+        dp[j][e] = p * (dp[j][e] - dl[hh]);
       }
+
+    // dQ += dS K over the warp's keys, K read MN-major (keys the
+    // contraction); each tile's sum from zero, as dkdv's
+    uint32_t dh[NT][4], dlo[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) a_from_acc(dp[j], dh[j], dlo[j]);
+#pragma unroll
+    for (int n0 = 0; n0 < DP / 8; n0 += NC) {
+      float tq[NC][4] = {};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int row = c0 + 8 * j + 2 * t;
+        uint32_t bh_[NC][2], bl_[NC][2];
+        mn_frags<LD, NC>(bh_, str(0, 0), row, n0, g);
+        if constexpr (!kExact) mn_frags<LD, NC>(bl_, str(0, 1), row, n0, g);
+        mma3<false, kExact, NC>(tq, tq, dh[j], dlo[j], bh_, bl_);
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n0 + i][e] += tq[i][e];
     }
   }
 
-  T* dqh = dq + b * sdq.b + h * sdq.h;
+  constexpr int LR = C::LR;
+  __syncthreads();
+  if (sp > 0) put_partial<LR>(acc, fixed + (sp - 1) * TR * LR, r0, g, t);
+  __syncthreads();
+  if (sp > 0) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = g * 64 + tx * 4 + c;
-        if (d < D) dqh[(long long)row * sdq.s + d] = from_f32<T>(acc[i][g][c] * scale);
-      }
-  }
-}
-
-template <int DP>
-constexpr int dkdv_smem() {
-  return (4 * 64 * (DP + 4) + 2 * TQ * (TK + 4) + 2 * TQ) * (int)sizeof(float);
-}
-
-template <int DP>
-constexpr int dq_smem() {
-  return (4 * 64 * (DP + 4) + TQ * (TK + 4) + 2 * TQ) * (int)sizeof(float);
+  for (int o = 0; o < C::NSPLIT - 1; ++o)
+    add_partial<LR>(acc, fixed + o * TR * LR, r0, g, t);
+  store_rows<T>(acc, dq + b * sdq.b + h * sdq.h, sdq.s, q0 + r0, S, D, scale,
+                g, t);
 }
 
 struct Args {
@@ -513,38 +863,39 @@ struct Args {
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
   float scale;
   int causal, offset;
+  Vec vec;
 };
 
 template <typename T, int DP>
 int launch_dkdv(const Args& a, cudaStream_t stream) {
-  constexpr int smem = dkdv_smem<DP>();
+  using C = Tiles<T, DP>;
+  auto kernel = flash_bwd_dkdv_kernel<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)((a.SK + TK - 1) / TK) * a.B * a.HKV;
-  flash_bwd_dkdv_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  const long long blocks = (long long)((a.SK + C::TR - 1) / C::TR) * a.B * a.HKV;
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dO), a.lse, a.delta,
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.B, a.HQ, a.HKV, a.S,
       a.SK, a.D, a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.scale, a.causal,
-      a.offset);
+      a.offset, a.vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DP>
 int launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr int smem = dq_smem<DP>();
+  using C = Tiles<T, DP>;
+  auto kernel = flash_bwd_dq_kernel<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)((a.S + TQ - 1) / TQ) * a.B * a.HQ;
-  flash_bwd_dq_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  const long long blocks = (long long)((a.S + C::TR - 1) / C::TR) * a.B * a.HQ;
+  kernel<<<(unsigned)blocks, C::kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dO), a.lse, a.delta,
       static_cast<T*>(a.dq), a.B, a.HQ, a.HKV, a.S, a.SK, a.D, a.sq, a.sk,
-      a.sv, a.sdo, a.sdq, a.scale, a.causal, a.offset);
+      a.sv, a.sdo, a.sdq, a.scale, a.causal, a.offset, a.vec);
   return (int)cudaGetLastError();
 }
 
@@ -555,6 +906,20 @@ int dispatch(const Args& a, int which, cudaStream_t stream) {
   return which ? launch_dq<T, 128>(a, stream) : launch_dkdv<T, 128>(a, stream);
 }
 
+// The widest cp.async copy (16 or 4 bytes; 0: none) that every row of a
+// tensor with this base and these strides (in elements of elem bytes)
+// starts aligned to.
+int vec_bytes(const void* p, const Strides& s, int elem) {
+  const int widths[2] = {16, 4};
+  for (int bytes : widths) {
+    const long long n = bytes / elem;
+    if (reinterpret_cast<uintptr_t>(p) % bytes == 0 && s.b % n == 0 &&
+        s.h % n == 0 && s.s % n == 0)
+      return bytes;
+  }
+  return 0;
+}
+
 int backward(const void* q, const void* k, const void* v, const void* dO,
              const void* lse, const void* delta, void* dq, void* dk, void* dv,
              int is_bf16, int B, int HQ, int HKV, int S, int SK, int D,
@@ -563,12 +928,16 @@ int backward(const void* q, const void* k, const void* v, const void* dO,
   if (D < 1 || D > 128 || HKV < 1 || HQ % HKV != 0 || SK < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * HQ * S == 0) return (int)cudaGetLastError();
+  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
+      sv{st[6], st[7], st[8]}, sdo{st[9], st[10], st[11]};
+  const int elem = is_bf16 ? 2 : 4;
+  const Vec vec{vec_bytes(q, sq, elem), vec_bytes(k, sk, elem),
+                vec_bytes(v, sv, elem), vec_bytes(dO, sdo, elem)};
   Args a{q, k, v, dO, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, dk, dv, B, HQ, HKV, S, SK, D,
-         {st[0], st[1], st[2]}, {st[3], st[4], st[5]}, {st[6], st[7], st[8]},
-         {st[9], st[10], st[11]}, {st[12], st[13], st[14]},
+         sq, sk, sv, sdo, {st[12], st[13], st[14]},
          {st[15], st[16], st[17]}, {st[18], st[19], st[20]}, scale, causal,
-         offset};
+         offset, vec};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) return dispatch<__nv_bfloat16>(a, which, s);
   return dispatch<float>(a, which, s);
@@ -588,15 +957,15 @@ extern "C" int flash_bwd_delta_launch(const void* o, const void* dO,
   const long long rows = (long long)B * HQ * S;
   if (rows == 0) return (int)cudaGetLastError();
   const Strides so{o_sb, o_sh, o_ss}, sdo{do_sb, do_sh, do_ss};
-  const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
+  const long long blocks = (rows * 32 + kDeltaThreads - 1) / kDeltaThreads;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    flash_bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
+    flash_bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kDeltaThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(o),
         static_cast<const __nv_bfloat16*>(dO), static_cast<float*>(delta), HQ,
         S, D, rows, so, sdo);
   else
-    flash_bwd_delta_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
+    flash_bwd_delta_kernel<float><<<(unsigned)blocks, kDeltaThreads, 0, s>>>(
         static_cast<const float*>(o), static_cast<const float*>(dO),
         static_cast<float*>(delta), HQ, S, D, rows, so, sdo);
   return (int)cudaGetLastError();
@@ -627,6 +996,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                   HQ, HKV, S, SK, D, strides, scale, causal, offset, 1,
                   stream);
 }
+
 
 // ---------------------------------------------------------------------------
 // The bf16 route: the tensor-core kernels.

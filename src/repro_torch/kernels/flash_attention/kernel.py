@@ -44,9 +44,17 @@ dk/dv and dq kernels as ``route`` picks the forward's: ``"mma"``, the
 tensor-core pair (bf16 products with f32 sums, p rounded to bf16 for the
 dv product and dS for the dk and dq products, which ``ref.chunked_bwd(...,
 round_bf16=True)`` repeats), where ``route`` takes q, k and v and dO is
-aligned as they are; ``"f32"``, the f32-math pair, for everything else.
-``ops.ChunkedAttention`` ties the forward and the backward into an
-autograd function.
+aligned as they are; ``"f32"``, the f32 pair, for everything else
+(float32, ragged head dims, views TMA refuses): its products run on the
+tensor cores in split TF32 (``mma.sync``; each float32 operand split
+once, when its tile is staged, into a TF32 hi and a lo, three products
+``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with f32 sums, about float32's
+accuracy; a bf16 operand is exact in TF32 and drops its lo term), which
+``ref.chunked_bwd(..., split_tf32=True)`` emulates.  Its tiles arrive by
+``cp.async`` (16-byte copies where a tensor's base and strides allow,
+else 4-byte, else plain loads), so it takes any base and any strides
+with the last dimension contiguous.  ``ops.ChunkedAttention`` ties the
+forward and the backward into an autograd function.
 
 Every wrapper raises a ``RuntimeError`` when grad mode is on and an input
 requires grad (``build.refuse_grad``): the kernels write outputs with no

@@ -32,12 +32,19 @@ and ``kernel.flash_attention_bwd``.  ``chunked_bwd(..., round_bf16=True)``
 makes the backward's tensor-core route's two roundings, and no other: p
 rounded to bf16 as the dv product's operand, dS (formed from the float32
 p) as the dk and dq products' operand; off, the default and the CPU's
-route, it is the reference's step for step.
+route, it is the reference's step for step.  ``chunked_bwd(...,
+split_tf32=True)`` forms every product as the f32 route's kernels do, in
+split TF32 (``ssd_scan.ref.split_tf32_product``: each operand split into
+a TF32-rounded hi and a lo read as TF32, ``a_lo b_hi + a_hi b_lo + a_hi
+b_hi``), with q unscaled in its products and the scale applied to s and
+dk after them, as the kernels apply it.
 """
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
+
+from repro_torch.kernels.ssd_scan.ref import split_tf32_product
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -154,11 +161,16 @@ def _bf16(x):
 
 
 def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
-                q_chunk: int, k_chunk: int, round_bf16: bool = False):
+                q_chunk: int, k_chunk: int, round_bf16: bool = False,
+                split_tf32: bool = False):
     """The gradients ``(dq, dk, dv)`` of ``chunked_fwd``'s o, recomputed
     blockwise from ``(q, k, v, o, lse)`` and the output's gradient
-    ``do``; ``round_bf16``: p and dS rounded to bf16 as product operands
-    (see the module's docstring)."""
+    ``do``; ``round_bf16``: p and dS rounded to bf16 as product operands;
+    ``split_tf32``: the products in split TF32 (see the module's
+    docstring)."""
+    if round_bf16 and split_tf32:
+        raise ValueError("round_bf16 and split_tf32 are two routes' "
+                         "arithmetic; pick one")
     rnd = _bf16 if round_bf16 else (lambda x: x)
     B, HQ, S, D = q.shape
     HKV, SK = k.shape[1], k.shape[2]
@@ -169,7 +181,9 @@ def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
     op = F.pad(o, (0, 0, 0, Sp - S))
     # padded q rows get lse = +1e30, so p = exp(s - lse) == 0
     lsep = F.pad(lse.reshape(B, HKV, G, S), (0, Sp - S), value=-NEG_INF)
-    qs = qp.reshape(B, HKV, G, Sp, D).to(F32) * scale
+    # split: q unscaled in the products (the kernels scale s and dk)
+    qs = qp.reshape(B, HKV, G, Sp, D).to(F32) * (1.0 if split_tf32
+                                                  else scale)
     kb, vb = kp.to(F32), vp.to(F32)
     dob = dop.reshape(B, HKV, G, Sp, D).to(F32)
     delta = (dop.to(F32) * op.to(F32)).sum(-1).reshape(B, HKV, G, Sp)
@@ -184,8 +198,15 @@ def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
         for ki in range(SKp // kc):
             keys = slice(ki * kc, (ki + 1) * kc)
             k_j, v_j = kb[:, :, keys], vb[:, :, keys]
-            s = torch.einsum("bhgqd,bhkd->bhgqk", q_i, k_j)
             msk = _block_mask(qi, ki, qc, kc, S, SK, causal, q.device)
+            if split_tf32:
+                dq_c, dk_c, dv_c = _split_block(q_i, k_j, v_j, do_i, lse_i,
+                                                d_i, msk, scale)
+                dq_i = dq_i + dq_c
+                dk[:, :, keys] += dk_c
+                dv[:, :, keys] += dv_c
+                continue
+            s = torch.einsum("bhgqd,bhkd->bhgqk", q_i, k_j)
             s = torch.where(msk, s, NEG_INF)
             p = torch.exp(s - lse_i[..., None])
             dv[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", rnd(p), do_i)
@@ -194,6 +215,25 @@ def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
             dq_i = dq_i + torch.einsum("bhgqk,bhkd->bhgqd", ds, k_j)
             dk[:, :, keys] += torch.einsum("bhgqk,bhgqd->bhkd", ds, q_i)
         dqs.append(dq_i * scale)
+    if split_tf32:
+        dk = dk * scale
     dq = torch.cat(dqs, dim=3).reshape(B, HQ, Sp, D)[:, :, :S]
     return (dq.to(q.dtype), dk[:, :, :SK].to(k.dtype),
             dv[:, :, :SK].to(v.dtype))
+
+
+def _split_block(q_i, k_j, v_j, do_i, lse_i, d_i, msk, scale: float):
+    """One (q block, k block) of ``chunked_bwd(..., split_tf32=True)``:
+    its dq, dk and dv terms, every product in split TF32, q unscaled
+    (dk's term is scaled by the caller)."""
+    prod = split_tf32_product
+    kt, vt = k_j[:, :, None], v_j[:, :, None]           # [B, HKV, 1, k, D]
+    s = prod(q_i, kt.transpose(-1, -2)) * scale
+    s = torch.where(msk, s, NEG_INF)
+    p = torch.exp(s - lse_i[..., None])
+    dv = prod(p.transpose(-1, -2), do_i).sum(2)
+    dp = prod(do_i, vt.transpose(-1, -2))
+    ds = p * (dp - d_i[..., None])
+    dq = prod(ds, kt)
+    dk = prod(ds.transpose(-1, -2), q_i).sum(2)
+    return dq, dk, dv

@@ -11,8 +11,10 @@ cases: causal and not, ``S == SK``, ``S < SK`` (bottom-right mask),
 the largest magnitude.  The plain backward with the tensor-core route's
 roundings (``ref.chunked_bwd(..., round_bf16=True)``) against ``jax.vjp``
 at bf16 shapes of that route, to an error norm of 5e-3, and against its
-unrounded self (the option acts); the backward's route rule on CPU
-tensors; the build tag's hash of a source's local headers and the
+unrounded self (the option acts); the plain backward with the f32 route's
+split TF32 products (``ref.chunked_bwd(..., split_tf32=True)``) against
+``jax.vjp`` in float32 to 1e-5, with the one-term TF32 control past it;
+the backward's route rule on CPU tensors; the build tag's hash of a source's local headers and the
 build's ptxas report.  Then the
 autograd guard: every kernel wrapper raises when grad mode is on and an
 input requires grad (a model run with ``impl="pallas"`` or
@@ -37,6 +39,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.models.transformer import OptFlags  # noqa: E402
@@ -212,6 +215,62 @@ def test_rounding_option_changes_the_plain_backward(case):
         assert moved > 1e-3, (name, moved)
 
 
+# ---------------------------------------------------------------------------
+# the f32 route's split TF32 products, emulated
+# ---------------------------------------------------------------------------
+def _split_backward(case, q, k, v, do):
+    B, HQ, HKV, S, SK, D, causal, qc, kc = CASES[case]
+    o, lse = ref.chunked_fwd(q, k, v, causal=causal, scale=D ** -0.5,
+                             q_chunk=qc, k_chunk=kc)
+    return ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                           scale=D ** -0.5, q_chunk=qc, k_chunk=kc,
+                           split_tf32=True)
+
+
+def _reference_grads(case):
+    causal, qc, kc = CASES[case][6:]
+    (jq, jk, jv, jdo), torch_inputs = _inputs(case, "float32")
+    _, vjp = jax.vjp(lambda a, b, c: j_ops.chunked_attention(
+        a, b, c, causal=causal, q_chunk=qc, k_chunk=kc), jq, jk, jv)
+    return vjp(jdo), torch_inputs
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_tf32_backward_matches_reference_vjp(case):
+    """Every product as the f32 route's kernels form it (each operand
+    split into a TF32-rounded hi and a lo read as TF32, lo times lo
+    dropped): the reference's float32 ``_chunked_core_bwd`` through
+    ``jax.vjp`` within the 1e-5 of the largest magnitude that the plain
+    version meets, and not the plain version bit for bit."""
+    grads_j, (q, k, v, do) = _reference_grads(case)
+    split = _split_backward(case, q, k, v, do)
+    B, HQ, HKV, S, SK, D, causal, qc, kc = CASES[case]
+    o, lse = ref.chunked_fwd(q, k, v, causal=causal, scale=D ** -0.5,
+                             q_chunk=qc, k_chunk=kc)
+    plain = ref.chunked_bwd(q, k, v, o, lse, do, causal=causal,
+                            scale=D ** -0.5, q_chunk=qc, k_chunk=kc)
+    for name, g, e, p in zip("qkv", split, grads_j, plain):
+        assert g.dtype == torch.float32 and g.shape == tuple(e.shape)
+        assert _rel(g, e) <= 1e-5, (name, _rel(g, e))
+        assert not torch.equal(g, p), name
+    with pytest.raises(ValueError, match="pick one"):
+        ref.chunked_bwd(q, k, v, o, lse, do, causal=causal, scale=1.0,
+                        q_chunk=qc, k_chunk=kc, round_bf16=True,
+                        split_tf32=True)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_one_term_tf32_backward_reads_past_the_limit(case, monkeypatch):
+    """The control: the same emulation with one TF32 product a pair of
+    operands (``tf32_product``, both rounded to TF32) reads past 1e-5 of
+    the reference's VJP, so the hold above sees a dropped split."""
+    grads_j, (q, k, v, do) = _reference_grads(case)
+    monkeypatch.setattr(ref, "split_tf32_product", ssd_ref.tf32_product)
+    errs = [_rel(g, e) for g, e in zip(_split_backward(case, q, k, v, do),
+                                       grads_j)]
+    assert max(errs) > 1e-5, errs
+
+
 def _bwd_route_inputs(case):
     """q, k, v, dO on the CPU for each case of the backward's route rule:
     views as the model hands them over, [B, S, H, D] transposed."""
@@ -283,6 +342,8 @@ def test_build_tag_hashes_the_local_headers(tmp_path):
     header = (fa_csrc / "hopper.cuh").read_bytes()
     for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
         assert header in t_build.source_bytes(fa_csrc / src)
+    assert (fa_csrc / "tf32.cuh").read_bytes() in t_build.source_bytes(
+        fa_csrc / "flash_attention_bwd.cu")
 
 
 PTXAS_LOG = """\

@@ -1519,6 +1519,17 @@ def _bwd_inputs(card, B, HQ, HKV, S, SK, D, dtype, seed=0):
     return one(HQ, S), one(HKV, SK), one(HKV, SK), one(HQ, S)
 
 
+def _shifted(x, off: int):
+    """x again as a [B, H, S, D] view of a [B, S, H, D] tensor whose base
+    lies ``off`` elements past its allocation's start (off = 1: a base
+    that is not 16-byte aligned, nor 4-byte for bf16)."""
+    B, H, S, D = x.shape
+    buf = torch.empty(B * S * H * D + off, dtype=x.dtype, device=x.device)
+    y = buf[off:].view(B, S, H, D).transpose(1, 2)
+    y.copy_(x)
+    return y
+
+
 def _bwd_launched(path: str) -> bool:
     """One launch of each backward kernel, the dk/dv and dq ones on the
     ``path`` route."""
@@ -1526,11 +1537,12 @@ def _bwd_launched(path: str) -> bool:
                for k in BWD_COUNTERS)
 
 
-def _bwd_plain(q, k, v, o, lse, do, causal, round_bf16=False):
+def _bwd_plain(q, k, v, o, lse, do, causal, round_bf16=False,
+               split_tf32=False):
     S, SK, D = q.shape[2], k.shape[2], q.shape[3]
     return fa_ref.chunked_bwd(
         q, k, v, o, lse, do, causal=causal, scale=D ** -0.5,
-        round_bf16=round_bf16,
+        round_bf16=round_bf16, split_tf32=split_tf32,
         **dict(zip(("q_chunk", "k_chunk"), fa_ref.default_blocks(S, SK))))
 
 
@@ -1548,15 +1560,18 @@ BWD_EMU_TOL = 1e-3
 BF16_NORM_TOL = 5e-3
 
 
-@pytest.mark.parametrize("B,HQ,HKV,S,SK,D,dtype,causal", [
-    (2, 4, 2, 200, 200, 64, torch.bfloat16, True),
-    (2, 4, 4, 200, 700, 128, torch.bfloat16, True),
-    (1, 4, 4, 130, 260, 80, torch.bfloat16, False),
-    (2, 4, 1, 300, 300, 128, torch.float32, True),
-    (1, 2, 2, 64, 1500, 64, torch.float32, False),
+@pytest.mark.parametrize("B,HQ,HKV,S,SK,D,dtype,causal,shift", [
+    (2, 4, 2, 200, 200, 64, torch.bfloat16, True, 0),
+    (2, 4, 4, 200, 700, 128, torch.bfloat16, True, 0),
+    (1, 4, 4, 130, 260, 80, torch.bfloat16, False, 0),
+    (2, 4, 1, 300, 300, 128, torch.float32, True, 0),
+    (1, 2, 2, 64, 1500, 64, torch.float32, False, 0),
+    (1, 16, 2, 256, 256, 128, torch.float32, True, 0),
+    (2, 4, 2, 200, 200, 72, torch.float32, True, 0),
+    (2, 4, 2, 200, 200, 64, torch.float32, True, 1),
 ])
 def test_cuda_flash_backward_matches_plain_version(card, B, HQ, HKV, S, SK,
-                                                   D, dtype, causal):
+                                                   D, dtype, causal, shift):
     """o, lse and the backward kernels against ``ref.chunked_fwd`` and
     ``ref.chunked_bwd`` (the backward from the kernel's own o and lse),
     the gradients in their inputs' layouts.  bf16 takes the tensor-core
@@ -1564,13 +1579,20 @@ def test_cuda_flash_backward_matches_plain_version(card, B, HQ, HKV, S, SK,
     ``BWD_EMU_TOL`` against the plain version with the pair's roundings
     and to 5e-3 against the unrounded one, and two controls (delta
     dropped; causal, the mask dropped) read past both.  float32 takes the
-    f32 pair, to 1e-4 of the largest magnitude.  One launch of each
-    kernel, on its route.  The backward's plain version reads the
-    kernel's lse, so the lse is held on its own to 5e-5 against the plain
-    forward on the inputs upcast to float32, which scales the float32
-    score as the kernels do (the reference's forward rounds q * scale to
-    bf16 first)."""
+    f32 pair (GQA at head dim 128, the ragged head dim 72, and q and dO
+    views whose bases are ``shift`` elements past 16-byte alignment among
+    its cases), to 1e-4 of the largest magnitude against the plain
+    version and to 1e-5 against the plain version in the pair's split
+    TF32 arithmetic (``ref.chunked_bwd(..., split_tf32=True)``).  One
+    launch of each kernel, on its route.  The backward's plain version
+    reads the kernel's lse, so the lse is held on its own to 5e-5
+    against the plain forward on the inputs upcast to float32, which
+    scales the float32 score as the kernels do (the reference's forward
+    rounds q * scale to bf16 first)."""
     q, k, v, do = _bwd_inputs(card, B, HQ, HKV, S, SK, D, dtype)
+    if shift:
+        q, do = _shifted(q, shift), _shifted(do, shift)
+        assert q.data_ptr() % 16 and do.data_ptr() % 16
     half = dtype == torch.bfloat16
     path = "mma" if half else "f32"
     assert fa_kernel.route_bwd(q, k, v, do) == path
@@ -1591,8 +1613,10 @@ def test_cuda_flash_backward_matches_plain_version(card, B, HQ, HKV, S, SK,
     assert float((lse - lse_ref).abs().max()) <= 5e-5
     if not half:
         assert float((o - o_ref).abs().max() / o_ref.abs().max()) <= 1e-4
-        for g, r in zip(grads, plain):
+        split = _bwd_plain(q, k, v, o, lse, do, causal, split_tf32=True)
+        for g, r, e in zip(grads, plain, split):
             assert float((g - r).abs().max() / r.abs().max()) <= 1e-4
+            assert float((g - e).abs().max() / e.abs().max()) <= 1e-5
         return
     assert _norm_err(o, o_ref) <= 5e-3
     holds = ((_bwd_plain(q, k, v, o, lse, do, causal, True), BWD_EMU_TOL),
@@ -1650,16 +1674,25 @@ def test_cuda_chunked_attention_trains_through_the_kernels(card):
         assert float((g - r).abs().max()) <= 1e-4 * float(r.abs().max())
 
 
+@pytest.mark.parametrize("case", ["bf16", "float32", "bf16_misaligned"])
 @pytest.mark.parametrize("D", [64, 128])
-def test_cuda_backward_is_deterministic(card, D):
-    """No atomics: two runs of the tensor-core backward are equal bit for
-    bit, at both of its widths."""
-    q, k, v, do = _bwd_inputs(card, 2, 4, 2, 500, 500, D, torch.bfloat16)
+def test_cuda_backward_is_deterministic(card, D, case):
+    """No atomics: two runs of the backward are equal bit for bit, at both
+    widths of each pair: bf16 on the tensor-core pair; float32, and a bf16
+    view whose q and dO bases are one element past alignment, on the f32
+    pair."""
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    q, k, v, do = _bwd_inputs(card, 2, 4, 2, 500, 500, D, dtype)
+    if case == "bf16_misaligned":
+        q, do = _shifted(q, 1), _shifted(do, 1)
+    path = "mma" if case == "bf16" else "f32"
+    assert fa_kernel.route_bwd(q, k, v, do) == path
     o, lse = fa_kernel.flash_attention_lse(q, k, v)
     fa_kernel.reset_launches()
     a = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
     b = fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
-    assert fa_kernel.LAUNCHES["flash_bwd_dkdv_mma"] == 2
+    assert fa_kernel.LAUNCHES[f"flash_bwd_dkdv_{path}"] == 2
+    assert fa_kernel.LAUNCHES[f"flash_bwd_dq_{path}"] == 2
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
