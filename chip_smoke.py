@@ -2030,6 +2030,13 @@ def attention_bound(q, k, causal: bool = True):
     return nbytes, 4 * D * B * HQ * pairs
 
 
+def f32_route_peak(dtype) -> float:
+    """The f32 forward's rate, in operations of ``attention_bound`` a
+    second: S and P V are each half of them, on the TF32 tensor cores in
+    three split products, or on bf16 inputs one (S) and two (P V)."""
+    return TF32_FLOP_PER_S / (1.5 if dtype == torch.bfloat16 else 3)
+
+
 def f32_route_ms(q, k, v) -> float:
     """Device ms a call of the f32 kernel on bf16 inputs of these shapes,
     read through views whose rows are not 16-byte aligned (which the
@@ -2168,7 +2175,9 @@ def check_flash_attention() -> dict:
     heads_of = {**heads, **extra}
     gen = torch.Generator(device="cuda").manual_seed(13)
     errs = {"mma": {}, "f32": {}}
-    rms, controls = {}, {}
+    rms, controls, split = {}, {}, {}
+    ptxas = ptxas_of("flash_fwd_kernel<")
+    log(ptxas_line("the f32 forward", ptxas))
     for name, B, S, SK, dtype, tol, want in cases:
         HQ, HKV, D = heads_of.get(name, (cfg.n_heads, cfg.n_kv_heads,
                                          cfg.head_dim))
@@ -2192,9 +2201,20 @@ def check_flash_attention() -> dict:
         require(err <= tol, f"{what}: differs from its plain version by "
                 f"{err} > {tol}")
         errs[want][name] = err
+        if want == "f32":   # float32 here: also its split TF32 emulation
+            emu = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                             split_tf32=True)
+            split[name] = float((got - emu).abs().max() / emu.abs().max())
+            require(split[name] <= SPLIT_TOL, f"{what}: reads "
+                    f"{split[name]} of the split TF32 emulation's largest "
+                    f"magnitude > {SPLIT_TOL}")
+            del emu
         # bf16: also the error's norm; non-causal: the dropped-mask control
         half = dtype == torch.bfloat16
         held = f"max abs err {err:.3g} (tolerance {tol})"
+        if name in split:
+            held += (f", {split[name]:.3g} of the split TF32 emulation's "
+                     f"largest magnitude (limit {SPLIT_TOL})")
         if half:
             rms[name] = rms_err(got, exp)
             require(rms[name] <= BF16_RMS_TOL, f"{what}: error norm "
@@ -2239,13 +2259,20 @@ def check_flash_attention() -> dict:
         "flash_attention": dict(record(*serving, BF16_FLOP_PER_S),
                                 max_abs_err=max(errs["mma"].values()),
                                 case_errs=errs["mma"]),
-        "flash_attention_f32": dict(record(*single, F32_FLOP_PER_S),
+        "flash_attention_f32": dict(record(*single, f32_route_peak(f32)),
                                     max_abs_err=max(errs["f32"].values()),
-                                    case_errs=errs["f32"])})
+                                    case_errs=errs["f32"],
+                                    split_errs=split, ptxas=ptxas)})
+    # the bound of the route's earlier design on the CUDA cores, for
+    # comparison: the same operations at the f32 CUDA-core peak
+    nbytes, flop = attention_bound(*single[:2])
+    out["flash_attention_f32"]["cuda_core_bound_ms"] = max(
+        nbytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S) * 1e3
     for name, (q, k, _), peak in (("flash_attention", serving, "bf16 "
-                                   "tensor-core"),
+                                   "tensor-core peak"),
                                   ("flash_attention_f32", single,
-                                   "f32 CUDA-core")):
+                                   "TF32 tensor-core peak, three split "
+                                   "products")):
         rec = out[name]
         nbytes, flop = attention_bound(q, k)
         rec["tflop_per_s"] = flop / rec["ms"] / 1e9
@@ -2253,7 +2280,10 @@ def check_flash_attention() -> dict:
             f"{flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; {rec['ms']:.4f}"
             f" ms per call = {rec['tflop_per_s']:.1f} TFLOP/s; SDPA "
             f"{rec['library_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms by "
-            f"{rec['bound_by']} at the {peak} peak")
+            f"{rec['bound_by']} at the {peak}"
+            + (f"; at the f32 CUDA-core peak {rec['cuda_core_bound_ms']:.4f}"
+               " ms" if "cuda_core_bound_ms" in rec else "")
+            + f" ({smi()})")
     # the replaced design: a bf16 view whose rows are not 16-byte aligned
     # takes the f32 kernel
     old_ms = f32_route_ms(*serving)
@@ -2275,7 +2305,7 @@ def check_flash_attention() -> dict:
         qkv = attention_inputs(gen, B, hq, hkv, S, SK, d, dtype)
         peak, peak_name = ((BF16_FLOP_PER_S, "bf16 tensor-core")
                            if want == "mma" else
-                           (F32_FLOP_PER_S, "f32 CUDA-core"))
+                           (f32_route_peak(dtype), "split TF32 tensor-core"))
         rec = measure({name: dict(record(*qkv, peak, causal),
                                   max_abs_err=errs[want][name],
                                   rms_err=rms.get(name),
@@ -5247,6 +5277,8 @@ BWD_TIMED = ("train", "gqa", "d80", "float32", "float32_gqa", "bf16_view")
 BWD_EMU_TOL = 1e-3     # 2.9x the largest sound reading (3.48e-4; PERF.md)
 F32_BWD_TOL = 1e-4
 SPLIT_TOL = 1e-5
+# delta against ``ref.delta_ref``: float32 sums in another order
+DELTA_TOL = 1e-5
 F32_ROUTE_BF16_TOL = 2.5e-4
 LSE_TOL = 5e-5
 # (c): Qwen1.5-0.5B at full width and depth, train_4k's sequence with its
@@ -5290,30 +5322,65 @@ def split_tf32_ms(q, k, causal: bool) -> dict:
     as the split TF32 products it takes: three, less one for each operand
     exact in TF32 (a bf16 q, k, v or dO; p and dS are float32, always
     split): dkdv's s, dO v^T, p^T dO and dS^T q, dq's s, dO v^T and dS
-    k."""
+    k; the whole backward's five, s and dO v^T once."""
     B, HQ, S, D = q.shape
     SK = k.shape[2]
     pairs = B * HQ * visible_pairs(S, SK, causal, SK - S)
     both = 1 if q.dtype == torch.bfloat16 else 3     # s, dO v^T
     one = 2 if q.dtype == torch.bfloat16 else 3      # p or dS times an input
-    per = {"flash_bwd_dkdv": 2 * both + 2 * one, "flash_bwd_dq": 2 * both + one}
+    per = {"flash_bwd_dkdv": 2 * both + 2 * one, "flash_bwd_dq": 2 * both + one,
+           "backward": 2 * both + 3 * one}
     return {n: 2 * D * pairs * t / TF32_FLOP_PER_S * 1e3
             for n, t in per.items()}
 
 
-def f32_pair_ptxas() -> dict:
-    """What ptxas reported for the f32 pair's instantiations (registers,
-    spills, wgmma serialization), when this process built them."""
+def ptxas_of(*prefixes) -> dict:
+    """What ptxas reported (registers, spills, wgmma serialization) for
+    the kernels whose names start with one of ``prefixes``, when this
+    process built them."""
     return {name: u for per_lib in kernel_build.ptxas_report().values()
-            for name, u in per_lib.items()
-            if name.startswith(("flash_bwd_dkdv_kernel<",
-                                "flash_bwd_dq_kernel<"))}
+            for name, u in per_lib.items() if name.startswith(prefixes)}
 
 
-def fwd_plain(q, k, v, causal: bool):
+def ptxas_line(what: str, ptxas: dict) -> str:
+    if not ptxas:
+        return f"ptxas, {what}: not built by this process"
+    return f"ptxas, {what}: " + "; ".join(
+        f"{n} {u['registers']} registers, {u['spill_stores']}/"
+        f"{u['spill_loads']} bytes spilled (stores/loads), wgmma "
+        f"{'serialized (C7512)' if u['wgmma_serialized'] else 'not serialized'}"
+        for n, u in ptxas.items())
+
+
+def fwd_plain(q, k, v, causal: bool, split_tf32: bool = False):
     qc, kc = fa_ref.default_blocks(q.shape[2], k.shape[2])
     return fa_ref.chunked_fwd(q, k, v, causal=causal, scale=q.shape[3] ** -0.5,
-                              q_chunk=qc, k_chunk=kc)
+                              q_chunk=qc, k_chunk=kc, split_tf32=split_tf32)
+
+
+def delta_hold(o, do, name: str) -> tuple:
+    """Delta's own output against its plain version (``ref.delta_ref``):
+    ``(delta, error, control)``, each reading of the plain version's
+    largest magnitude, held to DELTA_TOL; the control, the plain version
+    with the row of the largest delta zeroed in o, must read past it."""
+    fa_kernel.reset_launches()
+    delta = fa_kernel.flash_bwd_delta(o, do)
+    sync(o.device)
+    require(o.device.type == "cpu"
+            or fa_kernel.LAUNCHES["flash_bwd_delta"] == 1,
+            f"delta {name}: launches {fa_kernel.LAUNCHES}")
+    exp = fa_ref.delta_ref(o, do)
+    top = float(exp.abs().max())
+    got = float((delta - exp).abs().max()) / top
+    require(got <= DELTA_TOL, f"delta {name}: reads {got} of the plain "
+            f"version's largest magnitude > {DELTA_TOL}")
+    b, h, row = np.unravel_index(int(exp.abs().argmax()), tuple(exp.shape))
+    o_cut = o.clone()
+    o_cut[b, h, row] = 0
+    ctrl = float((fa_ref.delta_ref(o_cut, do) - exp).abs().max()) / top
+    require(ctrl > DELTA_TOL, f"delta {name}: the control (a row of o "
+            f"zeroed) reads {ctrl} <= {DELTA_TOL}: the hold cannot see it")
+    return delta, got, ctrl
 
 
 def lse_plain(q, k, v, causal: bool):
@@ -5374,13 +5441,8 @@ def check_flash_backward(device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(22)
     cases, abs_errs, controls, timed = {}, {}, {}, {}
     card = smi()
-    ptxas = f32_pair_ptxas()
-    log(f"ptxas, the f32 pair: " + "; ".join(
-        f"{n} {u['registers']} registers, {u['spill_stores']}/"
-        f"{u['spill_loads']} bytes spilled (stores/loads), wgmma "
-        f"{'serialized (C7512)' if u['wgmma_serialized'] else 'not serialized'}"
-        for n, u in ptxas.items()) if ptxas else "ptxas, the f32 pair: "
-        "not built by this process")
+    ptxas = ptxas_of("flash_bwd_dkdv_kernel<", "flash_bwd_dq_kernel<")
+    log(ptxas_line("the f32 pair", ptxas))
     for name, (B, HQ, HKV, S, SK, D, dtype, causal) in BWD_CASES.items():
         q, k, v = attention_inputs(gen, B, HQ, HKV, S, SK, D, dtype)
         do = torch.randn((B, S, HQ, D), generator=gen,
@@ -5415,6 +5477,7 @@ def check_flash_backward(device="cuda") -> dict:
         o_ref, lse_ref = fwd_plain(q, k, v, causal)
         if dtype != torch.float32:
             lse_ref = lse_plain(q, k, v, causal)
+        delta, delta_err, delta_ctrl = delta_hold(o, do, name)
         ref_grads = bwd_plain(q, k, v, o, lse, do, causal)
         emu_grads = (bwd_plain(q, k, v, o, lse, do, causal, round_bf16=True)
                      if mma else ref_grads)
@@ -5427,7 +5490,17 @@ def check_flash_backward(device="cuda") -> dict:
             return float((got.float() - exp.float()).abs().max()
                          / exp.float().abs().max())
         rec = {"o": err(o, o_ref),
-               "lse": float((lse - lse_ref).abs().max())}
+               "lse": float((lse - lse_ref).abs().max()),
+               "delta": delta_err}
+        controls[f"{name}/delta_row_zeroed"] = delta_ctrl
+        if not half:   # the f32 forward against its split emulation
+            o_emu = fwd_plain(q, k, v, causal, split_tf32=True)[0]
+            rec["o_split"] = float((o - o_emu).abs().max()
+                                   / o_emu.abs().max())
+            require(rec["o_split"] <= SPLIT_TOL, f"{what}: o reads "
+                    f"{rec['o_split']} of the split TF32 emulation > "
+                    f"{SPLIT_TOL}")
+            del o_emu
         require(rec["o"] <= (BF16_RMS_TOL if half else F32_BWD_TOL),
                 f"{what}: o reads {rec['o']}")
         require(rec["lse"] <= LSE_TOL, f"{what}: lse differs by "
@@ -5467,8 +5540,8 @@ def check_flash_backward(device="cuda") -> dict:
         cases[name] = rec
         abs_errs[name] = {
             n: float((a.float() - b.float()).abs().max()) for n, a, b in zip(
-                ("o", "lse", "dq", "dk", "dv"), (o, lse, *grads),
-                (o_ref, lse_ref, *emu_grads))}
+                ("o", "lse", "delta", "dq", "dk", "dv"), (o, lse, delta, *grads),
+                (o_ref, lse_ref, fa_ref.delta_ref(o, do), *emu_grads))}
         log(f"backward {name} ({card}): q [{B}, {HQ}, {S}, {D}], k/v [{B}, "
             f"{HKV}, {SK}, {D}] {str(dtype)[6:]} "
             f"{'causal' if causal else 'non-causal'}, {path} route: "
@@ -5486,15 +5559,16 @@ def check_flash_backward(device="cuda") -> dict:
         if name in BWD_TIMED:
             timed[name] = time_backward(q, k, v, o, lse, do, causal)
         del q, k, v, do, o, lse, grads, o_ref, lse_ref, ref_grads, emu_grads
+        del delta
         if device != "cpu":
             torch.cuda.empty_cache()
     recs = {}
     # each kernel at its route's case (the tensor-core pair and the rest at
     # the training shape, the f32 pair at float32): the error on what it
-    # writes (delta is held through dq, which reads it)
+    # writes
     for kname, case, names, timing in (
             ("flash_attention_lse", "train", ("o",), "flash_attention_lse"),
-            ("flash_bwd_delta", "train", ("dq",), "flash_bwd_delta"),
+            ("flash_bwd_delta", "train", ("delta",), "flash_bwd_delta"),
             ("flash_bwd_dkdv_mma", "train", ("dk", "dv"), "flash_bwd_dkdv"),
             ("flash_bwd_dq_mma", "train", ("dq",), "flash_bwd_dq"),
             ("flash_bwd_dkdv", "float32", ("dk", "dv"), "flash_bwd_dkdv"),
@@ -5510,6 +5584,17 @@ def check_flash_backward(device="cuda") -> dict:
             recs[kname]["ptxas"] = {n: u for n, u in ptxas.items()
                                     if n.startswith(kname + "_kernel<")}
     recs["flash_attention_lse"]["max_abs_err_lse"] = abs_errs["train"]["lse"]
+    # the f32 route's forward with lse, and delta, at the float32 cases
+    recs["flash_attention_lse"]["f32_route"] = {
+        c: timed[c]["flash_attention_lse"] for c in ("float32", "float32_gqa")}
+    recs["flash_bwd_delta"]["shapes"] = {
+        c: timed[c]["flash_bwd_delta"] for c in ("float32", "bf16_view")}
+    for c in ("float32", "float32_gqa"):
+        r = timed[c]["flash_attention_lse"]
+        log(f"the f32 forward with lse at {c} ({card}): {r['ms'] * 1e3:.2f} "
+            f"us (bound {r['bound_ms'] * 1e3:.2f} in split TF32, at the f32 "
+            f"CUDA-core peak {r['cuda_core_bound_ms'] * 1e3:.2f}; SDPA's "
+            f"forward {r['library_ms'] * 1e3:.2f} us)")
     recs["flash_attention_lse"]["case_errs"] = cases
     recs["flash_attention_lse"]["case_abs_errs"] = abs_errs
     recs["flash_attention_lse"]["controls"] = controls
@@ -5519,11 +5604,13 @@ def check_flash_backward(device="cuda") -> dict:
                                              "bf16_view")}
     log("the f32 pair (" + card + "): " + "; ".join(
         f"{c} dkdv {timed[c]['flash_bwd_dkdv']['ms'] * 1e3:.2f} us (bound "
-        f"{timed[c]['flash_bwd_dkdv']['bound_ms'] * 1e3:.2f}, split "
-        f"TF32 bound {timed[c]['flash_bwd_dkdv']['split_tf32_bound_ms'] * 1e3:.2f}), "
+        f"{timed[c]['flash_bwd_dkdv']['bound_ms'] * 1e3:.2f} in split TF32, "
+        f"at the f32 CUDA-core peak "
+        f"{timed[c]['flash_bwd_dkdv']['cuda_core_bound_ms'] * 1e3:.2f}), "
         f"dq {timed[c]['flash_bwd_dq']['ms'] * 1e3:.2f} us (bound "
-        f"{timed[c]['flash_bwd_dq']['bound_ms'] * 1e3:.2f}, split TF32 "
-        f"bound {timed[c]['flash_bwd_dq']['split_tf32_bound_ms'] * 1e3:.2f}), "
+        f"{timed[c]['flash_bwd_dq']['bound_ms'] * 1e3:.2f} in split TF32, "
+        f"at the f32 CUDA-core peak "
+        f"{timed[c]['flash_bwd_dq']['cuda_core_bound_ms'] * 1e3:.2f}), "
         f"whole backward {r['ms'] * 1e3:.2f} us against SDPA's "
         + ("n/a" if r["sdpa_bwd_ms"] is None else
            f"{r['sdpa_bwd_ms'] * 1e3:.2f} us")
@@ -5542,9 +5629,15 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
     mma = fa_kernel.route_bwd(q, k, v, do) == "mma"
     peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
     bounds = backward_bounds(q, k, causal)
+    # the f32 routes' products run on the TF32 tensor cores, split: their
+    # operations in ms at that rate (the CUDA-core bound kept beside)
+    split = {} if mma else split_tf32_ms(q, k, causal)
     fwd_bytes, fwd_flop = attention_bound(q, k, causal)
     bounds["flash_attention_lse"] = (fwd_bytes + 4 * q.shape[0]
                                      * q.shape[1] * q.shape[2], fwd_flop)
+    if fa_kernel.route(q, k, v) == "f32":
+        split["flash_attention_lse"] = (fwd_flop / f32_route_peak(q.dtype)
+                                        * 1e3)
     kern = per_kernel_us(lambda: fa_kernel.flash_attention_bwd(
         q, k, v, o, lse, do, causal=causal), FA_ITERS, want=BWD_KERNELS)
     fwd = per_kernel_us(lambda: fa_kernel.flash_attention_lse(
@@ -5576,20 +5669,21 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
                 f"({sorted(src)})")
         nbytes, flop = bounds[name]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flop_ms = flop / peak * 1e3
+        flop_ms = split.get(name, flop / peak * 1e3)
         out[name] = {"ms": us / 1e3, "plain_ms": plain_us / 1e3,
                      "library_ms": None if lib_us is None else lib_us / 1e3,
                      "bound_ms": max(bytes_ms, flop_ms),
                      "bound_by": "operations" if flop_ms > bytes_ms
                      else "bytes",
                      "tflop_per_s": flop / us / 1e6}
-    if not mma:   # the f32 pair: its split TF32 products at the TF32 peak
-        for name, ms in split_tf32_ms(q, k, causal).items():
-            out[name]["split_tf32_bound_ms"] = ms
+        if name in split:
+            out[name]["cuda_core_bound_ms"] = max(
+                bytes_ms, flop / F32_FLOP_PER_S * 1e3)
     whole = sum(out[n]["ms"] for n in BWD_KERNELS)
     nbytes, flop = bounds["backward"]
     out["backward"] = {"ms": whole, "bound_ms": max(
-        nbytes / HBM_BYTES_PER_S, flop / peak) * 1e3,
+        nbytes / HBM_BYTES_PER_S * 1e3, split.get("backward",
+                                                  flop / peak * 1e3)),
         "sdpa_bwd_ms": None if sdpa_bwd is None else sdpa_bwd / 1e3,
         "sdpa_bwd_kernels": sdpa_names, "plain_ms": plain_bwd / 1e3}
     route = f" ({'mma' if mma else 'f32'} route)"
@@ -5600,8 +5694,9 @@ def time_backward(q, k, v, o, lse, do, causal: bool) -> dict:
             f"{r['bound_ms']:.4f} ms"
             + (f" by {r['bound_by']} ({r['tflop_per_s']:.1f} TFLOP/s)"
                if "bound_by" in r else " (five products a visible pair)")
-            + (f"; split TF32 bound {r['split_tf32_bound_ms']:.4f} ms"
-               if "split_tf32_bound_ms" in r else "")
+            + (f" (split TF32; at the f32 CUDA-core peak "
+               f"{r['cuda_core_bound_ms']:.4f} ms)"
+               if "cuda_core_bound_ms" in r else "")
             + f"; plain version {r['plain_ms']:.4f} ms"
             + (f"; SDPA {r['library_ms']:.4f} ms" if r.get("library_ms")
                is not None else "")

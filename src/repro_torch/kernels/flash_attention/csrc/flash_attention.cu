@@ -5,7 +5,8 @@
 //   (_flash_kernel, pallas_call over the grid (B, HQ, q tiles, kv tiles)).
 // The Python wrapper (kernel.py::route) sends bf16 inputs with D <= 128, a
 // multiple of 8, and 16-byte-aligned bases and row strides to the
-// tensor-core kernel below and everything else to the f32 kernel after it.
+// tensor-core kernel below and everything else to the f32-route kernel
+// after it (split TF32 on mma.sync).
 //
 // Both also serve training (kernel.py::flash_attention_lse, the forward of
 // ops.py::ChunkedAttention, whose backward is flash_attention_bwd.cu): an
@@ -31,8 +32,8 @@
 // HQ = 16, HKV = 2, S = SK = 2048, D = 128, causal) the pairs under the
 // mask need 4 * D operations each, about 137 GFLOP against about 151 MB of
 // inputs and output: 139 us at the bf16 tensor-core peak (989 TFLOP/s),
-// 45 us at 3.35 TB/s.  The f32 kernel runs the same work on the CUDA cores
-// (67 TFLOP/s peak), so it cannot come within 15x of that bound.
+// 45 us at 3.35 TB/s.  The f32 route runs the same work as three split
+// TF32 products (495 TFLOP/s peak), so it cannot come within 6x of it.
 //
 // What the design does about it:
 // - Both products on the tensor cores with bf16 operands and f32
@@ -86,46 +87,70 @@
 //
 // flash_fwd_kernel replaces the TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention
-//   (_flash_kernel, pallas_call over the grid (B, HQ, q tiles, kv tiles)).
+//   (_flash_kernel, pallas_call over the grid (B, HQ, q tiles, kv tiles))
+// for every input the tensor-core kernel above does not take: float32
+// (held to 2e-5, which bf16 products cannot meet), and bf16 with a head
+// dim that is not a multiple of 8 or above 128, or a base or stride TMA
+// refuses.
 //
 // What it computes (the Pallas kernel's function): q [B, HQ, S, D] and
-// k/v [B, HKV, SK, D], bf16 or f32; query head h reads KV head
-// h / (HQ / HKV); scores q.k * scale in f32 from the loaded inputs; mask
-// k_pos < SK and, when causal, k_pos <= q_pos (aligned top-left), masked
-// scores the finite -1e30; online softmax with an f32 running max, sum and
-// accumulator; output acc / (l == 0 ? 1 : l) cast to q's type.
+// k/v [B, HKV, SK, D], bf16 or f32, D <= 256, any strides with the last
+// dimension contiguous; query head h reads KV head h / (HQ / HKV); scores
+// q.k * scale in f32; mask k_pos < SK and, when causal, k_pos <= q_pos +
+// offset; masked scores the finite -1e30; online softmax with an f32
+// running max, sum and accumulator; output acc / (l == 0 ? 1 : l) in q's
+// type and layout, and the optional lse.
 //
-// What bounds it on this card: every (query, key) pair under the mask
-// costs 4 * D floating-point operations (q.k and p.v) and the inputs are
-// read once, so at the serving shape (B = 8, HQ = 16, S = SK = 2048,
-// D = 128, bf16) the work is about 137 GFLOP against about 151 MB: some
-// 900 operations per byte, far above the card's crossover of about 295.
-// It is bound by operations.  The least time is that of the bf16 tensor
-// cores (989 TFLOP/s); this kernel keeps the reference's f32 math and
-// runs it as f32 FMAs on the CUDA cores (67 TFLOP/s), so it sits more
-// than an order of magnitude above that bound by construction.  It is
-// the route of f32 inputs (held to 2e-5, which bf16 products cannot
-// meet), of bf16 with other head dims and of unaligned views; bf16 at
-// D = 64 and 128 takes the tensor-core kernel above.
+// Numerics: f32 sums of products formed on the tensor cores in split TF32
+// (tf32.cuh): each float32 operand v split into hi = tf32(v) and lo = v -
+// hi, a product a_lo b_hi + a_hi b_lo + a_hi b_hi, about float32's
+// accuracy (ref.flash_attention_ref(..., split_tf32=True) and
+// ref.chunked_fwd(..., split_tf32=True) emulate it on the CPU; one TF32
+// product alone reads some 1e-4 off).  A bf16 operand is exact in TF32 and
+// drops its lo term: on bf16, S = Q K^T is one product and P V two (p is
+// always float32).  The tensor cores add with truncation, so no sum runs
+// long on them: S's small terms have their own accumulators (its hi chain
+// is D / 8 long), each K/V tile's P V starts from zero, its small terms
+// again apart, and joins the running O by the CUDA cores' rounded f32
+// adds (o = o alpha + tile), in a fixed order.  No atomics: a run repeats
+// bit for bit.
+//
+// What bounds it on this card: operations.  Every (query, key) pair under
+// the mask costs 4 D operations (q.k and p.v); at float32 q [2, 16, 2048,
+// 128], k/v [2, 2, 2048, 128], causal, 34.38 GFLOP against some 75 MB:
+// 513 us at the f32 CUDA-core peak (67 TFLOP/s: the bound of the design
+// this one replaced, scalar FMAs on the CUDA cores), 208 us for the three
+// split products at the TF32 tensor-core peak (495 TFLOP/s).
 //
 // What the design does about it:
-// - The TPU's sequential kv grid axis becomes a loop inside the block:
-//   one block per (b, h, 64-row q tile), 256 threads, K/V tiles of 64
-//   rows staged in shared memory as f32, running statistics in registers.
-//   The S x SK scores never reach device memory.
-// - Register tiling: each thread holds a 4 x 4 block of the 64 x 64 score
-//   tile (rows by ty, columns tx + 16 j) and a 4 x D/16 block of the
-//   output (columns 64 g + 4 tx .. + 3), so each 16-byte shared-memory
-//   load feeds 4 to 8 FMAs.  Row statistics are reduced across the 16
-//   threads of a half-warp with shuffles.  Q and K rows are padded by 4
-//   floats so the 16-byte loads are free of bank conflicts.
-// - Tiles wholly above the diagonal are skipped (kernel.py:61-64), and the
-//   heaviest q tiles (the last ones under a causal mask) start first.
-// - The ragged edge is masked here, not padded by copies: rows past S or
-//   SK and columns past D stage as zeros, and only real rows and columns
-//   are stored.  Inputs are read through their own strides (the last
-//   dimension contiguous), so the transposed views the model hands over
-//   are read in place and the output is written in q's layout.
+// - Both products on mma.sync.m16n8k8 TF32 (wgmma's TF32 kind reads its
+//   B operand K-major only: V would need a transposed split copy).  One
+//   block per (b, h, 64-row q tile), heaviest first, 4 warps, each owning
+//   16 query rows across every key of a tile: the row statistics stay in
+//   one warp (quad shuffles), no partial sums between warps.
+// - The contraction index is permuted (k = t <-> column 2t, k = t + 4 <->
+//   2t + 1) in both operands of both products.  So an A or B fragment of
+//   S = Q K^T is one 8-byte (f32) or 4-byte (bf16) load a row, and the S
+//   accumulator's fragment (rows g, g + 8; columns 2t, 2t + 1) is P's A
+//   fragment as it stands: P never leaves the registers and needs no
+//   shuffle; V's B fragment is two column loads.
+// - Asynchronous staging: Q once a block, then the K/V tiles through a
+//   two-stage cp.async ring (16-byte copies where a tensor's base and
+//   strides allow, else 4-byte, else plain loads: a bf16 view offset by
+//   one element), raw in the input's type, rows past S or SK and columns
+//   past D zero-filled in place: no padding copies.  Tile kt + 1's copies
+//   are in flight while tile kt is multiplied; one barrier a tile.
+// - Each operand is split in registers as its fragment is loaded (Q's
+//   once a k step, reused across the tile's key columns).  A split copy of
+//   Q, K and V in shared memory would double the tiles and leave one block
+//   an SM; raw tiles keep two: 90,112 bytes at D <= 64 (64-key tiles),
+//   103,424 at D <= 128 (32-key tiles), float32; __launch_bounds__(128,
+//   2).  D <= 256 runs with 16-key tiles and one block an SM (134,656).
+//   Row strides of the width + 8 (Q, K) and + 4 (float32 V) elements
+//   keep the fragment loads free of bank conflicts.  chip_smoke.py logs ptxas's
+//   registers and spills for each instantiation.
+// - Tiles wholly above the causal diagonal are skipped; only the diagonal
+//   tile and the tile that holds SK are masked element by element.
 // - GQA: the HQ / HKV query heads of one KV head read the same K/V tiles,
 //   which stay in the 50 MB L2.
 //
@@ -135,65 +160,72 @@
 #include <cmath>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
-namespace {
+namespace f32route {
 
-constexpr int TQ = 64;          // query rows per block
-constexpr int TK = 64;          // keys per staged tile
-constexpr int kThreads = 256;   // 16 x 16: ty picks 4 rows, tx the columns
+using namespace tf32;
+
+constexpr int TQ = 64;               // query rows per block, 16 a warp
+constexpr int kThreads = 2 * TQ;     // 4 warps
 constexpr float kNegInf = -1e30f;
 
-struct Strides {
-  long long b, h, s;            // in elements; the last dimension is dense
+// The cp.async width (16 or 4 bytes; 0: plain loads) of each input's rows.
+struct Vec {
+  int q, k, v;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// The kernel's tiles, by input type and width DP (64, 128 or 256).
+template <typename T, int DP>
+struct Tiles {
+  static constexpr bool kExact = sizeof(T) == 2;   // bf16: lo = 0
+  static constexpr int TK = DP == 64 ? 64 : DP == 128 ? 32 : 16;   // keys
+  static constexpr int NT = TK / 8;        // a warp's key column tiles
+  // P V column tiles a batch (at width 128 one: two spill 12 bytes)
+  static constexpr int NC = DP == 64 ? 4 : DP == 128 ? 1 : 2;
+  static constexpr int MINB = DP == 256 ? 1 : 2;  // blocks an SM
+  static constexpr int LDQ = DP + 8;       // Q and K rows, in elements
+  static constexpr int LDV = kExact ? DP + 8 : DP + 4;   // V rows
+  static constexpr int kStage = TK * (LDQ + LDV);        // K and V tiles
+  static constexpr int kSmem = (TQ * LDQ + 2 * kStage) * (int)sizeof(T);
+  static_assert(kSmem <= 232448, "one block's shared memory");
+  static_assert((DP / 8) % NC == 0, "P V batches cover the width");
+};
+
+// Columns c and c + 1 of a row in shared memory, as f32.
+__device__ __forceinline__ float2 pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Stages rows [row0, row0 + ROWS) of one head (rows past n_rows and
-// columns past D as zeros) into dst [ROWS][LD] as f32.
-template <typename T, int ROWS, int DP, int LD>
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const T* __restrict__ head,
-                                      long long row_stride, int row0,
-                                      int n_rows, int D) {
-  for (int e = threadIdx.x; e < ROWS * DP; e += kThreads) {
-    const int r = e / DP, d = e % DP;
-    const int row = row0 + r;
-    float x = 0.f;
-    if (row < n_rows && d < D) x = to_f32(head[(long long)row * row_stride + d]);
-    dst[r * LD + d] = x;
-  }
+// v as a TF32 operand: hi (and lo, unless v is exact in TF32).
+template <bool kExact>
+__device__ __forceinline__ void operand(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kExact)
+    hi = __float_as_uint(v);
+  else
+    split(v, hi, lo);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Tiles<T, DP>::MINB)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int B,
                      int HQ, int HKV, int S, int SK, int D, Strides sq,
                      Strides sk, Strides sv, Strides so, float scale,
-                     int causal, int offset, float* __restrict__ lse) {
-  constexpr int LDQ = DP + 4;   // Q/K row stride: conflict-free float4 reads
-  constexpr int LDP = TK + 4;
-  constexpr int NG = DP / 64;   // float4 output column groups per thread
+                     int causal, int offset, float* __restrict__ lse,
+                     Vec vec) {
+  using C = Tiles<T, DP>;
+  constexpr bool kExact = C::kExact;
+  constexpr int TK = C::TK, NT = C::NT, NC = C::NC;
+  constexpr int LDQ = C::LDQ, LDV = C::LDV;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [TQ][LDQ]
-  float* Ks = Qs + TQ * LDQ;                     // [TK][LDQ]
-  float* Vs = Ks + TK * LDQ;                     // [TK][DP]
-  float* Ps = Vs + TK * DP;                      // [TQ][LDP]
+  T* const Qs = reinterpret_cast<T*>(smem4);   // [TQ][LDQ]
+  // stage st: K [TK][LDQ], then V [TK][LDV]
+  auto Ks = [&](int st) { return Qs + TQ * LDQ + st * C::kStage; };
+  auto Vs = [&](int st) { return Ks(st) + TK * LDQ; };
 
   const int BH = B * HQ;
   const int n_qt = (S + TQ - 1) / TQ;
@@ -202,144 +234,162 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / HQ, h = bh % HQ;
   const int hk = h / (HQ / HKV);
   const int q0 = qt * TQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  const T* qh = q + b * sq.b + h * sq.h;
-  const T* kh = k + b * sk.b + hk * sk.h;
-  const T* vh = v + b * sv.b + hk * sv.h;
-  stage<T, TQ, DP, LDQ>(Qs, qh, sq.s, q0, S, D);
-
-  float m[4], l[4], acc[4][NG][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][g][c] = 0.f;
-  }
-
   int n_kt = (SK + TK - 1) / TK;
   if (causal) {   // skip the tiles above the diagonal k_pos = q_pos + offset
     const int last = q0 + TQ - 1 + offset;
     n_kt = min(n_kt, last < 0 ? 0 : last / TK + 1);
   }
+
+  const T* kh = k + b * sk.b + hk * sk.h;
+  const T* vh = v + b * sv.b + hk * sv.h;
+  auto issue = [&](int kt) {   // tile kt into stage kt % 2
+    load_rows<T, TK, DP, LDQ, kThreads>(Ks(kt & 1), kh, sk.s, kt * TK, SK,
+                                        D, vec.k);
+    load_rows<T, TK, DP, LDV, kThreads>(Vs(kt & 1), vh, sv.s, kt * TK, SK,
+                                        D, vec.v);
+  };
+  // Q and the first tile in one group
+  load_rows<T, TQ, DP, LDQ, kThreads>(Qs, q + b * sq.b + h * sq.h, sq.s, q0,
+                                      S, D, vec.q);
+  if (n_kt > 0) issue(0);
+  cp_async_commit();
+
+  // thread lane of warp w: rows r0 + g and r0 + g + 8 of the tile, columns
+  // 8 j + 2t and the next of each 8-wide tile of S and O
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp;
+  const T* const qa = Qs + (r0 + g) * LDQ + 2 * t;
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
   for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile kt has landed; tile kt - 1's reads are done
+    if (kt + 1 < n_kt) issue(kt + 1);
+    cp_async_commit();
+    const T* const Kt = Ks(kt & 1);
+    const T* const Vt = Vs(kt & 1);
+
+    // S = Q K^T over the width, the small terms apart (float32)
+    float s[NT][4], sl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < DP / 8; ++kb) {
+      uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+      const float2 x0 = pair(qa + 8 * kb), x1 = pair(qa + 8 * LDQ + 8 * kb);
+      operand<kExact>(x0.x, ah[0], al[0]);
+      operand<kExact>(x1.x, ah[1], al[1]);
+      operand<kExact>(x0.y, ah[2], al[2]);
+      operand<kExact>(x1.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 y = pair(Kt + (8 * j + g) * LDQ + 8 * kb + 2 * t);
+        operand<kExact>(y.x, bh[j][0], bl[j][0]);
+        operand<kExact>(y.y, bh[j][1], bl[j][1]);
+      }
+      mma3<kExact, kExact, NT>(s, sl, ah, al, bh, bl);
+    }
+
+    // scale, mask (the diagonal tile and the tile that holds SK), and the
+    // online-softmax update of the thread's two rows
     const int k0 = kt * TK;
-    __syncthreads();   // Q staged; the previous tile's reads are done
-    stage<T, TK, DP, LDQ>(Ks, kh, sk.s, k0, SK, D);
-    stage<T, TK, DP, DP>(Vs, vh, sv.s, k0, SK, D);
-    __syncthreads();
-
-    // scores s[i][j] of row ty*4+i and key tx+16j
-    float s[4][4];
+    const bool edge = k0 + TK > SK || (causal && k0 + TK - 1 > q0 + offset);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * LDQ + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LDQ + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
+      for (int e = 0; e < 4; ++e) {
+        float x = (kExact ? s[j][e] : s[j][e] + sl[j][e]) * scale;
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = q0 + r0 + g + 8 * (e >> 1);
+          if (key >= SK || (causal && key > row + offset)) x = kNegInf;
         }
-    }
-
-    // mask, then the online-softmax update of each row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k0 + tx + 16 * j;
-        const bool ok = k_pos < SK && (!causal || k_pos <= q_pos + offset);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    float alpha[2], ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][g][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * LDP + tx + 16 * j] = s[i][j];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
     }
-    __syncthreads();
+    // P = exp(S - m), split as the A operand of P V (k permuted: the
+    // accumulator's fragment in place)
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[j][e] - m[e >> 1]);
+        ls[e >> 1] += p[e];
+      }
+      split(p[0], ph[j][0], pl[j][0]);
+      split(p[2], ph[j][1], pl[j][1]);
+      split(p[1], ph[j][2], pl[j][2]);
+      split(p[3], ph[j][3], pl[j][3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
 
-    // acc += P V over the tile's keys
-#pragma unroll 2
-    for (int c = 0; c < TK; c += 4) {
-      float4 pv[4];
+    // O = O alpha + P V: the tile's sum from zero (its small terms apart),
+    // NC column tiles at a time, then one rounded fold into O
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * LDP + c]);
+    for (int n0 = 0; n0 < DP / 8; n0 += NC) {
+      float tv[NC][4], te[NC][4];
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+      for (int i = 0; i < NC; ++i)
 #pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &Vs[(c + cc) * DP + g * 64 + tx * 4]);
+        for (int e = 0; e < 4; ++e) tv[i][e] = te[i][e] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0 ? pv[i].x
-                            : cc == 1 ? pv[i].y
-                            : cc == 2 ? pv[i].z
-                                      : pv[i].w;
-            acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
-            acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
-            acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
-            acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
-          }
+      for (int j = 0; j < NT; ++j) {
+        uint32_t vh_[NC][2], vl_[NC][2];
+        const T* const vb = Vt + (8 * j + 2 * t) * LDV + 8 * n0 + g;
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          operand<kExact>(to_f32(vb[8 * i]), vh_[i][0], vl_[i][0]);
+          operand<kExact>(to_f32(vb[LDV + 8 * i]), vh_[i][1], vl_[i][1]);
         }
+        mma3<false, kExact, NC>(tv, te, ph[j], pl[j], vh_, vl_);
       }
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n0 + i][e] =
+              fmaf(acc[n0 + i][e], alpha[e >> 1], tv[i][e] + te[i][e]);
     }
   }
 
-  T* oh = o + b * so.b + h * so.h;
+  // the row sums over the quad, the lse, and O / l in q's layout
+  T* const oh = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + r0 + g + 8 * r;
     if (row >= S) continue;
-    if (lse != nullptr && tx == 0)   // the reference's m + log(max(l, 1e-37))
-      lse[(long long)bh * S + row] = m[i] + logf(fmaxf(l[i], 1e-37f));
-    const float li = l[i] == 0.f ? 1.f : l[i];
+    if (lse != nullptr && t == 0)   // the reference's m + log(max(l, 1e-37))
+      lse[(long long)bh * S + row] = m[r] + logf(fmaxf(l[r], 1e-37f));
+    const float li = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+    for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = g * 64 + tx * 4 + c;
-        if (d < D) oh[(long long)row * so.s + d] = from_f32<T>(acc[i][g][c] / li);
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * n + 2 * t + e;
+        if (d < D)
+          oh[(long long)row * so.s + d] = from_f32<T>(acc[n][2 * r + e] / li);
       }
   }
 }
@@ -349,17 +399,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int HQ, int HKV, int S, int SK, int D, Strides sq, Strides sk,
            Strides sv, Strides so, float scale, int causal, int offset,
            float* lse, cudaStream_t stream) {
-  constexpr int smem = (TQ * (DP + 4) + TK * (DP + 4) + TK * DP +
-                        TQ * (TK + 4)) * (int)sizeof(float);
+  using C = Tiles<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      C::kSmem);
   if (err != cudaSuccess) return (int)err;
+  const int elem = (int)sizeof(T);
+  const Vec vec{vec_bytes(q, sq, elem), vec_bytes(k, sk, elem),
+                vec_bytes(v, sv, elem)};
   const long long blocks = (long long)((S + TQ - 1) / TQ) * B * HQ;
-  flash_fwd_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DP><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), B, HQ, HKV, S, SK, D, sq,
-      sk, sv, so, scale, causal, offset, lse);
+      sk, sv, so, scale, causal, offset, lse, vec);
   return (int)cudaGetLastError();
 }
 
@@ -378,7 +430,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
                         scale, causal, offset, lse, stream);
 }
 
-}  // namespace
+}  // namespace f32route
 
 // is_bf16: 1 for bf16 tensors, 0 for f32.  Strides are in elements, per
 // tensor (batch, head, row); the last dimension is contiguous.  D <= 256,
@@ -394,15 +446,16 @@ extern "C" int flash_attention_launch(
   if (D < 1 || D > 256 || HKV < 1 || HQ % HKV != 0 || SK < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * HQ * S == 0) return (int)cudaGetLastError();
-  const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss},
+  const tf32::Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss},
       sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk,
+    return f32route::dispatch<__nv_bfloat16>(
+        q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk, sv, so, scale, causal,
+        offset, static_cast<float*>(lse), s);
+  return f32route::dispatch<float>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk,
                                    sv, so, scale, causal, offset,
                                    static_cast<float*>(lse), s);
-  return dispatch<float>(q, k, v, o, B, HQ, HKV, S, SK, D, sq, sk, sv, so,
-                         scale, causal, offset, static_cast<float*>(lse), s);
 }
 
 // ---------------------------------------------------------------------------

@@ -183,53 +183,142 @@ namespace {
 
 using namespace tf32;
 
-constexpr int kDeltaThreads = 256;   // 8 rows a block, a warp a row
-
-struct Strides {
-  long long b, h, s;            // in elements; the last dimension is dense
-};
-
 // The cp.async width (16 or 4 bytes; 0: plain loads) of each input's rows.
 struct Vec {
   int q, k, v, dO;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// delta: 256 threads a block; each thread keeps kDeltaRows rows in flight
+constexpr int kDeltaThreads = 256;
+constexpr int kDeltaRows = 4;
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// VEC elements of a row, read by one load of VEC * sizeof(T) bytes (16, 8,
+// 4 or, a lone bf16, 2), as 32-bit words.
+template <typename T, int VEC>
+struct Chunk {
+  static constexpr int kBytes = VEC * (int)sizeof(T);
+  static_assert(kBytes == 16 || kBytes == 4 || kBytes == (int)sizeof(T),
+                "a chunk is one 16-byte, 4-byte or single-element load");
+  static constexpr int kWords = kBytes >= 4 ? kBytes / 4 : 1;
+  uint32_t w[kWords];
 
-template <typename T>
-__global__ void __launch_bounds__(kDeltaThreads)
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kBytes == 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x;
+      w[1] = u.y;
+      w[2] = u.z;
+      w[3] = u.w;
+    } else if constexpr (kBytes == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = 0u;
+  }
+  // element i as f32 (a bf16 is the high half of its f32)
+  __device__ __forceinline__ float at(int i) const {
+    if constexpr (sizeof(T) == 4)
+      return __uint_as_float(w[i]);
+    else
+      return __uint_as_float(i & 1 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
+  }
+};
+
+// delta[row] = sum_d o dO in f32 over rows = B * HQ * S.  A row is read by
+// 2^lpr_log2 neighbouring lanes (its D / VEC chunks, chunk c by lane c mod
+// lanes, each lane's in order), its lanes' sums added by a fixed shuffle
+// tree; a warp holds 32 >> lpr_log2 rows, and a thread kDeltaRows rows at
+// once, whose loads are issued before any is summed.  The grid strides
+// over the rows.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kDeltaThreads, 2)
     flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
                            float* __restrict__ delta, int HQ, int S, int D,
-                           long long rows, Strides so, Strides sdo) {
-  const long long row =
-      ((long long)blockIdx.x * kDeltaThreads + threadIdx.x) / 32;
+                           int rows, int lpr_log2, Strides so, Strides sdo) {
+  const int lanes = 1 << lpr_log2;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int s = (int)(row % S);
-  const long long bh = row / S;
-  const int h = (int)(bh % HQ), b = (int)(bh / HQ);
-  const T* orow = o + b * so.b + h * so.h + s * so.s;
-  const T* drow = dO + b * sdo.b + h * sdo.h + s * sdo.s;
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+  const int sub = lane & (lanes - 1);
+  const int per_warp = 32 >> lpr_log2;
+  const int chunks = D / VEC;
+  const long long warp =
+      (long long)blockIdx.x * (kDeltaThreads / 32) + threadIdx.x / 32;
+  const long long step =
+      (long long)gridDim.x * (kDeltaThreads / 32) * per_warp;
+  // w0 is the same on every lane of the warp: the shuffles see all 32
+  for (long long w0 = warp * per_warp; w0 < rows; w0 += kDeltaRows * step) {
+    const T* orow[kDeltaRows];
+    const T* drow[kDeltaRows];
+    bool ok[kDeltaRows];
+    float acc[kDeltaRows];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+    for (int r = 0; r < kDeltaRows; ++r) {
+      const long long row = w0 + r * step + (lane >> lpr_log2);
+      ok[r] = row < rows;
+      const unsigned u = ok[r] ? (unsigned)row : 0u;
+      const unsigned s = u % (unsigned)S, bh = u / (unsigned)S;
+      const unsigned h = bh % (unsigned)HQ, b = bh / (unsigned)HQ;
+      orow[r] = o + b * so.b + h * so.h + s * so.s;
+      drow[r] = dO + b * sdo.b + h * sdo.h + s * sdo.s;
+      acc[r] = 0.f;
+    }
+    for (int c0 = 0; c0 < chunks; c0 += lanes) {
+      const int c = c0 + sub;
+      Chunk<T, VEC> x[kDeltaRows], y[kDeltaRows];
+#pragma unroll
+      for (int r = 0; r < kDeltaRows; ++r) {
+        if (ok[r] && c < chunks) {
+          x[r].load(orow[r] + c * VEC);
+          y[r].load(drow[r] + c * VEC);
+        } else {
+          x[r].zero();
+          y[r].zero();
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kDeltaRows; ++r)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          acc[r] = fmaf(x[r].at(i), y[r].at(i), acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kDeltaRows; ++r) {
+      for (int off = lanes / 2; off > 0; off >>= 1)
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+      if (ok[r] && sub == 0)
+        delta[w0 + r * step + (lane >> lpr_log2)] = acc[r];
+    }
+  }
+}
+
+template <typename T, int VEC>
+int launch_delta(const void* o, const void* dO, float* delta, int HQ, int S,
+                 int D, int rows, const Strides& so, const Strides& sdo,
+                 cudaStream_t stream) {
+  int chunks = D / VEC, lpr_log2 = 0;
+  while ((1 << lpr_log2) < chunks && lpr_log2 < 5) ++lpr_log2;
+  // the grid: as many blocks as fit on the card at once, or fewer if the
+  // rows are fewer
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_bwd_delta_kernel<T, VEC>, kDeltaThreads, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long per_block =
+      (long long)(kDeltaThreads / 32) * (32 >> lpr_log2) * kDeltaRows;
+  const long long need = (rows + per_block - 1) / per_block;
+  const int blocks = (int)(need < resident ? need : resident);
+  flash_bwd_delta_kernel<T, VEC><<<blocks, kDeltaThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dO), delta, HQ, S, D,
+      rows, lpr_log2, so, sdo);
+  return (int)cudaGetLastError();
 }
 
 // The f32 pair's tiles, by input type and width DP (64 or 128).
@@ -259,47 +348,6 @@ struct Tiles {
                 "the partial sums fit where the tiles were");
   static_assert(kSmem <= 232448, "one block's shared memory");
 };
-
-// Rows [row0, row0 + ROWS) of one head (row stride ld elements) into dst
-// [ROWS][DP] in the input's type, rows past n_rows and columns past D as
-// zeros, by cp.async copies of kBytes (the host checked the alignment);
-// in flight on return.
-template <int kBytes, typename T, int ROWS, int DP, int NTH>
-__device__ __forceinline__ void copy_rows(T* dst, const T* src, long long ld,
-                                          int row0, int n_rows, int D) {
-  constexpr int kV = kBytes / (int)sizeof(T);
-  constexpr int kPer = DP / kV;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < ROWS * kPer; e += NTH) {
-    const int r = e / kPer, c = (e % kPer) * kV;
-    const int n = row0 + r < n_rows ? max(0, min(kV, D - c)) : 0;
-    const T* p = n > 0 ? src + (long long)(row0 + r) * ld + c : src;
-    if constexpr (kBytes == 16)
-      cp_async16(dst + r * DP + c, p, n * (int)sizeof(T));
-    else
-      cp_async4(dst + r * DP + c, p, n * (int)sizeof(T));
-  }
-}
-
-// copy_rows by the widest copy the rows allow (vec: 16, 4, or 0 for plain
-// loads, which have landed on return).
-template <typename T, int ROWS, int DP, int NTH>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ld,
-                                          int row0, int n_rows, int D,
-                                          int vec) {
-  if (vec == 16) {
-    copy_rows<16, T, ROWS, DP, NTH>(dst, src, ld, row0, n_rows, D);
-  } else if (vec == 4) {
-    copy_rows<4, T, ROWS, DP, NTH>(dst, src, ld, row0, n_rows, D);
-  } else {
-    for (int e = threadIdx.x; e < ROWS * DP; e += NTH) {
-      const int r = e / DP, c = e % DP;
-      dst[e] = row0 + r < n_rows && c < D
-                   ? src[(long long)(row0 + r) * ld + c]
-                   : from_f32<T>(0.f);
-    }
-  }
-}
 
 // One tile's ROWS f32 values of lse or delta (0 past S), by cp.async.
 template <int ROWS>
@@ -562,9 +610,9 @@ __global__ void __launch_bounds__(Tiles<T, DP>::kThreads, 1)
   auto issue = [&](int it, int st) {
     const int h = hk * G + it / per_head;
     const int q0 = (qt0 + it % per_head) * TS;
-    load_rows<T, TS, DP, NTH>(raw(st, 0), q + b * sq.b + h * sq.h, sq.s, q0,
+    load_rows<T, TS, DP, DP, NTH>(raw(st, 0), q + b * sq.b + h * sq.h, sq.s, q0,
                               S, D, vec.q);
-    load_rows<T, TS, DP, NTH>(raw(st, 1), dO + b * sdo.b + h * sdo.h, sdo.s,
+    load_rows<T, TS, DP, DP, NTH>(raw(st, 1), dO + b * sdo.b + h * sdo.h, sdo.s,
                               q0, S, D, vec.dO);
     const long long row = ((long long)b * HQ + h) * S;
     load_stats<TS>(raw_stats(st), lse + row, q0, S);
@@ -572,9 +620,9 @@ __global__ void __launch_bounds__(Tiles<T, DP>::kThreads, 1)
   };
 
   // K and V through stage 0 while the first q tile goes to stage 1
-  load_rows<T, TR, DP, NTH>(raw(0, 0), k + b * sk.b + hk * sk.h, sk.s, k0,
+  load_rows<T, TR, DP, DP, NTH>(raw(0, 0), k + b * sk.b + hk * sk.h, sk.s, k0,
                             SK, D, vec.k);
-  load_rows<T, TR, DP, NTH>(raw(0, 1), v + b * sv.b + hk * sv.h, sv.s, k0,
+  load_rows<T, TR, DP, DP, NTH>(raw(0, 1), v + b * sv.b + hk * sv.h, sv.s, k0,
                             SK, D, vec.v);
   cp_async_commit();
   if (n_it > 0) issue(0, 1);
@@ -742,14 +790,14 @@ __global__ void __launch_bounds__(Tiles<T, DP>::kThreads, 1)
   const T* kh = k + b * sk.b + hk * sk.h;
   const T* vh = v + b * sv.b + hk * sv.h;
   auto issue = [&](int kt, int st) {
-    load_rows<T, TS, DP, NTH>(raw(st, 0), kh, sk.s, kt * TS, SK, D, vec.k);
-    load_rows<T, TS, DP, NTH>(raw(st, 1), vh, sv.s, kt * TS, SK, D, vec.v);
+    load_rows<T, TS, DP, DP, NTH>(raw(st, 0), kh, sk.s, kt * TS, SK, D, vec.k);
+    load_rows<T, TS, DP, DP, NTH>(raw(st, 1), vh, sv.s, kt * TS, SK, D, vec.v);
   };
 
   // Q and dO through stage 0 while the first k tile goes to stage 1
-  load_rows<T, TR, DP, NTH>(raw(0, 0), q + b * sq.b + h * sq.h, sq.s, q0, S,
+  load_rows<T, TR, DP, DP, NTH>(raw(0, 0), q + b * sq.b + h * sq.h, sq.s, q0, S,
                             D, vec.q);
-  load_rows<T, TR, DP, NTH>(raw(0, 1), dO + b * sdo.b + h * sdo.h, sdo.s, q0,
+  load_rows<T, TR, DP, DP, NTH>(raw(0, 1), dO + b * sdo.b + h * sdo.h, sdo.s, q0,
                             S, D, vec.dO);
   cp_async_commit();
   if (n_kt > 0) issue(0, 1);
@@ -906,20 +954,6 @@ int dispatch(const Args& a, int which, cudaStream_t stream) {
   return which ? launch_dq<T, 128>(a, stream) : launch_dkdv<T, 128>(a, stream);
 }
 
-// The widest cp.async copy (16 or 4 bytes; 0: none) that every row of a
-// tensor with this base and these strides (in elements of elem bytes)
-// starts aligned to.
-int vec_bytes(const void* p, const Strides& s, int elem) {
-  const int widths[2] = {16, 4};
-  for (int bytes : widths) {
-    const long long n = bytes / elem;
-    if (reinterpret_cast<uintptr_t>(p) % bytes == 0 && s.b % n == 0 &&
-        s.h % n == 0 && s.s % n == 0)
-      return bytes;
-  }
-  return 0;
-}
-
 int backward(const void* q, const void* k, const void* v, const void* dO,
              const void* lse, const void* delta, void* dq, void* dk, void* dv,
              int is_bf16, int B, int HQ, int HKV, int S, int SK, int D,
@@ -946,29 +980,41 @@ int backward(const void* q, const void* k, const void* v, const void* dO,
 }  // namespace
 
 // delta [B, HQ, S] f32 (contiguous) = rowsum(dO o) in f32; o and dO [B,
-// HQ, S, D] with per-tensor (batch, head, row) strides in elements.
+// HQ, S, D] with per-tensor (batch, head, row) strides in elements; vec:
+// the elements a load reads (kernel.py::delta_width: f32 4 or 1, bf16 8, 2
+// or 1), which must divide D and be no wider than tf32::vec_bytes allows
+// for either tensor (its base and its batch, head and row strides).
 extern "C" int flash_bwd_delta_launch(const void* o, const void* dO,
                                       void* delta, int is_bf16, int B,
                                       int HQ, int S, int D, long long o_sb,
                                       long long o_sh, long long o_ss,
                                       long long do_sb, long long do_sh,
-                                      long long do_ss, void* stream) {
-  if (D < 1) return (int)cudaErrorInvalidValue;
+                                      long long do_ss, int vec, void* stream) {
   const long long rows = (long long)B * HQ * S;
+  const tf32::Strides so{o_sb, o_sh, o_ss}, sdo{do_sb, do_sh, do_ss};
+  const int elem = is_bf16 ? 2 : 4, bytes = vec * elem;
+  if (D < 1 || vec < 1 || D % vec != 0 || rows > 0x7fffffffLL ||
+      (vec > 1 && (bytes > tf32::vec_bytes(o, so, elem) ||
+                   bytes > tf32::vec_bytes(dO, sdo, elem))))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
-  const Strides so{o_sb, o_sh, o_ss}, sdo{do_sb, do_sh, do_ss};
-  const long long blocks = (rows * 32 + kDeltaThreads - 1) / kDeltaThreads;
+  float* out = static_cast<float*>(delta);
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    flash_bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, kDeltaThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(dO), static_cast<float*>(delta), HQ,
-        S, D, rows, so, sdo);
-  else
-    flash_bwd_delta_kernel<float><<<(unsigned)blocks, kDeltaThreads, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dO),
-        static_cast<float*>(delta), HQ, S, D, rows, so, sdo);
-  return (int)cudaGetLastError();
+  const int n = (int)rows;
+  if (is_bf16) {
+    if (vec == 8)
+      return launch_delta<__nv_bfloat16, 8>(o, dO, out, HQ, S, D, n, so, sdo, s);
+    if (vec == 2)
+      return launch_delta<__nv_bfloat16, 2>(o, dO, out, HQ, S, D, n, so, sdo, s);
+    if (vec == 1)
+      return launch_delta<__nv_bfloat16, 1>(o, dO, out, HQ, S, D, n, so, sdo, s);
+  } else {
+    if (vec == 4)
+      return launch_delta<float, 4>(o, dO, out, HQ, S, D, n, so, sdo, s);
+    if (vec == 1)
+      return launch_delta<float, 1>(o, dO, out, HQ, S, D, n, so, sdo, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // strides: 21 in elements, (batch, head, row) of q, k, v, dO, dq, dk, dv in

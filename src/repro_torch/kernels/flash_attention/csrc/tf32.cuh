@@ -1,7 +1,9 @@
-// Split TF32 ("3xTF32") on mma.sync for the attention backward's f32 route
-// (flash_attention_bwd.cu: flash_bwd_dkdv_kernel, flash_bwd_dq_kernel),
-// with the asynchronous copies and shared-memory fragment loads they use.
-// kernels/build.py hashes this file with each source that includes it.
+// Split TF32 ("3xTF32") on mma.sync for the attention kernels' f32 routes
+// (flash_attention.cu: flash_fwd_kernel; flash_attention_bwd.cu:
+// flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), with the asynchronous row
+// copies (16-byte, 4-byte or plain loads, chosen on the host by
+// vec_bytes) and shared-memory fragment loads they use.  kernels/build.py
+// hashes this file with each source that includes it.
 //
 // A float32 operand v is split once, when its tile is staged, into hi =
 // tf32(v) and lo = v - hi; a product is then a_lo b_hi + a_hi b_lo + a_hi
@@ -11,10 +13,33 @@
 // arithmetic on the CPU.  The same split is ssd_scan.cu's (its own copy).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tf32 {
+
+// A [B, H, rows, D] tensor's batch, head and row strides in elements (the
+// last dimension is dense).
+struct Strides {
+  long long b, h, s;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // v rounded to TF32 (10-bit mantissa), to nearest with ties away from zero
 // as cvt.rna.tf32.f32 rounds, in two integer operations.
@@ -116,6 +141,61 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of one head (row stride ld elements) into dst
+// [ROWS][LD] in the input's type, rows past n_rows and columns past D (up
+// to DP) as zeros, by cp.async copies of kBytes (the host checked the
+// alignment); in flight on return.
+template <int kBytes, typename T, int ROWS, int DP, int LD, int NTH>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, long long ld,
+                                          int row0, int n_rows, int D) {
+  constexpr int kV = kBytes / (int)sizeof(T);
+  constexpr int kPer = DP / kV;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * kPer; e += NTH) {
+    const int r = e / kPer, c = (e % kPer) * kV;
+    const int n = row0 + r < n_rows ? max(0, min(kV, D - c)) : 0;
+    const T* p = n > 0 ? src + (long long)(row0 + r) * ld + c : src;
+    if constexpr (kBytes == 16)
+      cp_async16(dst + r * LD + c, p, n * (int)sizeof(T));
+    else
+      cp_async4(dst + r * LD + c, p, n * (int)sizeof(T));
+  }
+}
+
+// copy_rows by the widest copy the rows allow (vec: 16, 4, or 0 for plain
+// loads, which have landed on return).
+template <typename T, int ROWS, int DP, int LD, int NTH>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ld,
+                                          int row0, int n_rows, int D,
+                                          int vec) {
+  if (vec == 16) {
+    copy_rows<16, T, ROWS, DP, LD, NTH>(dst, src, ld, row0, n_rows, D);
+  } else if (vec == 4) {
+    copy_rows<4, T, ROWS, DP, LD, NTH>(dst, src, ld, row0, n_rows, D);
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += NTH) {
+      const int r = e / DP, c = e % DP;
+      dst[r * LD + c] = row0 + r < n_rows && c < D
+                            ? src[(long long)(row0 + r) * ld + c]
+                            : from_f32<T>(0.f);
+    }
+  }
+}
+
+// The widest cp.async copy (16 or 4 bytes; 0: none) that every row of a
+// tensor with this base and these strides (in elements of elem bytes)
+// starts aligned to.
+inline int vec_bytes(const void* p, const Strides& s, int elem) {
+  const int widths[2] = {16, 4};
+  for (int bytes : widths) {
+    const long long n = bytes / elem;
+    if (reinterpret_cast<uintptr_t>(p) % bytes == 0 && s.b % n == 0 &&
+        s.h % n == 0 && s.s % n == 0)
+      return bytes;
+  }
+  return 0;
 }
 
 }  // namespace tf32

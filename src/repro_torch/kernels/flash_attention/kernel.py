@@ -15,10 +15,17 @@ fallback from one kernel to the other, nor to the plain version.
 (bf16 products with f32 accumulation, p rounded to bf16 for p.v), for
 bf16 inputs with ``D <= 128`` a multiple of 8 whose bases are 16-byte
 aligned and whose batch, head and row strides are positive multiples of 8
-elements (what its TMA tensor maps take); ``"f32"``, the f32-math kernel,
+elements (what its TMA tensor maps take); ``"f32"``, the f32-route kernel,
 for everything else: float32 inputs (held to 2e-5, which bf16 products
-cannot meet), wider or ragged head dims and unaligned views.  The
-tensor-core kernel is built at widths 64 and 128; a head dim below its
+cannot meet), wider or ragged head dims and unaligned views.  Its products
+run on the tensor cores in split TF32 (``mma.sync``; each float32 operand
+split into a TF32 hi and a lo, three products ``a_lo b_hi + a_hi b_lo +
+a_hi b_hi`` with f32 sums, about float32's accuracy; a bf16 operand is
+exact in TF32 and drops its lo term), which ``ref.flash_attention_ref(...,
+split_tf32=True)`` and ``ref.chunked_fwd(..., split_tf32=True)`` emulate;
+its tiles arrive by ``cp.async`` as the backward's f32 pair's do (below),
+so it takes any base and any strides with the last dimension contiguous.
+The tensor-core kernel is built at widths 64 and 128; a head dim below its
 width (Zamba2's 80) is read with no copy, the columns past ``D`` arriving
 as the tensor maps' zero fill (``csrc/flash_attention.cu``).  The scale
 is ``D ** -0.5`` of the real ``D`` unless the caller gives one.
@@ -39,7 +46,10 @@ reference's finite ``-1e30`` gives them the mean of V over a padded block.
 ``flash_attention_bwd`` is its backward, dq, dk, dv from ``(q, k, v, o,
 lse, dO)``: three launches of ``csrc/flash_attention_bwd.cu`` (delta =
 rowsum(dO o), then dk/dv, then dq; no atomics, ``D <= 128``) on a card,
-``ref.chunked_bwd`` on the CPU.  ``route_bwd(q, k, v, do)`` picks the
+``ref.chunked_bwd`` on the CPU.  Delta is a kernel of its own,
+``flash_bwd_delta(o, do)`` (``ref.delta_ref`` on the CPU), whose loads
+are as wide as ``delta_width`` finds both tensors allow.
+``route_bwd(q, k, v, do)`` picks the
 dk/dv and dq kernels as ``route`` picks the forward's: ``"mma"``, the
 tensor-core pair (bf16 products with f32 sums, p rounded to bf16 for the
 dv product and dS for the dk and dq products, which ``ref.chunked_bwd(...,
@@ -115,7 +125,8 @@ def _declare(lib) -> None:
 
 def _declare_bwd(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_bwd_delta_launch.argtypes = [p] * 3 + [i] * 5 + [ll] * 6 + [p]
+    lib.flash_bwd_delta_launch.argtypes = (
+        [p] * 3 + [i] * 5 + [ll] * 6 + [i, p])
     lib.flash_bwd_delta_launch.restype = i
     lib.flash_bwd_dkdv_launch.argtypes = (
         [p] * 8 + [i] * 7 + [p, ctypes.c_float, i, i, p])
@@ -297,6 +308,57 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None,
     return _forward(q, k, v, causal, scale, SK - S, lse), lse
 
 
+def delta_width(o, do) -> int:
+    """The bytes a load of ``flash_bwd_delta``'s kernel reads: 16 (8 bf16
+    or 4 float32) where the head dim and both tensors' bases and batch,
+    head and row strides are multiples of 16 bytes, else 4 where they are
+    multiples of 4, else one element."""
+    e = o.element_size()
+    for width in (16, 4):
+        n = width // e
+        if o.shape[3] % n == 0 and all(
+                x.data_ptr() % width == 0 and all(
+                    st % n == 0 for st in x.stride()[:3]) for x in (o, do)):
+            return width
+    return e
+
+
+def flash_bwd_delta(o, do):
+    """delta = rowsum(dO o) in float32, ``[B, HQ, S]`` contiguous, from o
+    and dO ``[B, HQ, S, D]`` (one dtype, bf16 or float32, the last
+    dimension contiguous): ``ref.delta_ref`` on the CPU, one launch of
+    ``csrc/flash_attention_bwd.cu::flash_bwd_delta_kernel`` on a card,
+    loads ``delta_width`` bytes wide."""
+    refuse_dtensor("flash_bwd_delta", o, do)
+    refuse_grad("flash_bwd_delta", o, do)
+    if o.dim() != 4 or tuple(do.shape) != tuple(o.shape) or \
+            do.dtype != o.dtype or o.dtype not in _DTYPES or \
+            do.device != o.device:
+        raise ValueError(f"flash_bwd_delta: o {tuple(o.shape)} {o.dtype} "
+                         f"on {o.device} and do {tuple(do.shape)} "
+                         f"{do.dtype} on {do.device} must be one [B, H, S, "
+                         "D] bf16 or float32 shape on one device")
+    B, HQ, S, D = o.shape
+    if D > 1 and (o.stride(3) != 1 or do.stride(3) != 1):
+        raise ValueError("flash_bwd_delta: the last dimension must be "
+                         "contiguous")
+    if o.device.type == "cpu":
+        return ref.delta_ref(o, do)
+    _cuda("flash_bwd_delta", o.device)
+    delta = torch.empty((B, HQ, S), dtype=torch.float32, device=o.device)
+    vec = delta_width(o, do) // o.element_size()
+    with torch.cuda.device(o.device):
+        rc = _BWD_LIBRARY.lib().flash_bwd_delta_launch(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            int(o.dtype == torch.bfloat16), B, HQ, S, D, *o.stride()[:3],
+            *do.stride()[:3], vec,
+            torch.cuda.current_stream(o.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_delta launch failed: error {rc}")
+    LAUNCHES["flash_bwd_delta"] += 1
+    return delta
+
+
 def _check_bwd(q, k, v, o, lse, do) -> None:
     _check(q, k, v)
     B, HQ, S, D = q.shape
@@ -349,7 +411,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: causal with S = {S} > SK = "
                          f"{SK}, as flash_attention_lse")
     lse = lse.contiguous()
-    delta = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device)
+    delta = flash_bwd_delta(o, do)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     path = route_bwd(q, k, v, do)
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -370,10 +432,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             dkdv, dq_launch, dtype = (lib.flash_bwd_dkdv_launch,
                                       lib.flash_bwd_dq_launch, (is_bf16,))
         for name, launch in (
-                ("flash_bwd_delta", lambda: lib.flash_bwd_delta_launch(
-                    o.data_ptr(), do.data_ptr(), delta.data_ptr(), is_bf16,
-                    B, HQ, S, D, *o.stride()[:3], *do.stride()[:3],
-                    stream)),
                 ("flash_bwd_dkdv", lambda: dkdv(
                     *inputs, dk.data_ptr(), dv.data_ptr(), *dtype, B, HQ,
                     HKV, S, SK, D, *tail, stream)),
@@ -385,6 +443,5 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                 raise RuntimeError(f"{name} launch failed ({path} route): "
                                    f"error {rc}")
             LAUNCHES[name] += 1
-            if name != "flash_bwd_delta":
-                LAUNCHES[f"{name}_{path}"] += 1
+            LAUNCHES[f"{name}_{path}"] += 1
     return dq, dk, dv

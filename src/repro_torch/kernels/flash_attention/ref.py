@@ -25,7 +25,8 @@ S`` (aligned bottom-right) with the finite ``-1e30``;
 the forward scales q in its own dtype before the float32 upcast and
 returns each row's log-sum-exp ``m + log(max(l, 1e-37))``; the backward
 scales q after the upcast, gives padded q rows ``lse = +1e30`` (p = 0),
-takes ``delta = rowsum(dO o)`` in float32, sums dk and dv over each KV
+takes ``delta = rowsum(dO o)`` in float32 (``delta_ref``, the plain
+version of ``kernel.flash_bwd_delta``), sums dk and dv over each KV
 head's query heads in float32 and casts each gradient to its input's
 dtype.  They are the CPU's plain versions of ``kernel.flash_attention_lse``
 and ``kernel.flash_attention_bwd``.  ``chunked_bwd(..., round_bf16=True)``
@@ -37,7 +38,11 @@ split_tf32=True)`` forms every product as the f32 route's kernels do, in
 split TF32 (``ssd_scan.ref.split_tf32_product``: each operand split into
 a TF32-rounded hi and a lo read as TF32, ``a_lo b_hi + a_hi b_lo + a_hi
 b_hi``), with q unscaled in its products and the scale applied to s and
-dk after them, as the kernels apply it.
+dk after them, as the kernels apply it.  ``flash_attention_ref(...,
+split_tf32=True)`` and ``chunked_fwd(..., split_tf32=True)`` form S and
+P V as the forward's f32 route forms them, in the same split TF32, q
+unscaled in S and the scale applied to S after it (an operand that is
+exact in TF32, a bf16 input, has lo = 0: its term adds nothing).
 """
 from __future__ import annotations
 
@@ -79,15 +84,23 @@ def attention_ref(q, k, v, *, causal: bool = True, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None,
+                        split_tf32: bool = False):
     """The flash_attention kernel's function, computed densely: q
     ``[B, HQ, S, D]``, k/v ``[B, HKV, SK, D]`` (query head ``h`` reads KV
-    head ``h // (HQ // HKV)``) -> ``[B, HQ, S, D]`` in ``q.dtype``."""
+    head ``h // (HQ // HKV)``) -> ``[B, HQ, S, D]`` in ``q.dtype``;
+    ``split_tf32``: both products in split TF32 (the module's
+    docstring)."""
     B, HQ, S, D = q.shape
     HKV, SK = k.shape[1], k.shape[2]
     G = HQ // HKV
     qg = q.to(F32).reshape(B, HKV, G, S, D)
-    s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.to(F32)) * _scale(D, scale)
+    if split_tf32:
+        s = split_tf32_product(qg, k.to(F32)[:, :, None].transpose(-1, -2))
+        s = s * _scale(D, scale)
+    else:
+        s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.to(F32)) * _scale(
+            D, scale)
     if causal:
         q_pos = torch.arange(S, device=q.device)[:, None]
         k_pos = torch.arange(SK, device=q.device)[None, :]
@@ -95,7 +108,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bkgqt,bktd->bkgqd", p, v.to(F32))
+    if split_tf32:
+        acc = split_tf32_product(p, v.to(F32)[:, :, None])
+    else:
+        acc = torch.einsum("bkgqt,bktd->bkgqd", p, v.to(F32))
     o = acc / torch.where(l == 0, 1.0, l)
     return o.reshape(B, HQ, S, D).to(q.dtype)
 
@@ -121,15 +137,18 @@ def _block_mask(qi, ki, qc, kc, S, SK, causal, device):
 
 
 def chunked_fwd(q, k, v, *, causal: bool, scale: float, q_chunk: int,
-                k_chunk: int):
+                k_chunk: int, split_tf32: bool = False):
     """q ``[B, HQ, S, D]``, k/v ``[B, HKV, SK, D]`` -> (o ``[B, HQ, S,
-    D]`` in q's dtype, lse ``[B, HQ, S]`` float32)."""
+    D]`` in q's dtype, lse ``[B, HQ, S]`` float32); ``split_tf32``: S and
+    P V in split TF32, q unscaled in S (the module's docstring)."""
     B, HQ, S, D = q.shape
     HKV, SK = k.shape[1], k.shape[2]
     G = HQ // HKV
     qc, kc = q_chunk, k_chunk
     qp, kp, vp, Sp, SKp = _pad_blocks(q, k, v, qc, kc)
-    qb = qp.reshape(B, HKV, G, Sp, D) * scale         # in q's dtype
+    qb = qp.reshape(B, HKV, G, Sp, D)
+    if not split_tf32:
+        qb = qb * scale                                # in q's dtype
     outs, lses = [], []
     for qi in range(Sp // qc):
         q32 = qb[:, :, :, qi * qc:(qi + 1) * qc].to(F32)
@@ -139,21 +158,50 @@ def chunked_fwd(q, k, v, *, causal: bool, scale: float, q_chunk: int,
         for ki in range(SKp // kc):
             k_blk = kp[:, :, ki * kc:(ki + 1) * kc].to(F32)
             v_blk = vp[:, :, ki * kc:(ki + 1) * kc].to(F32)
-            s = torch.einsum("bhgqd,bhkd->bhgqk", q32, k_blk)
+            if split_tf32:
+                s = split_tf32_product(
+                    q32, k_blk[:, :, None].transpose(-1, -2)) * scale
+            else:
+                s = torch.einsum("bhgqd,bhkd->bhgqk", q32, k_blk)
             msk = _block_mask(qi, ki, qc, kc, S, SK, causal, q.device)
             s = torch.where(msk, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p, v_blk)
+            pv = (split_tf32_product(p, v_blk[:, :, None]) if split_tf32
+                  else torch.einsum("bhgqk,bhkd->bhgqd", p, v_blk))
+            acc = acc * alpha[..., None] + pv
             m = m_new
         outs.append((acc / l.clamp_min(1e-37)[..., None]).to(q.dtype))
         lses.append(m + torch.log(l.clamp_min(1e-37)))
     o = torch.cat(outs, dim=3).reshape(B, HQ, Sp, D)[:, :, :S]
     lse = torch.cat(lses, dim=3).reshape(B, HQ, Sp)[:, :, :S]
     return o, lse
+
+
+def _window_sums(x, width: int = 32):
+    """Sums over the last axis as the reference's XLA CPU program forms
+    them: an axis longer than ``width`` is cut into windows of ``width``
+    (zero padding split low and high, the low half the smaller), each
+    summed in order, and the window sums summed the same way."""
+    n = x.shape[-1]
+    if n > width:
+        pad = -n % width
+        x = F.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(*x.shape[:-1], -1, width)
+    acc = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return _window_sums(acc, width) if n > width else acc
+
+
+def delta_ref(o, do):
+    """delta = rowsum(dO o) in float32, ``[B, H, S]`` from o and dO ``[B,
+    H, S, D]``: the reference's ``(do.astype(f32) * o.astype(f32)).sum(-1)``
+    (``_chunked_core_bwd``), summed in its order (``_window_sums``), so
+    the two agree bit for bit."""
+    return _window_sums(do.to(F32) * o.to(F32))
 
 
 def _bf16(x):
@@ -186,7 +234,7 @@ def chunked_bwd(q, k, v, o, lse, do, *, causal: bool, scale: float,
                                                   else scale)
     kb, vb = kp.to(F32), vp.to(F32)
     dob = dop.reshape(B, HKV, G, Sp, D).to(F32)
-    delta = (dop.to(F32) * op.to(F32)).sum(-1).reshape(B, HKV, G, Sp)
+    delta = delta_ref(op, dop).reshape(B, HKV, G, Sp)
     dk = torch.zeros((B, HKV, SKp, D), dtype=F32, device=q.device)
     dv = torch.zeros_like(dk)
     dqs = []

@@ -13,7 +13,9 @@ roundings (``ref.chunked_bwd(..., round_bf16=True)``) against ``jax.vjp``
 at bf16 shapes of that route, to an error norm of 5e-3, and against its
 unrounded self (the option acts); the plain backward with the f32 route's
 split TF32 products (``ref.chunked_bwd(..., split_tf32=True)``) against
-``jax.vjp`` in float32 to 1e-5, with the one-term TF32 control past it;
+``jax.vjp`` in float32 to 1e-5, with the one-term TF32 control past it,
+and the forward's (``ref.chunked_fwd(..., split_tf32=True)``) against
+``_chunked_fwd_impl`` likewise;
 the backward's route rule on CPU tensors; the build tag's hash of a source's local headers and the
 build's ptxas report.  Then the
 autograd guard: every kernel wrapper raises when grad mode is on and an
@@ -268,6 +270,40 @@ def test_one_term_tf32_backward_reads_past_the_limit(case, monkeypatch):
     monkeypatch.setattr(ref, "split_tf32_product", ssd_ref.tf32_product)
     errs = [_rel(g, e) for g, e in zip(_split_backward(case, q, k, v, do),
                                        grads_j)]
+    assert max(errs) > 1e-5, errs
+
+
+def _split_forward_errs(case):
+    """The split TF32 forward (``ref.chunked_fwd(..., split_tf32=True)``)
+    against the reference's float32 ``_chunked_fwd_impl``: o's and lse's
+    largest error of their largest magnitudes."""
+    B, HQ, HKV, S, SK, D, causal, qc, kc = CASES[case]
+    (jq, jk, jv, _), (q, k, v, _) = _inputs(case, "float32")
+    blocks = ref.default_blocks(S, SK, qc, kc)
+    o_j, lse_j = j_ops._chunked_fwd_impl(jq, jk, jv, causal, D ** -0.5,
+                                         *blocks)
+    o, lse = ref.chunked_fwd(q, k, v, causal=causal, scale=D ** -0.5,
+                             q_chunk=blocks[0], k_chunk=blocks[1],
+                             split_tf32=True)
+    assert o.dtype == lse.dtype == torch.float32
+    return _rel(o, o_j), _rel(lse, lse_j.reshape(B, HQ, S))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_tf32_forward_matches_reference(case):
+    """S and P V as the forward's f32 route forms them (q unscaled in S,
+    the scale applied after it): the reference's blockwise forward within
+    1e-5 of the largest magnitude for o and lse."""
+    errs = _split_forward_errs(case)
+    assert max(errs) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_one_term_tf32_forward_reads_past_the_limit(case, monkeypatch):
+    """The control: one TF32 product a pair of operands
+    (``tf32_product``) reads past 1e-5 of the reference's forward."""
+    monkeypatch.setattr(ref, "split_tf32_product", ssd_ref.tf32_product)
+    errs = _split_forward_errs(case)
     assert max(errs) > 1e-5, errs
 
 

@@ -781,6 +781,140 @@ def test_cuda_flash_attention_mma_route_matches_plain_version(
         assert _rms_err(ctrl, exp) > _BF16_RMS_TOL
 
 
+# The f32 route (split TF32 on mma.sync) against its emulation,
+# ``ref.flash_attention_ref(..., split_tf32=True)``: float32 GQA at head
+# dims 64 and 128, the widest head dim, S != SK both ways, non-causal
+# with a ragged key edge, and a bf16 view whose q base is one element past
+# alignment (TMA refuses it)
+F32_ROUTE_CASES = {
+    "f32_gqa_d64": (1, 16, 2, 256, 256, 64, True, torch.float32, 0),
+    "f32_gqa_d128": (1, 16, 2, 256, 256, 128, True, torch.float32, 0),
+    "f32_d256": (1, 4, 4, 130, 70, 256, False, torch.float32, 0),
+    "f32_s_lt_sk": (1, 4, 2, 100, 224, 128, True, torch.float32, 0),
+    "f32_s_gt_sk": (1, 8, 2, 300, 130, 64, True, torch.float32, 0),
+    "f32_noncausal_ragged": (1, 4, 2, 70, 300, 128, False, torch.float32,
+                             0),
+    "bf16_view": (1, 8, 2, 200, 200, 128, True, torch.bfloat16, 1),
+}
+SPLIT_TOL = 1e-5   # of the largest magnitude (PERF.md)
+
+
+def _f32_route_inputs(card, case):
+    B, HQ, HKV, S, SK, D, causal, dtype, shift = F32_ROUTE_CASES[case]
+    rng = np.random.default_rng(47)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype).transpose(1, 2) for shape in
+        ((B, S, HQ, D), (B, SK, HKV, D), (B, SK, HKV, D)))
+    if shift:   # q's base one element past its allocation's start
+        buf = torch.empty(q.numel() + shift, dtype=dtype, device=card)
+        q = buf[shift:].view(B, S, HQ, D).transpose(1, 2).copy_(q)
+    assert fa_kernel.route(q, k, v) == "f32"
+    return q, k, v, causal
+
+
+def _held_to_split(got, emu):
+    """float32: within SPLIT_TOL of the emulation's (float32) largest
+    magnitude; bf16: the emulation up to the output's one rounding (half
+    a bf16 ulp, at most 2**-8 of the value, plus SPLIT_TOL of the
+    largest)."""
+    d = (got.float() - emu).abs()
+    top = float(emu.abs().max())
+    if got.dtype == torch.float32:
+        return float(d.max()) <= SPLIT_TOL * top
+    return bool((d <= 2.0 ** -8 * emu.abs() + SPLIT_TOL * top).all())
+
+
+@pytest.mark.parametrize("case", list(F32_ROUTE_CASES))
+def test_cuda_f32_route_matches_split_emulation(card, case):
+    """The f32 route's kernel against its split TF32 emulation (above)
+    and against the plain version at the existing tolerances (2e-5
+    absolute in float32, 2e-2 in bf16); with the lse
+    (``flash_attention_lse``, bottom-right mask) against
+    ``ref.chunked_fwd`` in the same arithmetic (o) and the plain one
+    (lse, 5e-5 absolute); two calls equal bit for bit; one launch each,
+    on the f32 route."""
+    q, k, v, causal = _f32_route_inputs(card, case)
+    fa_kernel.reset_launches()
+    got = fa_kernel.flash_attention(q, k, v, causal=causal)
+    again = fa_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention_f32"] == 2
+    assert fa_kernel.LAUNCHES["flash_attention_mma"] == 0
+    assert torch.equal(got, again) and got.stride() == q.stride()
+    # the emulation's float32 output (bf16 inputs upcast exactly)
+    emu = fa_ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal, split_tf32=True)
+    exp = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-5 if q.dtype == torch.float32 else 2e-2
+    assert float((got.float() - exp.float()).abs().max()) <= tol
+    assert _held_to_split(got, emu)
+    S, SK, D = q.shape[2], k.shape[2], q.shape[3]
+    if causal and S > SK:
+        return   # flash_attention_lse refuses it (tested below)
+    o, lse = fa_kernel.flash_attention_lse(q, k, v, causal=causal)
+    blocks = dict(zip(("q_chunk", "k_chunk"), fa_ref.default_blocks(S, SK)))
+    o_emu = fa_ref.chunked_fwd(q.float(), k.float(), v.float(),
+                               causal=causal, scale=D ** -0.5,
+                               split_tf32=True, **blocks)[0]
+    lse_exp = fa_ref.chunked_fwd(q.float(), k.float(), v.float(),
+                                 causal=causal, scale=D ** -0.5,
+                                 **blocks)[1]
+    assert _held_to_split(o, o_emu)
+    assert float((lse - lse_exp).abs().max()) <= 5e-5
+
+
+def _delta_inputs(card, dtype, D, shift):
+    """o and dO as [B, H, S, D] views of [B, S, H, D] tensors, dO's base
+    ``shift`` elements past its allocation's start."""
+    g = torch.Generator(device=card).manual_seed(D)
+    B, H, S = 2, 4, 300
+
+    def one(off):
+        x = torch.randn((B, S, H, D), generator=g, device=card).to(dtype)
+        buf = torch.empty(x.numel() + off, dtype=dtype, device=card)
+        return buf[off:].view(B, S, H, D).copy_(x).transpose(1, 2)
+    return one(0), one(shift)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("D", [64, 80, 66])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_delta_matches_plain_version(card, dtype, D, shift):
+    """The delta kernel against ``ref.delta_ref`` (float32 sums in another
+    order: 1e-5 of the largest magnitude), at the load width
+    ``kernel.delta_width`` gives: 16 bytes aligned (D 64 and 80), 4 bytes
+    or one element at D 66 or with dO's base one element off; one
+    launch, and a call repeats bit for bit."""
+    o, do = _delta_inputs(card, dtype, D, shift)
+    e = o.element_size()
+    want = 16 if not shift and (D * e) % 16 == 0 else (
+        4 if (D * e) % 4 == 0 and (not shift or e == 4) else e)
+    assert fa_kernel.delta_width(o, do) == want
+    fa_kernel.reset_launches()
+    got = fa_kernel.flash_bwd_delta(o, do)
+    again = fa_kernel.flash_bwd_delta(o, do)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_bwd_delta"] == 2
+    exp = fa_ref.delta_ref(o, do)
+    assert got.dtype == torch.float32 and got.shape == o.shape[:3]
+    assert float((got - exp).abs().max()) <= 1e-5 * float(exp.abs().max())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_delta_launch_refuses_a_width_the_views_forbid(card, dtype,
+                                                            monkeypatch):
+    """The delta launcher holds the width it is given to the rule itself:
+    16-byte loads on a dO one element off its alignment are refused, and
+    nothing is counted."""
+    o, do = _delta_inputs(card, dtype, 64, 1)
+    monkeypatch.setattr(fa_kernel, "delta_width", lambda o, do: 16)
+    fa_kernel.reset_launches()
+    with pytest.raises(RuntimeError, match="flash_bwd_delta launch failed"):
+        fa_kernel.flash_bwd_delta(o, do)
+    assert fa_kernel.LAUNCHES["flash_bwd_delta"] == 0
+
+
 def test_cuda_serving_matches_cpu(card):
     """A reduced Qwen2.5-3B served on CUDA through the kernel gives the
     CPU's tokens and prefill logits (float32 compute, where the two differ

@@ -230,3 +230,104 @@ def test_plain_version_at_head_dim_80_matches_the_reference_oracle(causal):
                                          scale=80 ** -0.5)
         assert torch.equal(given, t_kernel.flash_attention(
             tq, tk, tv, causal=causal))
+
+
+# ---------------------------------------------------------------------------
+# the f32 route's split TF32 products, emulated; delta and its width rule
+# ---------------------------------------------------------------------------
+# (B, HQ, HKV, S, SK, D, causal), float32: GQA at head dims 64 and 128,
+# S != SK both ways (the kernel's top-left mask), non-causal with a ragged
+# key edge, and the widest head dim the route takes
+SPLIT_CASES = {
+    "gqa_d64": (2, 4, 2, 128, 128, 64, True),
+    "gqa_d128_s_lt_sk": (1, 4, 2, 64, 200, 128, True),
+    "noncausal_ragged": (1, 4, 1, 96, 160, 32, False),
+    "d256_s_gt_sk": (1, 2, 2, 130, 70, 256, False),
+}
+SPLIT_TOL = 1e-5   # of the largest magnitude; 2e-7-1e-6 read here
+
+
+def _split_err(case):
+    B, HQ, HKV, S, SK, D, causal = SPLIT_CASES[case]
+    (jq, jk, jv), (tq, tk, tv), _ = _inputs(7, B, HQ, HKV, S, SK, D, "f32")
+    exp = np.asarray(j_kernel.flash_attention(jq, jk, jv, causal=causal))
+    got = t_ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                    split_tf32=True)
+    assert got.dtype == torch.float32 and got.shape == (B, HQ, S, D)
+    return float(np.abs(got.numpy() - exp).max() / np.abs(exp).max())
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_tf32_plain_matches_pallas_kernel(case):
+    """Both products as the f32 route's kernel forms them (each operand
+    split into a TF32-rounded hi and a lo read as TF32, lo times lo
+    dropped): the reference's Pallas kernel in interpret mode within 1e-5
+    of the largest magnitude, and not the plain version bit for bit."""
+    assert _split_err(case) <= SPLIT_TOL
+    B, HQ, HKV, S, SK, D, causal = SPLIT_CASES[case]
+    _, (tq, tk, tv), _ = _inputs(7, B, HQ, HKV, S, SK, D, "f32")
+    assert not torch.equal(
+        t_ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                  split_tf32=True),
+        t_ref.flash_attention_ref(tq, tk, tv, causal=causal))
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_one_term_tf32_plain_reads_past_the_limit(case, monkeypatch):
+    """The control: the same emulation with one TF32 product a pair of
+    operands (``tf32_product``, both rounded to TF32) reads past 1e-5 of
+    the Pallas kernel, so the hold above sees a dropped split."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    monkeypatch.setattr(t_ref, "split_tf32_product", ssd_ref.tf32_product)
+    assert _split_err(case) > SPLIT_TOL
+
+
+@pytest.mark.parametrize("D", [1, 33, 64, 66, 80, 128, 256])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_delta_ref_equals_the_reference_expression(D, dtype):
+    """``ref.delta_ref`` (the plain version of ``kernel.flash_bwd_delta``)
+    equals the reference's ``(do.astype(f32) * o.astype(f32)).sum(-1)``
+    (``ops.py::_chunked_core_bwd``) bit for bit in float32, through
+    XLA's windows of 32 (``ref._window_sums``), at head dims below, at
+    and past one window, ragged or not; on the CPU the wrapper runs it
+    and launches nothing."""
+    (jo, jdo, _), (to, tdo, _), _ = _inputs(8, 2, 3, 3, 37, 37, D, dtype)
+    exp = np.asarray((jdo.astype(jnp.float32) * jo.astype(jnp.float32))
+                     .sum(-1))
+    got = t_ref.delta_ref(to, tdo)
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), exp)
+    t_kernel.reset_launches()
+    assert torch.equal(t_kernel.flash_bwd_delta(to, tdo), got)
+    assert t_kernel.LAUNCHES["flash_bwd_delta"] == 0
+
+
+def _delta_views(case, dtype):
+    """o and dO as [B, H, S, D] views of [B, S, H, D] tensors: aligned;
+    dO's base one element past its allocation's start; rows of D + 1
+    elements; an odd head dim."""
+    D = 63 if case == "odd_d" else 64
+    pad = 1 if case == "row_pad" else 0
+
+    def view(off=0):
+        flat = torch.zeros(off + 2 * 5 * 3 * (D + pad), dtype=dtype)[off:]
+        return flat.view(2, 5, 3, D + pad)[..., :D].transpose(1, 2)
+    return view(), view(1 if case == "do_base" else 0)
+
+
+@pytest.mark.parametrize("case,f32_width,bf16_width", [
+    ("aligned", 16, 16), ("do_base", 4, 2), ("row_pad", 4, 2),
+    ("odd_d", 4, 2),
+])
+def test_delta_load_width_rule(case, f32_width, bf16_width):
+    """The rule that sets the delta kernel's loads: 16 bytes where the
+    head dim and both tensors' bases and strides allow, else 4, else one
+    element; each case still runs the plain version on the CPU."""
+    for dtype, want in ((torch.float32, f32_width),
+                        (torch.bfloat16, bf16_width)):
+        o, do = _delta_views(case, dtype)
+        if case == "do_base":
+            assert do.data_ptr() % 4 == (0 if dtype == torch.float32
+                                         else 2)
+        assert t_kernel.delta_width(o, do) == want, dtype
+        assert torch.equal(t_kernel.flash_bwd_delta(o, do),
+                           t_ref.delta_ref(o, do))
